@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels (``ops/csrc/*.cu``) at first use.
+
+All sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds). The library is cached under ``build/gdc_torch_kernels/`` at the root
+of the checkout, keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads the cached file.
+
+Every C entry point returns the ``cudaError_t`` of its launch (0 = launched);
+``check`` turns anything else into an exception. A failed build or load
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "gdc_torch_kernels",
+)
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes, one entry per extern "C" function in csrc/
+_SIGNATURES = {
+    # qkv, out, B, T, H, D, new_order, dtype, scale, stream
+    "gdc_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # x, ps1, ps2, gamma, beta, ss, sb, a, b, y, B, HW, C, G, eps, silu, splits, vec, dtype, stream
+    "gdc_group_norm": [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register/spill report) of the last build
+build_seconds = 0.0
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libgdc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def load() -> ctypes.CDLL:
+    """Build (if not cached) and load the kernel library; raises on failure."""
+    global _lib, build_log, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cu = [s for s in _sources() if s.endswith(".cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{build_log}"
+                )
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")

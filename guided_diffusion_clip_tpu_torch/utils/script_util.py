@@ -1,0 +1,298 @@
+"""Config/factory layer: defaults dicts, model+diffusion factories, CLI glue.
+
+Counterpart of ``guided_diffusion_clip_tpu/utils/script_util.py``, the part
+that serving needs. The flag surface is the reference's; ``use_fp16`` maps to
+a bf16 torso. NUM_CLASSES = 512: the fork repurposes the class count as the
+CLIP embedding dimension.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..diffusion.api import Diffusion
+from ..diffusion.schedules import LossType, ModelMeanType, ModelVarType, build_schedule
+from ..models.clip_models import UNetModel_clip_feat
+from ..models.unet import UNetConfig, UNetModel
+
+NUM_CLASSES = 512
+
+
+def diffusion_defaults():
+    """Defaults for image and classifier training (reference script_util.py:12-25)."""
+    return dict(
+        learn_sigma=False,
+        diffusion_steps=1000,
+        noise_schedule="linear",
+        timestep_respacing="",
+        use_kl=False,
+        predict_xstart=False,
+        rescale_timesteps=False,
+        rescale_learned_sigmas=False,
+    )
+
+
+def model_and_diffusion_defaults():
+    """Defaults for image training (reference script_util.py:44-66)."""
+    res = dict(
+        image_size=64,
+        num_channels=128,
+        num_res_blocks=2,
+        num_heads=4,
+        num_heads_upsample=-1,
+        num_head_channels=-1,
+        attention_resolutions="16,8",
+        channel_mult="",
+        dropout=0.0,
+        class_cond=False,
+        use_checkpoint=False,
+        use_scale_shift_norm=True,
+        resblock_updown=False,
+        use_fp16=False,
+        use_new_attention_order=False,
+    )
+    res.update(diffusion_defaults())
+    return res
+
+
+def default_channel_mult(image_size: int) -> tuple:
+    """Per-resolution channel_mult presets (reference script_util.py:149-159)."""
+    if image_size == 512:
+        return (0.5, 1, 1, 2, 2, 4, 4)
+    elif image_size == 256:
+        return (1, 1, 2, 2, 4, 4)
+    elif image_size == 128:
+        return (1, 1, 2, 3, 4)
+    elif image_size == 64:
+        return (1, 2, 3, 4)
+    raise ValueError(f"unsupported image size: {image_size}")
+
+
+def parse_attention_resolutions(spec: str, image_size: int) -> tuple:
+    """"32,16,8" -> downsample factors image_size // res (reference script_util.py:163-165)."""
+    return tuple(image_size // int(res) for res in str(spec).split(","))
+
+
+def _dtype(use_fp16: bool) -> torch.dtype:
+    return torch.bfloat16 if use_fp16 else torch.float32
+
+
+def create_model(
+    image_size,
+    num_channels,
+    num_res_blocks,
+    channel_mult="",
+    learn_sigma=False,
+    class_cond=False,
+    use_checkpoint=False,
+    attention_resolutions="16",
+    num_heads=1,
+    num_head_channels=-1,
+    num_heads_upsample=-1,
+    use_scale_shift_norm=False,
+    dropout=0,
+    resblock_updown=False,
+    use_fp16=False,
+    use_new_attention_order=False,
+) -> UNetModel:
+    """The fork's default model: UNetModel_clip_feat (reference script_util.py:131-187)."""
+    if channel_mult == "":
+        channel_mult = default_channel_mult(image_size)
+    elif isinstance(channel_mult, str):
+        channel_mult = tuple(int(m) for m in channel_mult.split(","))
+    cfg = UNetConfig(
+        image_size=image_size,
+        in_channels=3,
+        model_channels=num_channels,
+        out_channels=(3 if not learn_sigma else 6),
+        num_res_blocks=num_res_blocks,
+        attention_resolutions=parse_attention_resolutions(attention_resolutions, image_size),
+        dropout=dropout,
+        channel_mult=tuple(channel_mult),
+        num_classes=(NUM_CLASSES if class_cond else None),
+        use_checkpoint=use_checkpoint,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        resblock_updown=resblock_updown,
+        use_new_attention_order=use_new_attention_order,
+    )
+    return UNetModel_clip_feat(cfg, dtype=_dtype(use_fp16))
+
+
+def create_gaussian_diffusion(
+    *,
+    steps=1000,
+    learn_sigma=False,
+    sigma_small=False,
+    noise_schedule="linear",
+    use_kl=False,
+    predict_xstart=False,
+    rescale_timesteps=False,
+    rescale_learned_sigmas=False,
+    timestep_respacing="",
+) -> Diffusion:
+    """Map flags to schedule + enums (reference script_util.py:392-430)."""
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
+    sched = build_schedule(
+        steps=steps,
+        noise_schedule=noise_schedule,
+        timestep_respacing=timestep_respacing,
+        rescale_timesteps=rescale_timesteps,
+    )
+    return Diffusion(
+        sched=sched,
+        mean_type=ModelMeanType.EPSILON if not predict_xstart else ModelMeanType.START_X,
+        var_type=(
+            (ModelVarType.FIXED_LARGE if not sigma_small else ModelVarType.FIXED_SMALL)
+            if not learn_sigma
+            else ModelVarType.LEARNED_RANGE
+        ),
+        loss_type=loss_type,
+    )
+
+
+def create_model_and_diffusion(
+    image_size,
+    class_cond,
+    learn_sigma,
+    num_channels,
+    num_res_blocks,
+    channel_mult,
+    num_heads,
+    num_head_channels,
+    num_heads_upsample,
+    attention_resolutions,
+    dropout,
+    diffusion_steps,
+    noise_schedule,
+    timestep_respacing,
+    use_kl,
+    predict_xstart,
+    rescale_timesteps,
+    rescale_learned_sigmas,
+    use_checkpoint,
+    use_scale_shift_norm,
+    resblock_updown,
+    use_fp16,
+    use_new_attention_order,
+):
+    model = create_model(
+        image_size,
+        num_channels,
+        num_res_blocks,
+        channel_mult=channel_mult,
+        learn_sigma=learn_sigma,
+        class_cond=class_cond,
+        use_checkpoint=use_checkpoint,
+        attention_resolutions=attention_resolutions,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        dropout=dropout,
+        resblock_updown=resblock_updown,
+        use_fp16=use_fp16,
+        use_new_attention_order=use_new_attention_order,
+    )
+    diffusion = create_gaussian_diffusion(
+        steps=diffusion_steps,
+        learn_sigma=learn_sigma,
+        noise_schedule=noise_schedule,
+        use_kl=use_kl,
+        predict_xstart=predict_xstart,
+        rescale_timesteps=rescale_timesteps,
+        rescale_learned_sigmas=rescale_learned_sigmas,
+        timestep_respacing=timestep_respacing,
+    )
+    return model, diffusion
+
+
+# ---------------------------------------------------------------------------
+# CLI glue (reference script_util.py:433-477)
+# ---------------------------------------------------------------------------
+
+
+def add_dict_to_argparser(parser, default_dict):
+    for k, v in default_dict.items():
+        v_type = type(v)
+        if v is None:
+            v_type = str
+        elif isinstance(v, bool):
+            v_type = str2bool
+        parser.add_argument(f"--{k}", default=v, type=v_type)
+    parser.add_argument(
+        "--config-file", dest="config_file", default=None, type=str,
+        help="YAML config overlaid onto parsed args (YAML wins)",
+    )
+    parser.add_argument(
+        "-d", "--description", dest="description", type=str, default="",
+        help="free description of the run",
+    )
+
+
+def args_to_dict(args, keys):
+    return {k: getattr(args, k) for k in keys}
+
+
+def resolve_sampler(diffusion, args, *, honor_use_ddim=True):
+    """Map a sampling CLI's flags to the diffusion loop function.
+
+    ``--use_ddim`` picks DDIM vs ancestral; ``--sampler {ancestral,ddim}``
+    overrides it. ``dpm++2m`` is not ported yet and raises.
+    """
+    loop = diffusion.p_sample_loop
+    if honor_use_ddim and getattr(args, "use_ddim", False):
+        loop = diffusion.ddim_sample_loop
+    name = getattr(args, "sampler", "")
+    if name:
+        samplers = {"ancestral": diffusion.p_sample_loop, "ddim": diffusion.ddim_sample_loop}
+        if name == "dpm++2m":
+            raise SystemExit("--sampler dpm++2m: not yet ported to the PyTorch package")
+        if name not in samplers:
+            raise SystemExit(f"--sampler {name!r}: choose from {sorted(samplers)}")
+        loop = samplers[name]
+    return loop
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    elif v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    else:
+        raise argparse.ArgumentTypeError("boolean value expected")
+
+
+def parse_yaml(args):
+    """Overlay a YAML config onto parsed args; list values append
+    (reference script_util.py:465-477). A missing/None config file is a
+    no-op, and ``yaml`` is imported only when a file is given."""
+    cf = getattr(args, "config_file", None)
+    if cf:
+        import yaml
+
+        if hasattr(cf, "read"):
+            data = yaml.load(cf, yaml.SafeLoader)
+        else:
+            with open(cf) as f:
+                data = yaml.load(f, yaml.SafeLoader)
+        arg_dict = args.__dict__
+        for key, value in (data or {}).items():
+            if isinstance(value, list) and isinstance(arg_dict.get(key), list):
+                arg_dict[key].extend(value)
+            else:
+                arg_dict[key] = value
+    if hasattr(args, "config_file"):
+        delattr(args, "config_file")
+    return args
