@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path end to end at the ADM-256 widths of the
-fork's CLIP-conditioned UNet and exits non-zero if any phase fails:
+Drives the port's two main paths end to end, the serving path at the
+ADM-256 widths of the fork's CLIP-conditioned UNet and classifier-guided
+sampling with ADM-G 256 and its classifier, and exits non-zero if any phase
+fails:
 
   1. device: the card's name, power limit and compute capability (9, 0);
   2. build: the CUDA kernels of ``guided_diffusion_clip_tpu_torch/ops/csrc``
-     compiled from this checkout;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, in f32 (TF32 off) and bf16, with
-     kernel and plain times (median of 12 runs after warm-up, CUDA events);
+     compiled from this checkout (one nvcc per source, in parallel);
+  3. each forward kernel (K1 attention, K3 GroupNorm) against its plain
+     PyTorch version on the card, at the shapes the paths give it, in f32
+     (TF32 off) and bf16, with kernel and plain times (median of 12 runs
+     after warm-up, CUDA events);
+  3b. the same for K2 (attention backward) at the classifier's shapes;
   4. one full-width forward (batch 1, f32, TF32 off) on the card, through the
      kernels, against the same forward on the CPU, through the plain versions;
+  4b. the full-width classifier's logits and guidance gradient (batch 1,
+     f32, TF32 off), card (K1, K2, K3) against the CPU (plain versions);
   5. the HTTP server (``guided_diffusion_clip_tpu_torch.serve``) built from
      flags with random weights loaded from a .pt, answering /healthz and
      /sample requests (padded, explicit clip_feat, chunked, coalesced), with
-     the kernels' launch counters checked against the forwards it ran.
+     the kernels' launch counters checked against the forwards it ran;
+  6. ``classifier_sample.main`` on the bf16 ADM-G 256 UNet and classifier
+     (random weights from .pt files), 250 ancestral steps at batch 8, with
+     the launch counters checked against the steps it ran; then one guided
+     step timed by part and profiled by kernel.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result. It imports nothing of JAX.
+Every count is set to 0 just before each main path (phases 5 and 6) and read
+just after it. The last lines are the kernels' JSON record (``launches``
+summed over the two main paths), the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +60,23 @@ SLICE_FLAGS = [
 ]
 ATTN_PER_FORWARD = 16  # attention blocks of the ADM-256 UNet at 32/16/8 px
 GN_PER_FORWARD = 101   # 42 ResBlocks x 2 + 16 attention norms + the head
+# ADM-G 256 and its classifier (bench.py:170-198), 250 respaced ancestral steps
+GUIDED_FLAGS = [
+    "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
+    "--attention_resolutions", "32,16,8", "--num_heads", "4", "--num_head_channels", "64",
+    "--resblock_updown", "True", "--use_scale_shift_norm", "True", "--learn_sigma", "True",
+    "--class_cond", "True", "--use_fp16", "True", "--noise_schedule", "linear",
+    "--diffusion_steps", "1000", "--timestep_respacing", "250",
+    "--classifier_use_fp16", "True", "--classifier_width", "128", "--classifier_depth", "2",
+    "--classifier_attention_resolutions", "32,16,8", "--classifier_use_scale_shift_norm", "True",
+    "--classifier_resblock_updown", "True", "--classifier_pool", "attention",
+    "--classifier_scale", "1.0", "--batch_size", "8", "--num_samples", "8", "--seed", "0",
+]
+# per guided step: the UNet forward (16 K1, 101 K3), the classifier forward
+# (7 attention blocks + the pool: 8 K1; 19 ResBlocks x 2 + 7 + out_norm: 46
+# K3) and its backward (8 K2)
+CLF_ATTN_PER_FORWARD = 8
+CLF_GN_PER_FORWARD = 46
 WEIGHT_SEED = 0
 
 
@@ -160,6 +189,42 @@ def phase3_kernels(dev):
     return records
 
 
+def phase3b_attention_bwd(dev):
+    """K2 against attention_bwd_plain at the classifier's shapes; returns the
+    headline record (T = 1024, bf16)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    tf32_off()
+    g = torch.Generator(device=dev).manual_seed(5)
+    record = None
+    cases = [  # (B, T, heads, d, new_order): the classifier's blocks at batch 8, then its pool
+        (8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), (8, 65, 8, 64, True),
+    ]
+    for B, T, H, d, new in cases:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
+            do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
+            out = A.attention_bwd_cuda(qkv, do, H, new_order=new)
+            ref = A.qkv_attention_bwd_plain(qkv, do, H, new)
+            torch.cuda.synchronize()
+            name = f"K2 attention_bwd B={B} T={T} heads={H} d={d} {'new' if new else 'legacy'} {str(dtype)[6:]}"
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            bound = f"|d| <= {tol:g}*max(1,|ref|)"
+            if not torch.isfinite(out.float()).all() or not bool((diff <= tol * ref.float().abs().clamp(min=1.0)).all()):
+                raise AssertionError(f"{name}: max|d| {err:.3g} fails {bound}")
+            if not torch.equal(A.attention_bwd_cuda(qkv, do, H, new_order=new), out):
+                raise AssertionError(f"{name}: a repeat run gave other bits")
+            ms = cuda_ms(lambda: A.attention_bwd_cuda(qkv, do, H, new_order=new))
+            pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
+            log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            if (T, dtype) == (1024, torch.bfloat16):
+                record = (err, ms, pms)
+    return record
+
+
 def random_state_dict(model):
     """N(0, 0.02) for every weight, from a seed (as bench.py fills its
     params): the module's zero-init output layers would make the UNet's
@@ -205,6 +270,45 @@ def phase4_forward(dev, sd):
     del model
 
 
+def phase4b_guidance(dev):
+    """The full-width classifier, batch 1, f32: logits and classifier_cond_fn's
+    dx on the card (K1, K2, K3) against the CPU (plain versions)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
+
+    tf32_off()
+    clf = create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention").eval()
+    clf.load_state_dict(random_state_dict(clf), strict=True)
+    clf.requires_grad_(False)
+    cond = classifier_cond_fn(clf, 1.0)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(1, 3, 256, 256, generator=g)
+    t, y = torch.tensor([500]), torch.tensor([417])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref_logits, ref_dx = clf(x, t), cond(x, t, y=y)
+        cpu_s = time.perf_counter() - t0
+        clf.to(dev)
+        k2 = A.attention_bwd_cuda.launches
+        logits = clf(x.to(dev), t.to(dev)).cpu()
+        dx = cond(x.to(dev), t.to(dev), y=y.to(dev)).cpu()
+    if A.attention_bwd_cuda.launches - k2 != CLF_ATTN_PER_FORWARD:
+        raise AssertionError(f"guidance gradient ran K2 {A.attention_bwd_cuda.launches - k2} times, "
+                             f"not {CLF_ATTN_PER_FORWARD}")
+    for name, out, ref, shape in (("logits", logits, ref_logits, (1, 1000)), ("dx", dx, ref_dx, (1, 3, 256, 256))):
+        if out.shape != shape or not torch.isfinite(out).all():
+            raise AssertionError(f"guidance {name}: {tuple(out.shape)} not finite {shape}")
+        rel = ((out - ref).norm() / ref.norm()).item()
+        log(f"  classifier {name} {shape} f32: |ref| {ref.norm().item():.4g}, rel L2 err card vs CPU "
+            f"{rel:.3g} (bound 1e-3)")
+        if not ref.norm() > 0 or not rel <= 1e-3:
+            raise AssertionError(f"card guidance {name} differs from the CPU: rel L2 {rel:.3g}")
+    log(f"  CPU classifier forward + guidance gradient {cpu_s:.2f} s")
+
+
 def phase5_serve(dev, ckpt_path):
     """The serving path over HTTP; returns the kernels' launch counts."""
     from http.server import ThreadingHTTPServer
@@ -224,6 +328,7 @@ def phase5_serve(dev, ckpt_path):
 
     # the main path starts here: count every launch of its kernels
     A.attention_fwd_cuda.launches = 0
+    A.attention_bwd_cuda.launches = 0
     G.fused_group_norm.launches = 0
     t0 = time.perf_counter()
     sampler = serve.Sampler(args)
@@ -313,13 +418,180 @@ def phase5_serve(dev, ckpt_path):
         sampler.close()
 
     forwards = sampler.forwards
-    launches = {"attention": A.attention_fwd_cuda.launches, "group_norm": G.fused_group_norm.launches}
+    launches = {"attention": A.attention_fwd_cuda.launches, "attention_bwd": A.attention_bwd_cuda.launches,
+                "group_norm": G.fused_group_norm.launches}
     log(f"  {forwards} UNet forwards served; kernel launches {launches}")
-    if launches["attention"] != ATTN_PER_FORWARD * forwards or launches["group_norm"] != GN_PER_FORWARD * forwards:
-        raise AssertionError(
-            f"launch counts {launches} != ({ATTN_PER_FORWARD}, {GN_PER_FORWARD}) x {forwards} forwards"
-        )
+    want = {"attention": ATTN_PER_FORWARD * forwards, "attention_bwd": 0, "group_norm": GN_PER_FORWARD * forwards}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want} ({forwards} forwards)")
     return launches
+
+
+def phase6_guided(dev, tmp):
+    """classifier_sample.main on ADM-G 256 + its classifier; returns the
+    kernels' launch counts over the run."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+    from guided_diffusion_clip_tpu_torch.utils.script_util import args_to_dict, create_classifier, create_upstream_model
+
+    # PyTorch's defaults, as the CLI leaves them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    args = classifier_sample.create_argparser().parse_args(GUIDED_FLAGS)
+    paths = {}
+    for name, model in (
+        ("model", create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))),
+        ("classifier", create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))),
+    ):
+        paths[name] = os.path.join(tmp, f"{name}_random.pt")
+        torch.save(random_state_dict(model), paths[name])
+        del model
+    argv = [*GUIDED_FLAGS, "--model_path", paths["model"], "--classifier_path", paths["classifier"],
+            "--main_path", os.path.join(tmp, "runs"), "--device", dev.type]
+
+    # the main path starts here: count every launch of its kernels
+    A.attention_fwd_cuda.launches = 0
+    A.attention_bwd_cuda.launches = 0
+    G.fused_group_norm.launches = 0
+    t0 = time.perf_counter()
+    out = classifier_sample.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"attention": A.attention_fwd_cuda.launches, "attention_bwd": A.attention_bwd_cuda.launches,
+                "group_norm": G.fused_group_norm.launches}
+
+    data = np.load(out["path"])
+    images, labels = data["arr_0"], data["arr_1"]
+    if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8:
+        raise AssertionError(f"samples {images.shape} {images.dtype}, not (8, 256, 256, 3) uint8")
+    if not all(images[i].std() > 0 for i in range(8)):
+        raise AssertionError("a constant image among the guided samples")
+    if labels.shape != (8,) or not ((labels >= 0) & (labels < 1000)).all():
+        raise AssertionError(f"labels {labels} not 8 classes in [0, 1000)")
+    steps = out["steps"] * out["batches"]
+    want = {"attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * steps,
+            "attention_bwd": CLF_ATTN_PER_FORWARD * steps,
+            "group_norm": (GN_PER_FORWARD + CLF_GN_PER_FORWARD) * steps}
+    log(f"  {steps} guided steps; kernel launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    chain = sum(out["chain_seconds"])
+    log(f"  guided chain (batch 8, 250 steps): {chain:.3f} s, {8 * 60 / chain:.3f} samples/min, "
+        f"{1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s with model building and loading")
+    return launches, paths
+
+
+def _kernel_group(name: str) -> str:
+    if "attention_fwd_kernel" in name:
+        return "K1 attention"
+    if "attention_bwd_" in name:
+        return "K2 attention backward"
+    if "gn_" in name and "kernel" in name:
+        return "K3 GroupNorm"
+    if any(k in name for k in ("implicit_gemm", "dgrad", "wgrad", "conv", "cudnn")):
+        return "cuDNN convs"
+    if "gemm" in name or "cutlass" in name:
+        return "cuBLAS matmuls"
+    if "at::native" in name:
+        return "PyTorch ops (elementwise, reductions, pools, copies)"
+    return "other"
+
+
+def _profile_kernels(fn, reps: int = 2) -> dict:
+    """Device time (ms per call) and count per call of every kernel ``fn`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            out[e.key] = (us / 1000 / reps, e.count / reps)
+    return out
+
+
+def profile_guided_step(dev, paths):
+    """One guided ancestral step at batch 8: CUDA-event times of its parts,
+    and torch.profiler device time by kernel group for the UNet forward, the
+    classifier forward and the classifier backward (cond_fn less the
+    forward)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.diffusion import sampling as S
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_model_weights
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, create_classifier, create_gaussian_diffusion, create_upstream_model,
+    )
+
+    args = classifier_sample.create_argparser().parse_args(GUIDED_FLAGS)
+    model = create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))
+    model = load_model_weights(model, paths["model"]).to(dev).eval().requires_grad_(False)
+    clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))
+    clf = load_model_weights(clf, paths["classifier"]).to(dev).eval().requires_grad_(False)
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="250")
+    sched = diffusion.sched.to(dev)
+    cfg = S.SamplerConfig(mean_type=diffusion.mean_type, var_type=diffusion.var_type)
+    cond = classifier_cond_fn(clf, 1.0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(8, 3, 256, 256, generator=g, device=dev)
+    y = torch.randint(0, 1000, (8,), generator=g, device=dev)
+    t = torch.full((8,), 125, dtype=torch.long, device=dev)
+    tm = sched.model_timesteps(t)
+
+    def unet_fwd():
+        with torch.no_grad():
+            model(x, tm, y=y)
+
+    def clf_fwd():  # with grad on, as inside cond_fn
+        with torch.enable_grad():
+            clf(x.detach().requires_grad_(True), tm)
+
+    def clf_fwd_bwd():
+        with torch.no_grad():
+            cond(x, tm, y=y)
+
+    def step():
+        with torch.no_grad():
+            S.p_sample_step(sched, model, x, t, g, cfg=cfg, cond_fn=cond, model_kwargs={"y": y})
+
+    parts = {name: cuda_ms(fn, runs=5, warmup=1) for name, fn in (
+        ("UNet forward", unet_fwd), ("classifier forward", clf_fwd),
+        ("classifier forward + backward", clf_fwd_bwd), ("guided step", step))}
+    parts["classifier backward"] = parts["classifier forward + backward"] - parts["classifier forward"]
+    log("  CUDA events, ms: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+    prof = {"UNet forward": _profile_kernels(unet_fwd), "classifier forward": _profile_kernels(clf_fwd)}
+    both, fwd = _profile_kernels(clf_fwd_bwd), prof["classifier forward"]
+    prof["classifier backward"] = {
+        k: (ms - fwd.get(k, (0, 0))[0], n - fwd.get(k, (0, 0))[1]) for k, (ms, n) in both.items()
+    }
+    busy = sum(ms for ms, _ in _profile_kernels(step).values())
+    log(f"  profiler: device busy {busy:.2f} ms of the {parts['guided step']:.2f} ms step "
+        f"(idle {100 * (1 - busy / parts['guided step']):.0f} %)")
+    for part, kernels in prof.items():
+        groups: dict = {}
+        for k, (ms, n) in kernels.items():
+            grp = groups.setdefault(_kernel_group(k), [0.0, 0.0])
+            grp[0] += ms
+            grp[1] += n
+        total = sum(ms for ms, _ in groups.values())
+        log(f"  {part}: device {total:.2f} ms; " + "; ".join(
+            f"{k} {ms:.2f} ms ({n:.0f} launches)" for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    log("  classifier backward, top kernels (ms, launches):")
+    for k, (ms, n) in sorted(prof["classifier backward"].items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"    {ms:8.3f} x{n:<5.0f} {k[:110]}")
 
 
 def main() -> int:
@@ -353,6 +625,8 @@ def main() -> int:
 
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
+    log("phase 3b: K2 (attention backward) vs its plain version on the card")
+    records["attention_bwd"] = phase3b_attention_bwd(dev)
 
     log("phase 4: full-width forward, card vs CPU")
     sd = random_state_dict(create_model(
@@ -360,25 +634,34 @@ def main() -> int:
         num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True,
     ))
     phase4_forward(dev, sd)
+    log("phase 4b: full-width guidance gradient, card vs CPU")
+    phase4b_guidance(dev)
 
-    log("phase 5: the slice, served over HTTP")
     with tempfile.TemporaryDirectory() as tmp:
+        log("phase 5: the slice, served over HTTP")
         ckpt = os.path.join(tmp, "model_random.pt")
         torch.save(sd, ckpt)
         del sd
-        launches = phase5_serve(dev, ckpt)
+        served = phase5_serve(dev, ckpt)
+        os.remove(ckpt)
+        log("phase 6: classifier-guided sampling, ADM-G 256 + classifier")
+        guided, paths = phase6_guided(dev, tmp)
+        log("phase 6, profile: one guided step at batch 8")
+        profile_guided_step(dev, paths)
 
     kernels = []
     for name, src, replaces in (
         ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
+        ("attention_bwd", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd.cu",
+         "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
         ("group_norm", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),
     ):
         err, ms, pms = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "launches": served[name] + guided[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi())

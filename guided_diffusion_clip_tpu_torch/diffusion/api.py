@@ -46,23 +46,24 @@ class Diffusion:
 
     def p_sample_loop(
         self, model_fn, shape, rng, *, noise=None, step_noise=None, init_image=None,
-        clip_denoised=True, denoised_fn=None, model_kwargs=None, denoise_start_point=-1,
+        clip_denoised=True, cond_fn=None, denoised_fn=None, model_kwargs=None,
+        denoise_start_point=-1,
     ):
         return S.p_sample_loop(
             self.sched, model_fn, shape, rng,
             cfg=self._cfg(clip_denoised, denoise_start_point=denoise_start_point),
             noise=noise, step_noise=step_noise, init_image=init_image,
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+            cond_fn=cond_fn, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )
 
     def ddim_sample_loop(
         self, model_fn, shape, rng, *, noise=None, step_noise=None, init_image=None,
-        clip_denoised=True, denoised_fn=None, model_kwargs=None, eta=0.0,
+        clip_denoised=True, cond_fn=None, denoised_fn=None, model_kwargs=None, eta=0.0,
         denoise_start_point=-1,
     ):
         return S.ddim_sample_loop(
             self.sched, model_fn, shape, rng,
             cfg=self._cfg(clip_denoised, eta=eta, denoise_start_point=denoise_start_point),
             noise=noise, step_noise=step_noise, init_image=init_image,
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+            cond_fn=cond_fn, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )

@@ -7,8 +7,8 @@ guided_diffusion/gaussian_diffusion.py:171-354): functions over a
 
 Conventions: images are NCHW float32 in [-1, 1] (the model's logical layout);
 ``t`` is an integer [B] tensor indexing the (possibly respaced) schedule; the
-model sees ``sched.model_timesteps(t)``. Guidance (``condition_*``), the
-losses and bpd are not ported yet.
+model sees ``sched.model_timesteps(t)``. The losses and bpd are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -147,3 +147,23 @@ def p_mean_variance(
 
     model_eps = predict_eps_from_xstart(sched, x, t, pred_xstart)
     return PMeanVariance(model_mean, model_variance, model_log_variance, pred_xstart, model_eps)
+
+
+def condition_mean(sched: DiffusionSchedule, cond_fn, out: PMeanVariance, x, t, model_kwargs=None):
+    """Sohl-Dickstein conditioning: mean += variance * grad (reference :356-369)."""
+    gradient = cond_fn(x, sched.model_timesteps(t), **(model_kwargs or {}))
+    return out._replace(mean=out.mean + out.variance * gradient)
+
+
+def condition_score(sched: DiffusionSchedule, cond_fn, out: PMeanVariance, x, t, model_kwargs=None):
+    """Song et al. score conditioning: eps -= sqrt(1-ab_t) * grad (reference :371-393).
+
+    Recomputes pred_xstart and the posterior mean from the shifted eps.
+    """
+    alpha_bar = _extract(sched.alphas_cumprod, t, x.dim())
+    eps = predict_eps_from_xstart(sched, x, t, out.pred_xstart)
+    gradient = cond_fn(x, sched.model_timesteps(t), **(model_kwargs or {}))
+    eps = eps - torch.sqrt(1.0 - alpha_bar) * gradient
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return out._replace(mean=mean, pred_xstart=pred_xstart, model_eps=eps)

@@ -14,8 +14,13 @@ mixes nothing across the batch axis (GroupNorm and attention are per image).
 ``sample_generators`` seeds per-sample generators from ``(seed, subidx)``.
 
 For tests, ``noise=`` gives x_T and ``step_noise=`` the per-step noise, so
-the same numbers can be given to both frameworks. Classifier guidance,
-DPM-Solver++ and the progressive/segmented loops are not ported yet.
+the same numbers can be given to both frameworks.
+
+Guidance: ``cond_fn(x, t_model, **model_kwargs) -> gradient`` (see
+``guidance.py``) shifts the ancestral step's mean by variance * gradient
+(``condition_mean``) and the DDIM step's eps by -sqrt(1 - ab) * gradient
+(``condition_score``). DPM-Solver++ and the progressive/segmented loops are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -103,18 +108,22 @@ def p_sample_step(
     *,
     cfg: SamplerConfig,
     noise=None,
+    cond_fn: Callable | None = None,
     denoised_fn: Callable | None = None,
     model_kwargs: dict | None = None,
 ):
     """One ancestral step x_t -> x_{t-1} (reference p_sample :395-439):
     sample = mean + 1{t != 0} * exp(0.5 logvar) * z, z from ``rng`` unless
-    ``noise`` is given."""
+    ``noise`` is given; guidance shifts the mean by variance * cond_fn
+    (condition_mean, reference :434-437)."""
     out = G.p_mean_variance(
         sched, model_fn, x, t,
         mean_type=cfg.mean_type, var_type=cfg.var_type,
         clip_denoised=cfg.clip_denoised, denoised_fn=denoised_fn,
         model_kwargs=model_kwargs,
     )
+    if cond_fn is not None:
+        out = G.condition_mean(sched, cond_fn, out, x, t, model_kwargs=model_kwargs)
     if noise is None:
         noise = _normal(rng, x.shape)
     nonzero_mask = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
@@ -131,13 +140,15 @@ def ddim_step(
     *,
     cfg: SamplerConfig,
     noise=None,
+    cond_fn: Callable | None = None,
     denoised_fn: Callable | None = None,
     model_kwargs: dict | None = None,
 ):
     """One DDIM step (reference ddim_sample :546-594, eq. 12 of Song et al.).
 
     At eta == 0 the step is deterministic and draws no noise (the JAX loop
-    draws and multiplies by zero).
+    draws and multiplies by zero). Guidance uses condition_score (reference
+    :570-571): eps shifted by -sqrt(1-ab) * grad before x0 and the update.
     """
     out = G.p_mean_variance(
         sched, model_fn, x, t,
@@ -145,6 +156,8 @@ def ddim_step(
         clip_denoised=cfg.clip_denoised, denoised_fn=denoised_fn,
         model_kwargs=model_kwargs,
     )
+    if cond_fn is not None:
+        out = G.condition_score(sched, cond_fn, out, x, t, model_kwargs=model_kwargs)
     nd = x.dim()
     eps = G.predict_eps_from_xstart(sched, x, t, out.pred_xstart)
     alpha_bar = G._extract(sched.alphas_cumprod, t, nd)
@@ -177,6 +190,7 @@ def _loop(
     noise,
     step_noise,
     init_image,
+    cond_fn,
     denoised_fn,
     model_kwargs,
 ):
@@ -191,7 +205,7 @@ def _loop(
         img, _ = step_fn(
             sched, model_fn, img, t, rng,
             cfg=cfg, noise=None if step_noise is None else step_noise[i],
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+            cond_fn=cond_fn, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )
     return img
 
@@ -206,6 +220,7 @@ def p_sample_loop(
     noise=None,
     step_noise=None,
     init_image=None,
+    cond_fn: Callable | None = None,
     denoised_fn: Callable | None = None,
     model_kwargs: dict | None = None,
 ):
@@ -213,7 +228,7 @@ def p_sample_loop(
     return _loop(
         p_sample_step, sched, model_fn, shape, rng,
         cfg=cfg, noise=noise, step_noise=step_noise, init_image=init_image,
-        denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        cond_fn=cond_fn, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
     )
 
 
@@ -227,6 +242,7 @@ def ddim_sample_loop(
     noise=None,
     step_noise=None,
     init_image=None,
+    cond_fn: Callable | None = None,
     denoised_fn: Callable | None = None,
     model_kwargs: dict | None = None,
 ):
@@ -234,5 +250,5 @@ def ddim_sample_loop(
     return _loop(
         ddim_step, sched, model_fn, shape, rng,
         cfg=cfg, noise=noise, step_noise=step_noise, init_image=init_image,
-        denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        cond_fn=cond_fn, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
     )

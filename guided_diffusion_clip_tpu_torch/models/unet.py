@@ -1,11 +1,12 @@
-"""The ADM UNet as PyTorch modules (the ``unet`` and ``clip_feat`` variants).
+"""The ADM UNet (the ``unet`` and ``clip_feat`` variants) and the
+``EncoderUNetModel`` classifier as PyTorch modules.
 
-Counterpart of ``guided_diffusion_clip_tpu/models/unet.py``. One config-driven
-module; ``build_plan`` unrolls the structure exactly as the JAX package does,
-and the module tree carries the reference torch ``state_dict`` names
+Counterpart of ``guided_diffusion_clip_tpu/models/unet.py``. Config-driven
+modules; ``build_plan`` unrolls the structure exactly as the JAX package does,
+and the module trees carry the reference torch ``state_dict`` names
 (``input_blocks.3.0.in_layers.0.weight``, ``time_embed.0.weight``,
-``label_emb.2.weight``, ``out.2.weight``, ...), so a reference-format ``.pt``
-loads with ``load_state_dict(strict=True)``.
+``label_emb.2.weight``, ``out.2.weight``, ``out.2.qkv_proj.weight``, ...), so
+a reference-format ``.pt`` loads with ``load_state_dict(strict=True)``.
 
 Precision split (as the JAX model and the reference's fp16_util): a bf16
 torso when ``dtype=torch.bfloat16`` -- the torso's conv and conv1d weights are
@@ -230,6 +231,34 @@ class Upsample(nn.Module):
         return self.conv(x) if self.use_conv else x
 
 
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling head (reference unet.py:22-51).
+
+    The mean token is prepended to the HW tokens, a learned
+    ``positional_embedding`` of the reference's (C, HW + 1) shape is added,
+    and qkv_proj / attention (new head order, T = HW + 1) / c_proj give the
+    output of token 0. It runs in the input's dtype: the classifier hands it
+    f32, as the JAX pool keeps its default dtype in a bf16 classifier.
+    """
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_head_channels: int, output_dim: int):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim**2 + 1) / embed_dim**0.5
+        )
+        self.qkv_proj = Conv1x1(embed_dim, 3 * embed_dim)
+        self.c_proj = Conv1x1(embed_dim, output_dim)
+        self.num_heads = embed_dim // num_head_channels
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = x.movedim(1, -1).reshape(B, H * W, C)
+        h = torch.cat([h.mean(dim=1, keepdim=True), h], dim=1)  # (B, HW + 1, C)
+        h = h + self.positional_embedding.t()[None].to(h.dtype)
+        a = attention(self.qkv_proj(h), self.num_heads, new_order=True)
+        return self.c_proj(a[:, 0])  # per token: only token 0 is kept
+
+
 class TimestepEmbedSequential(nn.ModuleList):
     """One UNet block: its layers in order, ResBlocks also given the embedding."""
 
@@ -237,6 +266,44 @@ class TimestepEmbedSequential(nn.ModuleList):
         for layer in self:
             x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
         return x
+
+
+def _make_block(cfg: UNetConfig, specs, ch):
+    """The modules of one planned block, from ``ch`` input channels."""
+    layers = TimestepEmbedSequential()
+    for spec in specs:
+        kind = spec["kind"]
+        if kind == "stem":
+            layers.append(conv2d(ch, spec["out"], 3))
+            ch = spec["out"]
+        elif kind == "res":
+            layers.append(ResBlock(
+                ch, cfg.time_embed_dim, spec["out"], dropout=cfg.dropout,
+                use_scale_shift_norm=cfg.use_scale_shift_norm,
+                up=spec.get("up", False), down=spec.get("down", False),
+            ))
+            ch = spec["out"]
+        elif kind == "attn":
+            layers.append(AttentionBlock(ch, spec["heads"], cfg.use_new_attention_order))
+        elif kind == "down":
+            layers.append(Downsample(ch, cfg.conv_resample, spec["out"]))
+            ch = spec["out"]
+        elif kind == "up":
+            layers.append(Upsample(ch, cfg.conv_resample, spec["out"]))
+            ch = spec["out"]
+        else:
+            raise ValueError(kind)
+    return layers, ch
+
+
+def _convert_torso(blocks, dtype: torch.dtype) -> None:
+    """Cast the conv and conv1d weights (not the GroupNorms or emb
+    projections) under ``blocks`` to ``dtype``, as the reference's
+    convert_to_fp16."""
+    for block in blocks:
+        for m in block.modules():
+            if isinstance(m, (nn.Conv2d, Conv1x1)):
+                m.to(dtype)
 
 
 class UNetModel(nn.Module):
@@ -268,13 +335,13 @@ class UNetModel(nn.Module):
         chans = []
         self.input_blocks = nn.ModuleList()
         for block in input_plan:
-            layers, ch = self._layers(block, ch)
+            layers, ch = _make_block(cfg, block, ch)
             self.input_blocks.append(layers)
             chans.append(ch)
-        self.middle_block, ch = self._layers(middle_plan, ch)
+        self.middle_block, ch = _make_block(cfg, middle_plan, ch)
         self.output_blocks = nn.ModuleList()
         for block in output_plan:
-            layers, ch = self._layers(block, ch + chans.pop())
+            layers, ch = _make_block(cfg, block, ch + chans.pop())
             self.output_blocks.append(layers)
         self.out = nn.Sequential(
             normalization(ch), nn.SiLU(), conv2d(ch, cfg.out_channels, 3, zero=True)
@@ -285,40 +352,9 @@ class UNetModel(nn.Module):
         # copy every NCHW weight to channels_last on every call
         self.to(memory_format=torch.channels_last)
 
-    def _layers(self, specs, ch):
-        cfg = self.config
-        layers = TimestepEmbedSequential()
-        for spec in specs:
-            kind = spec["kind"]
-            if kind == "stem":
-                layers.append(conv2d(ch, spec["out"], 3))
-                ch = spec["out"]
-            elif kind == "res":
-                layers.append(ResBlock(
-                    ch, cfg.time_embed_dim, spec["out"], dropout=cfg.dropout,
-                    use_scale_shift_norm=cfg.use_scale_shift_norm,
-                    up=spec.get("up", False), down=spec.get("down", False),
-                ))
-                ch = spec["out"]
-            elif kind == "attn":
-                layers.append(AttentionBlock(ch, spec["heads"], cfg.use_new_attention_order))
-            elif kind == "down":
-                layers.append(Downsample(ch, cfg.conv_resample, spec["out"]))
-                ch = spec["out"]
-            elif kind == "up":
-                layers.append(Upsample(ch, cfg.conv_resample, spec["out"]))
-                ch = spec["out"]
-            else:
-                raise ValueError(kind)
-        return layers, ch
-
     def convert_torso(self, dtype: torch.dtype) -> None:
-        """Cast the torso's conv and conv1d weights (not its GroupNorms or
-        emb projections) to ``dtype``, as the reference's convert_to_fp16."""
-        for blocks in (self.input_blocks, self.middle_block, self.output_blocks):
-            for m in blocks.modules():
-                if isinstance(m, (nn.Conv2d, Conv1x1)):
-                    m.to(dtype)
+        """Cast the torso's conv and conv1d weights to ``dtype``."""
+        _convert_torso((self.input_blocks, self.middle_block, self.output_blocks), dtype)
 
     def forward(self, x, timesteps, y=None, clip_feat=None):
         cfg = self.config
@@ -352,3 +388,86 @@ class UNetModel(nn.Module):
         h = h.to(x.dtype)
         h = self.out[0](h, activation="silu")
         return self.out[2](h)
+
+
+class EncoderUNetModel(nn.Module):
+    """Half-UNet classifier/encoder with a pooling head (reference
+    unet.py:684-895; JAX ``EncoderUNetModel``).
+
+    ``pool`` is "adaptive", "attention", "spatial" or "spatial_v2"; the head
+    keeps the reference's ``out.{i}`` indices for each (``out.0`` and
+    ``out.3`` for adaptive; ``out.0`` and ``out.2.{positional_embedding,
+    qkv_proj,c_proj}`` for attention; ``out.0`` and ``out.2`` for spatial;
+    ``out.0``, ``out.1`` and ``out.3`` for spatial_v2). The torso runs in
+    ``dtype``, the head in f32. Call: ``model(x, timesteps)`` with x of shape
+    (B, in_channels, H, W); returns (B, out_channels) logits in x's dtype.
+    """
+
+    def __init__(self, config: UNetConfig, pool: str = "adaptive", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if pool not in ("adaptive", "attention", "spatial", "spatial_v2"):
+            raise NotImplementedError(f"unexpected pool: {pool}")
+        self.config = cfg = config
+        self.pool = pool
+        self.dtype = dtype
+        mc, ted = cfg.model_channels, cfg.time_embed_dim
+        self.time_embed = nn.Sequential(linear(mc, ted), nn.SiLU(), linear(ted, ted))
+
+        input_plan, middle_plan, _, feature_size = build_plan(cfg)
+        ch = cfg.in_channels
+        self.input_blocks = nn.ModuleList()
+        for block in input_plan:
+            layers, ch = _make_block(cfg, block, ch)
+            self.input_blocks.append(layers)
+        self.middle_block, ch = _make_block(cfg, middle_plan, ch)
+
+        out = cfg.out_channels
+        if pool == "adaptive":
+            self.out = nn.Sequential(
+                normalization(ch), nn.SiLU(), nn.AdaptiveAvgPool2d((1, 1)),
+                conv2d(ch, out, 1, zero=True), nn.Flatten(),
+            )
+        elif pool == "attention":
+            if cfg.num_head_channels == -1:
+                raise ValueError("the attention pool needs num_head_channels")
+            ds = 2 ** (len(cfg.channel_mult) - 1)
+            self.out = nn.Sequential(
+                normalization(ch), nn.SiLU(),
+                AttentionPool2d(cfg.image_size // ds, ch, cfg.num_head_channels, out),
+            )
+        elif pool == "spatial":
+            self.out = nn.Sequential(nn.Linear(feature_size, 2048), nn.ReLU(), nn.Linear(2048, out))
+        else:
+            self.out = nn.Sequential(
+                nn.Linear(feature_size, 2048), normalization(2048), nn.SiLU(), nn.Linear(2048, out)
+            )
+        if dtype != torch.float32:
+            _convert_torso((self.input_blocks, self.middle_block), dtype)
+        self.to(memory_format=torch.channels_last)
+
+    def forward(self, x, timesteps):
+        cfg = self.config
+        if x.shape[1] != cfg.in_channels:
+            raise ValueError(f"input channels {x.shape[1]} != config {cfg.in_channels}")
+        emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels))
+        h = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        spatial = self.pool.startswith("spatial")
+        results = []
+        for block in self.input_blocks:
+            h = block(h, emb)
+            if spatial:
+                results.append(h.to(x.dtype).mean(dim=(2, 3)))
+        h = self.middle_block(h, emb)
+
+        if self.pool == "adaptive":
+            h = self.out[0](h.to(x.dtype), activation="silu")
+            h = self.out[3](h.mean(dim=(2, 3), keepdim=True))
+            return h.reshape(h.shape[0], -1)
+        if self.pool == "attention":
+            return self.out[2](self.out[0](h.to(x.dtype), activation="silu"))
+        results.append(h.to(x.dtype).mean(dim=(2, 3)))
+        h = self.out[0](torch.cat(results, dim=-1))
+        if self.pool == "spatial_v2":
+            h = self.out[1](h[:, :, None], activation="silu")[:, :, 0]
+            return self.out[3](h)
+        return self.out[2](F.relu(h))

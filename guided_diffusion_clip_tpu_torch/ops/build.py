@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels (``ops/csrc/*.cu``) at first use.
 
-All sources compile with ``nvcc`` into one shared library with a plain C
+Each ``.cu`` source compiles in its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library is cached under ``build/gdc_torch_kernels/`` at the root
 of the checkout, keyed by a hash of the sources and flags, so an edited source
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -37,8 +38,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # qkv, out, B, T, H, D, new_order, dtype, scale, stream
     "gdc_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # x, ps1, ps2, gamma, beta, ss, sb, a, b, y, B, HW, C, G, eps, silu, splits, vec, dtype, stream
-    "gdc_group_norm": [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # qkv, dout, dqkv, stats, B, T, H, D, new_order, dtype, scale, scale2, stream
+    "gdc_attention_bwd": [_P] * 4 + [_I] * 6 + [ctypes.c_float] * 2 + [_P],
+    # x, ps1, ps2, gamma, beta, ss, sb, a, b, stats, y, B, HW, C, G, eps, silu, splits, vec, dtype,
+    # stream
+    "gdc_group_norm": [_P] * 11 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -79,19 +83,9 @@ def load() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cu = [s for s in _sources() if s.endswith(".cu")]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = _build(path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{build_log}"
-                )
-            os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -99,6 +93,35 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their output, or raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _build(path: str) -> str:
+    """Compile every source to an object (one nvcc each, in parallel), link
+    them into ``path``; returns nvcc's output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in cu]
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cu, objs)])
+        log += _run_all([[_nvcc(), "-shared", "-o", f"{path}.{tag}", *objs]])
+        os.replace(f"{path}.{tag}", path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
 
 
 def check(rc: int, name: str) -> None:

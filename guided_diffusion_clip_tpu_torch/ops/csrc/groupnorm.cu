@@ -6,7 +6,8 @@
 //   stats:    per-(B, split, C) f32 partial sums of x and x^2 over a split of HW;
 //   finalize: per (B, group): sum the partials, mean, var = E[x^2] - mean^2
 //             (one-pass, as _gn_reference), and fold gamma/beta and the adaGN
-//             (1 + scale, shift) into one per-(B, C) affine a, b;
+//             (1 + scale, shift) into one per-(B, C) affine a, b; it also
+//             writes the group's mean and rstd, which the backward reads;
 //   apply:    y = [SiLU](x * a + b), written in x's dtype.
 //
 // What bounds it on the H100: stats and apply are bandwidth-bound (a few
@@ -107,13 +108,14 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ ps1, float* __restr
 
 // One warp per (b, group): lanes stride over the splits of every channel of
 // the group, a fixed xor-shuffle tree combines them, then the lanes write the
-// group's channels' a, b. ss/sb may be null (no scale-shift).
+// group's channels' a, b. ss/sb may be null (no scale-shift). stats: (2, B, G)
+// f32, the mean then the rstd of every group.
 __global__ void __launch_bounds__(32)
 gn_finalize_kernel(const float* __restrict__ ps1, const float* __restrict__ ps2, int splits,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    const float* __restrict__ ss, const float* __restrict__ sb,
-                   float* __restrict__ a, float* __restrict__ bo, int C, int G, float n,
-                   float eps) {
+                   float* __restrict__ a, float* __restrict__ bo, float* __restrict__ stats,
+                   int C, int G, float n, float eps) {
   const int b = blockIdx.x / G;
   const int g = blockIdx.x % G;
   const int cg = C / G;
@@ -134,6 +136,10 @@ gn_finalize_kernel(const float* __restrict__ ps1, const float* __restrict__ ps2,
   const float mean = t1 / n;
   const float var = t2 / n - mean * mean;
   const float inv = rsqrtf(var + eps);
+  if (lane == 0) {
+    stats[blockIdx.x] = mean;
+    stats[gridDim.x + blockIdx.x] = inv;
+  }
   for (int c = g * cg + lane; c < (g + 1) * cg; c += 32) {
     float av = inv * gamma[c];
     float bv = beta[c] - mean * av;
@@ -185,15 +191,15 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
 
 template <typename T, int VEC>
 int run(const T* x, float* ps1, float* ps2, const float* gamma, const float* beta,
-        const float* ss, const float* sb, float* a, float* bb, T* y, int B, int HW, int C,
-        int G, float eps, int silu, int splits, cudaStream_t stream) {
+        const float* ss, const float* sb, float* a, float* bb, float* stats, T* y, int B,
+        int HW, int C, int G, float eps, int silu, int splits, cudaStream_t stream) {
   const int rows_per_split = (HW + splits - 1) / splits;
   const dim3 grid((C + kCT * VEC - 1) / (kCT * VEC), splits, B);
   gn_stats_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(x, ps1, ps2, HW, C, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gn_finalize_kernel<<<B * G, 32, 0, stream>>>(ps1, ps2, splits, gamma, beta, ss, sb, a, bb, C, G,
-                                                (float)HW * (float)(C / G), eps);
+  gn_finalize_kernel<<<B * G, 32, 0, stream>>>(ps1, ps2, splits, gamma, beta, ss, sb, a, bb, stats,
+                                                C, G, (float)HW * (float)(C / G), eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (silu)
@@ -205,8 +211,9 @@ int run(const T* x, float* ps1, float* ps2, const float* gamma, const float* bet
 
 template <typename T>
 int dispatch_vec(const void* x, void* ps1, void* ps2, const void* gamma, const void* beta,
-                 const void* ss, const void* sb, void* a, void* bb, void* y, int B, int HW, int C,
-                 int G, float eps, int silu, int splits, int vec, cudaStream_t stream) {
+                 const void* ss, const void* sb, void* a, void* bb, void* stats, void* y, int B,
+                 int HW, int C, int G, float eps, int silu, int splits, int vec,
+                 cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   float* p1 = static_cast<float*>(ps1);
@@ -217,12 +224,14 @@ int dispatch_vec(const void* x, void* ps1, void* ps2, const void* gamma, const v
   const float* sbp = static_cast<const float*>(sb);
   float* ap = static_cast<float*>(a);
   float* bbp = static_cast<float*>(bb);
+  float* stp = static_cast<float*>(stats);
   T* yp = static_cast<T*>(y);
   if (vec == 1)
-    return run<T, 1>(xp, p1, p2, gp, bp, ssp, sbp, ap, bbp, yp, B, HW, C, G, eps, silu, splits, stream);
+    return run<T, 1>(xp, p1, p2, gp, bp, ssp, sbp, ap, bbp, stp, yp, B, HW, C, G, eps, silu, splits,
+                     stream);
   if (vec == kWide)
-    return run<T, kWide>(xp, p1, p2, gp, bp, ssp, sbp, ap, bbp, yp, B, HW, C, G, eps, silu, splits,
-                         stream);
+    return run<T, kWide>(xp, p1, p2, gp, bp, ssp, sbp, ap, bbp, stp, yp, B, HW, C, G, eps, silu,
+                         splits, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -230,18 +239,19 @@ int dispatch_vec(const void* x, void* ps1, void* ps2, const void* gamma, const v
 
 // x, y: (B, HW, C) in dtype (0 = float32, 1 = bfloat16); ps1, ps2: (B, splits, C)
 // f32 scratch; gamma, beta: (C,) f32; ss, sb: (B, C) f32 or null; a, bb: (B, C)
-// f32 scratch. vec: channels per thread, 1 or 16 bytes' worth (C % vec == 0 and
-// x, y 16-byte aligned). Returns a cudaError_t code (0 = launched).
+// f32 scratch; stats: (2, B, G) f32 out, each group's mean and rstd. vec:
+// channels per thread, 1 or 16 bytes' worth (C % vec == 0 and x, y 16-byte
+// aligned). Returns a cudaError_t code (0 = launched).
 extern "C" int gdc_group_norm(const void* x, void* ps1, void* ps2, const void* gamma,
                               const void* beta, const void* ss, const void* sb, void* a,
-                              void* bb, void* y, int B, int HW, int C, int G, float eps,
-                              int silu, int splits, int vec, int dtype, void* stream) {
+                              void* bb, void* stats, void* y, int B, int HW, int C, int G,
+                              float eps, int silu, int splits, int vec, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_vec<float>(x, ps1, ps2, gamma, beta, ss, sb, a, bb, y, B, HW, C, G, eps, silu,
-                               splits, vec, s);
+    return dispatch_vec<float>(x, ps1, ps2, gamma, beta, ss, sb, a, bb, stats, y, B, HW, C, G, eps,
+                               silu, splits, vec, s);
   if (dtype == 1)
-    return dispatch_vec<__nv_bfloat16>(x, ps1, ps2, gamma, beta, ss, sb, a, bb, y, B, HW, C, G,
-                                       eps, silu, splits, vec, s);
+    return dispatch_vec<__nv_bfloat16>(x, ps1, ps2, gamma, beta, ss, sb, a, bb, stats, y, B, HW, C,
+                                       G, eps, silu, splits, vec, s);
   return (int)cudaErrorInvalidValue;
 }

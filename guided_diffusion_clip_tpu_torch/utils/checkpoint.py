@@ -25,6 +25,7 @@ def load_state_dict(path: str) -> dict[str, torch.Tensor]:
 def load_model_weights(model: nn.Module, path: str) -> nn.Module:
     """``model.load_state_dict(strict=True)`` from a ``.pt`` file; every key
     must match. Weights are cast on copy to each parameter's dtype (the
-    model's bf16 torso takes an f32 checkpoint)."""
+    model's bf16 torso takes an f32 checkpoint). The same for the UNet and
+    the ``EncoderUNetModel`` classifier, whose head keys depend on its pool."""
     model.load_state_dict(load_state_dict(path), strict=True)
     return model

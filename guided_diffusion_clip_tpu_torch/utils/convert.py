@@ -8,7 +8,11 @@ do) and a flax tree saved as msgpack-free numpy can reach the port. Layouts:
   conv2d  (kh, kw, I, O) -> (O, I, kh, kw)
   dense   (I, O)         -> (O, I), or (O, I, 1) for the conv1d layers
                             (qkv, proj_out, qkv_proj, c_proj)
+  positional_embedding (T+1, C) -> (C, T+1)
   norm scale/bias, biases, embeddings: unchanged
+
+The output head's names depend on the model and, for the classifier
+(``model="encoder"``), on its pool (JAX ``torch_import.py::_head_map``).
 """
 
 from __future__ import annotations
@@ -38,10 +42,25 @@ _CONV1D_NAMES = ("qkv", "proj_out", "qkv_proj", "c_proj")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 
 
-def flax_path_to_torch_key(path: tuple[str, ...], *, model: str = "unet") -> str:
+def _head_map(model: str, pool: str | None) -> Mapping[str, str]:
+    """Output-head name map, per model and pool (reference unet.py:613-617, 825-854)."""
+    if model == "unet":
+        return {"out_norm": "out.0", "out_conv": "out.2"}
+    if model != "encoder":
+        raise ValueError(f"unknown model {model!r}")
+    heads = {
+        "adaptive": {"out_norm": "out.0", "out_conv": "out.3"},
+        "attention": {"out_norm": "out.0", "out_pool": "out.2"},
+        "spatial": {"out_0": "out.0", "out_3": "out.2"},
+        "spatial_v2": {"out_0": "out.0", "out_norm": "out.1", "out_3": "out.3"},
+    }
+    if pool not in heads:
+        raise ValueError(f"unknown pool {pool!r}")
+    return heads[pool]
+
+
+def flax_path_to_torch_key(path: tuple[str, ...], *, model: str = "unet", pool: str | None = None) -> str:
     """Translate one flax param path to the reference torch state_dict key."""
-    if model != "unet":
-        raise NotImplementedError(f"model {model!r}: only the UNet is ported")
     parts = list(path)
     top = parts[0]
     # strip the Conv/Dense wrapper level ("conv"/"dense" just before the leaf)
@@ -55,10 +74,9 @@ def flax_path_to_torch_key(path: tuple[str, ...], *, model: str = "unet") -> str
         return f"label_emb.{leaf_t}"
     if top in ("label_emb_0", "label_emb_2"):
         return f"label_emb.{top[-1]}.{leaf_t}"
-    if top == "out_norm":
-        return f"out.0.{leaf_t}"
-    if top == "out_conv":
-        return f"out.2.{leaf_t}"
+    head = _head_map(model, pool)
+    if top in head:  # e.g. out_pool/qkv_proj/kernel -> out.2.qkv_proj.weight
+        return ".".join([head[top], *parts[1:-1], leaf_t])
 
     m = _BLOCK_RE.match(top) or _MIDDLE_RE.match(top)
     if m is None:
@@ -77,6 +95,8 @@ def flax_path_to_torch_key(path: tuple[str, ...], *, model: str = "unet") -> str
 
 def _from_flax_tensor(arr: np.ndarray, path) -> np.ndarray:
     arr = np.asarray(arr)
+    if path[-1] == "positional_embedding":
+        return arr.T
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 2 and path[-1] == "kernel":
@@ -95,11 +115,12 @@ def _iter_leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(params: Mapping, *, model: str = "unet") -> dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping, *, model: str = "unet", pool: str | None = None) -> dict[str, torch.Tensor]:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
-    port's ``state_dict`` (f32 CPU tensors)."""
+    port's ``state_dict`` (f32 CPU tensors). ``model`` is "unet" or
+    "encoder"; an encoder also names its ``pool``."""
     out = {}
     for path, value in _iter_leaves(params):
         arr = np.ascontiguousarray(_from_flax_tensor(np.asarray(value, dtype=np.float32), path))
-        out[flax_path_to_torch_key(path, model=model)] = torch.from_numpy(arr)
+        out[flax_path_to_torch_key(path, model=model, pool=pool)] = torch.from_numpy(arr)
     return out

@@ -1,21 +1,23 @@
 """Config/factory layer: defaults dicts, model+diffusion factories, CLI glue.
 
 Counterpart of ``guided_diffusion_clip_tpu/utils/script_util.py``, the part
-that serving needs. The flag surface is the reference's; ``use_fp16`` maps to
-a bf16 torso. NUM_CLASSES = 512: the fork repurposes the class count as the
-CLIP embedding dimension.
+that serving and classifier-guided sampling need. The flag surface is the
+reference's; ``use_fp16`` and ``classifier_use_fp16`` map to a bf16 torso.
+NUM_CLASSES = 512: the fork repurposes the class count as the CLIP embedding
+dimension (the upstream UNet and the classifier keep 1000 ImageNet classes).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from ..diffusion.api import Diffusion
 from ..diffusion.schedules import LossType, ModelMeanType, ModelVarType, build_schedule
 from ..models.clip_models import UNetModel_clip_feat
-from ..models.unet import UNetConfig, UNetModel
+from ..models.unet import EncoderUNetModel, UNetConfig, UNetModel
 
 NUM_CLASSES = 512
 
@@ -31,6 +33,20 @@ def diffusion_defaults():
         predict_xstart=False,
         rescale_timesteps=False,
         rescale_learned_sigmas=False,
+    )
+
+
+def classifier_defaults():
+    """Defaults for classifier models (reference script_util.py:28-41)."""
+    return dict(
+        image_size=64,
+        classifier_use_fp16=False,
+        classifier_width=128,
+        classifier_depth=2,
+        classifier_attention_resolutions="32,16,8",
+        classifier_use_scale_shift_norm=True,
+        classifier_resblock_updown=True,
+        classifier_pool="attention",
     )
 
 
@@ -53,6 +69,12 @@ def model_and_diffusion_defaults():
         use_fp16=False,
         use_new_attention_order=False,
     )
+    res.update(diffusion_defaults())
+    return res
+
+
+def classifier_and_diffusion_defaults():
+    res = classifier_defaults()
     res.update(diffusion_defaults())
     return res
 
@@ -98,11 +120,47 @@ def create_model(
     use_new_attention_order=False,
 ) -> UNetModel:
     """The fork's default model: UNetModel_clip_feat (reference script_util.py:131-187)."""
+    cfg = _model_config(
+        image_size, num_channels, num_res_blocks, channel_mult, learn_sigma, class_cond,
+        use_checkpoint, attention_resolutions, num_heads, num_head_channels, num_heads_upsample,
+        use_scale_shift_norm, dropout, resblock_updown, use_new_attention_order,
+    )
+    return UNetModel_clip_feat(cfg, dtype=_dtype(use_fp16))
+
+
+def create_upstream_model(*, use_fp16=False, **kw) -> UNetModel:
+    """Plain upstream UNetModel with a 1000-row class table (``nn.Embedding``),
+    for the released ADM checkpoints that do not use CLIP embeddings; takes
+    ``create_model``'s arguments."""
+    cfg = dataclasses.replace(
+        _model_config(**kw), variant="unet", label_emb_type="embedding",
+        num_classes=1000 if kw.get("class_cond") else None,
+    )
+    return UNetModel(cfg, dtype=_dtype(use_fp16))
+
+
+def _model_config(
+    image_size,
+    num_channels,
+    num_res_blocks,
+    channel_mult="",
+    learn_sigma=False,
+    class_cond=False,
+    use_checkpoint=False,
+    attention_resolutions="16",
+    num_heads=1,
+    num_head_channels=-1,
+    num_heads_upsample=-1,
+    use_scale_shift_norm=False,
+    dropout=0,
+    resblock_updown=False,
+    use_new_attention_order=False,
+) -> UNetConfig:
     if channel_mult == "":
         channel_mult = default_channel_mult(image_size)
     elif isinstance(channel_mult, str):
         channel_mult = tuple(int(m) for m in channel_mult.split(","))
-    cfg = UNetConfig(
+    return UNetConfig(
         image_size=image_size,
         in_channels=3,
         model_channels=num_channels,
@@ -120,7 +178,33 @@ def create_model(
         resblock_updown=resblock_updown,
         use_new_attention_order=use_new_attention_order,
     )
-    return UNetModel_clip_feat(cfg, dtype=_dtype(use_fp16))
+
+
+def create_classifier(
+    image_size,
+    classifier_use_fp16,
+    classifier_width,
+    classifier_depth,
+    classifier_attention_resolutions,
+    classifier_use_scale_shift_norm,
+    classifier_resblock_updown,
+    classifier_pool,
+) -> EncoderUNetModel:
+    """EncoderUNet classifier, 1000 classes, 64-channel heads (reference
+    script_util.py:231-269)."""
+    cfg = UNetConfig(
+        image_size=image_size,
+        in_channels=3,
+        model_channels=classifier_width,
+        out_channels=1000,
+        num_res_blocks=classifier_depth,
+        attention_resolutions=parse_attention_resolutions(classifier_attention_resolutions, image_size),
+        channel_mult=default_channel_mult(image_size),
+        num_head_channels=64,
+        use_scale_shift_norm=classifier_use_scale_shift_norm,
+        resblock_updown=classifier_resblock_updown,
+    )
+    return EncoderUNetModel(cfg, pool=classifier_pool, dtype=_dtype(classifier_use_fp16))
 
 
 def create_gaussian_diffusion(
@@ -214,6 +298,47 @@ def create_model_and_diffusion(
         timestep_respacing=timestep_respacing,
     )
     return model, diffusion
+
+
+def create_classifier_and_diffusion(
+    image_size,
+    classifier_use_fp16,
+    classifier_width,
+    classifier_depth,
+    classifier_attention_resolutions,
+    classifier_use_scale_shift_norm,
+    classifier_resblock_updown,
+    classifier_pool,
+    learn_sigma,
+    diffusion_steps,
+    noise_schedule,
+    timestep_respacing,
+    use_kl,
+    predict_xstart,
+    rescale_timesteps,
+    rescale_learned_sigmas,
+):
+    classifier = create_classifier(
+        image_size,
+        classifier_use_fp16,
+        classifier_width,
+        classifier_depth,
+        classifier_attention_resolutions,
+        classifier_use_scale_shift_norm,
+        classifier_resblock_updown,
+        classifier_pool,
+    )
+    diffusion = create_gaussian_diffusion(
+        steps=diffusion_steps,
+        learn_sigma=learn_sigma,
+        noise_schedule=noise_schedule,
+        use_kl=use_kl,
+        predict_xstart=predict_xstart,
+        rescale_timesteps=rescale_timesteps,
+        rescale_learned_sigmas=rescale_learned_sigmas,
+        timestep_respacing=timestep_respacing,
+    )
+    return classifier, diffusion
 
 
 # ---------------------------------------------------------------------------

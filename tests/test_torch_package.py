@@ -48,6 +48,7 @@ def test_every_module_imports_without_a_card():
         )
     ]
     assert "guided_diffusion_clip_tpu_torch.serve" in names
+    assert "guided_diffusion_clip_tpu_torch.classifier_sample" in names
     for name in names:
         importlib.import_module(name)
 
@@ -56,5 +57,5 @@ def test_kernel_sources_are_in_the_package():
     from guided_diffusion_clip_tpu_torch.ops import build
 
     srcs = sorted(os.path.basename(s) for s in build._sources())
-    assert srcs == ["attention_fwd.cu", "groupnorm.cu"]
+    assert srcs == ["attention_bwd.cu", "attention_fwd.cu", "groupnorm.cu"]
     assert build.library_path().startswith(os.path.join(REPO, "build", "gdc_torch_kernels"))

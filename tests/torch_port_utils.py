@@ -6,9 +6,11 @@ import numpy as np
 import torch
 
 from guided_diffusion_clip_tpu.models.clip_models import UNetModel_clip_feat as JaxClipFeat
+from guided_diffusion_clip_tpu.models.unet import EncoderUNetModel as JaxEncoder
 from guided_diffusion_clip_tpu.models.unet import UNetConfig as JaxConfig
+from guided_diffusion_clip_tpu.models.unet import UNetModel as JaxUNet
 from guided_diffusion_clip_tpu_torch.models.clip_models import UNetModel_clip_feat
-from guided_diffusion_clip_tpu_torch.models.unet import UNetConfig
+from guided_diffusion_clip_tpu_torch.models.unet import EncoderUNetModel, UNetConfig, UNetModel
 from guided_diffusion_clip_tpu_torch.utils.convert import state_dict_from_flax
 
 
@@ -37,6 +39,38 @@ def clip_feat_pair(kw, seed=0):
     )["params"]
     params = random_params(shapes, seed)
     tm = UNetModel_clip_feat(UNetConfig(**kw)).eval()
+    tm.load_state_dict(state_dict_from_flax(params), strict=True)
+    return jm, params, tm
+
+
+def encoder_pair(kw, pool, seed=0):
+    """(jax classifier, numpy params, torch classifier with the same weights)
+    for an EncoderUNetModel config ``kw`` and ``pool``."""
+    jm = JaxEncoder(JaxConfig(**kw), pool=pool)
+    s = kw["image_size"]
+    shapes = jax.eval_shape(
+        lambda: jm.init(jax.random.key(0), jnp.zeros((1, s, s, kw["in_channels"])), jnp.zeros((1,), jnp.int32))
+    )["params"]
+    params = random_params(shapes, seed)
+    tm = EncoderUNetModel(UNetConfig(**kw), pool=pool).eval()
+    tm.load_state_dict(state_dict_from_flax(params, model="encoder", pool=pool), strict=True)
+    return jm, params, tm
+
+
+def upstream_pair(kw, seed=0):
+    """(jax model, numpy params, torch model) for a plain ``unet``-variant
+    UNet with a class table (the ADM-G generator), config ``kw``."""
+    kw = dict(kw, variant="unet", label_emb_type="embedding")
+    jm = JaxUNet(JaxConfig(**kw))
+    s = kw["image_size"]
+    shapes = jax.eval_shape(
+        lambda: jm.init(
+            jax.random.key(0), jnp.zeros((1, s, s, kw["in_channels"])), jnp.zeros((1,), jnp.int32),
+            y=jnp.zeros((1,), jnp.int32),
+        )
+    )["params"]
+    params = random_params(shapes, seed)
+    tm = UNetModel(UNetConfig(**kw)).eval()
     tm.load_state_dict(state_dict_from_flax(params), strict=True)
     return jm, params, tm
 
