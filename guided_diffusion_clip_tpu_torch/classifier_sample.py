@@ -14,6 +14,9 @@ The same flags as scripts/classifier_sample.py, plus ``--device`` (default
 ``--model_path`` is the upstream class-conditional UNet (1000-row class
 table) and ``--classifier_path`` the ``EncoderUNetModel`` classifier, both
 reference-format ``.pt`` state_dicts loaded with ``strict=True``.
+``--conv_impl int8`` runs both models' convs on the int8 path (kernels K4
+and K5; the JAX package's headline mode); ``auto`` and ``xla`` run them
+through cuDNN in the models' dtype.
 
 Each batch draws its classes in [0, 1000) and its noise from two explicit
 ``torch.Generator``s seeded from ``--seed``, runs the UNet under
@@ -23,8 +26,8 @@ every step (``diffusion/guidance.py``). The result is written as
 directory.
 
 Not yet ported, and rejected at startup: ``--guidance_interval``,
-``--guidance_cache``, ``--deep_cache``, ``--conv_impl int8``,
-``--sampler dpm++2m``, ``--spatial_shard`` and ``--tensor_shard``.
+``--guidance_cache``, ``--deep_cache``, ``--sampler dpm++2m``,
+``--spatial_shard`` and ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from .diffusion.guidance import classifier_cond_fn, model_fn_dropping_y
 from .diffusion.sampling import sample_seed
+from .models.unet import CONV_IMPLS
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.script_util import (
@@ -69,11 +73,8 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
     if getattr(args, "guidance_interval", ""):
         raise SystemExit("--guidance_interval: not yet ported to the PyTorch package")
-    if getattr(args, "conv_impl", "auto") != "auto":
-        raise SystemExit(
-            f"--conv_impl {args.conv_impl}: not yet ported to the PyTorch package "
-            "(convs run through cuDNN in the model's dtype)"
-        )
+    if getattr(args, "conv_impl", "auto") not in CONV_IMPLS:
+        raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {CONV_IMPLS}")
 
 
 def main(argv=None) -> dict:
@@ -100,14 +101,16 @@ def main(argv=None) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
-    model = create_upstream_model(**args_to_dict(args, _UNET_KEYS))
+    model = create_upstream_model(**args_to_dict(args, _UNET_KEYS), conv_impl=args.conv_impl)
     load_model_weights(model, args.model_path)
     model = model.to(device).eval().requires_grad_(False)
 
     logger.log("loading classifier...")
-    classifier = create_classifier(**args_to_dict(args, classifier_defaults().keys()))
+    classifier = create_classifier(**args_to_dict(args, classifier_defaults().keys()), conv_impl=args.conv_impl)
     load_model_weights(classifier, args.classifier_path)
-    # gradients with respect to x only, as jax.grad with respect to x
+    # gradients with respect to x only, as jax.grad with respect to x; under
+    # int8 the classifier's quantizing GroupNorms then emit integer-valued
+    # floats (differentiable), the generator's (under no_grad) real s8
     classifier = classifier.to(device).eval().requires_grad_(False)
 
     cond_fn = classifier_cond_fn(classifier, args.classifier_scale)
@@ -161,7 +164,7 @@ def create_argparser():
         main_path="",
         seed=0,
         device="cuda",
-        conv_impl="auto",  # int8 not yet ported
+        conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # not yet ported
         tensor_shard=0,  # not yet ported
         deep_cache=0,  # not yet ported

@@ -12,6 +12,13 @@ Modules take logical NCHW tensors in ``torch.channels_last`` memory, which is
 the JAX package's NHWC in memory; GroupNorm32 reaches ``ops.groupnorm``
 through ``movedim(1, -1)``, a view, so nothing is copied on the way to the
 kernel. Parameters carry the reference torch ``state_dict`` names.
+
+The int8 path (``--conv_impl int8``, the JAX package's ``_QuantConvCore``):
+``GroupNorm32(..., quantize=True)`` returns the quantizing GroupNorm's
+``(q, s)``, and ``Conv2d`` -- an ``nn.Conv2d`` with the same ``weight`` and
+``bias`` -- runs ``ops.quant.conv_prequant`` on such a pair, or
+``ops.quant.int8_conv`` on a float input when its ``int8`` flag is set,
+instead of cuDNN.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.groupnorm import group_norm
+from ..ops.groupnorm import group_norm, group_norm_quant
+from ..ops.quant import conv_prequant, int8_conv, quantize_per_out_channel
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -60,15 +68,22 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, activation: str | None = None, scale_shift=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, activation: str | None = None, scale_shift=None,
+                quantize: bool = False):
+        """The normalized x, or with ``quantize`` the int8 pair (q, s): q in
+        x's shape (s8, or integer values in x's dtype when gradients flow),
+        s the (B,) f32 per-image scales (``ops.groupnorm.group_norm_quant``)."""
         B, C = x.shape[0], x.shape[1]
         if scale_shift is not None:
             scale_shift = tuple(t.reshape(B, C).float() for t in scale_shift)
-        y = group_norm(
+        fn = group_norm_quant if quantize else group_norm
+        y = fn(
             x.movedim(1, -1), self.weight, self.bias,
             groups=self.num_groups, eps=self.eps,
             silu=(activation == "silu"), scale_shift=scale_shift,
         )
+        if quantize:
+            return y[0].movedim(-1, 1), y[1]
         return y.movedim(-1, 1)
 
 
@@ -82,9 +97,55 @@ def _zero_(module: nn.Module) -> nn.Module:
     return module
 
 
-def conv2d(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, zero: bool = False) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (cuDNN) that also runs the int8 path.
+
+    ``forward(q, prequant_scales=s)`` is ``conv_prequant`` on a quantizing
+    GroupNorm's (q, s), output in ``out_dtype``; with ``int8`` set, a float
+    input goes through ``int8_conv`` (output in its dtype). The weight's
+    quantization (``quantize_per_out_channel`` of the f32 weight, s8 in the
+    weight's OHWI memory) is cached, and recomputed when the weight's data
+    pointer or version changes (``.to(device)``, ``load_state_dict``).
+    """
+
+    int8 = False
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._wq_key = None
+        self._wq = None
+
+    def quantized_weight(self):
+        """(w_q HWIO s8, s_w (K,) f32) of the current weight."""
+        w = self.weight
+        # an inference tensor (made under inference_mode) has no version counter
+        key = (w.data_ptr(), None if w.is_inference() else w._version, w.device, w.dtype)
+        if key != self._wq_key:
+            with torch.no_grad():
+                w_q, s_w = quantize_per_out_channel(w.permute(2, 3, 1, 0))
+            # OHWI memory: the kernel's (K, kh*kw*C) rows are then a view
+            self._wq = (w_q.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0), s_w)
+            self._wq_key = key
+        return self._wq
+
+    def forward(self, x, prequant_scales=None, out_dtype=None):
+        if prequant_scales is None and not self.int8:
+            return super().forward(x)
+        w_q, s_w = self.quantized_weight()
+        w = self.weight.permute(2, 3, 1, 0)  # HWIO view
+        if prequant_scales is not None:
+            y = conv_prequant(
+                x.movedim(1, -1), prequant_scales, w, self.bias, self.stride[0],
+                out_dtype or torch.float32, w_q=w_q, s_w=s_w,
+            )
+        else:
+            y = int8_conv(x.movedim(1, -1), w, self.bias, self.stride[0], w_q=w_q, s_w=s_w)
+        return y.movedim(-1, 1)
+
+
+def conv2d(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, zero: bool = False) -> Conv2d:
     """Conv2d with symmetric (k-1)//2 padding; ``zero`` gives zero init."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2)
+    conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2)
     return _zero_(conv) if zero else conv
 
 
@@ -125,3 +186,13 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Exact nearest-x2 (reference F.interpolate(scale_factor=2, mode="nearest"))."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def upsample_nearest_2x_cl(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-x2 of a (B, C, H, W) channels_last tensor of any dtype (the
+    s8 q of the int8 path), as an expand and reshape of its NHWC memory:
+    channels_last out, the same values as ``upsample_nearest_2x``."""
+    h = x.movedim(1, -1)
+    B, H, W, C = h.shape
+    h = h[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+    return h.movedim(-1, 1)

@@ -17,6 +17,16 @@ f32 output head.
 Layout: logical NCHW in ``torch.channels_last`` memory (the JAX package's
 NHWC in memory), activations and conv weights alike; attention blocks see
 ``(B, T, C)`` token views of it.
+
+``conv_impl``: "xla" (or "auto", the JAX package's default) runs every conv
+through cuDNN in the torso's dtype; "int8" is the JAX package's int8 path
+(``GDC_CONV_IMPL=int8``, ``_QuantConvCore``): each ResBlock's GroupNorm+SiLU
+quantizes (kernel K4) and the following conv consumes the s8 pair
+(``conv_prequant``, kernel K5), except a down block's in_conv; every other
+conv -- stem, skips, resampling convs, the output heads -- quantizes its
+input per tensor (``int8_conv``, K5). The conv weights then stay f32 (the
+JAX package quantizes the f32 parameter) while the attention projections
+take the torso's dtype.
 """
 
 from __future__ import annotations
@@ -31,13 +41,17 @@ from torch import nn
 from ..ops.attention import attention
 from .nn import (
     Conv1x1,
+    Conv2d,
     avg_pool_2x,
     conv2d,
     linear,
     normalization,
     timestep_embedding,
     upsample_nearest_2x,
+    upsample_nearest_2x_cl,
 )
+
+CONV_IMPLS = ("auto", "xla", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +155,12 @@ class ResBlock(nn.Module):
     """Residual block with timestep-embedding conditioning (reference unet.py:143-256).
 
     Submodule indices follow the reference Sequentials: ``in_layers.{0,2}``,
-    ``emb_layers.1``, ``out_layers.{0,3}``, ``skip_connection``.
+    ``emb_layers.1``, ``out_layers.{0,3}``, ``skip_connection``. With
+    ``int8`` set (by the model's ``conv_impl``), the JAX package's int8
+    branch: GroupNorm+SiLU emits (q, s) for the 3x3 conv after it.
     """
+
+    int8 = False
 
     def __init__(self, channels, emb_channels, out_channels, dropout=0.0,
                  use_scale_shift_norm=False, up=False, down=False):
@@ -165,20 +183,35 @@ class ResBlock(nn.Module):
             self.skip_connection = conv2d(channels, out_channels, 1)
 
     def forward(self, x, emb):
-        h = self.in_layers[0](x, activation="silu")
-        if self.up:
-            h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
-        elif self.down:
-            h, x = avg_pool_2x(h), avg_pool_2x(x)
-        h = self.in_layers[2](h)
+        dtype = x.dtype  # the torso's compute dtype
+        if self.int8 and not self.down:
+            # nearest-x2 duplicates values, so an up block's q stays integer
+            # with the same per-image scale; a down block's avg-pool would
+            # leave the int8 grid, so it takes the float branch below
+            q, s = self.in_layers[0](x, activation="silu", quantize=True)
+            if self.up:
+                q, x = upsample_nearest_2x_cl(q), upsample_nearest_2x(x)
+            h = self.in_layers[2](q, prequant_scales=s, out_dtype=dtype)
+        else:
+            h = self.in_layers[0](x, activation="silu")
+            if self.up:
+                h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
+            elif self.down:
+                h, x = avg_pool_2x(h), avg_pool_2x(x)
+            h = self.in_layers[2](h)
         # emb MLP stays f32, cast at the join like the reference's .type(h.dtype)
         emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)[:, :, None, None]
+        # dropping q entries would break the q * s pairing
+        quant_out = self.int8 and (self.out_layers[2].p == 0.0 or not self.training)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h, activation="silu", scale_shift=(scale, shift))
+            h = self.out_layers[0](h, activation="silu", scale_shift=(scale, shift), quantize=quant_out)
         else:
-            h = self.out_layers[0](h + emb_out, activation="silu")
-        h = self.out_layers[3](self.out_layers[2](h))
+            h = self.out_layers[0](h + emb_out, activation="silu", quantize=quant_out)
+        if quant_out:
+            h = self.out_layers[3](h[0], prequant_scales=h[1], out_dtype=dtype)
+        else:
+            h = self.out_layers[3](self.out_layers[2](h))
         return self.skip_connection(x) + h
 
 
@@ -296,14 +329,29 @@ def _make_block(cfg: UNetConfig, specs, ch):
     return layers, ch
 
 
-def _convert_torso(blocks, dtype: torch.dtype) -> None:
+def _convert_torso(blocks, dtype: torch.dtype, int8: bool = False) -> None:
     """Cast the conv and conv1d weights (not the GroupNorms or emb
     projections) under ``blocks`` to ``dtype``, as the reference's
-    convert_to_fp16."""
+    convert_to_fp16. Under int8 the convs keep f32 weights: their int8
+    quantization is taken of the f32 parameter, as in the JAX package (a
+    bf16-rounded copy would give other w_q and s_w)."""
+    kinds = (Conv1x1,) if int8 else (nn.Conv2d, Conv1x1)
     for block in blocks:
         for m in block.modules():
-            if isinstance(m, (nn.Conv2d, Conv1x1)):
+            if isinstance(m, kinds):
                 m.to(dtype)
+
+
+def _set_conv_impl(model: nn.Module, conv_impl: str) -> bool:
+    """Validate ``conv_impl`` and flag the model's convs and ResBlocks for
+    the int8 path; returns whether it is int8."""
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl {conv_impl!r}: choose from {CONV_IMPLS}")
+    int8 = conv_impl == "int8"
+    for m in model.modules():
+        if isinstance(m, (Conv2d, ResBlock)):
+            m.int8 = int8
+    return int8
 
 
 class UNetModel(nn.Module):
@@ -311,9 +359,10 @@ class UNetModel(nn.Module):
 
     Call: ``model(x, timesteps, y=None, clip_feat=None)`` with x of shape
     (B, in_channels, H, W); returns (B, out_channels, H, W) in x's dtype.
+    ``conv_impl``: "auto"/"xla" (cuDNN) or "int8" (see the module docstring).
     """
 
-    def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32, conv_impl: str = "auto"):
         super().__init__()
         if config.variant not in ("unet", "clip_feat"):
             raise NotImplementedError(f"UNet variant {config.variant!r}: not yet ported")
@@ -346,6 +395,8 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(
             normalization(ch), nn.SiLU(), conv2d(ch, cfg.out_channels, 3, zero=True)
         )
+        self.conv_impl = conv_impl
+        self.int8 = _set_conv_impl(self, conv_impl)
         if dtype != torch.float32:
             self.convert_torso(dtype)
         # conv weights in the activations' layout, once: cuDNN would otherwise
@@ -353,8 +404,8 @@ class UNetModel(nn.Module):
         self.to(memory_format=torch.channels_last)
 
     def convert_torso(self, dtype: torch.dtype) -> None:
-        """Cast the torso's conv and conv1d weights to ``dtype``."""
-        _convert_torso((self.input_blocks, self.middle_block, self.output_blocks), dtype)
+        """Cast the torso's conv (not under int8) and conv1d weights to ``dtype``."""
+        _convert_torso((self.input_blocks, self.middle_block, self.output_blocks), dtype, self.int8)
 
     def forward(self, x, timesteps, y=None, clip_feat=None):
         cfg = self.config
@@ -401,9 +452,11 @@ class EncoderUNetModel(nn.Module):
     ``out.0``, ``out.1`` and ``out.3`` for spatial_v2). The torso runs in
     ``dtype``, the head in f32. Call: ``model(x, timesteps)`` with x of shape
     (B, in_channels, H, W); returns (B, out_channels) logits in x's dtype.
+    ``conv_impl`` as for ``UNetModel``.
     """
 
-    def __init__(self, config: UNetConfig, pool: str = "adaptive", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: UNetConfig, pool: str = "adaptive", dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "auto"):
         super().__init__()
         if pool not in ("adaptive", "attention", "spatial", "spatial_v2"):
             raise NotImplementedError(f"unexpected pool: {pool}")
@@ -441,8 +494,10 @@ class EncoderUNetModel(nn.Module):
             self.out = nn.Sequential(
                 nn.Linear(feature_size, 2048), normalization(2048), nn.SiLU(), nn.Linear(2048, out)
             )
+        self.conv_impl = conv_impl
+        self.int8 = _set_conv_impl(self, conv_impl)
         if dtype != torch.float32:
-            _convert_torso((self.input_blocks, self.middle_block), dtype)
+            _convert_torso((self.input_blocks, self.middle_block), dtype, self.int8)
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x, timesteps):

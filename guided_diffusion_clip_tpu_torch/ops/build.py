@@ -43,6 +43,11 @@ _SIGNATURES = {
     # x, ps1, ps2, gamma, beta, ss, sb, a, b, stats, y, B, HW, C, G, eps, silu, splits, vec, dtype,
     # stream
     "gdc_group_norm": [_P] * 11 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # x, partial, gamma, beta, ss, sb, affine, stats, scales, q, B, HW, C, G, eps, silu, splits, vec,
+    # dtype, s8, stream
+    "gdc_group_norm_quant": [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P],
+    # q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, stride, pad, Ho, Wo, KRp, out_dtype, stream
+    "gdc_conv_s8": [_P] * 6 + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()

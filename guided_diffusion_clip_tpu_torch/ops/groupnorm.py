@@ -217,17 +217,189 @@ class GroupNormFunction(torch.autograd.Function):
                 None, None, None)
 
 
+def _needs_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)
+
+
 def group_norm(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, silu: bool = False, scale_shift=None):
     """Dispatching entry point: plain on CPU, K3 on CUDA; inputs that require
     grad go through ``GroupNormFunction``.
 
     The JAX signature minus its int8 arguments and its ``impl`` switch: the
     device decides, so no setting sends a CUDA tensor to the plain version.
+    The int8 variant is ``group_norm_quant``.
     """
     if x.shape[-1] % groups:
         raise ValueError(f"channels {x.shape[-1]} not divisible by {groups} groups")
     ss, sb = scale_shift if scale_shift is not None else (None, None)
-    inputs = (x, scale, bias, ss, sb)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+    if _needs_grad(x, scale, bias, ss, sb):
         return GroupNormFunction.apply(x, scale, bias, ss, sb, groups, eps, silu)
     return _group_norm_stats(x, scale, bias, groups, eps, silu, scale_shift)[0]
+
+
+# ---------------------------------------------------------------------------
+# The quantizing GroupNorm (kernel K4): the same statistics and folded affine,
+# plus the per-image int8 scale s from each channel's min and max of x, and
+# q = clip(round(y / s), -127, 127) in place of y.
+# ---------------------------------------------------------------------------
+
+
+def _bound_scale(a, b, xmin, xmax, silu: bool):
+    """Exact per-image int8 scale (s, 1/s), both (B,), from the folded
+    affine a, b and the channels' extremes of x, all (B, C) f32: y is affine
+    in raw x, so max|y_c| = max(|a_c xmax_c + b_c|, |a_c xmin_c + b_c|); SiLU
+    only shrinks magnitudes except for its -0.2785 floor."""
+    bound = torch.maximum((a * xmax + b).abs(), (a * xmin + b).abs()).amax(dim=-1)
+    if silu:
+        bound = bound.clamp(min=0.2785)
+    s = bound.clamp(min=1e-6) * (1.0 / 127.0)
+    return s, 1.0 / s
+
+
+def _group_norm_quant_plain_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
+    """``group_norm_quant_plain``'s (q, s) and the (2, B, G) f32 mean and rstd."""
+    B, C = x.shape[0], x.shape[-1]
+    xf = x.float()
+    spatial = xf.shape[1:-1]
+    xg = xf.reshape(B, -1, groups, C // groups)
+    n = xg.shape[1] * xg.shape[3]
+    mean = xg.sum(dim=(1, 3)) / n  # (B, G)
+    var = (xg * xg).sum(dim=(1, 3)) / n - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    a = rstd.repeat_interleave(C // groups, dim=1) * scale.float()  # (B, C)
+    b = bias.float() - mean.repeat_interleave(C // groups, dim=1) * a
+    if scale_shift is not None:
+        k = 1.0 + scale_shift[0].float().reshape(B, C)
+        a = a * k
+        b = b * k + scale_shift[1].float().reshape(B, C)
+    bshape = (B,) + (1,) * len(spatial) + (C,)
+    y = xf * a.reshape(bshape) + b.reshape(bshape)
+    if silu:
+        y = torch.nn.functional.silu(y)
+    flat = xf.reshape(B, -1, C)
+    s, inv = _bound_scale(a, b, flat.amin(dim=1), flat.amax(dim=1), silu)
+    q = torch.round(y * inv.reshape((B,) + (1,) * (y.dim() - 1))).clamp(-127, 127)
+    return q.to(out_dtype), s, torch.stack([mean, rstd])
+
+
+def group_norm_quant_plain(x, scale, bias, groups: int, eps: float, silu: bool, scale_shift,
+                           out_dtype=torch.int8):
+    """Plain PyTorch version of K4, mirroring ``_gn_ref_quant_math``: the
+    folded affine ``y = x * a + b`` (not ``_gn_reference``'s
+    ``(x - mean) * rstd * scale + bias``), then (q, s) with q in
+    ``out_dtype`` (s8, or integer values in x's dtype) and s (B,) f32."""
+    return _group_norm_quant_plain_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype)[:2]
+
+
+def fused_group_norm_quant(x, scale, bias, groups: int, eps: float, silu: bool, scale_shift,
+                           out_dtype=torch.int8):
+    """Kernel K4 on a CUDA tensor x (B, *spatial, C), contiguous: (q, s),
+    q contiguous in x's shape (NHWC, which K5 reads directly) in
+    ``out_dtype`` (s8 or x's dtype). Stats with min/max, the finalize (the
+    affine, each group's mean and rstd, and the per-image s) and the
+    quantizing apply are three launches of ``csrc/groupnorm.cu``.
+
+    It records no backward: inputs that require grad go through
+    ``group_norm_quant``, which wraps K4 in ``GroupNormQuantFunction``.
+    """
+    return _fused_group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype)[:2]
+
+
+def _fused_group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
+    inputs = (x, scale, bias, *(scale_shift or ()))
+    if _needs_grad(*inputs):
+        raise RuntimeError("fused_group_norm_quant records no backward; call group_norm_quant()")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"group_norm_quant kernel takes float32 or bfloat16, got {x.dtype}")
+    if out_dtype not in (torch.int8, x.dtype):
+        raise TypeError(f"group_norm_quant kernel emits int8 or x's dtype, not {out_dtype}")
+    if not x.is_contiguous():
+        raise ValueError("group_norm_quant kernel needs x contiguous in (B, *spatial, C) order")
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_quant kernel needs a CUDA tensor, got one on {x.device}")
+    B, C = x.shape[0], x.shape[-1]
+    hw = x.numel() // (B * C)
+    vec = _vec(x, C)
+    splits = _splits(B, hw, C, vec)
+    dev = x.device
+    gamma = scale.to(device=dev, dtype=torch.float32).contiguous()
+    beta = bias.to(device=dev, dtype=torch.float32).contiguous()
+    ss = sb = None
+    if scale_shift is not None:
+        ss, sb = (t.to(device=dev, dtype=torch.float32).reshape(B, C).contiguous() for t in scale_shift)
+    partial = torch.empty((4, B, splits, C), dtype=torch.float32, device=dev)
+    affine = torch.empty((2, B, C), dtype=torch.float32, device=dev)
+    stats = torch.empty((2, B, groups), dtype=torch.float32, device=dev)
+    scales = torch.empty((2, B), dtype=torch.float32, device=dev)
+    q = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    rc = build.load().gdc_group_norm_quant(
+        x.data_ptr(), partial.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if ss is None else ss.data_ptr(), None if sb is None else sb.data_ptr(),
+        affine.data_ptr(), stats.data_ptr(), scales.data_ptr(), q.data_ptr(),
+        B, hw, C, groups, eps, int(silu), splits, vec, _DTYPE_CODE[x.dtype], int(out_dtype == torch.int8),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(rc, "gdc_group_norm_quant")
+    fused_group_norm_quant.launches += 1
+    return q, scales[0], stats
+
+
+fused_group_norm_quant.launches = 0
+
+
+def _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
+    if x.device.type == "cpu":
+        return _group_norm_quant_plain_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype)
+    if x.device.type == "cuda":
+        return _fused_group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype)
+    raise ValueError(f"group_norm_quant: no implementation for device {x.device}")
+
+
+class GroupNormQuantFunction(torch.autograd.Function):
+    """K4 (the plain version on the CPU) forward emitting integer-valued q in
+    x's dtype; straight-through backward, as the JAX package's
+    ``_gn_ref_quant_bwd``: ``dy = (dq / s).to(x.dtype)`` (s is
+    stop-gradient), then ``group_norm_bwd`` from the mean and rstd that the
+    forward wrote."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, ss, sb, groups, eps, silu):
+        scale_shift = None if ss is None else (ss, sb)
+        q, s, stats = _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, x.dtype)
+        ctx.mark_non_differentiable(s)
+        ctx.save_for_backward(x, scale, bias, ss, sb, stats, s)
+        ctx.groups, ctx.silu = groups, silu
+        return q, s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dq, _ds):
+        x, scale, bias, ss, sb, stats, s = ctx.saved_tensors
+        dy = (dq.float() / s.reshape((-1,) + (1,) * (dq.dim() - 1))).to(x.dtype)
+        scale_shift = None if ss is None else (ss, sb)
+        dx, dscale, dbias, dss, dsb = group_norm_bwd(
+            x, dy, stats[0], stats[1], scale, bias, ctx.groups, ctx.silu, scale_shift,
+            needs=ctx.needs_input_grad[:5],
+        )
+        cast = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
+        return (dx, cast(dscale, scale), cast(dbias, bias), cast(dss, ss), cast(dsb, sb),
+                None, None, None)
+
+
+def group_norm_quant(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, silu: bool = False,
+                     scale_shift=None):
+    """The quantizing GroupNorm: (q, s) with ``y ~= q * s[b]``, q of x's
+    shape in [-127, 127], s (B,) f32. Plain on the CPU, K4 on CUDA.
+
+    The emission follows autograd, in place of the JAX package's
+    ``int8_emit``: with nothing to differentiate, q is real s8 (the
+    generator's sampling path); when an input requires grad, q holds the
+    same integers in x's dtype and goes through ``GroupNormQuantFunction``
+    (the guided classifier).
+    """
+    if x.shape[-1] % groups:
+        raise ValueError(f"channels {x.shape[-1]} not divisible by {groups} groups")
+    ss, sb = scale_shift if scale_shift is not None else (None, None)
+    if _needs_grad(x, scale, bias, ss, sb):
+        return GroupNormQuantFunction.apply(x, scale, bias, ss, sb, groups, eps, silu)
+    return _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, torch.int8)[:2]

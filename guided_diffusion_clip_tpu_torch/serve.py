@@ -15,6 +15,8 @@
 The same flags, endpoints, JSON and npz bytes as scripts/serve.py, plus
 ``--device`` (default ``cuda``; the model runs where it says, and a missing
 card is an error). ``--model_path`` is a reference-format ``.pt`` state_dict.
+``--conv_impl int8`` runs the convs on the int8 path (kernels K4 and K5);
+``auto`` and ``xla`` run them through cuDNN in the model's dtype.
 
 Requests are padded to the smallest fitting batch bucket (``--batch_buckets``,
 routed by the warm latency measured at startup) and sliced back; larger
@@ -24,11 +26,13 @@ it. RNG is PER-SAMPLE (``diffusion.sampling.sample_generators``): sample i
 draws only from its own generator, seeded from (seed, subidx), so its result
 does not depend on padding or co-batched requests. That makes COALESCING
 safe: with ``--coalesce_ms W > 0`` concurrent requests that fit in one batch
-share one chain.
+share one chain. Under ``--conv_impl int8`` that independence does not hold,
+in the JAX server as here: the per-tensor activation scale of ``int8_conv``
+spans the whole batch, so a sample's bytes depend on what it was batched
+with (the same request served the same way gives the same bytes).
 
 Not yet ported, and rejected at startup: ``--cfg_scale``, ``--cfg_cache``,
-``--guidance_interval``, ``--deep_cache``, ``--conv_impl int8`` and
-``--sampler dpm++2m``.
+``--guidance_interval``, ``--deep_cache`` and ``--sampler dpm++2m``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from .diffusion.sampling import sample_generators
+from .models.unet import CONV_IMPLS
 from .utils.checkpoint import load_model_weights
 from .utils.saving_imgs import tensor2img
 from .utils.script_util import (
@@ -74,11 +79,8 @@ class Sampler:
         for name, off in _UNPORTED.items():
             if getattr(args, name, off) != off:
                 raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
-        if getattr(args, "conv_impl", "auto") != "auto":
-            raise SystemExit(
-                f"--conv_impl {args.conv_impl}: not yet ported to the PyTorch package "
-                "(convs run through cuDNN in the model's dtype)"
-            )
+        if getattr(args, "conv_impl", "auto") not in CONV_IMPLS:
+            raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {CONV_IMPLS}")
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device is available")
@@ -87,7 +89,7 @@ class Sampler:
         self.args = args
         self.batch = args.batch_size
         model, diffusion = create_model_and_diffusion(
-            **args_to_dict(args, model_and_diffusion_defaults().keys())
+            **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl
         )
         load_model_weights(model, args.model_path)
         self.model = model.to(self.device).eval()
@@ -367,7 +369,7 @@ def create_argparser():
         seed=0,
         use_ddim=False,
         sampler="",        # "", ancestral, ddim (dpm++2m not yet ported)
-        conv_impl="auto",  # int8 not yet ported
+        conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         cfg_scale=0.0,     # not yet ported
         cfg_cache=0,       # not yet ported
         guidance_interval="",  # not yet ported

@@ -5,6 +5,8 @@ that serving and classifier-guided sampling need. The flag surface is the
 reference's; ``use_fp16`` and ``classifier_use_fp16`` map to a bf16 torso.
 NUM_CLASSES = 512: the fork repurposes the class count as the CLIP embedding
 dimension (the upstream UNet and the classifier keep 1000 ImageNet classes).
+The factories take ``conv_impl`` ("auto", "xla" or "int8", the JAX package's
+``set_conv_impl``) as a constructor argument of the models.
 """
 
 from __future__ import annotations
@@ -118,6 +120,7 @@ def create_model(
     resblock_updown=False,
     use_fp16=False,
     use_new_attention_order=False,
+    conv_impl="auto",
 ) -> UNetModel:
     """The fork's default model: UNetModel_clip_feat (reference script_util.py:131-187)."""
     cfg = _model_config(
@@ -125,10 +128,10 @@ def create_model(
         use_checkpoint, attention_resolutions, num_heads, num_head_channels, num_heads_upsample,
         use_scale_shift_norm, dropout, resblock_updown, use_new_attention_order,
     )
-    return UNetModel_clip_feat(cfg, dtype=_dtype(use_fp16))
+    return UNetModel_clip_feat(cfg, dtype=_dtype(use_fp16), conv_impl=conv_impl)
 
 
-def create_upstream_model(*, use_fp16=False, **kw) -> UNetModel:
+def create_upstream_model(*, use_fp16=False, conv_impl="auto", **kw) -> UNetModel:
     """Plain upstream UNetModel with a 1000-row class table (``nn.Embedding``),
     for the released ADM checkpoints that do not use CLIP embeddings; takes
     ``create_model``'s arguments."""
@@ -136,7 +139,7 @@ def create_upstream_model(*, use_fp16=False, **kw) -> UNetModel:
         _model_config(**kw), variant="unet", label_emb_type="embedding",
         num_classes=1000 if kw.get("class_cond") else None,
     )
-    return UNetModel(cfg, dtype=_dtype(use_fp16))
+    return UNetModel(cfg, dtype=_dtype(use_fp16), conv_impl=conv_impl)
 
 
 def _model_config(
@@ -189,6 +192,7 @@ def create_classifier(
     classifier_use_scale_shift_norm,
     classifier_resblock_updown,
     classifier_pool,
+    conv_impl="auto",
 ) -> EncoderUNetModel:
     """EncoderUNet classifier, 1000 classes, 64-channel heads (reference
     script_util.py:231-269)."""
@@ -204,7 +208,7 @@ def create_classifier(
         use_scale_shift_norm=classifier_use_scale_shift_norm,
         resblock_updown=classifier_resblock_updown,
     )
-    return EncoderUNetModel(cfg, pool=classifier_pool, dtype=_dtype(classifier_use_fp16))
+    return EncoderUNetModel(cfg, pool=classifier_pool, dtype=_dtype(classifier_use_fp16), conv_impl=conv_impl)
 
 
 def create_gaussian_diffusion(
@@ -268,6 +272,7 @@ def create_model_and_diffusion(
     resblock_updown,
     use_fp16,
     use_new_attention_order,
+    conv_impl="auto",
 ):
     model = create_model(
         image_size,
@@ -286,6 +291,7 @@ def create_model_and_diffusion(
         resblock_updown=resblock_updown,
         use_fp16=use_fp16,
         use_new_attention_order=use_new_attention_order,
+        conv_impl=conv_impl,
     )
     diffusion = create_gaussian_diffusion(
         steps=diffusion_steps,

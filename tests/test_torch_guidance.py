@@ -178,9 +178,48 @@ def test_classifier_sample_cli_on_cpu(tmp_path):
     np.testing.assert_array_equal(again["arr_1"], labels)
 
 
+def _cli_argv(tmp_path, *extra):
+    argv = [
+        "--device", "cpu", "--model_path", str(tmp_path / "model.pt"),
+        "--classifier_path", str(tmp_path / "classifier.pt"), "--use_fp16", "True",
+        "--timestep_respacing", "3", "--batch_size", "2", "--num_samples", "2",
+        "--classifier_scale", "10.0", "--seed", "7", *extra,
+    ]
+    for k, v in {**CLI_UNET, **CLI_CLASSIFIER}.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def test_classifier_sample_conv_impls_on_cpu(tmp_path):
+    """``--conv_impl xla`` is the default bf16 path (the same bytes as
+    ``auto``); ``--conv_impl int8`` (K4 and K5's plain versions here) gives
+    other samples of the same kind, and the same bytes again."""
+    _random_pt(create_upstream_model(**CLI_UNET), tmp_path / "model.pt", 0)
+    _random_pt(create_classifier(**CLI_CLASSIFIER), tmp_path / "classifier.pt", 1)
+    images = {}
+    for impl in ("auto", "xla", "int8", "int8"):
+        out = CS.main(_cli_argv(tmp_path, "--conv_impl", impl, "--main_path", str(tmp_path / impl)))
+        data = np.load(out["path"])
+        assert data["arr_0"].shape == (2, 64, 64, 3) and data["arr_0"].dtype == np.uint8
+        if impl in images:
+            np.testing.assert_array_equal(data["arr_0"], images[impl])
+        images[impl] = data["arr_0"]
+    np.testing.assert_array_equal(images["xla"], images["auto"])
+    assert (images["int8"] != images["auto"]).any()
+    assert all(images["int8"][i].std() > 0 for i in range(2))
+
+
+def test_classifier_sample_refuses_unknown_conv_impl(tmp_path):
+    argv = ["--device", "cpu", "--model_path", "m.pt", "--classifier_path", "c.pt",
+            "--main_path", str(tmp_path), "--conv_impl", "int4"]
+    with pytest.raises(SystemExit, match="choose from"):
+        CS.main(argv)
+    assert not os.listdir(tmp_path)
+
+
 @pytest.mark.parametrize("flag,value", [
     ("guidance_interval", "100,900"), ("guidance_cache", "2"), ("deep_cache", "2"),
-    ("conv_impl", "int8"), ("sampler", "dpm++2m"), ("spatial_shard", "2"), ("tensor_shard", "2"),
+    ("sampler", "dpm++2m"), ("spatial_shard", "2"), ("tensor_shard", "2"),
 ])
 def test_classifier_sample_refuses_what_is_not_ported(flag, value, tmp_path):
     argv = ["--device", "cpu", "--model_path", "m.pt", "--classifier_path", "c.pt",

@@ -123,3 +123,111 @@ def test_group_norm_kernel(dev, shape, dtype, tol, fused):
     assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
     with torch.inference_mode():
         assert torch.equal(G.group_norm(x, w, b, silu=fused, scale_shift=ss), out)
+
+
+def _q_flips_ok(q, ref, share=1e-4):
+    """q within one level of ref, off on at most max(1, share * n) elements
+    (a y at a rounding boundary may round the other way after a sum in
+    another order)."""
+    d = (q.float() - ref.float()).abs()
+    assert d.max() <= 1, d.max()
+    assert (d > 0).sum().item() <= max(1, share * d.numel()), (d > 0).sum().item()
+
+
+@pytest.mark.parametrize("emit", ["s8", "x"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 256), (2, 8, 8, 1024), (3, 77, 96), (1, 5, 64)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_group_norm_quant_kernel(dev, shape, dtype, emit, fused):
+    """K4 against ``group_norm_quant_plain``: s to rtol 1e-6, q within one
+    level on at most 1e-4 of the elements; one launch; repeat runs
+    bit-identical."""
+    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+
+    g = torch.Generator(device=dev).manual_seed(len(shape) + 3)
+    B, C = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    w = torch.randn(C, generator=g, device=dev) * 0.1 + 1
+    b = torch.randn(C, generator=g, device=dev) * 0.1
+    ss = (torch.randn(B, C, generator=g, device=dev) * 0.2,
+          torch.randn(B, C, generator=g, device=dev) * 0.2) if fused else None
+    out_dtype = torch.int8 if emit == "s8" else dtype
+    args = (x, w, b, 32, 1e-5, fused, ss, out_dtype)
+    with torch.inference_mode():
+        n0 = G.fused_group_norm_quant.launches
+        q, s = G.fused_group_norm_quant(*args)
+        rq, rs = G.group_norm_quant_plain(*args)
+        torch.cuda.synchronize()
+    assert G.fused_group_norm_quant.launches == n0 + 1
+    assert q.dtype == out_dtype and q.shape == x.shape and s.shape == (B,)
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+    _q_flips_ok(q, rq)
+    with torch.inference_mode():
+        q2, s2 = G.fused_group_norm_quant(*args)
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+
+
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,W,C,K,k,stride,per_image",
+    [(2, 16, 16, 64, 64, 3, 1, True), (2, 8, 8, 512, 256, 3, 1, True), (1, 9, 10, 3, 256, 3, 1, False),
+     (2, 16, 16, 256, 6, 3, 1, False), (2, 8, 8, 512, 256, 1, 1, False), (2, 16, 16, 64, 96, 3, 2, False),
+     (1, 7, 5, 32, 40, 3, 1, True)],
+)
+def test_conv_s8_kernel(dev, B, H, W, C, K, k, stride, per_image, out_dtype):
+    """K5 against ``conv_s8_plain``: 3x3 and 1x1, the 3-channel stem, the
+    6-channel head, stride 2, odd sizes; f32 within 1e-6 * max(1, |ref|),
+    bf16 within 2e-2 * max(1, |ref|); one launch; repeat runs bit-identical."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(C + K + k)
+    q = torch.randint(-127, 128, (B, H, W, C), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randn(k, k, C, K, generator=g, device=dev) * 0.05
+    w_q, s_w = Q.quantize_per_out_channel(w)
+    s_img = torch.rand(B, generator=g, device=dev) * 0.02 + 0.001 if per_image else None
+    bias = torch.randn(K, generator=g, device=dev) * 0.1
+    n0 = Q.conv_s8_cuda.launches
+    out = Q.conv_s8(q, w_q, s_img, s_w, bias, stride, out_dtype)
+    ref = Q.conv_s8_plain(q, w_q, s_img, s_w, bias, stride, out_dtype)
+    torch.cuda.synchronize()
+    assert Q.conv_s8_cuda.launches == n0 + 1
+    Ho = (H + 2 * ((k - 1) // 2) - k) // stride + 1
+    assert out.dtype == out_dtype and out.shape == (B, Ho, (W + 2 * ((k - 1) // 2) - k) // stride + 1, K)
+    tol = 1e-6 if out_dtype == torch.float32 else 2e-2
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
+    assert torch.equal(Q.conv_s8(q, w_q, s_img, s_w, bias, stride, out_dtype), out)
+
+
+def test_int8_autograd_on_the_card(dev):
+    """GN_q -> conv_prequant with gradients on CUDA (K4 emitting integer-
+    valued f32, K5, the straight-through backwards through cuDNN) against
+    the same on the CPU (plain versions): q and the output within one level
+    of rounding, the gradient of x within the bf16 backward's 2e-2."""
+    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 16, 16, 128, generator=g) * 2 + 0.5
+    w, b = torch.rand(128, generator=g) + 0.5, torch.randn(128, generator=g) * 0.1
+    cw, cb = torch.randn(3, 3, 128, 64, generator=g) * 0.05, torch.randn(64, generator=g) * 0.1
+    ct = torch.randn(2, 16, 16, 64, generator=g)
+
+    def run(device):
+        xx = x.to(device).requires_grad_(True)
+        q, s = G.group_norm_quant(xx, w.to(device), b.to(device), silu=True)
+        assert q.dtype == torch.float32 and q.requires_grad
+        y = Q.conv_prequant(q, s, cw.to(device), cb.to(device))
+        (y * ct.to(device)).sum().backward()
+        return y.detach().cpu(), xx.grad.cpu()
+
+    n4, n5 = G.fused_group_norm_quant.launches, Q.conv_s8_cuda.launches
+    y, dx = run(dev)
+    assert (G.fused_group_norm_quant.launches, Q.conv_s8_cuda.launches) == (n4 + 1, n5 + 1)
+    ry, rdx = run("cpu")
+    assert ((y - ry).norm() / ry.norm()).item() <= 1e-3
+    assert (dx - rdx).abs().max() <= 2e-2 * rdx.abs().max()

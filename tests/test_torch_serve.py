@@ -193,11 +193,53 @@ def test_coalescing_under_many_concurrent_clients(ckpt):
 @pytest.mark.parametrize(
     "flag,value",
     [("cfg_scale", "1.5"), ("cfg_cache", "2"), ("guidance_interval", "0,500"),
-     ("deep_cache", "3"), ("conv_impl", "int8")],
+     ("deep_cache", "3")],
 )
 def test_unported_flags_raise(flag, value):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.Sampler(serve.parse_args([*TINY, f"--{flag}", value, "--model_path", "unused.pt"]))
+
+
+def test_unknown_conv_impl_is_refused():
+    with pytest.raises(SystemExit, match="choose from"):
+        serve.Sampler(serve.parse_args([*TINY, "--conv_impl", "int4", "--model_path", "unused.pt"]))
+
+
+def test_serve_conv_impl_xla_is_the_default_path(ckpt):
+    """``--conv_impl xla`` (the JAX package's name for the bf16 path) serves
+    the same bytes as the default ``auto``."""
+    req = dict(num_samples=2, seed=5)
+    out = {}
+    for impl in ("auto", "xla"):
+        srv = _Server([*TINY, "--model_path", ckpt, "--conv_impl", impl])
+        try:
+            out[impl] = srv.fetch(**req)
+        finally:
+            srv.close()
+    np.testing.assert_array_equal(out["xla"], out["auto"])
+
+
+def test_serve_int8_on_cpu(ckpt):
+    """``--conv_impl int8`` (K4 and K5's plain versions here): the same
+    request served twice gives the same bytes, and the samples differ from
+    the bf16 path's. Not asserted: packing invariance. ``int8_conv``'s
+    per-tensor scale spans the whole batch, in the JAX server as here, so
+    under int8 a sample depends on what it is batched with."""
+    srv = _Server([*TINY, "--model_path", ckpt, "--conv_impl", "int8"])
+    try:
+        assert srv.sampler.model.int8
+        a = srv.fetch(num_samples=2, seed=3)
+        assert a.shape == (2, 16, 16, 3) and a.dtype == np.uint8 and a.std() > 0
+        np.testing.assert_array_equal(srv.fetch(num_samples=2, seed=3), a)
+        a6 = srv.fetch(num_samples=6, seed=3)  # chunked: 4 + 2
+        assert a6.shape == (6, 16, 16, 3)
+    finally:
+        srv.close()
+    plain = _Server([*TINY, "--model_path", ckpt])
+    try:
+        assert (plain.fetch(num_samples=2, seed=3) != a).any()
+    finally:
+        plain.close()
 
 
 def test_dpm_solver_not_yet_ported():
