@@ -48,11 +48,35 @@ The int8 path (``--conv_impl int8``, kernels K4 and K5) adds:
       samples' spread held to the bf16 chain's, and one int8 guided step
       timed by part and profiled by kernel.
 
-Every count is set to 0 just before each main path (phases 5, 5b, 6 and 6b)
-and read just after it. The last lines are the kernels' JSON record
-(``launches`` summed over the main paths), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result. It imports nothing of JAX.
+The deploy preset's sampling knobs and the last two kernels add:
+  3e. K6 (the fused quantizing conv) against its plain version at 256 px,
+      256 -> 256 and 32 px, 512 -> 512, batch 8, f32 and bf16 inputs, both
+      modes, with cuDNN's bf16 conv timed at the same shapes;
+  3f. K7 (the tensor-core probe) against its plain version (s8 bit for bit,
+      wrapped sums included; bf16 at small T), then its two-T rate;
+  4e. a full-width ``cache_mode="full"`` forward and a ``"shallow"`` one fed
+      its deep feature (batch 1, f32, TF32 off), card against CPU, and on
+      the card the shallow forward against the plain one at the same (x, t);
+  5c. ``serve --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m``, bf16, 25
+      steps: the same request twice gives the same bytes, and the model ran
+      steps + refreshes times a chain;
+  6c. ``classifier_sample.main`` with the preset's four knobs (``--conv_impl
+      int8 --deep_cache 5 --guidance_cache 2 --guidance_interval 200,800``),
+      250 ancestral steps at batch 8: the launch counts equal those derived
+      from the modules (full and shallow forwards) and from the schedule
+      (which steps run the classifier);
+  7.  the two tool entry points, ``tools.conv_bench`` and
+      ``tools.mxu_ceiling``, called in-process: the paths that launch K6, K7.
+
+Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
+6c and 7) and read just after it. The last lines are the kernels' JSON record
+(``launches`` summed over the main paths; ``bound_ms`` the least time the card
+could take, from the bytes moved at 3.35 TB/s and the operations at the
+data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
+that computes the same function, timed here and used nowhere in the port),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero and prints no result. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -137,9 +161,25 @@ def tf32_off() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+# the H100's data-sheet rates (SXM, dense): device memory, and operations by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
+
+
+def record(err, ms, plain_ms, nbytes, ops, op_type, library_ms=None) -> dict:
+    """A kernel's headline record. ``nbytes``: every input read once and every
+    output written once; ``ops``: the operations of the function on these
+    inputs, of type ``op_type``."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[op_type]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
 def phase3_kernels(dev):
     """Each kernel against its plain version; returns the headline records."""
     import torch
+    import torch.nn.functional as F
 
     from guided_diffusion_clip_tpu_torch.ops import attention as A
     from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
@@ -181,7 +221,12 @@ def phase3_kernels(dev):
                 pms = cuda_ms(lambda: A.qkv_attention_plain(qkv, H, new_order=new))
                 log(f"  {name}: max|d| {err:.3g} ({bound}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
                 if (B, T, H, d, new, dtype) == (8, 1024, 8, 64, False, torch.bfloat16):
-                    records["attention"] = (err, ms, pms)
+                    q, k, v = (t.permute(0, 2, 1, 3) for t in A.split_qkv(qkv, H, new))
+                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                    log(f"    F.scaled_dot_product_attention on the same q, k, v: {lib:.4f} ms")
+                    records["attention"] = record(
+                        err, ms, pms, nbytes=4 * B * T * H * d * 2, ops=4 * B * H * T * T * d,
+                        op_type="bf16", library_ms=lib)
 
         for B, hw, C in [(8, 256 * 256, 256), (8, 8 * 8, 1024)]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -204,7 +249,14 @@ def phase3_kernels(dev):
                     pms = cuda_ms(lambda: G.group_norm_plain(*args))
                     log(f"  {name}: max|d| {err:.3g} ({bound}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
                     if (B, hw, C, dtype, fused) == (8, 65536, 256, torch.bfloat16, True):
-                        records["group_norm"] = (err, ms, pms)
+                        xc = x.transpose(1, 2).contiguous()  # (B, C, HW), the layout F.group_norm takes
+                        wl, bl = w.to(dtype), b.to(dtype)
+                        lib = cuda_ms(lambda: F.silu(F.group_norm(xc, 32, wl, bl, 1e-5)))
+                        log(f"    F.silu(F.group_norm(x)) on the same x (no scale-shift): {lib:.4f} ms")
+                        # 8 f32 operations an element (two moments, normalize, affine, SiLU)
+                        records["group_norm"] = record(
+                            err, ms, pms, nbytes=2 * B * hw * C * 2, ops=8 * B * hw * C, op_type="f32",
+                            library_ms=lib)
     return records
 
 
@@ -212,12 +264,13 @@ def phase3b_attention_bwd(dev):
     """K2 against attention_bwd_plain at the classifier's shapes; returns the
     headline record (T = 1024, bf16)."""
     import torch
+    import torch.nn.functional as F
 
     from guided_diffusion_clip_tpu_torch.ops import attention as A
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(5)
-    record = None
+    headline = None
     cases = [  # (B, T, heads, d, new_order): the classifier's blocks at batch 8, then its pool
         (8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), (8, 65, 8, 64, True),
     ]
@@ -240,8 +293,16 @@ def phase3b_attention_bwd(dev):
             pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
             log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms")
             if (T, dtype) == (1024, torch.bfloat16):
-                record = (err, ms, pms)
-    return record
+                q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, new))
+                with torch.enable_grad():
+                    o = F.scaled_dot_product_attention(q, k, v)
+                dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
+                lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True))
+                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms")
+                # five T x T x d products: S again, dP, dV, dQ, dK
+                headline = record(err, ms, pms, nbytes=(3 + 1 + 3) * B * T * H * d * 2,
+                                  ops=10 * B * H * T * T * d, op_type="bf16", library_ms=lib)
+    return headline
 
 
 def phase3c_group_norm_quant(dev):
@@ -253,7 +314,7 @@ def phase3c_group_norm_quant(dev):
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(7)
-    record = None
+    headline = None
     with torch.inference_mode():
         for B, hw, C in [(8, 256 * 256, 256), (8, 32 * 32, 512), (8, 8 * 8, 2048)]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -288,8 +349,10 @@ def phase3c_group_norm_quant(dev):
                             f"(bound 1e-4 of {d.numel()}), max|q*s - ref| {deq:.3g}; kernel {ms:.4f} ms, "
                             f"plain {pms:.4f} ms")
                         if (hw, dtype, fused, out_dtype) == (65536, torch.bfloat16, True, torch.int8):
-                            record = (deq, ms, pms)
-    return record
+                            # x read in bf16, q written in s8; no PyTorch call quantizes a GroupNorm
+                            headline = record(deq, ms, pms, nbytes=B * hw * C * (2 + 1), ops=12 * B * hw * C,
+                                              op_type="f32")
+    return headline
 
 
 def phase3d_conv_s8(dev):
@@ -303,7 +366,7 @@ def phase3d_conv_s8(dev):
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(8)
-    record = None
+    headline = None
     cases = [  # (name, H, C, K, k, stride, per-image scales)
         ("3x3 256px", 256, 256, 256, 3, 1, True), ("3x3 32px", 32, 512, 512, 3, 1, True),
         ("3x3 8px", 8, 2048, 1024, 3, 1, True), ("stem", 256, 3, 256, 3, 1, False),
@@ -335,47 +398,171 @@ def phase3d_conv_s8(dev):
                 log(f"  {label}: max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)); kernel {ms:.4f} ms, "
                     f"plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
                 if (name, out_dtype) == ("3x3 256px", torch.bfloat16):
-                    record = (err, ms, pms)
+                    headline = record(err, ms, pms, nbytes=B * H * H * (C + 2 * K) + k * k * C * K,
+                                      ops=2 * B * H * H * C * K * k * k, op_type="s8", library_ms=cudnn_ms)
             del q, xb
-    return record
+    return headline
+
+
+def phase3e_fused_conv(dev):
+    """K6 against fused_conv3x3_plain at 256 px, 256 -> 256 and 32 px,
+    512 -> 512, batch 8, f32 and bf16 inputs, both modes, and cuDNN's bf16
+    conv timed at the same shapes; returns the headline record (quantized,
+    256 px, f32 in)."""
+    import torch
+    import torch.nn.functional as F
+
+    from guided_diffusion_clip_tpu_torch.ops import fused_conv as FC
+
+    tf32_off()
+    g = torch.Generator(device=dev).manual_seed(9)
+    headline = None
+    with torch.inference_mode():
+        for H, C, K in ((256, 256, 256), (32, 512, 512)):
+            B = 8
+            w = torch.randn(3, 3, C, K, generator=g, device=dev) * 0.05
+            bias = torch.randn(K, generator=g, device=dev) * 0.1
+            wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            for dtype in (torch.float32, torch.bfloat16):
+                # rows of unequal range, so that a wrong band scale would show
+                x = torch.randn(B, H, H, C, generator=g, device=dev)
+                x = (x * torch.linspace(0.25, 4.0, H, device=dev)[None, :, None, None]).to(dtype)
+                xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last NCHW view
+                cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, bias.to(torch.bfloat16), padding=1))
+                for quantized in (True, False):
+                    tol = 1e-6 if quantized and dtype == torch.float32 else 2e-2
+                    out = FC.fused_conv3x3_cuda(x, w, bias, quantized=quantized)
+                    ref = FC.fused_conv3x3_plain(x, w, bias, quantized=quantized)
+                    torch.cuda.synchronize()
+                    diff = (out.float() - ref.float()).abs()
+                    err = diff.max().item()
+                    label = (f"K6 fused_conv3x3 {'quantized' if quantized else 'bf16 mode'} {H}px B={B} "
+                             f"{C}->{K} in {str(dtype)[6:]}")
+                    if (out.shape != ref.shape or out.dtype != dtype or not torch.isfinite(out.float()).all()
+                            or not bool((diff <= tol * ref.float().abs().clamp(min=1)).all())):
+                        raise AssertionError(f"{label}: max|d| {err:.3g} fails {tol:g}*max(1,|ref|)")
+                    ms = cuda_ms(lambda: FC.fused_conv3x3_cuda(x, w, bias, quantized=quantized))
+                    pms = cuda_ms(lambda: FC.fused_conv3x3_plain(x, w, bias, quantized=quantized), runs=5, warmup=1)
+                    log(f"  {label}: max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)); kernel {ms:.4f} ms, "
+                        f"plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
+                    if (H, dtype, quantized) == (256, torch.float32, True):
+                        headline = record(err, ms, pms, nbytes=B * H * H * (C + K) * 4 + 9 * C * K * 4,
+                                          ops=2 * B * H * H * C * K * 9, op_type="s8", library_ms=cudnn_ms)
+                del x, xb
+    return headline
+
+
+def phase3f_mma_probe(dev):
+    """K7 against accumulating_dots_plain: s8 bit for bit at T = 1, 3, 64 and
+    2000 (the last two pass the s32 range, so they hold the wrap-around), bf16
+    within 1e-2 * max|ref| at T = 4; then the rate from T = 2000 and 6000.
+    Returns the headline record (s8, T = 2000). No one library call repeats
+    a product T times, so its library time is T times the measured time of
+    one ``torch._int_mm`` of the same operands."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import mma_probe as MP
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    x8 = torch.randint(-127, 128, (MP.BM, MP.BK), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (MP.BK, MP.BN), generator=g, device=dev, dtype=torch.int8)
+    xb = torch.randn(MP.BM, MP.BK, generator=g, device=dev).bfloat16()
+    wb = torch.randn(MP.BK, MP.BN, generator=g, device=dev).bfloat16()
+    for T in (1, 3, 64, 2000):
+        out, ref = MP.accumulating_dots_cuda(x8, w8, T), MP.accumulating_dots_plain(x8, w8, T)
+        torch.cuda.synchronize()
+        bad = int((out != ref).sum())
+        err_s8 = (out.long() - ref.long()).abs().max().item()  # the last T's is the headline's
+        if out.dtype != torch.int32 or bad:
+            raise AssertionError(f"K7 mma_probe s8 T={T}: {bad} of {out.numel()} entries differ from the plain "
+                                 f"version, max|d| {err_s8}")
+    log("  K7 mma_probe s8: bit-identical to the plain version (sum modulo 2^32) at T = 1, 3, 64, 2000")
+    out, ref = MP.accumulating_dots_cuda(xb, wb, 4), MP.accumulating_dots_plain(xb, wb, 4)
+    torch.cuda.synchronize()
+    err_bf16 = (out - ref).abs().max().item()
+    if not torch.isfinite(out).all() or not err_bf16 <= 1e-2 * ref.abs().max().item():
+        raise AssertionError(f"K7 mma_probe bf16 T=4: max|d| {err_bf16:.3g} fails 1e-2*max|ref|")
+    log(f"  K7 mma_probe bf16 T=4: max|d| {err_bf16:.3g} (bound 1e-2*max|ref| = {1e-2 * ref.abs().max().item():.3g})")
+    t_lo, t_hi = 2000, 6000
+    ops = 2 * MP.BM * MP.BK * MP.BN
+    times = {}
+    for name, (x, w) in (("s8", (x8, w8)), ("bf16", (xb, wb))):
+        lo = cuda_ms(lambda: MP.accumulating_dots_cuda(x, w, t_lo), runs=5, warmup=1)
+        hi = cuda_ms(lambda: MP.accumulating_dots_cuda(x, w, t_hi), runs=5, warmup=1)
+        rate = (t_hi - t_lo) * ops / ((hi - lo) * 1e-3)
+        if not hi > lo or rate > PEAK_OPS_PER_S[name]:
+            raise AssertionError(f"K7 mma_probe {name}: T={t_lo} {lo:.3f} ms, T={t_hi} {hi:.3f} ms: no valid slope")
+        times[name] = lo
+        log(f"  K7 mma_probe {name}: T={t_lo} {lo:.4f} ms, T={t_hi} {hi:.4f} ms, slope {rate / 1e12:.2f} T/s "
+            f"({100 * rate / PEAK_OPS_PER_S[name]:.1f} % of the data-sheet {PEAK_OPS_PER_S[name] / 1e12:.0f})")
+    pms = cuda_ms(lambda: MP.accumulating_dots_plain(x8, w8, t_lo), runs=5, warmup=1)
+    one_s8 = cuda_ms(lambda: torch._int_mm(x8, w8))
+    one_bf16 = cuda_ms(lambda: torch.matmul(xb, wb))
+    log(f"  one product: torch._int_mm {one_s8:.4f} ms ({ops / (one_s8 * 1e-3) / 1e12:.1f} TOP/s), torch.matmul bf16 "
+        f"{one_bf16:.4f} ms ({ops / (one_bf16 * 1e-3) / 1e12:.1f} TFLOP/s); {t_lo} of them {t_lo * one_s8:.4f} ms and "
+        f"{t_lo * one_bf16:.4f} ms, against K7's {times['s8']:.4f} ms and {times['bf16']:.4f} ms; plain version "
+        f"(one f64 product times T) {pms:.4f} ms")
+    # both operands read once, the sum written once
+    return record(float(err_s8), times["s8"], pms, nbytes=MP.BM * MP.BK + MP.BK * MP.BN + 4 * MP.BM * MP.BN,
+                  ops=t_lo * ops, op_type="s8", library_ms=t_lo * one_s8)
+
+
+def _wrappers() -> dict:
+    """Kernel name -> the wrapper that launches it (and counts its launches)."""
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+    from guided_diffusion_clip_tpu_torch.ops import fused_conv as FC
+    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+    from guided_diffusion_clip_tpu_torch.ops import mma_probe as MP
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    return {"attention": A.attention_fwd_cuda, "attention_bwd": A.attention_bwd_cuda,
+            "group_norm": G.fused_group_norm, "group_norm_quant": G.fused_group_norm_quant,
+            "conv_s8": Q.conv_s8_cuda, "conv_fused": FC.fused_conv3x3_cuda,
+            "mma_probe": MP.accumulating_dots_cuda}
 
 
 def counters() -> dict:
     """Every kernel wrapper's launch count."""
-    from guided_diffusion_clip_tpu_torch.ops import attention as A
-    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
-    from guided_diffusion_clip_tpu_torch.ops import quant as Q
-
-    return {"attention": A.attention_fwd_cuda.launches, "attention_bwd": A.attention_bwd_cuda.launches,
-            "group_norm": G.fused_group_norm.launches,
-            "group_norm_quant": G.fused_group_norm_quant.launches, "conv_s8": Q.conv_s8_cuda.launches}
+    return {fn_name: fn.launches for fn_name, fn in _wrappers().items()}
 
 
 def reset_counters() -> None:
-    from guided_diffusion_clip_tpu_torch.ops import attention as A
-    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
-    from guided_diffusion_clip_tpu_torch.ops import quant as Q
-
-    for fn in (A.attention_fwd_cuda, A.attention_bwd_cuda, G.fused_group_norm, G.fused_group_norm_quant,
-               Q.conv_s8_cuda):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def gn_conv_counts(model, int8: bool) -> dict:
-    """K3, K4 and K5 launches of one forward of ``model``'s structure with
-    ``int8`` or without, counted from its modules: under int8 every ResBlock's
+    """K3, K4 and K5 launches of one forward of ``model``'s structure (a
+    module, or a list of the modules a partial forward runs) with ``int8`` or
+    without, counted from its modules: under int8 every ResBlock's
     out_norm and every in_norm but a down block's quantizes (K4), every
     other GroupNorm is K3, and every conv runs K5 once; otherwise every
     GroupNorm is K3 and no conv runs K5."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import ResBlock
 
-    mods = list(model.modules())
+    roots = model if isinstance(model, (list, tuple)) else [model]
+    mods = [m for root in roots for m in root.modules()]
     gn = sum(isinstance(m, GroupNorm32) for m in mods)
     if not int8:
         return {"group_norm": gn, "group_norm_quant": 0, "conv_s8": 0}
     k4 = sum((1 if m.down else 2) for m in mods if isinstance(m, ResBlock))
     return {"group_norm": gn - k4, "group_norm_quant": k4, "conv_s8": sum(isinstance(m, Conv2d) for m in mods)}
+
+
+def unet_counts(model, int8: bool, shallow_cut=None) -> dict:
+    """K1, K3, K4 and K5 launches of one forward of a UNetModel, from its
+    modules: the whole model, or with ``shallow_cut`` the blocks that a
+    ``cache_mode="shallow"`` forward runs (``input_blocks[:cut]``, the last
+    ``cut`` output blocks and the head)."""
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
+
+    roots = [model]
+    if shallow_cut is not None:
+        n_in = len(model.input_blocks)
+        roots = [*list(model.input_blocks)[:shallow_cut], *list(model.output_blocks)[n_in - shallow_cut:], model.out]
+    attn = sum(isinstance(m, AttentionBlock) for root in roots for m in root.modules())
+    return {"attention": attn, **gn_conv_counts(roots, int8)}
 
 
 def random_state_dict(model):
@@ -420,6 +607,61 @@ def phase4_forward(dev, sd):
         f"{rel:.3g} (bound 1e-3); CPU forward {cpu_s:.2f} s")
     if not ref.norm() > 0 or not rel <= 1e-3:
         raise AssertionError(f"card forward differs from the CPU forward: rel L2 {rel:.3g}")
+    del model
+
+
+def phase4e_deep_cache(dev, sd):
+    """The UNet's cache modes at full width, batch 1, f32: a ``full`` forward
+    and a ``shallow`` one fed its deep feature, card against CPU; on the card
+    the shallow forward against the plain (``off``) one at the same (x, t),
+    which it must equal but for the order of the kernels' launches."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
+
+    tf32_off()
+    model = create_model(
+        256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
+        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, use_fp16=False,
+    ).eval()
+    model.load_state_dict(sd, strict=True)
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(1, 3, 256, 256, generator=g)
+    t = torch.tensor([500])
+    feat = torch.randn(1, 512, generator=g)
+
+    def run(m, to):
+        kw = dict(clip_feat=feat.to(to))
+        full, deep = m(x.to(to), t.to(to), cache_mode="full", **kw)
+        shallow, deep_back = m(x.to(to), t.to(to), deep_cache=deep, cache_mode="shallow", **kw)
+        if deep_back is not deep:
+            raise AssertionError("a shallow forward must hand back the deep feature it was given")
+        return full, deep, shallow
+
+    with torch.inference_mode():
+        ref = run(model, "cpu")
+        model.to(dev)
+        before = counters()
+        out = run(model, dev)
+        ran = {k: counters()[k] - before[k] for k in ("attention", "group_norm")}
+        off = model(x.to(dev), t.to(dev), clip_feat=feat.to(dev))
+    cut = model.config.num_res_blocks + 1
+    per_full, per_shallow = unet_counts(model, False), unet_counts(model, False, cut)
+    want = {k: per_full[k] + per_shallow[k] for k in ran}
+    if ran != want:
+        raise AssertionError(f"full + shallow forward launched {ran}, planned {want}")
+    if tuple(out[1].shape) != (1, 256, 256, 256):
+        raise AssertionError(f"deep feature {tuple(out[1].shape)}, not (1, 256, 256, 256)")
+    for name, o, r in zip(("full output", "deep feature", "shallow output"), out, ref):
+        rel = ((o.cpu().float() - r.float()).norm() / r.float().norm()).item()
+        log(f"  {name} {tuple(o.shape)} f32: rel L2 err card vs CPU {rel:.3g} (bound 1e-3)")
+        if not torch.isfinite(o).all() or not r.norm() > 0 or not rel <= 1e-3:
+            raise AssertionError(f"card {name} differs from the CPU's: rel L2 {rel:.3g}")
+    rel = ((out[2] - off).norm() / off.norm()).item()
+    log(f"  shallow(deep from full) vs the plain forward on the card: rel L2 {rel:.3g} (bound 1e-5); a full "
+        f"forward launches {per_full}, a shallow one {per_shallow} (cut {cut})")
+    if not rel <= 1e-5:
+        raise AssertionError(f"shallow forward differs from the plain forward: rel L2 {rel:.3g}")
     del model
 
 
@@ -668,13 +910,52 @@ def phase4d_int8_guidance(dev):
         f"CPU int8 classifier forward + 2 guidance gradients {cpu_s:.2f} s")
 
 
+def start_server(sampler):
+    """Serve ``sampler`` over HTTP on a free local port; returns (httpd,
+    thread, base url)."""
+    from http.server import ThreadingHTTPServer
+
+    from guided_diffusion_clip_tpu_torch import serve
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(sampler))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def get_healthz(url) -> dict:
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def post_sample(url, n, seed, feat=None, size=256):
+    """POST /sample; returns (the n uint8 images of ``size`` px, the request's
+    seconds)."""
+    import numpy as np
+
+    payload = {"num_samples": n, "seed": seed}
+    if feat is not None:
+        payload["clip_feat"] = feat.tolist()
+    req = urllib.request.Request(
+        f"{url}/sample", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        arr = np.load(io.BytesIO(r.read()))["arr_0"]
+    dt = time.perf_counter() - t
+    if arr.shape != (n, size, size, 3) or arr.dtype != np.uint8:
+        raise AssertionError(f"/sample n={n}: got {arr.shape} {arr.dtype}")
+    if not all(arr[i].std() > 0 for i in range(n)):
+        raise AssertionError(f"/sample n={n}: a constant image")
+    return arr, dt
+
+
 def phase5_serve(dev, ckpt_path, conv_impl="auto"):
     """The serving path over HTTP; returns the kernels' launch counts. Under
     int8 the per-sample RNG contract across packings does not hold (the
     per-tensor scale of int8_conv spans the batch, in the JAX server too),
     so only the same request at the same bucket is held to the same bytes."""
-    from http.server import ThreadingHTTPServer
-
     import numpy as np
     import torch
 
@@ -695,32 +976,14 @@ def phase5_serve(dev, ckpt_path, conv_impl="auto"):
     sampler.warmup()
     log(f"  server built and warm in {time.perf_counter() - t0:.1f} s; warm chain latency "
         f"by bucket {{{', '.join(f'{b}: {s:.3f} s' for b, s in sorted(sampler.bucket_latency.items()))}}}")
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(sampler))
-    port = httpd.server_address[1]
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
+    httpd, thread, url = start_server(sampler)
+
 
     def healthz():
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-            return json.loads(r.read())
+        return get_healthz(url)
 
     def sample(n, seed, feat=None):
-        payload = {"num_samples": n, "seed": seed}
-        if feat is not None:
-            payload["clip_feat"] = feat.tolist()
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{port}/sample", data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"}, method="POST",
-        )
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=600) as r:
-            arr = np.load(io.BytesIO(r.read()))["arr_0"]
-        dt = time.perf_counter() - t
-        if arr.shape != (n, size, size, 3) or arr.dtype != np.uint8:
-            raise AssertionError(f"/sample n={n}: got {arr.shape} {arr.dtype}")
-        if not all(arr[i].std() > 0 for i in range(n)):
-            raise AssertionError(f"/sample n={n}: a constant image")
-        return arr, dt
+        return post_sample(url, n, seed, feat, size)
 
     try:
         h = healthz()
@@ -777,6 +1040,50 @@ def phase5_serve(dev, ckpt_path, conv_impl="auto"):
     return check_serve_launches(sampler, int8)
 
 
+def phase5c_serve_cfg(dev, ckpt_path):
+    """``serve --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m`` over HTTP, one
+    bucket of 4, bf16, 25 steps; returns the kernels' launch counts. A chain
+    runs the conditional branch every step and refreshes the unconditional
+    one on steps 0, 2, ..., 24: 25 + 13 forwards."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    flags = list(SLICE_FLAGS)
+    for name, value in (("--batch_size", "4"), ("--batch_buckets", ""), ("--coalesce_ms", "0"), ("--use_ddim", "False")):
+        flags[flags.index(name) + 1] = value
+    args = serve.parse_args([*flags, "--sampler", "dpm++2m", "--cfg_scale", "2.0", "--cfg_cache", "2",
+                             "--model_path", ckpt_path, "--device", dev.type])
+
+    reset_counters()
+    t0 = time.perf_counter()
+    sampler = serve.Sampler(args)
+    sampler.warmup()
+    log(f"  CFG server built and warm in {time.perf_counter() - t0:.1f} s; warm chain latency "
+        f"{sampler.bucket_latency[4]:.3f} s (batch 4, 25 dpm++2m steps, 38 forwards)")
+    httpd, thread, url = start_server(sampler)
+    try:
+        h = get_healthz(url)
+        if not (h["ok"] and h["compiled"] and h["sampler"] == "dpm++2m" and h["steps"] == 25):
+            raise AssertionError(f"/healthz: {h}")
+        feat = np.random.RandomState(5).standard_normal((4, 512)).astype(np.float32)
+        a, dt = post_sample(url, 4, 31, feat)
+        b, _ = post_sample(url, 4, 31, feat)
+        if not np.array_equal(a, b):
+            raise AssertionError("repeated CFG /sample n=4 returned different bytes")
+        log(f"  /sample n=4 (cfg_scale 2.0, cfg_cache 2, dpm++2m): {dt:.3f} s, {4 / dt:.3f} samples/s; "
+            f"repeated: the same bytes")
+    finally:
+        stop_server(sampler, httpd, thread)
+    chains = sampler.dispatches
+    if sampler.forwards != chains * (25 + 13):
+        raise AssertionError(f"{sampler.forwards} forwards in {chains} chains, not 25 steps + 13 refreshes each")
+    return check_serve_launches(sampler, False)
+
+
 def stop_server(sampler, httpd, thread) -> None:
     httpd.shutdown()
     httpd.server_close()
@@ -792,7 +1099,7 @@ def check_serve_launches(sampler, int8: bool) -> dict:
     per = gn_conv_counts(sampler.model, int8)
     if not int8 and per["group_norm"] != GN_PER_FORWARD:
         raise AssertionError(f"{per['group_norm']} GroupNorms in the UNet, not {GN_PER_FORWARD}")
-    want = {"attention": ATTN_PER_FORWARD * forwards, "attention_bwd": 0,
+    want = {**dict.fromkeys(launches, 0), "attention": ATTN_PER_FORWARD * forwards,
             **{k: n * forwards for k, n in per.items()}}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want} ({forwards} forwards)")
@@ -848,7 +1155,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     steps = out["steps"] * out["batches"]
     if not int8 and (per["model"]["group_norm"], per["classifier"]["group_norm"]) != (GN_PER_FORWARD, CLF_GN_PER_FORWARD):
         raise AssertionError(f"GroupNorms {per}, not {GN_PER_FORWARD} and {CLF_GN_PER_FORWARD}")
-    want = {"attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * steps,
+    want = {**dict.fromkeys(launches, 0), "attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * steps,
             "attention_bwd": CLF_ATTN_PER_FORWARD * steps,
             **{k: (per["model"][k] + per["classifier"][k]) * steps for k in per["model"]}}
     log(f"  {steps} guided steps ({conv_impl}); kernel launches {launches} (expected {want}: per step the "
@@ -859,7 +1166,103 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
         f"with model building and loading")
-    return launches, paths, images
+    return launches, paths, images, chain
+
+
+PRESET_FLAGS = ["--conv_impl", "int8", "--deep_cache", "5", "--guidance_cache", "2",
+                "--guidance_interval", "200,800"]
+
+
+def phase6c_preset(dev, tmp, paths):
+    """classifier_sample.main with the deploy preset's four knobs (the keys of
+    configs/deploy256_fast.yaml, given as flags) on ADM-G 256 + classifier,
+    250 ancestral steps at batch 8; returns the launch counts, the samples
+    and the chain's seconds. The expected counts come from the modules (what
+    a full and a shallow UNet forward and a classifier forward launch) and
+    from the schedule (DeepCache refreshes on steps 0, 5, ...; the classifier
+    runs on the even steps whose model timestep lies in [200, 800])."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, create_classifier, create_gaussian_diffusion, create_upstream_model,
+    )
+
+    flags = [*GUIDED_FLAGS, *PRESET_FLAGS]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    args = classifier_sample.create_argparser().parse_args(flags)
+    model = create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS), conv_impl="int8")
+    cut = model.config.num_res_blocks + 1
+    per_full, per_shallow = unet_counts(model, True), unet_counts(model, True, cut)
+    clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()), conv_impl="int8")
+    per_clf = {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, True)}
+    del model, clf
+    # the schedule says which steps guide: step i runs local timestep T - 1 - i
+    tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="250").sched.timestep_map.tolist()
+    steps = len(tmap)
+    inside = [200 <= tmap[steps - 1 - i] <= 800 for i in range(steps)]
+    n_clf = sum(1 for i in range(steps) if i % 2 == 0 and inside[i])
+    n_full = len(range(0, steps, 5))
+    n_shallow = steps - n_full
+
+    argv = [*flags, "--model_path", paths["model"], "--classifier_path", paths["classifier"],
+            "--main_path", os.path.join(tmp, "runs_preset"), "--device", dev.type]
+    reset_counters()
+    t0 = time.perf_counter()
+    out = classifier_sample.main(argv)
+    wall = time.perf_counter() - t0
+    launches = counters()
+
+    calls = out["calls"]
+    want_calls = {"unet_full": n_full, "unet_shallow": n_shallow, "classifier": n_clf}
+    log(f"  {steps} steps: {sum(inside)} inside the window [200, 800]; network calls {calls} "
+        f"(expected {want_calls} from the schedule)")
+    if calls != want_calls or out["steps"] != steps or out["batches"] != 1:
+        raise AssertionError(f"network calls {calls} != {want_calls}")
+    want = dict.fromkeys(launches, 0)
+    for per, n in ((per_full, n_full), (per_shallow, n_shallow), (per_clf, n_clf)):
+        for k, v in per.items():
+            want[k] += v * n
+    log(f"  kernel launches {launches} (expected {want}: a full UNet forward {per_full}, a shallow one "
+        f"{per_shallow}, a classifier forward + backward {per_clf})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    images = np.load(out["path"])["arr_0"]
+    if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(images[i].std() > 0 for i in range(8)):
+        raise AssertionError(f"preset samples {images.shape} {images.dtype}: not 8 non-constant uint8 images")
+    chain = sum(out["chain_seconds"])
+    log(f"  preset chain (int8, deep_cache 5, guidance_cache 2, guidance_interval 200,800; batch 8, {steps} "
+        f"steps): {chain:.3f} s, {8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; "
+        f"main() {wall:.1f} s with model building and loading")
+    return launches, images, chain
+
+
+def phase7_tools():
+    """The two tool entry points, called as their ``main()`` on the card: the
+    paths that launch K6 and K7. Returns the kernels' launch counts."""
+    from guided_diffusion_clip_tpu_torch.tools import conv_bench, mxu_ceiling
+
+    os.environ["PCB_SHAPES"] = "8x256x256x256,8x32x512x512"
+    for name in ("PCB_ONLY", "CMB_ITERS", "MXU_REPS"):  # the tools' defaults: 20 calls a timing, best of 3
+        os.environ.pop(name, None)
+    reset_counters()
+    rows = conv_bench.main([])
+    ceiling = mxu_ceiling.main([])
+    launches = counters()
+    if len(rows) != 2 or not all(isinstance(r.get(k), float) and r[k] > 0 for r in rows
+                                 for k in ("cudnn_bf16", "k5_int8", "k6_bf16", "k6_int8")):
+        raise AssertionError(f"conv_bench rows: {rows}")
+    if not all(ceiling[k]["tf_per_sec_slope"] > 0 for k in ("s8", "bf16")):
+        raise AssertionError(f"mxu_ceiling: {ceiling}")
+    # per shape and K6 mode 1 warm-up call and 3 timings of 20 calls;
+    # per type and T 1 warm-up call and 3 timings
+    want = {**dict.fromkeys(launches, 0), "conv_fused": 2 * 2 * 61, "conv_s8": 2 * 61, "mma_probe": 2 * 2 * 4}
+    log(f"  kernel launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches
 
 
 def _kernel_group(name: str) -> str:
@@ -1015,6 +1418,10 @@ def main() -> int:
     records["group_norm_quant"] = phase3c_group_norm_quant(dev)
     log("phase 3d: K5 (s8 conv) vs its plain version and cuDNN's bf16 conv on the card")
     records["conv_s8"] = phase3d_conv_s8(dev)
+    log("phase 3e: K6 (fused quantizing conv) vs its plain version and cuDNN's bf16 conv on the card")
+    records["conv_fused"] = phase3e_fused_conv(dev)
+    log("phase 3f: K7 (tensor-core probe) vs its plain version on the card")
+    records["mma_probe"] = phase3f_mma_probe(dev)
 
     log("phase 4: full-width forward, card vs CPU")
     sd = random_state_dict(create_model(
@@ -1028,6 +1435,8 @@ def main() -> int:
     phase4c_int8_forward(dev, sd)
     log("phase 4d: full-width int8 guidance gradient, card vs CPU")
     phase4d_int8_guidance(dev)
+    log("phase 4e: full-width DeepCache forwards (full, shallow), card vs CPU")
+    phase4e_deep_cache(dev, sd)
 
     import numpy as np
 
@@ -1040,14 +1449,16 @@ def main() -> int:
         runs.append(phase5_serve(dev, ckpt))
         log("phase 5b: the slice served over HTTP with --conv_impl int8")
         runs.append(phase5_serve(dev, ckpt, "int8"))
+        log("phase 5c: the slice served with --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m")
+        runs.append(phase5c_serve_cfg(dev, ckpt))
         os.remove(ckpt)
         log("phase 6: classifier-guided sampling, ADM-G 256 + classifier")
-        launches, paths, bf16_images = phase6_guided(dev, tmp)
+        launches, paths, bf16_images, bf16_chain = phase6_guided(dev, tmp)
         runs.append(launches)
         log("phase 6, profile: one guided step at batch 8")
         bf16_step = profile_guided_step(dev, paths)
         log("phase 6b: classifier-guided sampling with --conv_impl int8")
-        launches, _, int8_images = phase6_guided(dev, tmp, "int8", paths)
+        launches, _, int8_images, int8_chain = phase6_guided(dev, tmp, "int8", paths)
         runs.append(launches)
         sd_bf16, sd_int8 = bf16_images.astype(np.float64).std(), int8_images.astype(np.float64).std()
         diff = np.abs(int8_images.astype(np.int64) - bf16_images.astype(np.int64))
@@ -1061,6 +1472,23 @@ def main() -> int:
         int8_step = profile_guided_step(dev, paths, "int8")
         log(f"  guided step at batch 8: int8 {int8_step:.2f} ms, bf16 {bf16_step:.2f} ms (CUDA events, "
             f"this run)")
+        log("phase 6c: classifier-guided sampling with the deploy preset's knobs")
+        launches, preset_images, preset_chain = phase6c_preset(dev, tmp, paths)
+        runs.append(launches)
+        sd_preset = preset_images.astype(np.float64).std()
+        diff = np.abs(preset_images.astype(np.int64) - int8_images.astype(np.int64))
+        log(f"  samples' std: preset {sd_preset:.3f}, plain int8 {sd_int8:.3f} (bound: within 0.5 relative); "
+            f"preset vs plain int8 (same seeds and weights): mean |uint8 diff| {diff.mean():.3f}, "
+            f"{100 * (diff > 0).mean():.2f} % of values differ")
+        if not abs(sd_preset - sd_int8) <= 0.5 * sd_int8:
+            raise AssertionError(f"preset samples' std {sd_preset:.3f} not within 0.5 of plain int8's {sd_int8:.3f}")
+        log(f"  250-step chains at batch 8, this run: preset {preset_chain:.3f} s ({480 / preset_chain:.3f} "
+            f"samples/min, {4 * preset_chain:.2f} ms a step), plain int8 {int8_chain:.3f} s "
+            f"({480 / int8_chain:.3f} samples/min, {4 * int8_chain:.2f} ms a step), bf16 {bf16_chain:.3f} s "
+            f"({480 / bf16_chain:.3f} samples/min, {4 * bf16_chain:.2f} ms a step)")
+
+    log("phase 7: the tool entry points (conv_bench, mxu_ceiling)")
+    runs.append(phase7_tools())
 
     kernels = []
     for name, src, replaces in (
@@ -1074,14 +1502,17 @@ def main() -> int:
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:50"),
         ("conv_s8", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_s8.cu",
          "guided_diffusion_clip_tpu/ops/pallas_conv.py:258"),
+        ("conv_fused", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_fused.cu",
+         "guided_diffusion_clip_tpu/ops/pallas_conv.py:71"),
+        ("mma_probe", "guided_diffusion_clip_tpu_torch/ops/csrc/mma_probe.cu",
+         "tools/pallas_mxu_ceiling.py:39"),
     ):
-        err, ms, pms = records[name]
         launched = sum(run[name] for run in runs)
         if launched == 0:
             raise AssertionError(f"kernel {name} was never launched by a main path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "launches": launched, **records[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -25,21 +25,37 @@ every step (``diffusion/guidance.py``). The result is written as
 ``samples_{N}x{H}x{W}x3.npz`` (uint8 images, int32 labels) in the logger's
 directory.
 
-Not yet ported, and rejected at startup: ``--guidance_interval``,
-``--guidance_cache``, ``--deep_cache``, ``--sampler dpm++2m``,
-``--spatial_shard`` and ``--tensor_shard``.
+The sampling knobs of the JAX package's deploy preset
+(``configs/deploy256_fast.yaml``) compose as there: ``--guidance_interval
+lo,hi`` guides only while the model's timestep lies in the window (outside it
+the classifier runs neither forward nor backward), ``--guidance_cache N``
+recomputes the gradient one step in N (the interval inside the cache, so the
+counter counts every step), ``--deep_cache N`` with ``--deep_cache_cut``
+refreshes the generator's deep sub-UNet one step in N (the classifier's
+gradient stays as fresh as the other two flags leave it), and ``--sampler
+dpm++2m`` takes guidance through ``condition_score``.
+
+Not yet ported, and rejected at startup: ``--spatial_shard`` and
+``--tensor_shard``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
 import numpy as np
 import torch
 
-from .diffusion.guidance import classifier_cond_fn, model_fn_dropping_y
+from .diffusion.deep_cache import deep_cache_model_fn, zero_state
+from .diffusion.guidance import (
+    cached_cond_fn,
+    classifier_cond_fn,
+    interval_cond_fn,
+    parse_guidance_interval,
+)
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .utils import logger
@@ -58,7 +74,7 @@ from .utils.script_util import (
 
 # flag -> largest value that leaves the feature off; anything else is a
 # feature not yet ported
-_UNPORTED = {"deep_cache": 1, "guidance_cache": 1, "spatial_shard": 1, "tensor_shard": 1}
+_UNPORTED = {"spatial_shard": 1, "tensor_shard": 1}
 _UNET_KEYS = (
     "image_size", "num_channels", "num_res_blocks", "channel_mult", "learn_sigma",
     "class_cond", "use_checkpoint", "attention_resolutions", "num_heads",
@@ -71,15 +87,14 @@ def _refuse_unported(args) -> None:
     for name, off in _UNPORTED.items():
         if int(getattr(args, name, 0)) > off:
             raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
-    if getattr(args, "guidance_interval", ""):
-        raise SystemExit("--guidance_interval: not yet ported to the PyTorch package")
     if getattr(args, "conv_impl", "auto") not in CONV_IMPLS:
         raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {CONV_IMPLS}")
 
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"path": the npz, "chain_seconds": [per batch],
-    "steps": steps per chain, "batches": chains run}."""
+    "steps": steps per chain, "batches": chains run, "calls": how often each
+    network ran: {"unet_full", "unet_shallow", "classifier"}}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -97,7 +112,7 @@ def main(argv=None) -> dict:
         rescale_learned_sigmas=args.rescale_learned_sigmas,
         timestep_respacing=args.timestep_respacing,
     )
-    loop = resolve_sampler(diffusion, args)  # refuses dpm++2m
+    loop = resolve_sampler(diffusion, args)
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
@@ -113,11 +128,40 @@ def main(argv=None) -> dict:
     # floats (differentiable), the generator's (under no_grad) real s8
     classifier = classifier.to(device).eval().requires_grad_(False)
 
-    cond_fn = classifier_cond_fn(classifier, args.classifier_scale)
-    model_fn = model_fn_dropping_y(model, args.class_cond)
+    calls = {"unet_full": 0, "unet_shallow": 0, "classifier": 0}
+
+    def classifier_fn(x, t):
+        calls["classifier"] += 1
+        return classifier(x, t)
+
+    def unet(x, t, y=None, cache_mode="off", **kw):
+        calls["unet_shallow" if cache_mode == "shallow" else "unet_full"] += 1
+        return model(x, t, y=y if args.class_cond else None, cache_mode=cache_mode, **kw)
+
+    B, size = args.batch_size, args.image_size
+    shape = (B, 3, size, size)
+    cond_fn = classifier_cond_fn(classifier_fn, args.classifier_scale)
+    g_interval = parse_guidance_interval(args.guidance_interval)
+    if g_interval is not None:
+        cond_fn = interval_cond_fn(cond_fn, *g_interval)
+    cond_state0 = None
+    if int(args.guidance_cache) > 1:
+        # the interval inside the cache: the counter counts every step
+        cond_fn, cond_state0 = cached_cond_fn(cond_fn, int(args.guidance_cache), shape, device=device)
+    model_fn, model_state0 = unet, None
+    deep_cut = int(args.deep_cache_cut)
+    if int(args.deep_cache) > 1:
+        # DeepCache on the generator only: the guidance stays fresh
+        def apply_shallow(x, t, deep, **kw):
+            return unet(x, t, deep_cache=deep, cache_mode="shallow", cache_cut=deep_cut, **kw)
+
+        model_fn = deep_cache_model_fn(
+            functools.partial(unet, cache_mode="full", cache_cut=deep_cut),
+            apply_shallow, int(args.deep_cache),
+        )
+        model_state0 = zero_state(model.config, B, deep_cut, dtype=model.dtype, device=device)
 
     logger.log("sampling...")
-    B, size = args.batch_size, args.image_size
     noise_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 0))
     class_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 1))
     n_batches = -(-args.num_samples // B)
@@ -129,8 +173,9 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         with torch.no_grad():  # not inference_mode: cond_fn differentiates the classifier
             sample = loop(
-                model_fn, (B, 3, size, size), noise_gen,
+                model_fn, shape, noise_gen,
                 clip_denoised=args.clip_denoised, model_kwargs={"y": classes}, cond_fn=cond_fn,
+                model_state0=model_state0, cond_state0=cond_state0,
             )
             sample = ((sample + 1) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
             all_images.append(sample.cpu().numpy())
@@ -147,7 +192,7 @@ def main(argv=None) -> dict:
     logger.log("sampling complete")
     return {
         "path": out_path, "chain_seconds": chain_seconds,
-        "steps": diffusion.num_timesteps, "batches": n_batches,
+        "steps": diffusion.num_timesteps, "batches": n_batches, "calls": calls,
     }
 
 
@@ -157,7 +202,7 @@ def create_argparser():
         num_samples=10000,
         batch_size=16,
         use_ddim=False,
-        sampler="",  # "" (use_ddim decides), ancestral or ddim; dpm++2m not yet ported
+        sampler="",  # "" (use_ddim decides), ancestral, ddim or dpm++2m; cond_fn composes
         model_path="",
         classifier_path="",
         classifier_scale=1.0,
@@ -167,10 +212,10 @@ def create_argparser():
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # not yet ported
         tensor_shard=0,  # not yet ported
-        deep_cache=0,  # not yet ported
-        deep_cache_cut=0,
-        guidance_interval="",  # not yet ported
-        guidance_cache=0,  # not yet ported
+        deep_cache=0,  # N > 1: refresh the deep sub-UNet every N steps (DeepCache)
+        deep_cache_cut=0,  # shallow input blocks; 0 = below the full-resolution level
+        guidance_interval="",  # "lo,hi": guide only for t in [lo, hi] (original units)
+        guidance_cache=0,  # N > 1: recompute the guidance gradient 1 step in N
     )
     defaults.update(model_and_diffusion_defaults())
     defaults.update(classifier_defaults())

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import math
 from typing import Sequence
 
@@ -126,11 +127,36 @@ class DiffusionSchedule:
         })
 
     def model_timesteps(self, t: torch.Tensor) -> torch.Tensor:
-        """Timesteps as seen by the model: respace map + optional rescale."""
+        """Timesteps as seen by the model: respace map + optional rescale.
+
+        A ``t`` built by ``chain_timesteps`` carries its Python value as
+        ``t.host_t``; the result then carries the model-facing value the same
+        way, so a wrapper that gates on the timestep (``guidance._window_t``)
+        decides on the host instead of reading the device tensor back.
+        """
         mapped = self.timestep_map[t]
         if self.rescale_timesteps:
-            return mapped.float() * (1000.0 / self.original_num_steps)
+            mapped = mapped.float() * (1000.0 / self.original_num_steps)
+        host_t = getattr(t, "host_t", None)
+        if host_t is not None:
+            mapped.host_t = self._host_model_timesteps[host_t]
         return mapped
+
+    @functools.cached_property
+    def _host_model_timesteps(self) -> list:
+        """``model_timesteps`` of every local step as Python numbers (one copy
+        from the device per schedule object)."""
+        mapped = self.timestep_map.cpu()
+        if self.rescale_timesteps:
+            mapped = mapped.float() * (1000.0 / self.original_num_steps)
+        return mapped.tolist()
+
+    def chain_timesteps(self, t_scalar: int, batch: int, device) -> torch.Tensor:
+        """The (batch,) long tensor of local timestep ``t_scalar`` that the
+        sampling loops hand to a step, tagged with its Python value."""
+        t = torch.full((batch,), int(t_scalar), dtype=torch.long, device=device)
+        t.host_t = int(t_scalar)
+        return t
 
     def scale_loss_timestep_factor(self) -> float:
         """The T/1000 factor for RESCALED_MSE vb terms (gaussian_diffusion.py:808)."""

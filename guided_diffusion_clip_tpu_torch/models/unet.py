@@ -32,6 +32,7 @@ take the torso's dtype.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch
@@ -407,7 +408,22 @@ class UNetModel(nn.Module):
         """Cast the torso's conv (not under int8) and conv1d weights to ``dtype``."""
         _convert_torso((self.input_blocks, self.middle_block, self.output_blocks), dtype, self.int8)
 
-    def forward(self, x, timesteps, y=None, clip_feat=None):
+    def forward(self, x, timesteps, y=None, clip_feat=None, deep_cache=None,
+                cache_mode: str = "off", cache_cut: int = 0):
+        """``cache_mode`` / ``cache_cut`` / ``deep_cache``: DeepCache-style block
+        caching (Ma et al. 2023), as the JAX ``UNetModel.__call__``:
+
+          "off"      plain forward, returns the output (default)
+          "full"     full forward; returns ``(out, deep)`` where ``deep`` is the
+                     activation entering the first shallow output block
+                     (before its skip concat)
+          "shallow"  runs only ``input_blocks[:cut]`` and the last ``cut``
+                     output blocks around ``deep_cache``; returns
+                     ``(out, deep_cache)``
+
+        ``cache_cut`` is the number of shallow input blocks; 0 picks
+        ``num_res_blocks + 1`` (the full-resolution level).
+        """
         cfg = self.config
         if x.shape[1] != cfg.in_channels:
             raise ValueError(f"input channels {x.shape[1]} != config {cfg.in_channels}")
@@ -425,20 +441,41 @@ class UNetModel(nn.Module):
         elif y is not None:
             raise ValueError("y given to an unconditional model")
 
+        n_in = len(self.input_blocks)
+        assert cache_mode in ("off", "full", "shallow"), cache_mode
+        cut = cache_cut if cache_cut > 0 else cfg.num_res_blocks + 1
+        if cache_mode != "off":
+            assert 1 <= cut <= n_in, (cut, n_in)
+            assert (cache_mode == "shallow") == (deep_cache is not None), (
+                "deep_cache must be given exactly when cache_mode='shallow'"
+            )
+
         # torso, in self.dtype
         h = x.to(dtype=self.dtype, memory_format=torch.channels_last)
         hs = []
-        for block in self.input_blocks:
+        shallow = cache_mode == "shallow"
+        for block in itertools.islice(self.input_blocks, cut if shallow else None):
             h = block(h, emb)
             hs.append(h)
-        h = self.middle_block(h, emb)
-        for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb)
+        deep_out = None
+        if shallow:
+            h = deep_cache.to(dtype=self.dtype, memory_format=torch.channels_last)
+            out_start = n_in - cut
+        else:
+            h = self.middle_block(h, emb)
+            out_start = 0
+        for i in range(out_start, n_in):
+            if cache_mode == "full" and i == n_in - cut:
+                deep_out = h
+            h = self.output_blocks[i](torch.cat([h, hs.pop()], dim=1), emb)
 
         # output head, f32 (or x's dtype)
         h = h.to(x.dtype)
         h = self.out[0](h, activation="silu")
-        return self.out[2](h)
+        out = self.out[2](h)
+        if cache_mode == "off":
+            return out
+        return out, (deep_out if cache_mode == "full" else deep_cache)
 
 
 class EncoderUNetModel(nn.Module):

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "gdc_group_norm_quant": [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P],
     # q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, stride, pad, Ho, Wo, KRp, out_dtype, stream
     "gdc_conv_s8": [_P] * 6 + [_I] * 12 + [_P],
+    # x, w, scales, s_w, bias, out, B, H, W, C, K, bh, quantized, dtype, stream
+    "gdc_conv_fused": [_P] * 6 + [_I] * 8 + [_P],
+    # x, wt, partial, out, T, dtype, stream
+    "gdc_mma_probe": [_P] * 4 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -31,8 +31,13 @@ in the JAX server as here: the per-tensor activation scale of ``int8_conv``
 spans the whole batch, so a sample's bytes depend on what it was batched
 with (the same request served the same way gives the same bytes).
 
-Not yet ported, and rejected at startup: ``--cfg_scale``, ``--cfg_cache``,
-``--guidance_interval``, ``--deep_cache`` and ``--sampler dpm++2m``.
+``--cfg_scale S`` serves classifier-free guidance against the null
+conditioning ``clip_feat = 0`` (one doubled batch a step); ``--cfg_cache N``
+recomputes the unconditional branch one step in N and ``--guidance_interval
+lo,hi`` restricts CFG to a window of model timesteps (both need
+``--cfg_scale``); ``--deep_cache N`` reuses the deep sub-UNet between
+refreshes (not together with ``--cfg_scale``); ``--sampler dpm++2m`` is the
+second-order solver.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import argparse
 import base64
 import collections
 import dataclasses
+import functools
 import io
 import json
 import sys
@@ -51,6 +57,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from .diffusion.deep_cache import deep_cache_model_fn, zero_state
+from .diffusion.guidance import (
+    cfg_cached_model_fn,
+    cfg_cached_state0,
+    cfg_model_fn,
+    parse_guidance_interval,
+)
 from .diffusion.sampling import sample_generators
 from .models.unet import CONV_IMPLS
 from .utils.checkpoint import load_model_weights
@@ -64,8 +77,8 @@ from .utils.script_util import (
     resolve_sampler,
 )
 
-# flag -> its "off" value; any other value is a feature not yet ported
-_UNPORTED = {"cfg_scale": 0.0, "cfg_cache": 0, "guidance_interval": "", "deep_cache": 0}
+# classifier-free guidance runs against this null conditioning
+_NULL_COND = {"clip_feat": 0.0}
 
 
 def log(msg: str) -> None:
@@ -76,14 +89,23 @@ class Sampler:
     """Owns the model, the sampling chain, the device lock and the batching."""
 
     def __init__(self, args):
-        for name, off in _UNPORTED.items():
-            if getattr(args, name, off) != off:
-                raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
         if getattr(args, "conv_impl", "auto") not in CONV_IMPLS:
             raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {CONV_IMPLS}")
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device is available")
+        self.cfg_scale = float(getattr(args, "cfg_scale", 0.0))
+        self.cfg_cache = int(getattr(args, "cfg_cache", 0))
+        self.deep_cache = int(getattr(args, "deep_cache", 0))
+        self.g_interval = parse_guidance_interval(getattr(args, "guidance_interval", ""))
+        if self.cfg_scale and not args.class_cond:
+            raise SystemExit("--cfg_scale needs a conditioned model (--class_cond)")
+        if self.g_interval is not None and not self.cfg_scale:
+            raise SystemExit("serve: --guidance_interval gates CFG; it needs --cfg_scale")
+        if self.cfg_cache > 1 and not self.cfg_scale:
+            raise SystemExit("serve: --cfg_cache caches the CFG uncond branch; it needs --cfg_scale")
+        if self.cfg_scale and self.deep_cache > 1:
+            raise SystemExit("serve: use --deep_cache or --cfg_scale, not both")
         if not args.model_path:
             raise SystemExit("--model_path: a reference-format .pt state_dict is required")
         self.args = args
@@ -144,6 +166,29 @@ class Sampler:
         self.forwards += 1
         return self.model(x, t, **kw)
 
+    def _stateful_model(self, B: int):
+        """The chain's model function and its initial state (None for a
+        stateless one), from the CFG and DeepCache flags."""
+        if self.cfg_scale:
+            if self.cfg_cache > 1:
+                # cached uncond branch: (1 + 1/N) model calls a step
+                fn = cfg_cached_model_fn(
+                    self._model_fn, self.cfg_scale, _NULL_COND, self.cfg_cache, interval=self.g_interval
+                )
+                s = self.args.image_size
+                out_shape = (B, self.model.config.out_channels, s, s)
+                return fn, cfg_cached_state0(out_shape, device=self.device)
+            return cfg_model_fn(self._model_fn, self.cfg_scale, _NULL_COND, interval=self.g_interval), None
+        if self.deep_cache > 1:
+            def apply_shallow(x, t, deep, **kw):
+                return self._model_fn(x, t, deep_cache=deep, cache_mode="shallow", **kw)
+
+            fn = deep_cache_model_fn(
+                functools.partial(self._model_fn, cache_mode="full"), apply_shallow, self.deep_cache
+            )
+            return fn, zero_state(self.model.config, B, dtype=self.model.dtype, device=self.device)
+        return self._model_fn, None
+
     def _chain(self, seeds, subidx, feats) -> np.ndarray:
         """One sampling chain over the padded batch -> uint8 [B, H, W, 3]."""
         B = len(seeds)
@@ -152,9 +197,11 @@ class Sampler:
         model_kwargs = (
             {"clip_feat": torch.from_numpy(feats).to(self.device)} if self.cond_key else {}
         )
+        model_fn, state0 = self._stateful_model(B)
         with torch.inference_mode():
             out = self._loop(
-                self._model_fn, (B, 3, s, s), gens, clip_denoised=True, model_kwargs=model_kwargs
+                model_fn, (B, 3, s, s), gens, clip_denoised=True, model_kwargs=model_kwargs,
+                model_state0=state0,
             )
             img = ((out + 1) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
             return img.cpu().numpy()
@@ -368,12 +415,12 @@ def create_argparser():
         batch_size=8,
         seed=0,
         use_ddim=False,
-        sampler="",        # "", ancestral, ddim (dpm++2m not yet ported)
+        sampler="",        # "", ancestral, ddim or dpm++2m
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
-        cfg_scale=0.0,     # not yet ported
-        cfg_cache=0,       # not yet ported
-        guidance_interval="",  # not yet ported
-        deep_cache=0,      # not yet ported
+        cfg_scale=0.0,     # >0: classifier-free guidance scale (conditioned models)
+        cfg_cache=0,       # N>1: recompute the CFG uncond branch 1 step in N
+        guidance_interval="",  # "lo,hi": CFG only for t in [lo, hi] (original units)
+        deep_cache=0,      # N>1: DeepCache deep-feature reuse interval
         coalesce_ms=0.0,   # >0: batch concurrent requests into one chain
         batch_buckets="",  # e.g. "1,2,4": extra smaller batch shapes
         max_request=0,     # per-request sample cap; 0 = 8x batch_size

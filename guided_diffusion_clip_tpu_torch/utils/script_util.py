@@ -377,17 +377,19 @@ def args_to_dict(args, keys):
 def resolve_sampler(diffusion, args, *, honor_use_ddim=True):
     """Map a sampling CLI's flags to the diffusion loop function.
 
-    ``--use_ddim`` picks DDIM vs ancestral; ``--sampler {ancestral,ddim}``
-    overrides it. ``dpm++2m`` is not ported yet and raises.
+    ``--use_ddim`` picks DDIM vs ancestral; ``--sampler
+    {ancestral,ddim,dpm++2m}`` overrides it.
     """
     loop = diffusion.p_sample_loop
     if honor_use_ddim and getattr(args, "use_ddim", False):
         loop = diffusion.ddim_sample_loop
     name = getattr(args, "sampler", "")
     if name:
-        samplers = {"ancestral": diffusion.p_sample_loop, "ddim": diffusion.ddim_sample_loop}
-        if name == "dpm++2m":
-            raise SystemExit("--sampler dpm++2m: not yet ported to the PyTorch package")
+        samplers = {
+            "ancestral": diffusion.p_sample_loop,
+            "ddim": diffusion.ddim_sample_loop,
+            "dpm++2m": diffusion.dpm_solver_pp_2m_loop,
+        }
         if name not in samplers:
             raise SystemExit(f"--sampler {name!r}: choose from {sorted(samplers)}")
         loop = samplers[name]

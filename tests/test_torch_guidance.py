@@ -222,8 +222,28 @@ def test_classifier_sample_refuses_unknown_conv_impl(tmp_path):
     ("sampler", "dpm++2m"), ("spatial_shard", "2"), ("tensor_shard", "2"),
 ])
 def test_classifier_sample_refuses_what_is_not_ported(flag, value, tmp_path):
-    argv = ["--device", "cpu", "--model_path", "m.pt", "--classifier_path", "c.pt",
-            "--main_path", str(tmp_path), f"--{flag}", value]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        CS.main(argv)
-    assert not os.listdir(tmp_path)  # refused before any run directory is made
+    """The two sharding flags are refused before any run directory is made.
+    The sampling knobs once refused as not yet ported now run: 3 steps (model
+    timesteps 999, 500, 0), with each network called as often as the flag says."""
+    if flag in ("spatial_shard", "tensor_shard"):
+        argv = ["--device", "cpu", "--model_path", "m.pt", "--classifier_path", "c.pt",
+                "--main_path", str(tmp_path), f"--{flag}", value]
+        with pytest.raises(SystemExit, match="not yet ported"):
+            CS.main(argv)
+        assert not os.listdir(tmp_path)
+        return
+    _random_pt(create_upstream_model(**CLI_UNET), tmp_path / "model.pt", 0)
+    _random_pt(create_classifier(**CLI_CLASSIFIER), tmp_path / "classifier.pt", 1)
+    out = CS.main(_cli_argv(tmp_path, f"--{flag}", value, "--main_path", str(tmp_path / "runs")))
+    images = np.load(out["path"])["arr_0"]
+    assert images.shape == (2, 64, 64, 3) and all(images[i].std() > 0 for i in range(2))
+    want = {
+        "guidance_interval": {"unet_full": 3, "unet_shallow": 0, "classifier": 1},  # only t = 500
+        "guidance_cache": {"unet_full": 3, "unet_shallow": 0, "classifier": 2},  # steps 0 and 2
+        "deep_cache": {"unet_full": 2, "unet_shallow": 1, "classifier": 3},
+        "sampler": {"unet_full": 3, "unet_shallow": 0, "classifier": 3},
+    }[flag]
+    assert out["calls"] == want
+    if flag in ("deep_cache", "sampler"):  # random weights give a gradient too small to show in uint8
+        plain = np.load(CS.main(_cli_argv(tmp_path, "--main_path", str(tmp_path / "plain")))["path"])["arr_0"]
+        assert (plain != images).any()

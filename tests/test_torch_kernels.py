@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from guided_diffusion_clip_tpu_torch.ops import attention as A
+from guided_diffusion_clip_tpu_torch.ops import fused_conv as FC
 from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+from guided_diffusion_clip_tpu_torch.ops import mma_probe as MP
 
 pytestmark = pytest.mark.gpu
 
@@ -231,3 +233,63 @@ def test_int8_autograd_on_the_card(dev):
     ry, rdx = run("cpu")
     assert ((y - ry).norm() / ry.norm()).item() <= 1e-3
     assert (dx - rdx).abs().max() <= 2e-2 * rdx.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize(
+    "B,H,W,C,K", [(2, 16, 16, 128, 128), (1, 32, 32, 128, 256), (3, 64, 64, 256, 128), (2, 48, 32, 128, 128)]
+)
+def test_fused_conv_kernel(dev, B, H, W, C, K, quantized, dtype):
+    """K6 against ``fused_conv3x3_plain`` (cuDNN f32, TF32 off). Quantized, f32
+    in: q and the s32 sums are exact, so within 1e-6 * max(1, |ref|); bf16 in
+    or out and the bf16 mode: within 2e-2 * max(1, |ref|). Bands of unequal
+    range hold the band scale; (2, 48, 32) has three bands of 16 rows."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(H + C)
+    x = torch.randn(B, H, W, C, generator=g, device=dev)
+    x = (x * torch.linspace(0.25, 4.0, H, device=dev)[None, :, None, None]).to(dtype)
+    w = torch.randn(3, 3, C, K, generator=g, device=dev) * 0.05
+    b = torch.randn(K, generator=g, device=dev)
+    n0 = FC.fused_conv3x3_cuda.launches
+    out = FC.fused_conv3x3(x, w, b, quantized=quantized)
+    ref = FC.fused_conv3x3_plain(x, w, b, quantized=quantized)
+    torch.cuda.synchronize()
+    assert FC.fused_conv3x3_cuda.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (B, H, W, K)
+    tol = 1e-6 if quantized and dtype == torch.float32 else 2e-2
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
+    assert torch.equal(FC.fused_conv3x3(x, w, None, quantized=quantized),
+                       FC.fused_conv3x3(x, w, torch.zeros_like(b), quantized=quantized))
+    with pytest.raises(ValueError, match="contiguous"):
+        FC.fused_conv3x3(x.transpose(1, 2), w, b, quantized=quantized)
+
+
+@pytest.mark.parametrize("T", [1, 3, 64, 2000])
+def test_mma_probe_kernel_s8(dev, T):
+    """K7 in s8: bit-identical to the plain version at every T, wrapped sums
+    (T = 64 and 2000 pass the s32 range) included."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = torch.randint(-127, 128, (MP.BM, MP.BK), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (MP.BK, MP.BN), generator=g, device=dev, dtype=torch.int8)
+    n0 = MP.accumulating_dots_cuda.launches
+    out = MP.accumulating_dots(x, w, T)
+    torch.cuda.synchronize()
+    assert MP.accumulating_dots_cuda.launches == n0 + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, MP.accumulating_dots_plain(x, w, T))
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_mma_probe_kernel_bf16(dev, T):
+    """K7 in bf16: within 1e-2 * max|ref| of the f64 product (f32 sums in the
+    tensor cores' order)."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = torch.randn(MP.BM, MP.BK, generator=g, device=dev).bfloat16()
+    w = torch.randn(MP.BK, MP.BN, generator=g, device=dev).bfloat16()
+    out = MP.accumulating_dots(x, w, T)
+    ref = MP.accumulating_dots_plain(x, w, T)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()

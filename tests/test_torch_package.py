@@ -57,5 +57,8 @@ def test_kernel_sources_are_in_the_package():
     from guided_diffusion_clip_tpu_torch.ops import build
 
     srcs = sorted(os.path.basename(s) for s in build._sources())
-    assert srcs == ["attention_bwd.cu", "attention_fwd.cu", "conv_s8.cu", "groupnorm.cu"]
+    assert srcs == [
+        "attention_bwd.cu", "attention_fwd.cu", "conv_fused.cu", "conv_s8.cu", "groupnorm.cu",
+        "mma_probe.cu",
+    ]
     assert build.library_path().startswith(os.path.join(REPO, "build", "gdc_torch_kernels"))

@@ -195,9 +195,39 @@ def test_coalescing_under_many_concurrent_clients(ckpt):
     [("cfg_scale", "1.5"), ("cfg_cache", "2"), ("guidance_interval", "0,500"),
      ("deep_cache", "3")],
 )
-def test_unported_flags_raise(flag, value):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.Sampler(serve.parse_args([*TINY, f"--{flag}", value, "--model_path", "unused.pt"]))
+def test_unported_flags_raise(flag, value, ckpt):
+    """The flags once refused as not yet ported now run: each one
+    serves a request (with ``--cfg_scale`` beside the two that gate CFG), and
+    the model runs as often as the flag says. The JAX server's own refusals
+    of bad combinations stay."""
+    needs_cfg = flag in ("cfg_cache", "guidance_interval")
+    argv = [*TINY, f"--{flag}", value, "--model_path", ckpt]
+    if needs_cfg:
+        with pytest.raises(SystemExit, match="needs --cfg_scale"):
+            serve.Sampler(serve.parse_args(argv))
+        argv += ["--cfg_scale", "1.5"]
+    sampler = serve.Sampler(serve.parse_args(argv))
+    # a null clip_feat would make both CFG branches the same
+    cond = (np.random.RandomState(0).randn(2, 512) * 4).astype(np.float32)
+    out = sampler.sample(2, seed=3, cond=cond)
+    assert out.shape == (2, 16, 16, 3) and out.dtype == np.uint8 and out.std() > 0
+    np.testing.assert_array_equal(sampler.sample(2, seed=3, cond=cond), out)
+    # 5 steps a chain, two chains: cfg_cache 2 adds a refresh on steps 0, 2, 4
+    assert sampler.forwards == 2 * (8 if flag == "cfg_cache" else 5)
+    plain = serve.Sampler(serve.parse_args([*TINY, "--model_path", ckpt]))
+    assert (plain.sample(2, seed=3, cond=cond) != out).any()
+
+
+def test_serve_refuses_bad_cfg_combinations(ckpt):
+    """The refusals of scripts/serve.py: CFG needs a conditioned model, and
+    DeepCache and CFG do not compose in the server."""
+    uncond = [a if a != "True" or TINY[i - 1] != "--class_cond" else "False" for i, a in enumerate(TINY)]
+    with pytest.raises(SystemExit, match="needs a conditioned model"):
+        serve.Sampler(serve.parse_args([*uncond, "--cfg_scale", "2.0", "--model_path", ckpt]))
+    with pytest.raises(SystemExit, match="not both"):
+        serve.Sampler(serve.parse_args([*TINY, "--cfg_scale", "2.0", "--deep_cache", "2", "--model_path", ckpt]))
+    with pytest.raises(ValueError, match="lo,hi"):
+        serve.Sampler(serve.parse_args([*TINY, "--cfg_scale", "2.0", "--guidance_interval", "5", "--model_path", ckpt]))
 
 
 def test_unknown_conv_impl_is_refused():
@@ -242,14 +272,25 @@ def test_serve_int8_on_cpu(ckpt):
         plain.close()
 
 
-def test_dpm_solver_not_yet_ported():
+def test_dpm_solver_not_yet_ported(ckpt):
+    """``--sampler dpm++2m``, once refused as not yet ported, resolves to the
+    DPM-Solver++(2M) loop and serves; an unknown sampler is still refused."""
     kw = model_and_diffusion_defaults()
     kw.update(image_size=16, num_channels=32, num_res_blocks=1, channel_mult="1,2")
     _, diffusion = create_model_and_diffusion(**kw)
     args = serve.parse_args([*TINY, "--sampler", "dpm++2m"])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        resolve_sampler(diffusion, args)
+    assert resolve_sampler(diffusion, args) == diffusion.dpm_solver_pp_2m_loop
+    with pytest.raises(SystemExit, match="choose from"):
+        resolve_sampler(diffusion, serve.parse_args([*TINY, "--sampler", "heun"]))
     assert resolve_sampler(diffusion, serve.parse_args([*TINY, "--use_ddim", "True"])) == diffusion.ddim_sample_loop
+    srv = _Server([*TINY, "--model_path", ckpt, "--sampler", "dpm++2m", "--cfg_scale", "2.0", "--cfg_cache", "2"])
+    try:
+        assert srv.healthz()["sampler"] == "dpm++2m"
+        a = srv.fetch(num_samples=2, seed=3)
+        assert a.shape == (2, 16, 16, 3) and a.std() > 0
+        np.testing.assert_array_equal(srv.fetch(num_samples=2, seed=3), a)
+    finally:
+        srv.close()
 
 
 def test_bucket_latency_routing():
