@@ -14,8 +14,14 @@ fails:
   3. each forward kernel (K1 attention, K3 GroupNorm) against its plain
      PyTorch version on the card, at the shapes the paths give it, in f32
      (TF32 off) and bf16, with kernel and plain times (median of 12 runs
-     after warm-up, CUDA events);
-  3b. the same for K2 (attention backward) at the classifier's shapes;
+     after warm-up, CUDA events). K1 in bf16 at d = 32, 64, 128 must go to
+     the tensor-core kernel (``launches_mma``); beside it each bf16 case
+     logs ``F.scaled_dot_product_attention``, the f32-FMA kernel on the same
+     bf16 input (through its C entry point, for the log only) and the bound;
+  3b. the same for K2 (attention backward) at the classifier's shapes; in
+     bf16 it is also held to the float64 result of the same values, where
+     it may not be further off than the FMA kernel by more than f32's own
+     rounding;
   4. one full-width forward (batch 1, f32, TF32 off) on the card, through the
      kernels, against the same forward on the CPU, through the plain versions;
   4b. the full-width classifier's logits and guidance gradient (batch 1,
@@ -69,8 +75,11 @@ The deploy preset's sampling knobs and the last two kernels add:
       ``tools.mxu_ceiling``, called in-process: the paths that launch K6, K7.
 
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
-6c and 7) and read just after it. The last lines are the kernels' JSON record
-(``launches`` summed over the main paths; ``bound_ms`` the least time the card
+6c and 7) and read just after it; every bf16 K1 and K2 launch of a main path
+(their torsos are bf16 at d = 64) must have been a tensor-core launch, and the
+FMA-pipe kernels must have taken only the classifier's attention pool, which
+is float32 by the reference's design (one K1 and one K2 a classifier call).
+The last lines are the kernels' JSON record (``launches`` summed over the main paths; ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
 that computes the same function, timed here and used nowhere in the port),
@@ -85,6 +94,7 @@ import concurrent.futures
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -176,6 +186,66 @@ def record(err, ms, plain_ms, nbytes, ops, op_type, library_ms=None) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
+def attention_bound(B, T, H, d, backward: bool) -> dict:
+    """``record``'s bound of K1 (q, k, v read, out written; the two products)
+    or K2 (qkv and dO read, dqkv written; five T x T x d products: S again,
+    dP, dV, dQ, dK) in bf16."""
+    if backward:
+        return dict(nbytes=(3 + 1 + 3) * B * T * H * d * 2, ops=10 * B * H * T * T * d, op_type="bf16")
+    return dict(nbytes=4 * B * T * H * d * 2, ops=4 * B * H * T * T * d, op_type="bf16")
+
+
+def fma_attention(qkv, H, new, do=None):
+    """K1 (or, given ``do``, K2) on the f32 FMA pipes for a bf16 input, through
+    the C entry points: the port sends bf16 at these head widths to the
+    tensor-core kernels, so this call is for the log only."""
+    import math
+
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import build
+
+    B, T, W = qkv.shape
+    d = W // (3 * H)
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    lib, stream = build.load(), torch.cuda.current_stream(qkv.device).cuda_stream
+    if do is None:
+        out = torch.empty((B, T, H * d), dtype=qkv.dtype, device=qkv.device)
+        rc = lib.gdc_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, T, H, d, int(new), 1, scale, stream)
+    else:
+        out = torch.empty_like(qkv)
+        stats = torch.empty((3, B * H, T), dtype=torch.float32, device=qkv.device)
+        rc = lib.gdc_attention_bwd(qkv.data_ptr(), do.data_ptr(), out.data_ptr(), stats.data_ptr(), B, T, H, d,
+                                   int(new), 1, scale, scale * scale, stream)
+    build.check(rc, "the FMA attention kernel")
+    return out
+
+
+def attention_bwd_f64(qkv, do, H, new):
+    """K2's function in float64 on the same bf16 values, dqkv unrounded: q*s
+    and k*s rounded to bf16 as the contract has it, every product, the
+    softmax and the sums in float64."""
+    import math
+
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    B, T, _ = qkv.shape
+    q, k, v = (a.transpose(1, 2) for a in A.split_qkv(qkv, H, new))  # (B, H, T, d)
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    dof = do.reshape(B, T, H, -1).transpose(1, 2).double()
+    p = torch.softmax((q * scale).double() @ (k * scale).double().transpose(-1, -2), dim=-1)
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ v.double().transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del p, dp
+    dq = ds @ k.double() * (scale * scale)
+    dk = ds.transpose(-1, -2) @ q.double() * (scale * scale)
+    grads = [g.transpose(1, 2) for g in (dq, dk, dv)]  # (B, T, H, d)
+    return torch.stack(grads, dim=2 if new else 3).reshape(qkv.shape)
+
+
 def phase3_kernels(dev):
     """Each kernel against its plain version; returns the headline records."""
     import torch
@@ -212,21 +282,30 @@ def phase3_kernels(dev):
         for B, T, H, d, new in attn_cases:
             for dtype in (torch.float32, torch.bfloat16):
                 qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
+                n_mma = A.attention_fwd_cuda.launches_mma
                 out = A.attention_fwd_cuda(qkv, H, new_order=new)
                 ref = A.qkv_attention_plain(qkv, H, new_order=new)
                 torch.cuda.synchronize()
                 name = f"K1 attention B={B} T={T} heads={H} d={d} {'new' if new else 'legacy'} {str(dtype)[6:]}"
+                mma = dtype == torch.bfloat16 and d in A.MMA_HEAD_DIMS
+                if A.attention_fwd_cuda.launches_mma - n_mma != int(mma):
+                    raise AssertionError(f"{name}: {'not ' if mma else ''}launched on the tensor cores")
                 err, bound = check(name, out, ref, dtype, "attn")
+                if not torch.equal(A.attention_fwd_cuda(qkv, H, new_order=new), out):
+                    raise AssertionError(f"{name}: a repeat run gave other bits")
                 ms = cuda_ms(lambda: A.attention_fwd_cuda(qkv, H, new_order=new))
                 pms = cuda_ms(lambda: A.qkv_attention_plain(qkv, H, new_order=new))
-                log(f"  {name}: max|d| {err:.3g} ({bound}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-                if (B, T, H, d, new, dtype) == (8, 1024, 8, 64, False, torch.bfloat16):
+                log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
+                    f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
+                if dtype == torch.bfloat16:
                     q, k, v = (t.permute(0, 2, 1, 3) for t in A.split_qkv(qkv, H, new))
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                    log(f"    F.scaled_dot_product_attention on the same q, k, v: {lib:.4f} ms")
-                    records["attention"] = record(
-                        err, ms, pms, nbytes=4 * B * T * H * d * 2, ops=4 * B * H * T * T * d,
-                        op_type="bf16", library_ms=lib)
+                    rec = record(err, ms, pms, **attention_bound(B, T, H, d, False), library_ms=lib)
+                    fma = f", the FMA kernel {cuda_ms(lambda: fma_attention(qkv, H, new)):.4f} ms" if mma else ""
+                    log(f"    F.scaled_dot_product_attention on the same q, k, v: {lib:.4f} ms{fma}; bound "
+                        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                    if (B, T, H, d, new) == (8, 1024, 8, 64, False):
+                        records["attention"] = rec
 
         for B, hw, C in [(8, 256 * 256, 256), (8, 8 * 8, 1024)]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -278,10 +357,14 @@ def phase3b_attention_bwd(dev):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
             do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
+            n_mma = A.attention_bwd_cuda.launches_mma
             out = A.attention_bwd_cuda(qkv, do, H, new_order=new)
             ref = A.qkv_attention_bwd_plain(qkv, do, H, new)
             torch.cuda.synchronize()
             name = f"K2 attention_bwd B={B} T={T} heads={H} d={d} {'new' if new else 'legacy'} {str(dtype)[6:]}"
+            mma = dtype == torch.bfloat16 and d in A.MMA_HEAD_DIMS
+            if A.attention_bwd_cuda.launches_mma - n_mma != int(mma):
+                raise AssertionError(f"{name}: {'not ' if mma else ''}launched on the tensor cores")
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
             bound = f"|d| <= {tol:g}*max(1,|ref|)"
@@ -291,17 +374,35 @@ def phase3b_attention_bwd(dev):
                 raise AssertionError(f"{name}: a repeat run gave other bits")
             ms = cuda_ms(lambda: A.attention_bwd_cuda(qkv, do, H, new_order=new))
             pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
-            log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms")
-            if (T, dtype) == (1024, torch.bfloat16):
+            log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
+                f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
+            if dtype == torch.bfloat16:
                 q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, new))
                 with torch.enable_grad():
                     o = F.scaled_dot_product_attention(q, k, v)
                 dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
                 lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True))
-                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms")
-                # five T x T x d products: S again, dP, dV, dQ, dK
-                headline = record(err, ms, pms, nbytes=(3 + 1 + 3) * B * T * H * d * 2,
-                                  ops=10 * B * H * T * T * d, op_type="bf16", library_ms=lib)
+                rec = record(err, ms, pms, **attention_bound(B, T, H, d, True), library_ms=lib)
+                fma = fma_attention(qkv, H, new, do)
+                fma_err = (fma.float() - ref.float()).abs().max().item()
+                fma_ms = cuda_ms(lambda: fma_attention(qkv, H, new, do))
+                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms, the FMA "
+                    f"kernel {fma_ms:.4f} ms with max|d| {fma_err:.3g}; bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})")
+                # Against the bf16 plain version both kernels differ in last places only, and which of
+                # the two meets the larger of its flipped values is chance. What tells them apart is the
+                # unrounded float64 result: there the tensor-core kernel may not be behind the FMA kernel
+                # by more than f32's own rounding (one rounding of P or dS to bf16 would be 1e-3 * max|ref|).
+                ref64 = attention_bwd_f64(qkv, do, H, new)
+                top, exact = ref64.abs().max().item(), ref64.to(dtype)
+                err64, fma_err64 = ((x.double() - ref64).abs().max().item() for x in (out, fma))
+                log(f"    against the float64 result of the same bf16 values, unrounded: max|d| {err64:.6g}, the FMA "
+                    f"kernel {fma_err64:.6g} (max|ref| {top:.3g}); results that differ from its bf16 rounding: "
+                    f"{int((out != exact).sum())} and {int((fma != exact).sum())} of {out.numel()}")
+                if err64 > fma_err64 + 1e-5 * top:
+                    raise AssertionError(f"{name}: {err64:.6g} from the float64 result, the FMA kernel {fma_err64:.6g}")
+                if T == 1024:
+                    headline = rec
     return headline
 
 
@@ -529,6 +630,32 @@ def counters() -> dict:
 def reset_counters() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_mma"):
+            fn.launches_mma = 0
+
+
+def f32_attention_calls(clf) -> int:
+    """Attention calls of one classifier forward that are float32 by the
+    reference's design: the attention pool keeps f32 in a bf16 classifier, so
+    its K1 (and K2) stays on the FMA-pipe kernels, which are exact to 1e-4."""
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionPool2d
+
+    return sum(isinstance(m, AttentionPool2d) for m in clf.modules())
+
+
+def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> None:
+    """After a main path (bf16 torsos, d = 64): every bf16 K1 and K2 launch
+    since the counts were reset ran on the tensor cores; the FMA-pipe kernels
+    took the ``k1_f32`` and ``k2_f32`` float32 calls and nothing else."""
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    for name, fn, f32 in (("K1", A.attention_fwd_cuda, k1_f32), ("K2", A.attention_bwd_cuda, k2_f32)):
+        if fn.launches - fn.launches_mma != f32:
+            raise AssertionError(f"{path}: {fn.launches_mma} of {name}'s {fn.launches} launches ran on the tensor "
+                                 f"cores, with {f32} float32 calls")
+    log(f"  {path}: {A.attention_fwd_cuda.launches_mma} of {A.attention_fwd_cuda.launches} K1 and "
+        f"{A.attention_bwd_cuda.launches_mma} of {A.attention_bwd_cuda.launches} K2 launches ran on the tensor cores: "
+        f"every bf16 one (float32 calls, the classifier's attention pool: {k1_f32} and {k2_f32})")
 
 
 def gn_conv_counts(model, int8: bool) -> dict:
@@ -1103,6 +1230,7 @@ def check_serve_launches(sampler, int8: bool) -> dict:
             **{k: n * forwards for k, n in per.items()}}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want} ({forwards} forwards)")
+    check_tensor_core_launches("serving")
     return launches
 
 
@@ -1129,6 +1257,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
         ("classifier", create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))),
     ):
         per[name] = gn_conv_counts(model, int8)
+        pools = f32_attention_calls(model)  # the last model of the loop is the classifier
         if paths is None:
             new_paths[name] = os.path.join(tmp, f"{name}_random.pt")
             torch.save(random_state_dict(model), new_paths[name])
@@ -1162,6 +1291,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
         f"UNet's {per['model']} and the classifier's {per['classifier']})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    check_tensor_core_launches("guided sampling", pools * steps, pools * steps)
     chain = sum(out["chain_seconds"])
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
@@ -1198,6 +1328,7 @@ def phase6c_preset(dev, tmp, paths):
     per_full, per_shallow = unet_counts(model, True), unet_counts(model, True, cut)
     clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()), conv_impl="int8")
     per_clf = {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, True)}
+    pools = f32_attention_calls(clf)
     del model, clf
     # the schedule says which steps guide: step i runs local timestep T - 1 - i
     tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="250").sched.timestep_map.tolist()
@@ -1229,6 +1360,7 @@ def phase6c_preset(dev, tmp, paths):
         f"{per_shallow}, a classifier forward + backward {per_clf})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    check_tensor_core_launches("the preset", pools * n_clf, pools * n_clf)
     images = np.load(out["path"])["arr_0"]
     if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(images[i].std() > 0 for i in range(8)):
         raise AssertionError(f"preset samples {images.shape} {images.dtype}: not 8 non-constant uint8 images")
@@ -1266,7 +1398,7 @@ def phase7_tools():
 
 
 def _kernel_group(name: str) -> str:
-    if "attention_fwd_kernel" in name:
+    if "attention_fwd_" in name:
         return "K1 attention"
     if "attention_bwd_" in name:
         return "K2 attention backward"
@@ -1405,10 +1537,16 @@ def main() -> int:
     build.load()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s): {build.library_path()}")
+    entry = ""  # the tensor-core attention kernel ptxas is reporting on, as name<d>
     for line in build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"(attention_[a-z_]+_kernel)ILi(\d+)E", line)
+            entry = f"{found.group(1)}<{found.group(2)}>" if found else ""
         spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
         if "registers" in line or spills:
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas: {line.strip()}" + (f" ({entry})" if entry else ""))
+        if spills and entry.endswith("<64>"):
+            raise AssertionError(f"the d = 64 instantiation {entry} spills: {line.strip()}")
 
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
@@ -1492,9 +1630,9 @@ def main() -> int:
 
     kernels = []
     for name, src, replaces in (
-        ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd.cu",
+        ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
-        ("attention_bwd", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd.cu",
+        ("attention_bwd", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
         ("group_norm", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),

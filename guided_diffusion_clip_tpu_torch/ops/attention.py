@@ -12,20 +12,31 @@ Both pre-scale q and k by d^-1/4 and run the softmax in f32.
 
 ``attention`` dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version ``qkv_attention_plain``; a CUDA tensor goes to the
-hand-written kernel K1 (``csrc/attention_fwd.cu``), or raises. An input that
-requires grad goes through ``AttentionFunction``, whose backward is the
-hand-written kernel K2 (``csrc/attention_bwd.cu``) on the card and
-``attention_bwd_plain`` on the CPU; the gradient comes back as ``(B, T, 3C)``
-in the input's head order.
+hand-written kernel K1, or raises. An input that requires grad goes through
+``AttentionFunction``, whose backward is the hand-written kernel K2 on the
+card and ``attention_bwd_plain`` on the CPU; the gradient comes back as
+``(B, T, 3C)`` in the input's head order.
 
 Kernel K1 replaces ``guided_diffusion_clip_tpu/ops/pallas_attention.py::
-_attn_kernel``. On the H100 it is compute-bound (4*T*T*d FLOPs per head
-against 4*T*d elements moved); this first version runs on the f32 FMA pipes
-with an online softmax over K/V tiles, so shared memory stays O(tile*d)
-where the TPU kernel held a whole head's K/V in VMEM. Kernel K2 replaces
-``_attn_bwd_kernel``: a Q-stationary kernel for dQ and the row statistics,
-then a K/V-stationary kernel for dK and dV, with no float atomics. See the
-sources' headers for the designs.
+_attn_kernel``, kernel K2 ``_attn_bwd_kernel``. On the H100 both are
+compute-bound (4*T*T*d FLOPs per head against 4*T*d elements moved, the
+backward a few times that). Each exists twice, and the wrappers pick by the
+tensor's dtype and head width d, with no setting:
+
+  - bfloat16, d in ``MMA_HEAD_DIMS``: ``csrc/attention_fwd_mma.cu`` and
+    ``csrc/attention_bwd_mma.cu``, every product on the tensor cores
+    (``mma.sync`` bf16 with f32 sums, operands brought by ``cp.async`` and
+    ``ldmatrix``); K2 feeds its f32 P and dS as three bf16 terms that hold
+    all 24 mantissa bits. They count in ``launches_mma`` as well as in ``launches``;
+  - float32 (any d of ``KERNEL_HEAD_DIMS``), and bfloat16 at d = 192 and
+    256, whose register tiles the tensor-core kernels do not hold:
+    ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` on the f32 FMA
+    pipes, exact to 1e-4 in float32.
+
+All run an online softmax over K/V tiles, so shared memory stays O(tile*d)
+where the TPU kernel held a whole head's K/V in VMEM; K2 is a Q-stationary
+kernel for dQ and the row statistics, then a K/V-stationary kernel for dK and
+dV, with no float atomics. See the sources' headers for the designs.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ from . import build
 # d values K1 is instantiated for: 64 is the ADM-256 UNet's head width;
 # 192 and 256 are the fork's 128 px recipe (num_heads 1 at C = 192 and 256).
 KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
+# d values the tensor-core kernels (bfloat16 only) are instantiated for
+MMA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -112,6 +125,17 @@ def qkv_attention_bwd_plain(qkv, do, num_heads: int, new_order: bool) -> torch.T
     return torch.stack(grads, dim=2 if new_order else 3).reshape(qkv.shape)
 
 
+def _use_mma(dtype: torch.dtype, d: int) -> bool:
+    """Whether K1 and K2 run on the tensor cores for this dtype and head dim."""
+    return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    """The tensor-core kernels copy 16 bytes a ``cp.async``."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"attention kernel needs {what} 16-byte aligned, got data_ptr() % 16 == {t.data_ptr() % 16}")
+
+
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
     """Raise on what kernels K1 and K2 do not take; returns the head dim."""
     if qkv.dtype not in _DTYPE_CODE:
@@ -124,6 +148,8 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
     d = W // (3 * num_heads)
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel has no instantiation for head dim {d} (has {KERNEL_HEAD_DIMS})")
+    if _use_mma(qkv.dtype, d):
+        _check_aligned(qkv, "qkv")
     if qkv.device.type != "cuda":
         raise ValueError(f"attention kernel needs a CUDA tensor, got one on {qkv.device}")
     return d
@@ -142,16 +168,24 @@ def attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, *, new_order: bool = F
     lib = build.load()
     out = torch.empty((B, T, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = lib.gdc_attention_fwd(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order),
-        _DTYPE_CODE[qkv.dtype], 1.0 / math.sqrt(math.sqrt(d)), stream,
-    )
-    build.check(rc, "gdc_attention_fwd")
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    if _use_mma(qkv.dtype, d):
+        rc = lib.gdc_attention_fwd_mma(
+            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order), scale, stream)
+        build.check(rc, "gdc_attention_fwd_mma")
+        attention_fwd_cuda.launches_mma += 1
+    else:
+        rc = lib.gdc_attention_fwd(
+            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order),
+            _DTYPE_CODE[qkv.dtype], scale, stream,
+        )
+        build.check(rc, "gdc_attention_fwd")
     attention_fwd_cuda.launches += 1
     return out
 
 
 attention_fwd_cuda.launches = 0
+attention_fwd_cuda.launches_mma = 0  # those of ``launches`` that ran on the tensor cores
 
 
 def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, *, new_order: bool = False) -> torch.Tensor:
@@ -166,21 +200,33 @@ def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, *, n
             f"the output ({B}, {T}, {num_heads * d}) {qkv.dtype} on {qkv.device}"
         )
     do = do.contiguous()
+    mma = _use_mma(qkv.dtype, d)
+    if mma:
+        _check_aligned(do, "the cotangent")
     lib = build.load()
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, B * num_heads, T), dtype=torch.float32, device=qkv.device)
     scale = 1.0 / math.sqrt(math.sqrt(d))
-    rc = lib.gdc_attention_bwd(
-        qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        B, T, num_heads, d, int(new_order), _DTYPE_CODE[qkv.dtype], scale, scale * scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    build.check(rc, "gdc_attention_bwd")
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    if mma:
+        rc = lib.gdc_attention_bwd_mma(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, T, num_heads, d, int(new_order), scale, scale * scale, stream,
+        )
+        build.check(rc, "gdc_attention_bwd_mma")
+        attention_bwd_cuda.launches_mma += 1
+    else:
+        rc = lib.gdc_attention_bwd(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, T, num_heads, d, int(new_order), _DTYPE_CODE[qkv.dtype], scale, scale * scale, stream,
+        )
+        build.check(rc, "gdc_attention_bwd")
     attention_bwd_cuda.launches += 1
     return dqkv
 
 
 attention_bwd_cuda.launches = 0
+attention_bwd_cuda.launches_mma = 0  # those of ``launches`` that ran on the tensor cores
 
 
 def _attention_fwd(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "gdc_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, dout, dqkv, stats, B, T, H, D, new_order, dtype, scale, scale2, stream
     "gdc_attention_bwd": [_P] * 4 + [_I] * 6 + [ctypes.c_float] * 2 + [_P],
+    # the bf16 tensor-core kernels: as the two above, without the dtype
+    "gdc_attention_fwd_mma": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "gdc_attention_bwd_mma": [_P] * 4 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
     # x, ps1, ps2, gamma, beta, ss, sb, a, b, stats, y, B, HW, C, G, eps, silu, splits, vec, dtype,
     # stream
     "gdc_group_norm": [_P] * 11 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],

@@ -42,35 +42,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using namespace gdc;  // mma_tile, ldmatrix_x4
 
 constexpr int kM = 512, kN = 512;
 constexpr int kBM = 128, kBN = 128;  // a block's output tile
 constexpr int kSplit = 8;            // reduction slices
 constexpr int kThreads = 256;        // 8 warps, 2 along M x 4 along N, each 64 x 32
 constexpr int kPadB = 16;            // bytes of padding per shared-memory row
-
-__device__ __forceinline__ void mma_tile(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_tile(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8 x 16-byte matrices; lanes 8i .. 8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // x: (512, row_bytes) bytes, wt: w transposed, (512, row_bytes); partial:
 // (kSplit, 512, 512) Acc. kSliceB: bytes of one row's reduction slice.

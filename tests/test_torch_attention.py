@@ -2,7 +2,12 @@
 JAX package's qkv_attention and its Pallas kernel in interpret mode: the
 forward in f32 within 2e-5, the gradient (through ``AttentionFunction`` and
 ``attention_bwd_plain``) against ``jax.vjp`` within 1e-4, as
-tests/test_pallas_attention.py."""
+tests/test_pallas_attention.py. Then the arithmetic the tensor-core kernels
+rest on, rehearsed in plain PyTorch: the tile-by-tile online softmax with
+bf16 weights, the statistics and two sweeps of the backward, and the split of an f32
+operand into bf16 terms."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -102,10 +107,135 @@ def test_bf16_rounding_contract():
     torch.testing.assert_close(out.float(), A.attention(qkv.bfloat16().float(), 2), rtol=3e-2, atol=3e-2)
 
 
+def _tiled_forward(qkv, H, new_order, tile=64):
+    """K1's algorithm as the tensor-core kernel runs it, in plain PyTorch: K/V
+    tiles of ``tile`` keys (the last one ragged), a running max m and sum l,
+    the unnormalised weights exp(s - m) rounded to the input dtype before P V
+    while l sums them unrounded, O rescaled by exp(m_old - m_new), one division
+    and one cast at the end."""
+    q, k, v = (a.permute(0, 2, 1, 3) for a in A.split_qkv(qkv, H, new_order))  # (B, H, T, d)
+    B, _, T, d = q.shape
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    qs, ks, vf = (q * scale).to(qkv.dtype).float(), (k * scale).to(qkv.dtype).float(), v.float()
+    m = torch.full((B, H, T, 1), -math.inf)
+    l = torch.zeros(B, H, T, 1)
+    o = torch.zeros(B, H, T, d)
+    for k0 in range(0, T, tile):
+        s = qs @ ks[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(qkv.dtype).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return A.merge_heads((o / l).permute(0, 2, 1, 3).to(qkv.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [64, 65, 100, 256])
+def test_tiled_online_softmax_matches_plain(T, dtype):
+    """The tile-by-tile forward against ``qkv_attention_plain`` (one softmax
+    over the whole row, normalised weights rounded): within 2e-5 in f32, and
+    within 2e-2 * max(1, |ref|) in bf16, where the two round the weights at
+    different scales."""
+    H, d = 2, 64
+    qkv = torch.from_numpy(np.random.RandomState(T).standard_normal((2, T, 3 * H * d)).astype(np.float32)).to(dtype)
+    for new_order in (False, True):
+        out = _tiled_forward(qkv, H, new_order).float()
+        ref = A.qkv_attention_plain(qkv, H, new_order=new_order).float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+        else:
+            assert ((out - ref).abs() <= 2e-2 * ref.abs().clamp(min=1)).all()
+
+
+def _split(x, terms=3):
+    """x as a sum of ``terms`` bf16 values: hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid); every difference is exact in f32."""
+    parts = []
+    for _ in range(terms):
+        parts.append(x.bfloat16().float())
+        x = x - parts[-1]
+    return parts
+
+
+def _p_ds(q, k, v, do):
+    """f32 P and dS of ``attention_bwd_plain`` for bf16-valued (T, d) inputs."""
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    p = torch.softmax((q * scale).bfloat16().float() @ (k * scale).bfloat16().float().T, dim=-1)
+    dp = do @ v.T
+    return p, p * (dp - (dp * p).sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+@pytest.mark.parametrize("product", ["Pt_dO", "dS_K", "dSt_Q"])
+def test_bf16_split_keeps_the_f32_products(product, terms):
+    """K2's f32 left operands on a bf16 tensor core: P and dS split into bf16
+    terms (one bf16 product a term, summed in f32) against the f64 product of
+    the f32 operand, at T = 256, d = 64, N(0, 1) inputs. Measured here,
+    relative to max|ref|: hi + lo 3.0e-6 (Pt_dO), 2.4e-6 (dS_K), 2.6e-6
+    (dSt_Q); hi + mid + lo, which the kernel issues, 3.1e-7, 4.3e-7 and 3.9e-7; one rounding
+    of P or dS to bf16 1.8e-3, 2.2e-3 and 2.1e-3. Bounds: two terms within
+    1e-5, three within 1e-6 (f32's own sum of 256 terms), one rounding above
+    5e-4 (so a kernel that rounded once would not pass for the split)."""
+    rs = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((256, 64)).astype(np.float32)).bfloat16().float()
+                   for _ in range(4))
+    p, ds = _p_ds(q, k, v, do)
+    left, right = {"Pt_dO": (p.T, do), "dS_K": (ds, k), "dSt_Q": (ds.T, q)}[product]
+    ref = left.double() @ right.double()
+    split = sum(part @ right for part in reversed(_split(left, terms))).double()
+    once = (left.bfloat16().float() @ right).double()
+    top = ref.abs().max()
+    assert (split - ref).abs().max() <= {2: 1e-5, 3: 1e-6}[terms] * top
+    assert (once - ref).abs().max() > 5e-4 * top
+
+
+@pytest.mark.parametrize("T", [65, 100, 256])
+def test_two_sweep_backward_matches_plain(T):
+    """K2's structure in plain PyTorch against ``attention_bwd_plain``, f32
+    within 1e-5 * max(1, |ref|): sweep 1 forms m, l and rowsum(dP o P) online
+    over key tiles of 64 (the rowsum as sum_j exp(s - m) dP rescaled like l,
+    divided by l at the end), sweep 2 forms dS tile by tile for dQ, and the
+    key-stationary pass rebuilds P^T and dS^T from the saved statistics for
+    dV and dK; P and dS enter their products as hi + mid + lo."""
+    rs = np.random.RandomState(T)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((T, 32)).astype(np.float32)).bfloat16().float()
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(32))
+    qs, ks = q * scale, k * scale  # f32 in: "rounded to the input dtype" rounds nothing
+    m, l, acc = torch.full((T, 1), -math.inf), torch.zeros(T, 1), torch.zeros(T, 1)
+    for k0 in range(0, T, 64):
+        s, dp = qs @ ks[k0:k0 + 64].T, do @ v[k0:k0 + 64].T
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l, acc, m = l * alpha + p.sum(-1, keepdim=True), acc * alpha + (p * dp).sum(-1, keepdim=True), m_new
+    rinv, rowsum = 1 / l, acc / l
+
+    def split_matmul(x, b):
+        return sum(part @ b for part in reversed(_split(x)))
+
+    dq = torch.zeros(T, 32)
+    for k0 in range(0, T, 64):
+        p = torch.exp(qs @ ks[k0:k0 + 64].T - m) * rinv
+        dq += split_matmul(p * (do @ v[k0:k0 + 64].T - rowsum), k[k0:k0 + 64])
+    dk, dv = torch.zeros(T, 32), torch.zeros(T, 32)
+    for q0 in range(0, T, 64):
+        sl = slice(q0, q0 + 64)
+        pt = torch.exp(ks @ qs[sl].T - m[sl].T) * rinv[sl].T
+        dv += split_matmul(pt, do[sl])
+        dk += split_matmul(pt * (v @ do[sl].T - rowsum[sl].T), q[sl])
+    ref = A.attention_bwd_plain(q, k, v, do)
+    for out, r in zip((dq * scale * scale, dk * scale * scale, dv), ref):
+        assert ((out - r).abs() <= 1e-5 * r.abs().clamp(min=1)).all()
+
+
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """Checks that run before any launch (no card needed): unsupported head
-    dims and dtypes, a CPU tensor, and a direct K1 call on an input that
-    needs grad (that goes through ``attention``, which records K2)."""
+    dims and dtypes, a CPU tensor, a bf16 tensor whose pointer is not 16-byte
+    aligned (the tensor-core kernels copy 16 bytes a ``cp.async``), and a
+    direct K1 call on an input that needs grad (that goes through
+    ``attention``, which records K2)."""
     qkv = torch.zeros(1, 8, 3 * 2 * 48)
     with pytest.raises(ValueError, match="head dim 48"):
         A.attention_fwd_cuda(qkv, 2)
@@ -119,4 +249,15 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         A.attention_fwd_cuda(torch.zeros(1, 8, 3 * 64), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         A.attention_bwd_cuda(torch.zeros(1, 8, 3 * 64), torch.zeros(1, 8, 64), 1)
+    # one bf16 element past an aligned start; float32 goes to the FMA kernels, which take any pointer
+    odd = torch.zeros(1 + 8 * 3 * 64, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="qkv 16-byte aligned"):
+        A.attention_fwd_cuda(odd, 1)
+    with pytest.raises(ValueError, match="qkv 16-byte aligned"):
+        A.attention_bwd_cuda(odd, torch.zeros(1, 8, 64, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # d = 256 in bf16 stays on the FMA kernels
+        A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 256), 1)
+    assert A.MMA_HEAD_DIMS == (32, 64, 128) and set(A.MMA_HEAD_DIMS) < set(A.KERNEL_HEAD_DIMS)
     assert A.attention_fwd_cuda.launches == 0 and A.attention_bwd_cuda.launches == 0
+    assert A.attention_fwd_cuda.launches_mma == 0 and A.attention_bwd_cuda.launches_mma == 0

@@ -25,21 +25,36 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def _on_tensor_cores(dtype, d) -> int:
+    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 128), else 0."""
+    return int(dtype == torch.bfloat16 and d in (32, 64, 128))
+
+
+# T = 1, 17 and 129: one row, under one tile, one row over two tiles (bf16, both head orders)
+_RAGGED_BF16 = [pytest.param(2, T, 2, 64, new, torch.bfloat16, 2e-2, id=f"bf16-T{T}-{'new' if new else 'legacy'}")
+                for T in (1, 17, 129) for new in (False, True)]
+
+
+def _attention_cases(shapes):
+    return [pytest.param(*shape, dtype, tol, id="-".join(map(str, shape)) + f"-{str(dtype)[6:]}")
+            for shape in shapes for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))] + _RAGGED_BF16
+
+
 @pytest.mark.parametrize(
-    "B,T,H,d,new_order",
-    [(2, 1024, 8, 64, False), (2, 256, 16, 64, True), (3, 65, 2, 64, False),
-     (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)],
+    "B,T,H,d,new_order,dtype,tol",
+    _attention_cases([(2, 1024, 8, 64, False), (2, 256, 16, 64, True), (3, 65, 2, 64, False),
+                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)]),
 )
 def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(T + d)
     qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
     with torch.inference_mode():
-        n0 = A.attention_fwd_cuda.launches
+        n0, m0 = A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_mma
         out = A.attention(qkv, H, new_order=new_order)
         ref = A.qkv_attention_plain(qkv, H, new_order=new_order)
         torch.cuda.synchronize()
     assert A.attention_fwd_cuda.launches == n0 + 1
+    assert A.attention_fwd_cuda.launches_mma == m0 + _on_tensor_cores(dtype, d)
     assert out.dtype == dtype and out.shape == (B, T, H * d)
     diff = (out.float() - ref.float()).abs()
     assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
@@ -48,16 +63,16 @@ def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
         assert torch.equal(A.attention(qkv, H, new_order=new_order), out)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize(
-    "B,T,H,d,new_order",
-    [(2, 1024, 4, 64, False), (2, 256, 8, 64, False), (2, 64, 8, 64, False), (2, 65, 8, 64, True),
-     (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)],
+    "B,T,H,d,new_order,dtype,tol",
+    _attention_cases([(2, 1024, 4, 64, False), (2, 256, 8, 64, False), (2, 64, 8, 64, False), (2, 65, 8, 64, True),
+                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)]),
 )
 def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
     """K2 through ``attention``'s autograd Function against
     ``attention_bwd_plain``: |d| <= tol * max(1, |ref|); one K1 and one K2
-    launch; repeat runs bit-identical."""
+    launch, on the tensor cores in bf16 at d = 32, 64, 128 and on the FMA
+    pipes otherwise; repeat runs bit-identical."""
     g = torch.Generator(device=dev).manual_seed(T + d)
     qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
     do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
@@ -68,9 +83,12 @@ def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
         return x.grad
 
     n1, n2 = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+    m1, m2 = A.attention_fwd_cuda.launches_mma, A.attention_bwd_cuda.launches_mma
     out = grad()
     torch.cuda.synchronize()
     assert (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches) == (n1 + 1, n2 + 1)
+    mma = _on_tensor_cores(dtype, d)
+    assert (A.attention_fwd_cuda.launches_mma, A.attention_bwd_cuda.launches_mma) == (m1 + mma, m2 + mma)
     ref = A.qkv_attention_bwd_plain(qkv, do, H, new_order)
     assert out.dtype == dtype and out.shape == qkv.shape
     diff = (out.float() - ref.float()).abs()
