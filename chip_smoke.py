@@ -39,8 +39,15 @@ The int8 path (``--conv_impl int8``, kernels K4 and K5) adds:
   3c. K4 (the quantizing GroupNorm) against its plain version at the paths'
       shapes, with and without scale-shift, f32 and bf16, both emissions;
   3d. K5 (the s8 conv) against its plain version, and cuDNN's bf16 conv
-      timed at the same shapes: 3x3 at 256/32/8 px, the stem, the head,
-      a 1x1 and a stride-2 conv;
+      timed at the same shapes: 3x3 at 256/32/16/8 px, the stem, the head,
+      1x1 and stride-2 convs, an odd M and batch 1. Every shape with
+      C % 16 == 0 and K > 16 must go to the tensor-core kernel
+      (``launches_mma``) and equal the ``__dp4a`` kernel's output bit for
+      bit (exact sums, the same epilogue, split launches included); the
+      ``__dp4a`` kernel's time is logged beside it;
+  3g. the two quantize kernels of ``int8_conv`` against
+      ``quantize_per_tensor`` on the card (all zeros, one huge value, exact
+      ties, f32 and bf16, a size that is no multiple of 16);
   4c. a full-width int8 forward (batch 1, f32, TF32 off), card against
       CPU, teacher-forced: every quantizing GroupNorm's (q, s) and every
       per-tensor int8 conv's output is checked against the CPU's and
@@ -55,9 +62,10 @@ The int8 path (``--conv_impl int8``, kernels K4 and K5) adds:
       timed by part and profiled by kernel.
 
 The deploy preset's sampling knobs and the last two kernels add:
-  3e. K6 (the fused quantizing conv) against its plain version at 256 px,
-      256 -> 256 and 32 px, 512 -> 512, batch 8, f32 and bf16 inputs, both
-      modes, with cuDNN's bf16 conv timed at the same shapes;
+  3e. K6 (the fused quantizing conv, both modes on the tensor cores) against
+      its plain version at 256 px, 256 -> 256 and 32 px, 512 -> 512, batch 8,
+      f32 and bf16 inputs, both modes, with cuDNN's bf16 conv timed at the
+      same shapes;
   3f. K7 (the tensor-core probe) against its plain version (s8 bit for bit,
       wrapped sums included; bf16 at small T), then its two-T rate;
   4e. a full-width ``cache_mode="full"`` forward and a ``"shallow"`` one fed
@@ -79,6 +87,10 @@ Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 (their torsos are bf16 at d = 64) must have been a tensor-core launch, and the
 FMA-pipe kernels must have taken only the classifier's attention pool, which
 is float32 by the reference's design (one K1 and one K2 a classifier call).
+Likewise every K5 launch of an int8 main path must have been a tensor-core
+launch but for the 3-channel stems and the 6-channel head, counted from the
+modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
+kernels or K1/K2 at d = 64 fails the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths; ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
@@ -184,6 +196,11 @@ def record(err, ms, plain_ms, nbytes, ops, op_type, library_ms=None) -> dict:
     t_ops = 1e3 * ops / PEAK_OPS_PER_S[op_type]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
+def rate(ops, ms) -> str:
+    """Operations over a time in ms, in T/s."""
+    return f"{ops / (ms * 1e-3) / 1e12:.0f}"
 
 
 def attention_bound(B, T, H, d, backward: bool) -> dict:
@@ -457,9 +474,11 @@ def phase3c_group_norm_quant(dev):
 
 
 def phase3d_conv_s8(dev):
-    """K5 against conv_s8_plain at the paths' shapes (batch 8), and cuDNN's
-    bf16 conv timed at the same shapes; returns the headline record (3x3 at
-    256 px, 256 -> 256, bf16 out)."""
+    """K5 against conv_s8_plain at the paths' shapes, and cuDNN's bf16 conv
+    timed at the same shapes; where the tensor-core kernel applies, it must
+    have been launched and must equal the ``__dp4a`` kernel bit for bit.
+    Returns the headline record (3x3 at 256 px, 256 -> 256, batch 8, bf16
+    out)."""
     import torch
     import torch.nn.functional as F
 
@@ -468,15 +487,17 @@ def phase3d_conv_s8(dev):
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(8)
     headline = None
-    cases = [  # (name, H, C, K, k, stride, per-image scales)
-        ("3x3 256px", 256, 256, 256, 3, 1, True), ("3x3 32px", 32, 512, 512, 3, 1, True),
-        ("3x3 8px", 8, 2048, 1024, 3, 1, True), ("stem", 256, 3, 256, 3, 1, False),
-        ("head", 256, 256, 6, 3, 1, False), ("1x1 8px", 8, 2048, 1024, 1, 1, False),
-        ("3x3 stride 2 64px", 64, 256, 256, 3, 2, False),
+    cases = [  # (name, B, H, C, K, k, stride, per-image scales)
+        ("3x3 256px", 8, 256, 256, 256, 3, 1, True), ("3x3 32px", 8, 32, 512, 512, 3, 1, True),
+        ("3x3 8px", 8, 8, 2048, 1024, 3, 1, True), ("stem", 8, 256, 3, 256, 3, 1, False),
+        ("head", 8, 256, 256, 6, 3, 1, False), ("1x1 8px", 8, 8, 2048, 1024, 1, 1, False),
+        ("3x3 stride 2 64px", 8, 64, 256, 256, 3, 2, False),
+        ("3x3 16px", 8, 16, 1024, 1024, 3, 1, True), ("3x3 16px", 8, 16, 2048, 1024, 3, 1, True),
+        ("1x1 128px", 8, 128, 768, 256, 1, 1, False), ("3x3 8px", 3, 8, 2048, 1024, 3, 1, True),
+        ("3x3 256px", 1, 256, 256, 256, 3, 1, True),
     ]
     with torch.inference_mode():
-        for name, H, C, K, k, stride, per_image in cases:
-            B = 8
+        for name, B, H, C, K, k, stride, per_image in cases:
             q = torch.randint(-127, 128, (B, H, H, C), generator=g, device=dev, dtype=torch.int8)
             w_q, s_w = Q.quantize_per_out_channel(torch.randn(k, k, C, K, generator=g, device=dev) * 0.05)
             s_img = torch.rand(B, generator=g, device=dev) * 0.02 + 0.001 if per_image else None
@@ -484,24 +505,101 @@ def phase3d_conv_s8(dev):
             xb = q.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last NCHW view
             wb = w_q.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2))
+            rows = Q._pack_weights(w_q)  # packed once, as the models' Conv2d caches them
+            mma = Q.uses_tensor_cores(C, K, k)
+            Ho = (H + 2 * ((k - 1) // 2) - k) // stride + 1
+            M, KRp = B * Ho * Ho, -(-k * k * C // 32) * 32
+            how = "tile %d x 128, %d slice(s) of the reduction" % Q.pick_tile(M, K, KRp) if mma else "__dp4a"
             for out_dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
                 args = (q, w_q, s_img, s_w, bias, stride, out_dtype)
-                out = Q.conv_s8_cuda(*args)
+                n_mma = Q.conv_s8_cuda.launches_mma
+                out = Q.conv_s8_cuda(*args, rows)
                 ref = Q.conv_s8_plain(*args)
                 torch.cuda.synchronize()
+                label = f"K5 conv_s8 {name} B={B} {C}->{K} out {str(out_dtype)[6:]}"
+                if Q.conv_s8_cuda.launches_mma - n_mma != int(mma):
+                    raise AssertionError(f"{label}: {'not ' if mma else ''}launched on the tensor cores")
                 diff = (out.float() - ref.float()).abs()
                 err = diff.max().item()
-                label = f"K5 conv_s8 {name} B={B} {C}->{K} out {str(out_dtype)[6:]}"
                 if out.shape != ref.shape or not bool((diff <= tol * ref.float().abs().clamp(min=1)).all()):
                     raise AssertionError(f"{label}: max|d| {err:.3g} fails {tol:g}*max(1,|ref|)")
-                ms = cuda_ms(lambda: Q.conv_s8_cuda(*args))
+                ms = cuda_ms(lambda: Q.conv_s8_cuda(*args, rows))
                 pms = cuda_ms(lambda: Q.conv_s8_plain(*args))
-                log(f"  {label}: max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)); kernel {ms:.4f} ms, "
-                    f"plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
-                if (name, out_dtype) == ("3x3 256px", torch.bfloat16):
-                    headline = record(err, ms, pms, nbytes=B * H * H * (C + 2 * K) + k * k * C * K,
-                                      ops=2 * B * H * H * C * K * k * k, op_type="s8", library_ms=cudnn_ms)
+                ops = 2 * M * C * K * k * k
+                rec = record(err, ms, pms, nbytes=B * H * H * C + M * K * out.element_size() + k * k * C * K,
+                             ops=ops, op_type="s8", library_ms=cudnn_ms)
+                old = ""
+                if mma:
+                    same = Q.conv_s8_dp4a(*args, rows)
+                    if not torch.equal(out, same) or not torch.equal(Q.conv_s8_cuda(*args), out):
+                        raise AssertionError(f"{label}: {int((out != same).sum())} of {out.numel()} values differ from "
+                                             f"the __dp4a kernel's, or a repeat run gave other bits")
+                    old = (f", bit-identical to the __dp4a kernel ({cuda_ms(lambda: Q.conv_s8_dp4a(*args, rows)):.4f} ms) "
+                           f"and to a repeat run")
+                log(f"  {label} ({how}): max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)){old}; kernel {ms:.4f} ms "
+                    f"({rate(ops, ms)} TOP/s), plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms, "
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                if (name, B, out_dtype) == ("3x3 256px", 8, torch.bfloat16):
+                    headline = rec
             del q, xb
+    return headline
+
+
+def phase3g_quantize(dev):
+    """The quantize kernels against quantize_per_tensor on the card: s within
+    1e-6 relative (the plain version divides by 127 as a product with the
+    rounded reciprocal there), q within one level on at most 1e-4 of the
+    tensor and equal wherever the scales are; the factors are s * s_w rounded
+    once. Returns the headline record ((8, 256, 256, 256) bf16, the UNet's
+    largest float conv input)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    headline = None
+    s_w = torch.rand(256, generator=g, device=dev) * 0.01 + 1e-4
+    cases = [("randn", (8, 256, 256, 256)), ("randn", (8, 256, 256, 3)), ("randn", (8, 8, 8, 1024)),
+             ("randn", (3, 7, 5, 3)), ("zeros", (2, 16, 16, 64)), ("one huge value", (2, 16, 16, 64)),
+             ("exact ties", (2, 16, 16, 67))]
+    with torch.inference_mode():
+        for case, shape in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(shape, generator=g, device=dev) * 3
+                if case == "zeros":
+                    x.zero_()
+                elif case == "one huge value":
+                    x.view(-1)[x.numel() // 2] = -3e30
+                elif case == "exact ties":  # amax 127: the scale is 1 and every k + 0.5 is a tie
+                    x = torch.randint(-126, 126, shape, generator=g, device=dev).float() + 0.5
+                    x.view(-1)[0] = 127.0
+                x = x.to(dtype)
+                q, s, factors = Q.quantize_per_tensor_cuda(x, s_w)
+                rq, rs = Q.quantize_per_tensor(x)
+                torch.cuda.synchronize()
+                label = f"quantize {case} {shape} {str(dtype)[6:]}"
+                d = (q.float() - rq.float()).abs()
+                flips = int((d > 0).sum())
+                s_err = ((s - rs).abs() / rs).item()
+                ok = (q.dtype == torch.int8 and q.shape == x.shape and d.max() <= 1 and flips <= max(1, 1e-4 * d.numel())
+                      and s_err <= 1e-6 and torch.equal(factors, s * s_w) and (flips == 0 or not torch.equal(s, rs)))
+                if case == "zeros":
+                    ok = ok and not q.any() and s.item() == torch.tensor(1e-8).div(torch.tensor(127.0)).item()
+                if case == "exact ties":
+                    ok = ok and s.item() == 1.0 and torch.equal(q, torch.round(x.float()).to(torch.int8))
+                if not ok:
+                    raise AssertionError(f"{label}: s rel err {s_err:.3g} (bound 1e-6), q max|d| {d.max().item()}, "
+                                         f"{flips} of {d.numel()} off (bound 1e-4, 0 with equal scales)")
+                ms = cuda_ms(lambda: Q.quantize_per_tensor_cuda(x, s_w))
+                pms = cuda_ms(lambda: Q.quantize_per_tensor(x))
+                # the bound as K3's and K4's: x read once, q written once (the kernels read x twice, the amax
+                # and then the values, from HBM wherever x exceeds the L2); ~6 f32 operations a value
+                rec = record(float(d.max().item()), ms, pms, nbytes=x.numel() * (x.element_size() + 1),
+                             ops=6 * x.numel(), op_type="f32")
+                log(f"  {label}: s rel err {s_err:.3g} (bound 1e-6), q off by one on {flips} (bound 1e-4 of {d.numel()}); "
+                    f"kernels {ms:.4f} ms, plain {pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                if (case, shape, dtype) == ("randn", (8, 256, 256, 256), torch.bfloat16):
+                    headline = rec
     return headline
 
 
@@ -544,8 +642,9 @@ def phase3e_fused_conv(dev):
                         raise AssertionError(f"{label}: max|d| {err:.3g} fails {tol:g}*max(1,|ref|)")
                     ms = cuda_ms(lambda: FC.fused_conv3x3_cuda(x, w, bias, quantized=quantized))
                     pms = cuda_ms(lambda: FC.fused_conv3x3_plain(x, w, bias, quantized=quantized), runs=5, warmup=1)
-                    log(f"  {label}: max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)); kernel {ms:.4f} ms, "
-                        f"plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
+                    log(f"  {label}: max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)); kernel {ms:.4f} ms "
+                        f"({rate(2 * B * H * H * C * K * 9, ms)} T/s), plain {pms:.4f} ms, cuDNN bf16 conv "
+                        f"{cudnn_ms:.4f} ms")
                     if (H, dtype, quantized) == (256, torch.float32, True):
                         headline = record(err, ms, pms, nbytes=B * H * H * (C + K) * 4 + 9 * C * K * 4,
                                           ops=2 * B * H * H * C * K * 9, op_type="s8", library_ms=cudnn_ms)
@@ -618,8 +717,8 @@ def _wrappers() -> dict:
 
     return {"attention": A.attention_fwd_cuda, "attention_bwd": A.attention_bwd_cuda,
             "group_norm": G.fused_group_norm, "group_norm_quant": G.fused_group_norm_quant,
-            "conv_s8": Q.conv_s8_cuda, "conv_fused": FC.fused_conv3x3_cuda,
-            "mma_probe": MP.accumulating_dots_cuda}
+            "conv_s8": Q.conv_s8_cuda, "quantize": Q.quantize_per_tensor_cuda,
+            "conv_fused": FC.fused_conv3x3_cuda, "mma_probe": MP.accumulating_dots_cuda}
 
 
 def counters() -> dict:
@@ -658,13 +757,40 @@ def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> N
         f"every bf16 one (float32 calls, the classifier's attention pool: {k1_f32} and {k2_f32})")
 
 
+def dp4a_convs(model) -> int:
+    """The convs of ``model``'s structure (a module or a list of modules) that
+    K5 keeps on ``__dp4a`` under int8: the stems (3 channels in) and the head
+    (6 channels out), counted from the modules' channels alone and not by the
+    wrapper's own dispatch rule, so that a rule that sent any other conv to
+    ``__dp4a`` would fail the count."""
+    from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
+
+    roots = model if isinstance(model, (list, tuple)) else [model]
+    return sum(isinstance(m, Conv2d) and (m.in_channels == 3 or m.out_channels == 6)
+               for root in roots for m in root.modules())
+
+
+def check_conv_tensor_core_launches(path: str, dp4a: int) -> None:
+    """After an int8 main path: every K5 launch since the counts were reset
+    ran on the tensor cores but the ``dp4a`` stem and head convs counted from
+    the modules."""
+    from guided_diffusion_clip_tpu_torch.ops.quant import conv_s8_cuda as k5
+
+    if k5.launches - k5.launches_mma != dp4a or (k5.launches and not k5.launches_mma):
+        raise AssertionError(f"{path}: {k5.launches_mma} of K5's {k5.launches} launches ran on the tensor cores, "
+                             f"with {dp4a} stem and head convs")
+    log(f"  {path}: {k5.launches_mma} of {k5.launches} K5 launches ran on the tensor cores: all but the {dp4a} "
+        f"stem (3 channels in) and head (6 channels out) convs")
+
+
 def gn_conv_counts(model, int8: bool) -> dict:
-    """K3, K4 and K5 launches of one forward of ``model``'s structure (a
-    module, or a list of the modules a partial forward runs) with ``int8`` or
-    without, counted from its modules: under int8 every ResBlock's
-    out_norm and every in_norm but a down block's quantizes (K4), every
-    other GroupNorm is K3, and every conv runs K5 once; otherwise every
-    GroupNorm is K3 and no conv runs K5."""
+    """K3, K4 and K5 launches and launches of the quantize kernels of one
+    forward of ``model``'s structure (a module, or a list of the modules a
+    partial forward runs) with ``int8`` or without, counted from its modules:
+    under int8 every ResBlock's out_norm and every in_norm but a down
+    block's quantizes (K4) and feeds one conv, every other GroupNorm is K3,
+    every conv runs K5 once, and every conv that no K4 feeds quantizes its
+    float input itself; otherwise every GroupNorm is K3 and no conv runs K5."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import ResBlock
 
@@ -672,9 +798,16 @@ def gn_conv_counts(model, int8: bool) -> dict:
     mods = [m for root in roots for m in root.modules()]
     gn = sum(isinstance(m, GroupNorm32) for m in mods)
     if not int8:
-        return {"group_norm": gn, "group_norm_quant": 0, "conv_s8": 0}
+        return {"group_norm": gn, "group_norm_quant": 0, "conv_s8": 0, "quantize": 0}
     k4 = sum((1 if m.down else 2) for m in mods if isinstance(m, ResBlock))
-    return {"group_norm": gn - k4, "group_norm_quant": k4, "conv_s8": sum(isinstance(m, Conv2d) for m in mods)}
+    convs = sum(isinstance(m, Conv2d) for m in mods)
+    return {"group_norm": gn - k4, "group_norm_quant": k4, "conv_s8": convs, "quantize": convs - k4}
+
+
+def shallow_roots(model, cut: int) -> list:
+    """The modules that a ``cache_mode="shallow"`` forward of a UNetModel runs."""
+    n_in = len(model.input_blocks)
+    return [*list(model.input_blocks)[:cut], *list(model.output_blocks)[n_in - cut:], model.out]
 
 
 def unet_counts(model, int8: bool, shallow_cut=None) -> dict:
@@ -684,10 +817,7 @@ def unet_counts(model, int8: bool, shallow_cut=None) -> dict:
     ``cut`` output blocks and the head)."""
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
 
-    roots = [model]
-    if shallow_cut is not None:
-        n_in = len(model.input_blocks)
-        roots = [*list(model.input_blocks)[:shallow_cut], *list(model.output_blocks)[n_in - shallow_cut:], model.out]
+    roots = [model] if shallow_cut is None else shallow_roots(model, shallow_cut)
     attn = sum(isinstance(m, AttentionBlock) for root in roots for m in root.modules())
     return {"attention": attn, **gn_conv_counts(roots, int8)}
 
@@ -1231,6 +1361,8 @@ def check_serve_launches(sampler, int8: bool) -> dict:
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want} ({forwards} forwards)")
     check_tensor_core_launches("serving")
+    if int8:
+        check_conv_tensor_core_launches("serving", dp4a_convs(sampler.model) * forwards)
     return launches
 
 
@@ -1257,6 +1389,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
         ("classifier", create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))),
     ):
         per[name] = gn_conv_counts(model, int8)
+        per[name]["dp4a"] = dp4a_convs(model)
         pools = f32_attention_calls(model)  # the last model of the loop is the classifier
         if paths is None:
             new_paths[name] = os.path.join(tmp, f"{name}_random.pt")
@@ -1284,6 +1417,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     steps = out["steps"] * out["batches"]
     if not int8 and (per["model"]["group_norm"], per["classifier"]["group_norm"]) != (GN_PER_FORWARD, CLF_GN_PER_FORWARD):
         raise AssertionError(f"GroupNorms {per}, not {GN_PER_FORWARD} and {CLF_GN_PER_FORWARD}")
+    dp4a = (per["model"].pop("dp4a") + per["classifier"].pop("dp4a")) * steps
     want = {**dict.fromkeys(launches, 0), "attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * steps,
             "attention_bwd": CLF_ATTN_PER_FORWARD * steps,
             **{k: (per["model"][k] + per["classifier"][k]) * steps for k in per["model"]}}
@@ -1292,6 +1426,8 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_tensor_core_launches("guided sampling", pools * steps, pools * steps)
+    if int8:
+        check_conv_tensor_core_launches("guided sampling", dp4a)
     chain = sum(out["chain_seconds"])
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
@@ -1329,6 +1465,7 @@ def phase6c_preset(dev, tmp, paths):
     clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()), conv_impl="int8")
     per_clf = {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, True)}
     pools = f32_attention_calls(clf)
+    dp4a_full, dp4a_shallow, dp4a_clf = dp4a_convs(model), dp4a_convs(shallow_roots(model, cut)), dp4a_convs(clf)
     del model, clf
     # the schedule says which steps guide: step i runs local timestep T - 1 - i
     tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="250").sched.timestep_map.tolist()
@@ -1361,6 +1498,7 @@ def phase6c_preset(dev, tmp, paths):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_tensor_core_launches("the preset", pools * n_clf, pools * n_clf)
+    check_conv_tensor_core_launches("the preset", dp4a_full * n_full + dp4a_shallow * n_shallow + dp4a_clf * n_clf)
     images = np.load(out["path"])["arr_0"]
     if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(images[i].std() > 0 for i in range(8)):
         raise AssertionError(f"preset samples {images.shape} {images.dtype}: not 8 non-constant uint8 images")
@@ -1390,10 +1528,12 @@ def phase7_tools():
         raise AssertionError(f"mxu_ceiling: {ceiling}")
     # per shape and K6 mode 1 warm-up call and 3 timings of 20 calls;
     # per type and T 1 warm-up call and 3 timings
-    want = {**dict.fromkeys(launches, 0), "conv_fused": 2 * 2 * 61, "conv_s8": 2 * 61, "mma_probe": 2 * 2 * 4}
+    want = {**dict.fromkeys(launches, 0), "conv_fused": 2 * 2 * 61, "conv_s8": 2 * 61, "quantize": 2 * 61,
+            "mma_probe": 2 * 2 * 4}
     log(f"  kernel launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    check_conv_tensor_core_launches("conv_bench", 0)
     return launches
 
 
@@ -1404,8 +1544,10 @@ def _kernel_group(name: str) -> str:
         return "K2 attention backward"
     if "gnq_" in name or ("gn_stats_kernel" in name and "true" in name):
         return "K4 quantizing GroupNorm"
-    if "conv_s8_kernel" in name:
+    if "conv_s8_" in name:
         return "K5 s8 conv"
+    if "absmax_kernel" in name or "quantize_kernel" in name:
+        return "int8_conv's quantize kernels"
     if "gn_" in name and "kernel" in name:
         return "K3 GroupNorm"
     if any(k in name for k in ("implicit_gemm", "dgrad", "wgrad", "conv", "cudnn")):
@@ -1537,16 +1679,26 @@ def main() -> int:
     build.load()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s): {build.library_path()}")
-    entry = ""  # the tensor-core attention kernel ptxas is reporting on, as name<d>
+    # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d>, any other by its
+    # (mangled) name; a spill fails the run in the former at d = 64 and in a kernel of the convs' and
+    # the quantizer's sources, which were built without any
+    entry, on_path = "", False
     for line in build.build_log.splitlines():
         if "Compiling entry function" in line:
             found = re.search(r"(attention_[a-z_]+_kernel)ILi(\d+)E", line)
-            entry = f"{found.group(1)}<{found.group(2)}>" if found else ""
+            mangled = re.search(r"Compiling entry function '(\w+)'", line)
+            entry = f"{found.group(1)}<{found.group(2)}>" if found else mangled.group(1) if mangled else ""
+            on_path = entry.endswith("<64>")  # the paths' attention runs d = 64
+            found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
+                              r"quantize_kernel)(\w*)'", line)
+            if found:
+                entry, on_path = found.group(1) + found.group(2), True
         spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
         if "registers" in line or spills:
             log(f"  ptxas: {line.strip()}" + (f" ({entry})" if entry else ""))
-        if spills and entry.endswith("<64>"):
-            raise AssertionError(f"the d = 64 instantiation {entry} spills: {line.strip()}")
+        if spills and on_path:
+            raise AssertionError(f"{entry}, a kernel the main paths launch and that was built without spills, "
+                                 f"spills: {line.strip()}")
 
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
@@ -1554,12 +1706,14 @@ def main() -> int:
     records["attention_bwd"] = phase3b_attention_bwd(dev)
     log("phase 3c: K4 (quantizing GroupNorm) vs its plain version on the card")
     records["group_norm_quant"] = phase3c_group_norm_quant(dev)
-    log("phase 3d: K5 (s8 conv) vs its plain version and cuDNN's bf16 conv on the card")
+    log("phase 3d: K5 (s8 conv) vs its plain version, the __dp4a kernel and cuDNN's bf16 conv on the card")
     records["conv_s8"] = phase3d_conv_s8(dev)
     log("phase 3e: K6 (fused quantizing conv) vs its plain version and cuDNN's bf16 conv on the card")
     records["conv_fused"] = phase3e_fused_conv(dev)
     log("phase 3f: K7 (tensor-core probe) vs its plain version on the card")
     records["mma_probe"] = phase3f_mma_probe(dev)
+    log("phase 3g: int8_conv's quantize kernels vs quantize_per_tensor on the card")
+    records["quantize"] = phase3g_quantize(dev)
 
     log("phase 4: full-width forward, card vs CPU")
     sd = random_state_dict(create_model(
@@ -1638,8 +1792,11 @@ def main() -> int:
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),
         ("group_norm_quant", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:50"),
-        ("conv_s8", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_s8.cu",
+        ("conv_s8", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_s8_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_conv.py:258"),
+        # no TPU kernel: XLA fuses this pass of the JAX package's quantize_per_tensor
+        ("quantize", "guided_diffusion_clip_tpu_torch/ops/csrc/quantize.cu",
+         "guided_diffusion_clip_tpu/ops/quant.py:34"),
         ("conv_fused", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_fused.cu",
          "guided_diffusion_clip_tpu/ops/pallas_conv.py:71"),
         ("mma_probe", "guided_diffusion_clip_tpu_torch/ops/csrc/mma_probe.cu",

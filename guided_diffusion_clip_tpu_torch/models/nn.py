@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import group_norm, group_norm_quant
-from ..ops.quant import conv_prequant, int8_conv, quantize_per_out_channel
+from ..ops.quant import _pack_weights, conv_prequant, int8_conv, quantize_per_out_channel
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -104,8 +104,9 @@ class Conv2d(nn.Conv2d):
     GroupNorm's (q, s), output in ``out_dtype``; with ``int8`` set, a float
     input goes through ``int8_conv`` (output in its dtype). The weight's
     quantization (``quantize_per_out_channel`` of the f32 weight, s8 in the
-    weight's OHWI memory) is cached, and recomputed when the weight's data
-    pointer or version changes (``.to(device)``, ``load_state_dict``).
+    weight's OHWI memory) is cached together with kernel K5's packed
+    ``(K, KRp)`` rows of it, and recomputed when the weight's data pointer or
+    version changes (``.to(device)``, ``load_state_dict``).
     """
 
     int8 = False
@@ -114,6 +115,15 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kwargs)
         self._wq_key = None
         self._wq = None
+        self._rows = None
+
+    def packed_weight(self):
+        """Kernel K5's rows of the current weight's ``w_q``: (K, KRp) s8, each
+        output channel's (kh, kw, C) taps in order, zero-padded to a multiple
+        of 32 bytes (``ops.quant._pack_weights``); a view of ``w_q``'s memory
+        where no padding is needed."""
+        self.quantized_weight()
+        return self._rows
 
     def quantized_weight(self):
         """(w_q HWIO s8, s_w (K,) f32) of the current weight."""
@@ -125,6 +135,7 @@ class Conv2d(nn.Conv2d):
                 w_q, s_w = quantize_per_out_channel(w.permute(2, 3, 1, 0))
             # OHWI memory: the kernel's (K, kh*kw*C) rows are then a view
             self._wq = (w_q.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0), s_w)
+            self._rows = _pack_weights(self._wq[0])
             self._wq_key = key
         return self._wq
 
@@ -136,10 +147,10 @@ class Conv2d(nn.Conv2d):
         if prequant_scales is not None:
             y = conv_prequant(
                 x.movedim(1, -1), prequant_scales, w, self.bias, self.stride[0],
-                out_dtype or torch.float32, w_q=w_q, s_w=s_w,
+                out_dtype or torch.float32, w_q=w_q, s_w=s_w, rows=self._rows,
             )
         else:
-            y = int8_conv(x.movedim(1, -1), w, self.bias, self.stride[0], w_q=w_q, s_w=s_w)
+            y = int8_conv(x.movedim(1, -1), w, self.bias, self.stride[0], w_q=w_q, s_w=s_w, rows=self._rows)
         return y.movedim(-1, 1)
 
 

@@ -438,7 +438,7 @@ class UNetModel(nn.Module):
             if y is None:
                 raise ValueError("class-conditional model requires y")
             emb = emb + self.label_emb(y if cfg.label_emb_type == "embedding" else y.float())
-        elif y is not None:
+        elif y is not None and cfg.variant != "unet":
             raise ValueError("y given to an unconditional model")
 
         n_in = len(self.input_blocks)

@@ -51,6 +51,11 @@ _SIGNATURES = {
     "gdc_group_norm_quant": [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P],
     # q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, stride, pad, Ho, Wo, KRp, out_dtype, stream
     "gdc_conv_s8": [_P] * 6 + [_I] * 12 + [_P],
+    # the tensor-core kernel: q, w, s_img, s_w, bias, out, scratch, B, H, W, C, K, ksize, stride, pad, Ho,
+    # Wo, KRp, out_dtype, bm, split, stream
+    "gdc_conv_s8_mma": [_P] * 7 + [_I] * 14 + [_P],
+    # x, n, amax_bits, q, s_x, s_w, factors, K, dtype, stream
+    "gdc_quantize_per_tensor": [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 2 + [_P],
     # x, w, scales, s_w, bias, out, B, H, W, C, K, bh, quantized, dtype, stream
     "gdc_conv_fused": [_P] * 6 + [_I] * 8 + [_P],
     # x, wt, partial, out, T, dtype, stream

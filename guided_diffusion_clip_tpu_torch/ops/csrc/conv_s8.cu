@@ -1,4 +1,7 @@
-// s8 x s8 -> s32 convolution with a dequantizing epilogue: kernel K5.
+// s8 x s8 -> s32 convolution with a dequantizing epilogue: kernel K5 on the
+// integer pipes. Layers with C % 16 == 0 and K > 16 run conv_s8_mma.cu on the
+// tensor cores; this kernel keeps the 3-channel stems and the 6-channel head,
+// and is what the tensor-core kernel is held to, bit for bit, on every shape.
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_conv.py::fused_conv3x3_s8
 // (_kernel_s8) and, generalised, the s8 convolutions that the JAX package's
@@ -16,9 +19,9 @@
 //
 // What bounds it on the H100: an implicit GEMM, M = B*Ho*Wo output pixels,
 // N = K output channels, reduction kh*kw*C bytes. At the UNet's shapes it is
-// compute-bound. This first version runs on the integer pipes (__dp4a: four
-// s8 products and an s32 add per instruction), not the tensor cores, whose
-// s8 rate (mma.sync / wgmma) is several times higher: that is later work.
+// compute-bound. This kernel runs on the integer pipes (__dp4a: four s8
+// products and an s32 add per instruction), at about a sixth of the rate
+// that conv_s8_mma.cu reads from the tensor cores.
 //
 // What the design does about it:
 //   * a 128 (pixels) x BN (channels) tile per block of 256 threads, 8 x TN

@@ -1,15 +1,16 @@
 // Hand-issued tensor-core building blocks for sm_90a, shared by the kernels
-// that run their products on mma.sync: K7 (mma_probe.cu) and the bf16
-// attention kernels K1 and K2 (attention_fwd_mma.cu, attention_bwd_mma.cu).
+// that run their products on mma.sync: K7 (mma_probe.cu), the bf16 attention
+// kernels K1 and K2 (attention_fwd_mma.cu, attention_bwd_mma.cu) and, through
+// conv_mma.cuh, the convolutions K5 and K6 (conv_s8_mma.cu, conv_fused.cu).
 //
 //   * mma_tile / mma_bf16: mma.sync.aligned m16n8k32 (s8, s32 sums) and
 //     m16n8k16 (bf16, f32 sums);
 //   * ldmatrix_x4 / ldmatrix_x4_trans: four 8 x 16-byte matrices from shared
 //     memory into the fragment layout the mma takes (plain: a row of the
 //     stored tile runs along the reduction; trans: a column does);
-//   * cp_async_16 / cp_async_4, commit, wait: copies from device memory to
-//     shared memory that need no register and no thread in between, zero-filled
-//     where the source is out of range;
+//   * cp_async_16 / cp_async_16_ca / cp_async_4, commit, wait: copies from
+//     device memory to shared memory that need no register and no thread in
+//     between, zero-filled where the source is out of range;
 //   * pack_bf16x2 / split3_bf16x2: two f32 values rounded into one register
 //     of two bf16, and the hi + mid + lo split that keeps all 24 mantissa bits
 //     of an f32 operand across three mma;
@@ -80,6 +81,16 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(unsigned dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(n)
+               : "memory");
+}
+
+// the same through the L1 (.ca): for data that the same block, or its
+// neighbour on the SM, asks for again soon (a conv's taps overlap)
+__device__ __forceinline__ void cp_async_16_ca(unsigned dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(n)
                : "memory");

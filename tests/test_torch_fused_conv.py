@@ -178,6 +178,22 @@ def test_tools_need_a_card_unless_told_otherwise(monkeypatch):
             tool.main([])
 
 
+def test_conv_tune_tool_is_card_only(monkeypatch):
+    """The K5 schedule sweep has no CPU mode (a schedule has no plain
+    version): it refuses a missing card by name; its layers are ones the
+    tensor-core kernel takes and its grid holds every tile ``pick_tile`` can
+    choose."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as TQ
+    from guided_diffusion_clip_tpu_torch.tools import conv_tune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        conv_tune.main()
+    for _, B, H, C, K, k in conv_tune.LARGE + conv_tune.SMALL:
+        assert TQ.uses_tensor_cores(C, K, k)
+        assert TQ.pick_tile(B * H * H, K, -(-k * k * C // 32) * 32)[0] in {bm for bm, _ in conv_tune.GRID}
+
+
 def test_mxu_ceiling_tool_on_cpu(capsys):
     out = mxu_ceiling.main(["--device", "cpu"])
     assert out["device"] == "cpu"

@@ -222,6 +222,125 @@ def test_conv_s8_kernel(dev, B, H, W, C, K, k, stride, per_image, out_dtype):
     assert torch.equal(Q.conv_s8(q, w_q, s_img, s_w, bias, stride, out_dtype), out)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,C,K,k,stride,per_image",
+    [(8, 16, 1024, 1024, 3, 1, True), (8, 16, 2048, 1024, 3, 1, True), (8, 128, 768, 256, 1, 1, False),
+     (3, 8, 2048, 1024, 3, 1, True), (1, 8, 2048, 1024, 3, 1, True), (1, 64, 256, 256, 3, 1, False),
+     (2, 32, 512, 512, 3, 1, True), (2, 64, 256, 256, 3, 2, False), (2, 12, 48, 40, 3, 1, True),
+     (1, 6, 16, 136, 5, 1, False), (2, 16, 144, 64, 3, 1, True), (1, 16, 1024, 1024, 3, 1, True),
+     (1, 8, 1040, 256, 3, 1, False)],
+)
+def test_conv_s8_tensor_core_kernel(dev, B, H, C, K, k, stride, per_image, out_dtype):
+    """K5 on the tensor cores against ``conv_s8_plain`` (f32 within 1e-6 *
+    max(1, |ref|), bf16 within 2e-2) and, bit for bit, against the ``__dp4a``
+    kernel: the s32 sums are exact and the epilogue is the same, under every
+    tile and split ``pick_tile`` gives (128- and 64-row tiles, 2 to 9
+    slices, the last one shorter, an odd M, K and C off the tile sizes, a
+    reduction that ends inside a stage). Counted in ``launches_mma``; repeat runs bit-identical
+    (integer atomics commute)."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    assert Q.uses_tensor_cores(C, K, k)
+    g = torch.Generator(device=dev).manual_seed(C + K + H)
+    q = torch.randint(-127, 128, (B, H, H, C), generator=g, device=dev, dtype=torch.int8)
+    w_q, s_w = Q.quantize_per_out_channel(torch.randn(k, k, C, K, generator=g, device=dev) * 0.05)
+    s_img = torch.rand(B, generator=g, device=dev) * 0.02 + 0.001 if per_image else None
+    bias = torch.randn(K, generator=g, device=dev) * 0.1
+    args = (q, w_q, s_img, s_w, bias, stride, out_dtype)
+    n0, m0 = Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma
+    out = Q.conv_s8(*args)
+    torch.cuda.synchronize()
+    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma) == (n0 + 1, m0 + 1)
+    ref = Q.conv_s8_plain(*args)
+    assert out.dtype == out_dtype and out.shape == ref.shape
+    tol = 1e-6 if out_dtype == torch.float32 else 2e-2
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
+    assert torch.equal(out, Q.conv_s8_dp4a(*args))
+    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma) == (n0 + 1, m0 + 1)  # the dp4a call is not counted
+    assert torch.equal(Q.conv_s8(*args), out)
+    # the cached packed rows give the same launch; without bias and scales too
+    assert torch.equal(Q.conv_s8(*args, rows=Q._pack_weights(w_q)), out)
+    bare = (q, w_q, None, s_w, None, stride, out_dtype)
+    assert torch.equal(Q.conv_s8(*bare), Q.conv_s8_dp4a(*bare))
+
+
+@pytest.mark.parametrize("C,K", [(3, 256), (256, 6)])
+def test_conv_s8_stem_and_head_stay_on_dp4a(dev, C, K):
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(C)
+    q = torch.randint(-127, 128, (2, 16, 16, C), generator=g, device=dev, dtype=torch.int8)
+    w_q, s_w = Q.quantize_per_out_channel(torch.randn(3, 3, C, K, generator=g, device=dev) * 0.05)
+    n0, m0 = Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma
+    Q.conv_s8(q, w_q, None, s_w)
+    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma) == (n0 + 1, m0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["randn", "zeros", "huge", "ties"])
+@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 32, 32, 512), (1, 7, 5, 3), (37,)])
+def test_quantize_kernels(dev, shape, case, dtype):
+    """The two quantize kernels against ``quantize_per_tensor`` on the card:
+    s to rtol 1e-6 (the plain version's division by 127 is a product with the
+    rounded reciprocal there), q within one level on at most 1e-4 of the
+    elements (exactly equal where the scales agree); all zeros, one huge
+    value, exact ties, sizes that are no multiple of 16; with ``s_w`` the
+    factors are ``s * s_w`` rounded once."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = torch.randn(shape, generator=g, device=dev) * 3
+    if case == "zeros":
+        x.zero_()
+    elif case == "huge":
+        x.view(-1)[x.numel() // 2] = -3e30
+    elif case == "ties":  # amax 127: the scale is 1, every value k + 0.5 is a tie
+        x = torch.randint(-126, 126, shape, generator=g, device=dev).float() + 0.5
+        x.view(-1)[0] = 127.0
+    x = x.to(dtype)
+    s_w = torch.rand(24, generator=g, device=dev) * 0.01 + 1e-4
+    n0 = Q.quantize_per_tensor_cuda.launches
+    q, s, factors = Q.quantize_per_tensor_cuda(x, s_w)
+    torch.cuda.synchronize()
+    assert Q.quantize_per_tensor_cuda.launches == n0 + 1
+    rq, rs = Q.quantize_per_tensor(x)
+    assert q.dtype == torch.int8 and q.shape == x.shape and s.shape == () and s.dtype == torch.float32
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+    _q_flips_ok(q, rq)
+    if torch.equal(s, rs):
+        assert torch.equal(q, rq)
+    assert torch.equal(factors, s * s_w)
+    if case == "zeros":
+        assert not q.any() and s.item() == torch.tensor(1e-8).div(torch.tensor(127.0)).item()
+    if case == "ties":
+        assert s.item() == 1.0 and torch.equal(q, torch.round(x.float()).to(torch.int8))
+    q2, s2, none = Q.quantize_per_tensor_cuda(x)
+    assert none is None and torch.equal(q2, q) and torch.equal(s2, s)
+
+
+def test_int8_conv_on_the_card_runs_the_quantize_kernels(dev):
+    """``int8_conv`` on CUDA: one launch of the quantize kernels and one of
+    K5, the output as the plain versions' on the same tensors."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(2, 16, 16, 64, generator=g, device=dev)
+    w = torch.randn(3, 3, 64, 32, generator=g, device=dev) * 0.05
+    b = torch.randn(32, generator=g, device=dev) * 0.1
+    nq, n5 = Q.quantize_per_tensor_cuda.launches, Q.conv_s8_cuda.launches
+    out = Q.int8_conv(x, w, b)
+    torch.cuda.synchronize()
+    assert (Q.quantize_per_tensor_cuda.launches, Q.conv_s8_cuda.launches) == (nq + 1, n5 + 1)
+    w_q, s_w = Q.quantize_per_out_channel(w)
+    x_q, s_x = Q.quantize_per_tensor(x)
+    ref = Q.conv_s8_plain(x_q, w_q, None, s_x * s_w, b, 1, torch.float32)
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-3  # a tie may round the other way
+
+
 def test_int8_autograd_on_the_card(dev):
     """GN_q -> conv_prequant with gradients on CUDA (K4 emitting integer-
     valued f32, K5, the straight-through backwards through cuDNN) against

@@ -57,8 +57,8 @@ def test_kernel_sources_are_in_the_package():
     from guided_diffusion_clip_tpu_torch.ops import build
 
     srcs = sorted(os.path.basename(s) for s in build._sources())
-    assert srcs == [  # mma.cuh is hashed with the .cu files that include it, and compiled with them
+    assert srcs == [  # the .cuh headers are hashed with the .cu files that include them, and compiled with them
         "attention_bwd.cu", "attention_bwd_mma.cu", "attention_fwd.cu", "attention_fwd_mma.cu", "conv_fused.cu",
-        "conv_s8.cu", "groupnorm.cu", "mma.cuh", "mma_probe.cu",
+        "conv_mma.cuh", "conv_s8.cu", "conv_s8_mma.cu", "groupnorm.cu", "mma.cuh", "mma_probe.cu", "quantize.cu",
     ]
     assert build.library_path().startswith(os.path.join(REPO, "build", "gdc_torch_kernels"))

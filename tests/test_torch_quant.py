@@ -647,3 +647,218 @@ def test_flax_int8_params_load_strict():
 def test_conv_impl_is_checked():
     with pytest.raises(ValueError, match="conv_impl"):
         UNetModel(UNetConfig(**dict(UPSTREAM, variant="unet")), conv_impl="int4")
+
+
+# --- the tensor-core K5's tile picker, the packed-weight cache, the quantizer's edges ----------
+
+
+def _conv_calls(model, image_size):
+    """(H_in, C, K, ks, stride) of every Conv2d call of one forward of a
+    UNetModel or EncoderUNetModel, from its modules: a ResBlock's convs all
+    run at its output resolution (it resamples before its first conv), a
+    Downsample's conv reads the resolution it halves, an Upsample's the one it
+    has doubled."""
+    from guided_diffusion_clip_tpu_torch.models.unet import Downsample, ResBlock, Upsample
+
+    calls = []
+
+    def conv(m, res):
+        calls.append((res, m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0]))
+
+    def walk(mod, res):
+        if isinstance(mod, Conv2d):
+            conv(mod, res)
+        elif isinstance(mod, ResBlock):
+            res = res // 2 if mod.down else res * 2 if mod.up else res
+            for m in mod.modules():
+                if isinstance(m, Conv2d):
+                    conv(m, res)
+        elif isinstance(mod, Downsample):
+            for m in mod.modules():
+                if isinstance(m, Conv2d):
+                    conv(m, res)
+            res //= 2
+        elif isinstance(mod, Upsample):
+            res *= 2
+            for m in mod.modules():
+                if isinstance(m, Conv2d):
+                    conv(m, res)
+        else:
+            for child in mod.children():
+                res = walk(child, res)
+        return res
+
+    res = image_size
+    for part in (model.input_blocks, model.middle_block, getattr(model, "output_blocks", None), model.out):
+        if part is not None:
+            res = walk(part, res)
+    return calls
+
+
+@pytest.mark.parametrize("which", ["upstream", "recipe128", "classifier"])
+def test_conv_calls_walk_matches_a_forward(which):
+    """The walk above against forward hooks on a small model: the same convs
+    at the same input sizes, so it may stand in for a full-size forward."""
+    if which == "classifier":
+        tm = EncoderUNetModel(UNetConfig(**CLASSIFIER), pool="attention").eval()
+    else:
+        kw = UPSTREAM if which == "upstream" else dict(RECIPE128, num_classes=None)
+        tm = UNetModel(UNetConfig(**dict(kw, num_classes=None))).eval()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].shape[2], mod.in_channels, mod.out_channels, mod.kernel_size[0],
+                                       mod.stride[0])))
+        for m in tm.modules() if isinstance(m, Conv2d)]
+    with torch.inference_mode():
+        tm(torch.zeros(1, 3, 16, 16), torch.tensor([3]))
+    for h in hooks:
+        h.remove()
+    assert len(seen) > 8 and sorted(seen) == sorted(_conv_calls(tm, 16))
+
+
+def _full_size(which):
+    """The ADM-G 256 UNet or its classifier at full width on the meta device
+    (no memory, no arithmetic): only its modules are read."""
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier, create_upstream_model
+
+    with torch.device("meta"):
+        if which == "classifier":
+            return create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention")
+        return create_upstream_model(
+            image_size=256, num_channels=256, num_res_blocks=2, learn_sigma=True, class_cond=True,
+            attention_resolutions="32,16,8", num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True)
+
+
+@pytest.mark.parametrize("batch", [1, 4, 8])
+@pytest.mark.parametrize("which", ["unet", "classifier"])
+def test_pick_tile_on_every_conv_of_the_full_models(which, batch):
+    """Every distinct conv shape of an ADM-256 forward (106 convs) and of its
+    classifier (41): the stems and the head stay on ``__dp4a``; for the
+    others the tile grid covers the M pixels once, the launch fills the card
+    (99 blocks, or a block per SM once it splits) wherever 64-row tiles and
+    slices of 32 stages allow it, splits are used only where unsplit tiles do
+    not fill the card, and the slices cut the reduction into whole 32-byte
+    steps, each byte once, none empty and none shorter than 32 stages."""
+    calls = _conv_calls(_full_size(which), 256)
+    assert len(calls) == (106 if which == "unet" else 41)
+    off = [c for c in calls if not TQ.uses_tensor_cores(c[1], c[2], c[3])]
+    assert sorted((c[1], c[2]) for c in off) == ([(3, 256), (256, 6)] if which == "unet" else [(3, 128)])
+    shapes = sorted(set(calls) - set(off))
+    assert len(shapes) >= 10
+    for H, C, K, ks, stride in shapes:
+        p = (ks - 1) // 2
+        Ho = (H + 2 * p - ks) // stride + 1
+        M, KRp = batch * Ho * Ho, -(-ks * ks * C // 32) * 32
+        bm, split = TQ.pick_tile(M, K, KRp)
+        assert bm in (64, 128) and split >= 1
+        m_tiles, n_tiles, stages = -(-M // bm), -(-K // 128), -(-KRp // 64)
+        assert (m_tiles - 1) * bm < M <= m_tiles * bm
+        blocks = m_tiles * n_tiles * split
+        small = -(-M // 64) * n_tiles  # blocks of 64-row tiles, unsplit
+        if small >= 99:
+            assert split == 1 and blocks >= 99
+        elif small * (stages // 32) >= 132:
+            assert blocks >= 132, (H, C, K, ks, batch, bm, split)
+        if split > 1:
+            assert bm == 64 and stages // split >= 32
+        ranges = TQ.split_ranges(KRp, split)
+        assert len(ranges) == split and ranges[0][0] == 0 and ranges[-1][1] == KRp
+        for (b0, e0), nxt in zip(ranges, ranges[1:] + [(KRp, KRp)]):
+            assert b0 < e0 == nxt[0] and b0 % 64 == 0 and (e0 - b0) % 32 == 0
+
+
+@pytest.mark.parametrize("M,K,KRp,want", [
+    (8 * 256 * 256, 256, 2304, (128, 1)),   # the headline conv: 8192 tiles
+    (8 * 16 * 16, 1024, 9216, (128, 1)),    # 128 tiles of 128 rows: enough
+    (8 * 16 * 16, 512, 9216, (64, 1)),      # 64 tiles of 128 rows, 128 of 64
+    (8 * 8 * 8, 1024, 18432, (64, 3)),      # 64 tiles of 64 rows: three slices of 96 stages
+    (3 * 8 * 8, 1024, 18432, (64, 6)),      # an odd M: 3 row tiles, the last half empty
+    (8 * 8 * 8, 1024, 2048, (64, 1)),       # a 1x1: 32 stages are one slice
+    (64, 1024, 18432, (64, 9)),             # batch 1 at 8 px: slices of 32 stages, no shorter
+    (16, 128, 1152, (64, 1)),               # 18 stages: too short to split
+])
+def test_pick_tile_cases(M, K, KRp, want):
+    assert TQ.pick_tile(M, K, KRp) == want
+
+
+def test_uses_tensor_cores():
+    assert TQ.uses_tensor_cores(256, 256, 3) and TQ.uses_tensor_cores(768, 256, 1) and TQ.uses_tensor_cores(16, 32, 5)
+    assert not TQ.uses_tensor_cores(3, 256, 3)      # the stem: a 16-byte copy would span taps
+    assert not TQ.uses_tensor_cores(256, 6, 3)      # the head: a 128-channel tile for 6 channels
+    assert not TQ.uses_tensor_cores(40, 64, 3) and not TQ.uses_tensor_cores(32, 64, 7)
+
+
+@pytest.mark.parametrize("cin,cout,k", [(32, 8, 3), (3, 8, 3), (48, 24, 1)])
+def test_packed_weight_cache(cin, cout, k):
+    """``Conv2d.packed_weight`` is ``_pack_weights`` of the cached ``w_q``,
+    cached with it, and follows ``load_state_dict`` and ``.to()``."""
+    torch.manual_seed(cin + cout)
+    conv = Conv2d(cin, cout, k, padding=(k - 1) // 2)
+    rows = conv.packed_weight()
+    w_q, _ = conv.quantized_weight()
+    assert conv.packed_weight() is rows  # cached
+    assert rows.dtype == torch.int8 and rows.is_contiguous()
+    assert tuple(rows.shape) == (cout, -(-k * k * cin // 32) * 32)
+    assert torch.equal(rows, TQ._pack_weights(w_q))
+    assert torch.equal(rows[:, :k * k * cin], w_q.permute(3, 0, 1, 2).reshape(cout, -1))
+    if k * k * cin % 32 == 0:
+        assert rows.data_ptr() == w_q.data_ptr()  # a view of the OHWI memory, no copy
+    conv.load_state_dict({"weight": conv.weight.detach().flip(0) * 3, "bias": conv.bias.detach()})
+    rows2 = conv.packed_weight()
+    assert rows2 is not rows and torch.equal(rows2, TQ._pack_weights(conv.quantized_weight()[0]))
+    assert torch.equal(rows2, rows.flip(0))  # the same levels, channels reversed
+    conv.to(torch.float64)
+    rows3 = conv.packed_weight()
+    assert rows3 is not rows2 and torch.equal(rows3, rows2)
+
+
+def test_conv2d_int8_paths_take_the_cached_rows(monkeypatch):
+    """Both int8 routes of ``Conv2d.forward`` hand K5's wrapper the cached
+    rows (on the CPU the plain version ignores them)."""
+    from guided_diffusion_clip_tpu_torch.models import nn as TNN
+
+    conv = Conv2d(32, 8, 3, padding=1)
+    conv.int8 = True
+    seen = []
+    for name in ("int8_conv", "conv_prequant"):
+        real = getattr(TNN, name)
+        monkeypatch.setattr(TNN, name, lambda *a, _real=real, **kw: (seen.append(kw["rows"]), _real(*a, **kw))[1])
+    x = torch.randn(1, 32, 4, 4).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        conv(x)
+        conv(torch.zeros(1, 32, 4, 4, dtype=torch.int8).contiguous(memory_format=torch.channels_last),
+             prequant_scales=torch.ones(1))
+    assert len(seen) == 2 and all(r is conv.packed_weight() for r in seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_per_tensor_edges(dtype):
+    """What the quantize kernels are held to on the card, here against the
+    JAX quantizer: all zeros give the eps scale and q = 0; the largest value
+    maps to +-127 and nothing passes it; ties round to even; a size that is no
+    multiple of 16."""
+    zeros = torch.zeros(3, 5, 7, dtype=dtype)
+    q, s = TQ.quantize_per_tensor(zeros)
+    assert q.dtype == torch.int8 and not q.any() and s.dtype == torch.float32
+    assert s.item() == np.float32(1e-8) / np.float32(127)
+    # amax = 127 makes the scale exactly 1: x / s is x, and .5 ties go to the even level
+    x = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, 127.0, -127.0, 3.0, 0.25], dtype=dtype)
+    q, s = TQ.quantize_per_tensor(x)
+    assert s.item() == 1.0 and q.tolist() == [0, 2, 2, 0, -2, -2, 126, 127, -127, 3, 0]
+    # one huge value: everything else rounds to 0, nothing overflows
+    rs = np.random.RandomState(0)
+    big = torch.from_numpy(rs.standard_normal(37).astype(np.float32)).to(dtype)
+    big[5] = -3e30
+    q, s = TQ.quantize_per_tensor(big)
+    assert q[5] == -127 and q.abs().sum() == 127 and torch.isfinite(s)
+    for t in (zeros, x, big):
+        rq, rs_ = JQ.quantize_per_tensor(jnp.asarray(t.float().numpy()).astype(jnp.float32 if dtype == torch.float32
+                                                                                  else jnp.bfloat16))
+        tq, ts = TQ.quantize_per_tensor(t)
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(rq))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(rs_), rtol=1e-6)
+
+
+def test_quantize_kernels_refuse_what_they_do_not_take():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TQ.quantize_per_tensor_cuda(torch.zeros(4, 4))

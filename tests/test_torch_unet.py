@@ -14,7 +14,7 @@ import torch
 from guided_diffusion_clip_tpu.utils.torch_import import export_to_torch
 from guided_diffusion_clip_tpu_torch.models.unet import UNetConfig, UNetModel, build_plan
 from guided_diffusion_clip_tpu_torch.utils.convert import state_dict_from_flax
-from torch_port_utils import clip_feat_pair, nchw, nhwc
+from torch_port_utils import clip_feat_pair, nchw, nhwc, upstream_pair
 
 torch.set_num_threads(2)
 
@@ -64,6 +64,29 @@ def test_state_dict_matches_export_to_torch(kw):
         assert tuple(own[k].shape) == tuple(ours[k].shape), k
     for key in ("input_blocks.3.0.in_layers.0.weight", "time_embed.0.weight", "label_emb.2.weight", "out.2.weight"):
         assert key in own
+
+
+def test_unconditional_unet_ignores_y():
+    """An unconditional ``variant="unet"`` model takes ``y`` and ignores it, as
+    the JAX model does: the output with and without ``y`` is the same, and the
+    JAX model's within 1e-4."""
+    kw = dict(SLICE, num_classes=None)
+    jm, params, tm = upstream_pair(kw, seed=3)
+    rs = np.random.RandomState(2)
+    x = rs.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([5, 900], np.int32)
+    y = np.array([1, 7], np.int32)
+    ref = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t), y=jnp.asarray(y)))
+    with torch.inference_mode():
+        with_y = tm(nchw(x), torch.from_numpy(t), y=torch.from_numpy(y).long())
+        without = tm(nchw(x), torch.from_numpy(t))
+    assert torch.equal(with_y, without)
+    assert np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(nhwc(with_y), ref, rtol=1e-4, atol=1e-4)
+    # a conditional variant without a class table still refuses it
+    cm = UNetModel(UNetConfig(**dict(kw, variant="clip_feat"))).eval()
+    with pytest.raises(ValueError, match="unconditional"):
+        cm(nchw(x), torch.from_numpy(t), y=torch.from_numpy(y).long())
 
 
 def test_bf16_torso_split():
