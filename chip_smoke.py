@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths end to end, the serving path at the
-ADM-256 widths of the fork's CLIP-conditioned UNet and classifier-guided
-sampling with ADM-G 256 and its classifier, and exits non-zero if any phase
-fails:
+Drives the port's main paths end to end, the serving path at the ADM-256
+widths of the fork's CLIP-conditioned UNet, classifier-guided sampling with
+ADM-G 256 and its classifier, and training of the fork's 128 px recipe, and
+exits non-zero if any phase fails:
 
   1. device: the card's name, power limit and compute capability (9, 0);
   2. build: the CUDA kernels of ``guided_diffusion_clip_tpu_torch/ops/csrc``
@@ -86,8 +86,34 @@ The deploy preset's sampling knobs and the last two kernels add:
   7.  the two tool entry points, ``tools.conv_bench`` and
       ``tools.mxu_ceiling``, called in-process: the paths that launch K6, K7.
 
+Training, the fork's recipe (``configs/config.yaml``: the CLIP-conditioned
+UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
+  8a. K1 and K2 at its attention shapes (batch 48, d = 192 at T = 256 and
+      d = 256 at T = 64, the FMA-pipe kernels), f32 and bf16, against their
+      plain versions, with the library call and the bound beside them;
+  8b. one ``TrainLoop`` step of the full-width model (batch 4, dropout 0) on
+      the card and on the CPU from the same weights, batch, t and noise: in
+      f32 (TF32 off) loss, grad_norm, updated parameters and gradient within
+      1e-3 relative L2; with the recipe's bf16 torso (f32 parameters, the
+      convs' weights cast at the call, K1/K2/K3 in bf16 under autograd)
+      within ``TRAIN_BF16_TOL``, the CPU's bf16 step against its f32 step
+      printed beside it as the control;
+  8c. ``python -m guided_diffusion_clip_tpu_torch.image_train --config-file``
+      on 64 generated PNGs and a ``.pt`` CLIP dict (the recipe's file with
+      save_interval 10, log_interval 5 and the paths pointed at them), with
+      ``DIFFUSION_TRAINING_TEST=1``: the three checkpoints, finite losses in
+      progress.csv, the model loading strict=True into the sampler, and the
+      entry point's ms a step and samples/s over steps 6-10, loader
+      included, with the loop's wait for the loader; then a resume from
+      ``model000010.pt`` for 2 steps (step, EMA and Adam count restored);
+  8d. 20 timed ``run_step`` calls at batch 48 after 5 of warm-up, without
+      and with ``use_checkpoint``: no host sync (``set_sync_debug_mode``),
+      K1/K2/K3 launches against the counts from the modules (every K1/K2
+      launch on the FMA-pipe kernels), ms a step and its split by part,
+      samples/s, peak memory, device time by kernel group.
+
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
-6c and 7) and read just after it; every bf16 K1 and K2 launch of a main path
+6c, 7 and the timed steps of 8d) and read just after it; every bf16 K1 and K2 launch of a main path
 (their torsos are bf16 at d = 64) must have been a tensor-core launch, and the
 FMA-pipe kernels must have taken only the classifier's attention pool, which
 is float32 by the reference's design (one K1 and one K2 a classifier call).
@@ -96,7 +122,9 @@ launch but for the 3-channel stems and the 6-channel head, counted from the
 modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
 kernels, the GroupNorm kernel (K3, K4) or K1/K2 at d = 64 fails the run (the
 other kernels' are printed).
-The last lines are the kernels' JSON record (``launches`` summed over the main paths; ``bound_ms`` the least time the card
+The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
+split between their tensor-core kernels, timed at d = 64 in phases 3 and 3b,
+and their FMA-pipe kernels, timed at the recipe's d = 192 in 8a; ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
 that computes the same function, timed here and used nowhere in the port),
@@ -110,6 +138,7 @@ from __future__ import annotations
 import concurrent.futures
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -763,6 +792,17 @@ def reset_counters() -> None:
             fn.launches_mma = 0
 
 
+def tensor_core_split(launches: dict) -> dict:
+    """A path's ``counters()``, read just before with no launch since, plus the
+    K1 and K2 launches that ran on the FMA-pipe kernels (``attention_fwd.cu``,
+    ``attention_bwd.cu``) as ``attention_fma`` and ``attention_bwd_fma``;
+    ``attention`` and ``attention_bwd`` keep counting both kernels."""
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    return {**launches, "attention_fma": launches["attention"] - A.attention_fwd_cuda.launches_mma,
+            "attention_bwd_fma": launches["attention_bwd"] - A.attention_bwd_cuda.launches_mma}
+
+
 def f32_attention_calls(clf) -> int:
     """Attention calls of one classifier forward that are float32 by the
     reference's design: the attention pool keeps f32 in a bf16 classifier, so
@@ -1393,7 +1433,7 @@ def check_serve_launches(sampler, int8: bool) -> dict:
     check_tensor_core_launches("serving")
     if int8:
         check_conv_tensor_core_launches("serving", dp4a_convs(sampler.model) * forwards)
-    return launches
+    return tensor_core_split(launches)
 
 
 def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
@@ -1462,7 +1502,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
         f"with model building and loading")
-    return launches, paths, images, chain
+    return tensor_core_split(launches), paths, images, chain
 
 
 PRESET_FLAGS = ["--conv_impl", "int8", "--deep_cache", "5", "--guidance_cache", "2",
@@ -1536,7 +1576,7 @@ def phase6c_preset(dev, tmp, paths):
     log(f"  preset chain (int8, deep_cache 5, guidance_cache 2, guidance_interval 200,800; batch 8, {steps} "
         f"steps): {chain:.3f} s, {8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; "
         f"main() {wall:.1f} s with model building and loading")
-    return launches, images, chain
+    return tensor_core_split(launches), images, chain
 
 
 def phase7_tools():
@@ -1564,7 +1604,7 @@ def phase7_tools():
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_conv_tensor_core_launches("conv_bench", 0)
-    return launches
+    return tensor_core_split(launches)
 
 
 def _kernel_group(name: str) -> str:
@@ -1684,6 +1724,446 @@ def profile_guided_step(dev, paths, conv_impl="auto"):
     for k, (ms, n) in sorted(prof["classifier backward"].items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"    {ms:8.3f} x{n:<5.0f} {k[:110]}")
     return parts["guided step"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: one-GPU training of the fork's recipe (configs/config.yaml: the
+# CLIP-conditioned UNet at 128 px, 64 channels, mult (1,1,2,3,4), attention at
+# 16 and 8 px with one head, learned sigma, bf16 torso, batch 48)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 48  # the recipe's batch_size
+TRAIN_ATTN_SHAPES = [(48, 256, 1, 192), (48, 64, 1, 256)]  # (B, T, heads, d) of its attention at 16 and 8 px
+
+
+def recipe_args(**over):
+    """configs/config.yaml as ``image_train`` reads it (the file's keys over
+    the flags' defaults), then ``over``."""
+    from guided_diffusion_clip_tpu_torch import image_train
+    from guided_diffusion_clip_tpu_torch.utils.script_util import parse_yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = parse_yaml(image_train.create_argparser().parse_args(
+        ["--config-file", os.path.join(root, "configs", "config.yaml")]))
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def recipe_model(**over):
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, create_model_and_diffusion, model_and_diffusion_defaults,
+    )
+
+    args = recipe_args(**over)
+    return args, *create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()))
+
+
+def recipe_loop(dev, sd, batch_size, tmp, **over):
+    """A ``TrainLoop`` of the recipe on ``dev`` with the weights ``sd``, logging to ``tmp``."""
+    from guided_diffusion_clip_tpu_torch.training.train_loop import TrainLoop
+    from guided_diffusion_clip_tpu_torch.utils import logger
+
+    args, model, diffusion = recipe_model(**over)
+    model.load_state_dict(sd, strict=True)
+    logger.configure_dir(tmp, format_strs=[])
+    return TrainLoop(model=model.to(dev), diffusion=diffusion, data=None, batch_size=batch_size, microbatch=-1,
+                     lr=args.lr, ema_rate=args.ema_rate, log_interval=10**9, save_interval=10**9,
+                     weight_decay=args.weight_decay)
+
+
+def recipe_batch(n, seed=0):
+    """A host batch as ``load_data`` yields one for a CLIP dict: NCHW images
+    in [-1, 1], clip_feat, and the pair img2 / clip_feat2."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-1, 1, (n, 3, 128, 128)).astype(np.float32)
+    feat = rs.standard_normal((n, 512)).astype(np.float32)
+    return x, {"clip_feat": feat, "img2": np.roll(x, 1, axis=0), "clip_feat2": np.roll(feat, 1, axis=0)}
+
+
+def train_counts(model, remat: bool) -> dict:
+    """K1, K2 and K3 launches of one train step (one microbatch) of a UNetModel,
+    from its modules: every attention block runs K1 in the forward and K2 in
+    the backward, every GroupNorm K3; under ``use_checkpoint`` the backward
+    recomputes each ResBlock and AttentionBlock, so their K1 and K3 launch
+    twice (the output head's GroupNorm is in no block)."""
+    from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, ResBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, (ResBlock, AttentionBlock))]
+    attn = sum(isinstance(m, AttentionBlock) for m in blocks)
+    gn = sum(isinstance(m, GroupNorm32) for m in model.modules())
+    gn_blocks = sum(isinstance(m, GroupNorm32) for b in blocks for m in b.modules())
+    return {"attention": attn * (1 + remat), "attention_bwd": attn, "group_norm": gn + remat * gn_blocks}
+
+
+def phase8a_attention(dev):
+    """K1 and K2 at the recipe's shapes (batch 48, one head, d = 192 at T = 256
+    and d = 256 at T = 64) against their plain versions, f32 (TF32 off) and
+    bf16, with the library call and the bound beside each. These run on the
+    FMA pipes (``attention_fwd.cu``, ``attention_bwd.cu``); returns their
+    records at the 16 px shape in bf16 as the training path runs it, under
+    ``attention_fma`` and ``attention_bwd_fma``."""
+    import torch
+    import torch.nn.functional as F
+
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    tf32_off()
+    g = torch.Generator(device=dev).manual_seed(8)
+    records = {}
+    for B, T, H, d in TRAIN_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
+            do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, False))
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(q, k, v)
+            dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
+            for name, key, kernel, plain, library, bound in (
+                ("K1 attention", "attention_fma", lambda: A.attention_fwd_cuda(qkv, H), lambda: A.qkv_attention_plain(qkv, H),
+                 lambda: F.scaled_dot_product_attention(q.detach(), k.detach(), v.detach()),
+                 attention_bound(B, T, H, d, False)),
+                ("K2 attention_bwd", "attention_bwd_fma", lambda: A.attention_bwd_cuda(qkv, do, H),
+                 lambda: A.qkv_attention_bwd_plain(qkv, do, H, False),
+                 lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True), attention_bound(B, T, H, d, True)),
+            ):
+                out, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                if dtype == torch.float32 and name.startswith("K1"):
+                    tol, ok = "max|d| <= 1e-4", bool(diff.max() <= 1e-4)
+                else:
+                    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+                    tol, ok = f"|d| <= {rtol:g}*max(1,|ref|)", bool((diff <= rtol * ref.float().abs().clamp(min=1.0)).all())
+                label = f"{name} B={B} T={T} heads={H} d={d} {str(dtype)[6:]}"
+                if not torch.isfinite(out.float()).all() or not ok:
+                    raise AssertionError(f"{label}: max|d| {diff.max().item():.3g} fails {tol}")
+                ms, pms = cuda_ms(kernel), cuda_ms(plain)
+                lib = cuda_ms(library) if dtype == torch.bfloat16 else None
+                rec = record(diff.max().item(), ms, pms, **bound, library_ms=lib)
+                log(f"  {label}: max|d| {rec['max_abs_err']:.3g} ({tol}); kernel {ms:.4f} ms (FMA pipes), plain "
+                    f"{pms:.4f} ms" + (f", library {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                                        f"{ms / rec['bound_ms']:.1f}x the bound" if lib is not None else ""))
+                if (T, d, dtype) == (256, 192, torch.bfloat16):
+                    records[key] = rec
+    return records
+
+
+# The bf16-torso step, card against CPU (both bf16), in relative L2 (step_errors). Readings on an H100
+# (the card's step is deterministic; the CPU's is oneDNN's): loss 3.5e-7, grad_norm 2.8e-5, updated
+# params 1.0e-5, gradient 6.3e-4, attention qkv/norm 6.1e-3, proj_out 5.6e-3, GroupNorms 4.2e-4; the
+# control, the CPU's bf16 step against its f32 step: 1.2e-6, 2.2e-4, 1.6e-3, 2.0e-3, 8.6e-3, 8.1e-3,
+# 2.1e-3. Faults injected on the card only gave: K2's output x 1.01, qkv/norm 1.1e-2; K1's x 1.05,
+# proj_out 1.5e-2; K3's saved rstd x 1.002, grad_norm 9.0e-4, gradient 2.2e-3, GroupNorms 2.1e-3.
+TRAIN_BF16_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "updated params": 5e-5, "gradient": 1.5e-3,
+                  "gradient, attention qkv, norm": 1e-2, "gradient, attention proj_out": 1e-2,
+                  "gradient, GroupNorms": 1e-3}
+
+
+def train_step_on(d, sd, x, cond, noise, tmp, **over) -> dict:
+    """One ``run_step`` of the recipe (dropout 0) on device ``d`` from the
+    weights ``sd``: its metrics, the updated parameters and the summed
+    gradient (Adam's first moment after one update is 0.1 x the gradient), on
+    the host, the names of the parameters in three groups (the attention
+    blocks' qkv and norm, which K2's gradient reaches first; their proj_out,
+    which K1's output reaches; the GroupNorms), and the step's seconds (the
+    first, with its set-up)."""
+    from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
+
+    loop = recipe_loop(d, sd, len(x), tmp, dropout=0.0, **over)
+    t0 = time.perf_counter()
+    loop.run_step(x, cond, noise=noise)
+    met = loop._fetch(loop._pending_log[2])
+    secs = time.perf_counter() - t0
+    groups: dict = {"attention qkv, norm": set(), "attention proj_out": set(), "GroupNorms": set()}
+    for m, mod in loop.model.named_modules():
+        parts = ((("qkv", "attention qkv, norm"), ("norm", "attention qkv, norm"), ("proj_out", "attention proj_out"))
+                 if isinstance(mod, AttentionBlock) else (("", "GroupNorms"),) if isinstance(mod, GroupNorm32) else ())
+        for part, label in parts:
+            sub = getattr(mod, part) if part else mod
+            groups[label].update(".".join(filter(None, (m, part, n))) for n, _ in sub.named_parameters())
+    return {"met": met, "params": {n: p.detach().cpu() for n, p in zip(loop.names, loop.params)},
+            "grad": {n: 10 * loop.opt.state[p]["exp_avg"].cpu() for n, p in zip(loop.names, loop.params)},
+            "groups": groups, "secs": secs}
+
+
+def step_errors(a: dict, b: dict) -> dict:
+    """How far step ``a`` is from step ``b``: loss and grad_norm relative; the
+    updated parameters and the gradient in relative L2 over all parameters;
+    and the gradient over each of ``train_step_on``'s groups of parameters
+    (K1, K2 and K3 reach these first, and they hold a small share of the
+    whole gradient), each in relative L2."""
+    def rel(x, y, names):
+        return (sum(float((x[k] - y[k]).double().square().sum()) for k in names)
+                / sum(float(y[k].double().square().sum()) for k in names)) ** 0.5
+
+    return {"loss": abs(float(a["met"]["loss"]) / float(b["met"]["loss"]) - 1),
+            "grad_norm": abs(float(a["met"]["grad_norm"]) / float(b["met"]["grad_norm"]) - 1),
+            "updated params": rel(a["params"], b["params"], b["params"]),
+            "gradient": rel(a["grad"], b["grad"], b["grad"]),
+            **{f"gradient, {g}": rel(a["grad"], b["grad"], names) for g, names in b["groups"].items()}}
+
+
+def phase8b_train_step(dev, tmp):
+    """One train step of the full-width recipe (dropout 0, batch 4) on the CPU
+    and on the card from the same weights, batch, t and noise, twice: in f32
+    with TF32 off, where loss, grad_norm, the updated parameters and the
+    gradient agree within 1e-3 relative L2; and with the recipe's bf16 torso
+    (f32 parameters, bf16 activations, K1/K2/K3 in bf16 under autograd),
+    held to ``TRAIN_BF16_TOL``, beside the control: the CPU's bf16 step
+    against its f32 step."""
+    import torch
+
+    tf32_off()
+    sd = random_state_dict(recipe_model(use_fp16=False)[1])
+    x, cond = recipe_batch(4, seed=1)
+    noise = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(3))
+    steps = {(fp16, d.type): train_step_on(d, sd, x, cond, noise, os.path.join(tmp, f"step_{fp16}_{d.type}"),
+                                           use_fp16=fp16)
+             for fp16 in (False, True) for d in (torch.device("cpu"), dev)}
+    ref = steps[False, "cpu"]
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    f32 = step_errors(steps[False, "cuda"], ref)
+    log(f"  train step (4, 3, 128, 128) f32: loss {float(ref['met']['loss']):.6g}, grad_norm "
+        f"{float(ref['met']['grad_norm']):.6g} (CPU); card vs CPU: {show(f32)} (bound 1e-3); CPU step {ref['secs']:.2f} s, card step {steps[False, 'cuda']['secs']:.2f} s (first, with set-up)")
+    bad = {k: v for k, v in f32.items() if not v <= 1e-3}
+    if bad or not float(ref["met"]["loss"]) > 0:
+        raise AssertionError(f"card train step (f32) differs from the CPU's: {bad}")
+
+    bf16 = step_errors(steps[True, "cuda"], steps[True, "cpu"])
+    control = step_errors(steps[True, "cpu"], ref)
+    log(f"  train step bf16 torso: card vs CPU (both bf16): {show(bf16)}; control, CPU bf16 vs CPU f32: "
+        f"{show(control)}; bound {TRAIN_BF16_TOL}; CPU step {steps[True, 'cpu']['secs']:.2f} s, card step "
+        f"{steps[True, 'cuda']['secs']:.2f} s")
+    bad = {k: bf16[k] for k, tol in TRAIN_BF16_TOL.items() if not bf16[k] <= tol}
+    if bad or not math.isfinite(float(steps[True, "cuda"]["met"]["loss"])):
+        raise AssertionError(f"card train step (bf16 torso) differs from the CPU's: {bad}")
+
+
+def phase8c_cli(dev, tmp):
+    """``python -m guided_diffusion_clip_tpu_torch.image_train --config-file``
+    on 64 generated 128 px PNGs and a .pt CLIP dict: configs/config.yaml with
+    save_interval 10 and log_interval 5 and the paths pointed here, stopped by
+    DIFFUSION_TRAINING_TEST=1 after the save at step 10; then resumed from
+    model000010.pt for 2 more steps. The throughput of the entry point, its
+    loader included, is the 5 steps between the log rows of steps 5 and 10
+    (each row is printed after its step's metrics came back, so the card has
+    finished that step), timed by the arrival of the rows on the child's
+    stdout; ``progress.csv``'s ``wait_data`` and ``wait_step`` split them
+    into the time the loop waited for the loader and the time in
+    ``run_step``."""
+    import csv
+    import math
+
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_model_weights, load_state_dict
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(tmp, "images")
+    os.makedirs(data)
+    rs = np.random.RandomState(4)
+    clip = {}
+    for i in range(64):
+        name = f"{i:05d}.png"
+        Image.fromarray(rs.randint(0, 256, (128, 128, 3), dtype=np.uint8)).save(os.path.join(data, name))
+        clip[name] = torch.from_numpy(rs.standard_normal((2, 512)).astype(np.float32))
+    clip_path = os.path.join(tmp, "clip_dict.pt")
+    torch.save(clip, clip_path)
+    with open(os.path.join(root, "configs", "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    runs = os.path.join(tmp, "runs")
+    cfg.update(save_interval=10, log_interval=5, data_dir=data, clip_file_path=clip_path, data_dir_test=data,
+               clip_file_path_test=clip_path, main_path=runs)
+    cfg_path = os.path.join(tmp, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    def run(argv, env):
+        """Run image_train: (seconds, {step: seconds from the start to its log row})."""
+        env = {**{k: v for k, v in os.environ.items() if k not in ("DIFFUSION_TRAINING_TEST", "DIFFUSION_BLOB_LOGDIR")},
+               "OPENAI_LOG_FORMAT": "stdout,log,csv", "PYTHONUNBUFFERED": "1", **env}
+        rows, lines = {}, []
+        t0 = time.perf_counter()
+        with tempfile.TemporaryFile("w+") as err:
+            proc = subprocess.Popen([sys.executable, "-m", "guided_diffusion_clip_tpu_torch.image_train",
+                                     "--config-file", cfg_path, *argv], stdout=subprocess.PIPE, stderr=err,
+                                    text=True, cwd=root, env=env)
+            watchdog = threading.Timer(600, proc.kill)
+            watchdog.start()
+            try:
+                for line in proc.stdout:
+                    lines.append(line)
+                    found = re.match(r"\| step +\| (\d+) ", line)
+                    if found:
+                        rows[int(found.group(1))] = time.perf_counter() - t0
+                proc.wait()
+            finally:
+                watchdog.cancel()
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                err.seek(0)
+                raise AssertionError(f"image_train exited {proc.returncode}:\n{''.join(lines)[-3000:]}\n"
+                                     f"{err.read()[-3000:]}")
+        return time.perf_counter() - t0, rows
+
+    secs, row_at = run([], {"DIFFUSION_TRAINING_TEST": "1"})
+    (first,) = os.listdir(runs)
+    run_dir = os.path.join(runs, first)
+    files = set(os.listdir(run_dir))
+    want = {"model000010.pt", "ema_0.9999_000010.pt", "opt000010.pt", "progress.csv", "log.txt",
+            "val_samples_0_000010.png", "val_samples_1_000010.png"}
+    if not want <= files:
+        raise AssertionError(f"run directory {run_dir} lacks {sorted(want - files)}")
+    with open(os.path.join(run_dir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if [int(r["step"]) for r in rows] != [0, 5, 10] or not all(math.isfinite(v) and v > 0 for v in losses):
+        raise AssertionError(f"progress.csv: steps {[r['step'] for r in rows]}, losses {losses}")
+    sampler = recipe_model()[1]
+    load_model_weights(sampler, os.path.join(run_dir, "model000010.pt"))
+    log(f"  image_train --config-file (batch 48, 128 px, save at step 10 with two 1000-step validation chains of 8): "
+        f"{secs:.1f} s; {run_dir}: {', '.join(sorted(files))}; progress.csv losses {losses}; model000010.pt "
+        f"loads strict=True into the sampler model (bf16 torso)")
+    if sorted(row_at) != [0, 5, 10]:
+        raise AssertionError(f"log rows on stdout for steps {sorted(row_at)}, want [0, 5, 10]")
+    span = row_at[10] - row_at[5]
+    wait_data, wait_step = float(rows[2]["wait_data"]), float(rows[2]["wait_step"])
+    log(f"  image_train throughput, steps 6-10 (between the log rows of steps 5 and 10, loader included): "
+        f"{1e3 * span / 5:.2f} ms a step, {5 * TRAIN_BATCH / span:.1f} samples/s; per step the loop waited "
+        f"{1e3 * wait_data / 5:.2f} ms for the loader and spent {1e3 * wait_step / 5:.2f} ms in run_step "
+        f"(progress.csv wait_data, wait_step)")
+
+    secs, _ = run(["--resume_checkpoint", os.path.join(run_dir, "model000010.pt"), "--lr_anneal_steps", "12"], {})
+    (second,) = set(os.listdir(runs)) - {first}
+    res_dir = os.path.join(runs, second)
+    with open(os.path.join(res_dir, "log.txt")) as f:
+        text = f.read()
+    # step 0 is an update too: the save at step 10 follows 11 of them
+    count10, count12 = (torch.load(os.path.join(d, n), map_location="cpu", weights_only=True)["count"]
+                        for d, n in ((run_dir, "opt000010.pt"), (res_dir, "opt000012.pt")))
+    e10, e12, m10 = (load_state_dict(os.path.join(d, n)) for d, n in (
+        (run_dir, "ema_0.9999_000010.pt"), (res_dir, "ema_0.9999_000012.pt"), (run_dir, "model000010.pt")))
+    moved = sum(float((e12[k] - e10[k]).double().norm() ** 2) for k in e10) ** 0.5
+    apart = sum(float((m10[k] - e10[k]).double().norm() ** 2) for k in e10) ** 0.5
+    if "(step 10)" not in text or "loading EMA from checkpoint" not in text or "loading optimizer state" not in text:
+        raise AssertionError(f"the resumed run did not restore step 10, the EMA and the optimizer:\n{text[-2000:]}")
+    if (count10, count12) != (11, 13) or not moved < 1e-2 * apart:
+        raise AssertionError(f"Adam count {count10} at step 10 (want 11), {count12} after the resumed run's 2 steps "
+                             f"(want 13); EMA moved {moved:.3g} against {apart:.3g} between the model and its EMA")
+    log(f"  resumed from model000010.pt for 2 steps ({secs:.1f} s): resume_step 10, Adam count {count10} -> "
+        f"{count12}, |EMA(12) - EMA(10)| {moved:.3g} against |model(10) - EMA(10)| {apart:.3g} (EMA restored)")
+
+
+def phase8d_time(dev, tmp):
+    """The recipe at batch 48 in bf16, without and with ``use_checkpoint``:
+    20 ``run_step`` calls after 5 of warm-up (and 2 under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the card),
+    the K1, K2, K3 launches of those 20 against ``train_counts``, ms a step
+    (median, CUDA events) and its split into forward, backward and optimizer
+    + EMA, samples/s, peak memory and the profiler's device time by kernel
+    group. Returns the launch counts of the timed steps."""
+    import torch
+
+    # torch's defaults, as image_train runs: no TF32 in matmuls, TF32 in cuDNN's f32 convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    sd = random_state_dict(recipe_model()[1])
+    x, cond = recipe_batch(TRAIN_BATCH, seed=2)
+    launched = {}
+    for remat in (False, True):
+        tag = "use_checkpoint" if remat else "plain backward"
+        loop = recipe_loop(dev, sd, TRAIN_BATCH, os.path.join(tmp, f"time_{remat}"), use_checkpoint=remat)
+        for _ in range(5):
+            loop.run_step(x, cond)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                loop.run_step(x, cond)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        steps = []
+        for _ in range(20):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loop.run_step(x, cond)
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+        counts = counters()
+        split = tensor_core_split(counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = train_counts(loop.model, remat)
+        want = {k: 20 * v for k, v in per_step.items()}
+        got = {k: counts[k] for k in want}
+        if got != want or any(v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"{tag}: launches {counts} over 20 steps, want {want} and no other kernel")
+        if (split["attention_fma"], split["attention_bwd_fma"]) != (counts["attention"], counts["attention_bwd"]):
+            raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on the tensor cores: {split}")
+        launched[remat] = split
+        loop.flush_metrics()
+
+        # forward, backward and optimizer + EMA of the same step, by events between them
+        xb, cb = loop._upload(x).float(), {k: loop._upload(v) for k, v in cond.items()}
+        parts = {"forward": [], "backward": [], "optimizer + EMA": []}
+        for _ in range(20):
+            t_np, w_np = loop.schedule_sampler.sample(TRAIN_BATCH, loop.np_rng)
+            t, w = loop._upload(t_np).long(), loop._upload(w_np)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            loop.opt.zero_grad(set_to_none=True)
+            ev[0].record()
+            loss, _ = loop.micro_loss(xb, cb, t, w)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            loop.update()
+            ev[3].record()
+            ev[3].synchronize()
+            for (k, lst), a, b in zip(parts.items(), ev, ev[1:]):
+                lst.append(a.elapsed_time(b))
+        med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+        step_ms = sorted(steps)[len(steps) // 2]
+
+        prof = _profile_kernels(lambda: loop.run_step(x, cond))
+        loop.flush_metrics()
+        busy = sum(ms for ms, _ in prof.values())
+        groups: dict = {}
+        for k, (ms, n) in prof.items():
+            grp = groups.setdefault(_kernel_group(k), [0.0, 0.0])
+            grp[0] += ms
+            grp[1] += n
+        log(f"  {tag}, batch {TRAIN_BATCH}, bf16 torso, f32 parameters, fused AdamW (either opt_impl): step {step_ms:.2f} ms (median of "
+            f"20, CUDA events; range {min(steps):.2f}-{max(steps):.2f}), {1e3 * TRAIN_BATCH / step_ms:.1f} samples/s; "
+            f"forward {med['forward']:.2f}, backward {med['backward']:.2f}, optimizer + EMA "
+            f"{med['optimizer + EMA']:.2f} ms; peak memory {peak:.2f} GiB")
+        log(f"  {tag}: launches a step K1 {per_step['attention']}, K2 {per_step['attention_bwd']}, K3 "
+            f"{per_step['group_norm']} (from the modules; 20 steps counted {got}); no host sync in 2 steps under "
+            f"set_sync_debug_mode('error')")
+        log(f"  {tag}, profiler: device busy {busy:.2f} ms of the {step_ms:.2f} ms step "
+            f"({100 * busy / step_ms:.0f} %); " + "; ".join(
+                f"{k} {ms:.2f} ms ({n:.0f})" for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+        log(f"  {tag}, top kernels (ms, launches):")
+        for k, (ms, n) in sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"    {ms:8.3f} x{n:<5.0f} {k[:110]}")
+        del loop
+        torch.cuda.empty_cache()
+    return launched
 
 
 def main() -> int:
@@ -1813,11 +2293,32 @@ def main() -> int:
     log("phase 7: the tool entry points (conv_bench, mxu_ceiling)")
     runs.append(phase7_tools())
 
+    t8 = time.perf_counter()
+    log("phase 8a: K1 and K2 at the training recipe's shapes (batch 48, one head, d = 192 and 256)")
+    records.update(phase8a_attention(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 8b: one train step of the full-width recipe, card vs CPU")
+        phase8b_train_step(dev, tmp)
+        log("phase 8c: python -m guided_diffusion_clip_tpu_torch.image_train --config-file, then a resume")
+        phase8c_cli(dev, tmp)
+        log("phase 8d: train steps of the recipe at batch 48, without and with use_checkpoint")
+        runs.extend(phase8d_time(dev, tmp).values())
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # K1 and K2 run on two kernels each: the tensor-core ones (bf16 at d = 64, the sampling paths) and the
+    # FMA-pipe ones (f32, and bf16 at the recipe's d = 192 and 256)
+    for run in runs:
+        run["attention"] -= run["attention_fma"]
+        run["attention_bwd"] -= run["attention_bwd_fma"]
     kernels = []
     for name, src, replaces in (
         ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
+        ("attention_fma", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd.cu",
+         "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
         ("attention_bwd", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd_mma.cu",
+         "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
+        ("attention_bwd_fma", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
         ("group_norm", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),

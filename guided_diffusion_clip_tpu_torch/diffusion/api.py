@@ -1,8 +1,9 @@
 """High-level Diffusion handle bundling a schedule with mean/var/loss types.
 
 Counterpart of ``guided_diffusion_clip_tpu/diffusion/api.py``: the same
-ergonomic handle over the pure functions (``diffusion.p_sample_loop(...)``).
-Training losses and bpd are not ported yet.
+ergonomic handle over the pure functions (``diffusion.p_sample_loop(...)``,
+``diffusion.training_losses(...)``). Each method moves the schedule to its
+input's device (a no-op where it lies there already).
 """
 
 from __future__ import annotations
@@ -42,6 +43,20 @@ class Diffusion:
             self.sched.to(x.device), model_fn, x, t,
             mean_type=self.mean_type, var_type=self.var_type,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        )
+
+    def training_losses(self, model_fn, x_start, t, noise, model_kwargs=None):
+        return G.training_losses(
+            self.sched.to(x_start.device), model_fn, x_start=x_start, t=t, noise=noise,
+            mean_type=self.mean_type, var_type=self.var_type, loss_type=self.loss_type,
+            model_kwargs=model_kwargs,
+        )
+
+    def calc_bpd_loop(self, model_fn, x_start, rng=None, *, noise=None, clip_denoised=True, model_kwargs=None):
+        return G.calc_bpd_loop(
+            self.sched.to(x_start.device), model_fn, x_start=x_start, rng=rng, noise=noise,
+            mean_type=self.mean_type, var_type=self.var_type,
+            clip_denoised=clip_denoised, model_kwargs=model_kwargs,
         )
 
     def p_sample_loop(

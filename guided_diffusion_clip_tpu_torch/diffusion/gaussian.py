@@ -7,23 +7,34 @@ guided_diffusion/gaussian_diffusion.py:171-354): functions over a
 
 Conventions: images are NCHW float32 in [-1, 1] (the model's logical layout);
 ``t`` is an integer [B] tensor indexing the (possibly respaced) schedule; the
-model sees ``sched.model_timesteps(t)``. The losses and bpd are not ported
-yet.
+model sees ``sched.model_timesteps(t)``. The learned-sigma split of the
+losses is on the channel axis 1 (the JAX package's -1).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import math
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from .schedules import DiffusionSchedule, ModelMeanType, ModelVarType
+from .losses import discretized_gaussian_log_likelihood, mean_flat, normal_kl
+from .schedules import DiffusionSchedule, LossType, ModelMeanType, ModelVarType
 
 
 def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-timestep coefficients, broadcastable over an ndim tensor."""
     out = table[t]
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """Mean/var/logvar of q(x_t | x_0) (reference :171-186)."""
+    nd = x_start.dim()
+    mean = _extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = _extract(1.0 - sched.alphas_cumprod, t, nd)
+    log_variance = _extract(sched.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
 
 
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
@@ -167,3 +178,155 @@ def condition_score(sched: DiffusionSchedule, cond_fn, out: PMeanVariance, x, t,
     pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
     mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return out._replace(mean=mean, pred_xstart=pred_xstart, model_eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# Losses and bpd (reference :718-902)
+# ---------------------------------------------------------------------------
+
+_LN2 = math.log(2.0)
+
+
+def vb_terms_bpd(
+    sched: DiffusionSchedule,
+    model_fn: Callable,
+    *,
+    x_start,
+    x_t,
+    t,
+    mean_type: ModelMeanType,
+    var_type: ModelVarType,
+    clip_denoised: bool = True,
+    model_kwargs: dict | None = None,
+):
+    """Variational bound term at one timestep, in bits (reference :718-751):
+    KL(q(x_{t-1}|x_t,x_0) || p(x_{t-1}|x_t)) / ln 2, except at t = 0, where it
+    is the discretized decoder NLL."""
+    true_mean, _, true_log_variance_clipped = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(
+        sched, model_fn, x_t, t,
+        mean_type=mean_type, var_type=var_type,
+        clip_denoised=clip_denoised, model_kwargs=model_kwargs,
+    )
+    kl = mean_flat(normal_kl(true_mean, true_log_variance_clipped, out.mean, out.log_variance)) / _LN2
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out.mean, log_scales=0.5 * out.log_variance
+    )
+    decoder_nll = mean_flat(decoder_nll) / _LN2
+    return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out.pred_xstart}
+
+
+def training_losses(
+    sched: DiffusionSchedule,
+    model_fn: Callable,
+    *,
+    x_start,
+    t,
+    noise,
+    mean_type: ModelMeanType = ModelMeanType.EPSILON,
+    var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+    loss_type: LossType = LossType.RESCALED_MSE,
+    model_kwargs: dict | None = None,
+):
+    """Per-example training losses (reference :753-826), each of shape [B].
+
+    MSE variants: the target per ``mean_type``; a learned variance adds the vb
+    term with the mean frozen (``detach``, reference :797), times T/1000 for
+    RESCALED_MSE. KL variants: the vb term alone (times T for RESCALED_KL).
+    Returns {"loss", and "mse"/"vb" where they exist}.
+    """
+    model_kwargs = model_kwargs or {}
+    x_t = q_sample(sched, x_start, t, noise)
+    terms = {}
+    if loss_type.is_vb:
+        out = vb_terms_bpd(
+            sched, model_fn, x_start=x_start, x_t=x_t, t=t,
+            mean_type=mean_type, var_type=var_type, clip_denoised=False, model_kwargs=model_kwargs,
+        )
+        terms["loss"] = out["output"]
+        if loss_type == LossType.RESCALED_KL:
+            terms["loss"] = terms["loss"] * sched.num_timesteps
+    elif loss_type in (LossType.MSE, LossType.RESCALED_MSE):
+        model_output = model_fn(x_t, sched.model_timesteps(t), **model_kwargs)
+        if var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            C = x_t.shape[1]
+            if model_output.shape[1] != 2 * C:
+                raise ValueError(f"learned-variance model must output 2C channels, got {tuple(model_output.shape)}")
+            model_output, model_var_values = model_output.split(C, dim=1)
+            # the vb term learns the variance only: the mean it sees is frozen
+            frozen_out = torch.cat([model_output.detach(), model_var_values], dim=1)
+            terms["vb"] = vb_terms_bpd(
+                sched, lambda *_a, **_k: frozen_out,
+                x_start=x_start, x_t=x_t, t=t,
+                mean_type=mean_type, var_type=var_type, clip_denoised=False,
+            )["output"]
+            if loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * sched.scale_loss_timestep_factor()
+        if mean_type == ModelMeanType.PREVIOUS_X:
+            target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+        elif mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        if not model_output.shape == target.shape == x_start.shape:
+            raise ValueError(f"model output {tuple(model_output.shape)} != target {tuple(target.shape)}")
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+    else:
+        raise NotImplementedError(loss_type)
+    return terms
+
+
+def prior_bpd(sched: DiffusionSchedule, x_start):
+    """KL(q(x_T | x_0) || N(0, I)) in bits, per batch element (reference :828-844)."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.long, device=x_start.device)
+    qt_mean, _, qt_log_variance = q_mean_variance(sched, x_start, t)
+    return mean_flat(normal_kl(qt_mean, qt_log_variance, 0.0, 0.0)) / _LN2
+
+
+def calc_bpd_loop(
+    sched: DiffusionSchedule,
+    model_fn: Callable,
+    *,
+    x_start,
+    rng: torch.Generator | None = None,
+    noise: Sequence[torch.Tensor] | None = None,
+    mean_type: ModelMeanType = ModelMeanType.EPSILON,
+    var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+    clip_denoised: bool = True,
+    model_kwargs: dict | None = None,
+):
+    """The whole chain's NLL, a loop over t = 0..T-1 (reference :846-902).
+
+    Step t diffuses x_start with ``noise[t]`` when given (one tensor per t, in
+    x_start's shape: the JAX package's ``fold_in(rng, t)`` draws, for tests),
+    else with a draw from ``rng``. Returns [B] total_bpd and prior_bpd, and
+    [B, T] vb, xstart_mse and mse, t ascending on axis 1.
+    """
+    B, T = x_start.shape[0], sched.num_timesteps
+    if noise is not None and len(noise) != T:
+        raise ValueError(f"{len(noise)} noise tensors for {T} timesteps")
+    vb, xstart_mse, mse = [], [], []
+    for t_scalar in range(T):
+        t = torch.full((B,), t_scalar, dtype=torch.long, device=x_start.device)
+        eps = noise[t_scalar] if noise is not None else torch.randn(
+            x_start.shape, generator=rng, device=x_start.device, dtype=x_start.dtype)
+        x_t = q_sample(sched, x_start, t, eps)
+        out = vb_terms_bpd(
+            sched, model_fn, x_start=x_start, x_t=x_t, t=t,
+            mean_type=mean_type, var_type=var_type,
+            clip_denoised=clip_denoised, model_kwargs=model_kwargs,
+        )
+        vb.append(out["output"])
+        xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+        pred_eps = predict_eps_from_xstart(sched, x_t, t, out["pred_xstart"])
+        mse.append(mean_flat((pred_eps - eps) ** 2))
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
+    prior = prior_bpd(sched, x_start)
+    return {
+        "total_bpd": vb.sum(dim=1) + prior,
+        "prior_bpd": prior,
+        "vb": vb,
+        "xstart_mse": xstart_mse,
+        "mse": mse,
+    }

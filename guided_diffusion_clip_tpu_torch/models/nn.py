@@ -141,6 +141,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x, prequant_scales=None, out_dtype=None):
         if prequant_scales is None and not self.int8:
+            if self.weight.dtype != x.dtype:
+                # f32 parameters under a bf16 torso (training), as flax's
+                # Conv(dtype=...) with f32 params: cast at the call, so
+                # autograd hands the f32 weight an f32 gradient
+                return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
             return super().forward(x)
         w_q, s_w = self.quantized_weight()
         w = self.weight.permute(2, 3, 1, 0)  # HWIO view
@@ -186,7 +191,8 @@ class Conv1x1(nn.Module):
             nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0], self.bias)
+        # cast at the call where the parameters are f32 and the torso is not (as Conv2d)
+        return F.linear(x, self.weight[:, :, 0].to(x.dtype), self.bias.to(x.dtype))
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

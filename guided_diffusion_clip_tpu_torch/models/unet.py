@@ -12,7 +12,13 @@ Precision split (as the JAX model and the reference's fp16_util): a bf16
 torso when ``dtype=torch.bfloat16`` -- the torso's conv and conv1d weights are
 cast once, at construction, and a loaded f32 checkpoint is cast on copy --
 with f32 GroupNorm statistics, f32 embedding MLPs and emb projections, and an
-f32 output head.
+f32 output head. The trainer keeps every parameter f32 (``model.float()``,
+flax's ``param_dtype``); a torso conv then casts its weight to the
+activations' bf16 at each call, so the gradients reach f32 parameters.
+
+``use_checkpoint`` recomputes each ResBlock and AttentionBlock in the
+backward (``torch.utils.checkpoint``, the JAX package's ``nn.remat``), in
+train mode with gradients enabled; dropout runs in train mode.
 
 Layout: logical NCHW in ``torch.channels_last`` memory (the JAX package's
 NHWC in memory), activations and conv weights alike; attention blocks see
@@ -37,6 +43,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention
@@ -294,17 +301,32 @@ class AttentionPool2d(nn.Module):
 
 
 class TimestepEmbedSequential(nn.ModuleList):
-    """One UNet block: its layers in order, ResBlocks also given the embedding."""
+    """One UNet block: its layers in order, ResBlocks also given the embedding.
+
+    With ``use_checkpoint``, ResBlocks and AttentionBlocks run under
+    ``torch.utils.checkpoint`` in train mode with gradients enabled: their
+    activations are recomputed in the backward (the default generator's
+    state is replayed, so dropout draws the same mask).
+    """
+
+    def __init__(self, use_checkpoint: bool = False):
+        super().__init__()
+        self.use_checkpoint = use_checkpoint
 
     def forward(self, x, emb):
+        remat = self.use_checkpoint and self.training and torch.is_grad_enabled()
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+            args = (x, emb) if isinstance(layer, ResBlock) else (x,)
+            if remat and isinstance(layer, (ResBlock, AttentionBlock)):
+                x = torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+            else:
+                x = layer(*args)
         return x
 
 
 def _make_block(cfg: UNetConfig, specs, ch):
     """The modules of one planned block, from ``ch`` input channels."""
-    layers = TimestepEmbedSequential()
+    layers = TimestepEmbedSequential(cfg.use_checkpoint)
     for spec in specs:
         kind = spec["kind"]
         if kind == "stem":
@@ -360,6 +382,10 @@ class UNetModel(nn.Module):
 
     Call: ``model(x, timesteps, y=None, clip_feat=None)`` with x of shape
     (B, in_channels, H, W); returns (B, out_channels, H, W) in x's dtype.
+    ``low_res``, ``clip_feat2`` and ``img2`` (the inputs of the SR and
+    image-pair variants, which the data loader yields with every CLIP batch)
+    are accepted and ignored, as by the JAX model, so one call serves every
+    variant.
     ``conv_impl``: "auto"/"xla" (cuDNN) or "int8" (see the module docstring).
     """
 
@@ -408,8 +434,8 @@ class UNetModel(nn.Module):
         """Cast the torso's conv (not under int8) and conv1d weights to ``dtype``."""
         _convert_torso((self.input_blocks, self.middle_block, self.output_blocks), dtype, self.int8)
 
-    def forward(self, x, timesteps, y=None, clip_feat=None, deep_cache=None,
-                cache_mode: str = "off", cache_cut: int = 0):
+    def forward(self, x, timesteps, y=None, clip_feat=None, low_res=None, clip_feat2=None, img2=None,
+                deep_cache=None, cache_mode: str = "off", cache_cut: int = 0):
         """``cache_mode`` / ``cache_cut`` / ``deep_cache``: DeepCache-style block
         caching (Ma et al. 2023), as the JAX ``UNetModel.__call__``:
 

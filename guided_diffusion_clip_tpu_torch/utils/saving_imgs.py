@@ -1,7 +1,8 @@
 """Sample-grid images (counterpart of guided_diffusion_clip_tpu/utils/saving_imgs.py).
 
 ``tensor2img``: [-1, 1] float NHWC batch -> uint8 HWC grid with sqrt(N)
-columns, torchvision.make_grid semantics, in numpy.
+columns, torchvision.make_grid semantics, in numpy; ``save_img`` writes it as
+a PNG (RGB, with PIL: the reference's cv2 BGR write gives the same pixels).
 """
 
 from __future__ import annotations
@@ -42,3 +43,10 @@ def tensor2img(tensor, min_max=(-1.0, 1.0)) -> np.ndarray:
     else:
         raise TypeError(f"Only support 4D/3D array, got {arr.ndim}D")
     return (grid * 255.0).round().astype(np.uint8)
+
+
+def save_img(img: np.ndarray, img_path: str) -> None:
+    """Write a uint8 HWC RGB image to disk (saving_imgs_utils.py:35-37)."""
+    from PIL import Image
+
+    Image.fromarray(img).save(img_path)

@@ -75,6 +75,41 @@ def model_and_diffusion_defaults():
     return res
 
 
+def image_train_defaults():
+    """The training flags of scripts/image_train.py:122-151, with their
+    defaults; ``image_train`` adds the model's and the diffusion's."""
+    return dict(
+        data_dir="",
+        data_dir_test="",
+        clip_file_path="",
+        clip_file_path_test="",
+        main_path="",
+        profile_dir="",  # not yet ported: refused
+        param_sharding="replicated",  # "fsdp": not yet ported
+        opt_impl="tree",  # "flat": fused AdamW; "zero1": not yet ported
+        spatial_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # > 1: not yet ported
+        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": not yet ported
+        train_conv_impl="xla",  # "int8": not yet ported
+        loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting
+        cond_dropout=0.0,  # > 0: drop conditioning per example (train for CFG)
+        cfg_null_y=-1,  # reserved null class index for cond_dropout on y models
+        schedule_sampler="uniform",
+        lr=1e-4,
+        weight_decay=0.0,
+        lr_anneal_steps=0,
+        batch_size=1,
+        microbatch=-1,  # -1 disables microbatches
+        ema_rate="0.9999",  # comma-separated list of EMA values
+        log_interval=100,
+        save_interval=5000,
+        resume_checkpoint="",
+        use_fp16=False,
+        fp16_scale_growth=1e-3,
+        val_batch_size=8,
+    )
+
+
 def classifier_and_diffusion_defaults():
     res = classifier_defaults()
     res.update(diffusion_defaults())

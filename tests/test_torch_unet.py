@@ -120,3 +120,66 @@ def test_plan_counts_at_adm256():
     n_res = sum(s["kind"] == "res" for s in layers)
     assert (n_attn, n_res) == (16, 42)
     assert 2 * n_res + n_attn + 1 == 101
+
+
+def test_forward_ignores_pair_and_sr_inputs():
+    """The data loader's CLIP batches carry ``img2`` and ``clip_feat2``; the SR
+    variants take ``low_res``. The CLIP UNet accepts and ignores all three, as
+    the JAX model does: the output equals the call without them, and the JAX
+    model's called the same way within 1e-4."""
+    jm, params, tm = clip_feat_pair(RECIPE128, seed=4)
+    rs = np.random.RandomState(5)
+    x, img2, low_res = (rs.standard_normal(s).astype(np.float32) for s in ((2, 16, 16, 3), (2, 16, 16, 3), (2, 8, 8, 3)))
+    t = np.array([3, 600], np.int32)
+    feat, feat2 = (rs.standard_normal((2, 512)).astype(np.float32) for _ in range(2))
+    extra = dict(img2=img2, clip_feat2=feat2, low_res=low_res)
+    ref = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t), clip_feat=jnp.asarray(feat),
+                                       **{k: jnp.asarray(v) for k, v in extra.items()}))
+    with torch.inference_mode():
+        plain = tm(nchw(x), torch.from_numpy(t), clip_feat=torch.from_numpy(feat))
+        out = tm(nchw(x), torch.from_numpy(t), clip_feat=torch.from_numpy(feat),
+                 img2=nchw(img2), clip_feat2=torch.from_numpy(feat2), low_res=nchw(low_res))
+    assert torch.equal(out, plain)
+    assert np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(nhwc(out), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_f32_params_under_bf16_torso():
+    """The trainer's precision: every parameter f32 (``model.float()``) while
+    the torso computes in bf16. A torso conv casts its weight at the call, so
+    the forward equals the sampling model's, whose torso weights were cast in
+    place, bit for bit, and every gradient is f32."""
+    cfg = UNetConfig(**dict(RECIPE128, variant="clip_feat", label_emb_type="mlp"))
+    sampling = UNetModel(cfg, dtype=torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():  # every weight random: the zero-init output layers would give 0
+        for p in sampling.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    training = UNetModel(cfg, dtype=torch.bfloat16).float().eval()
+    training.load_state_dict(sampling.state_dict(), strict=True)
+    assert {p.dtype for p in training.parameters()} == {torch.float32}
+    assert sampling.state_dict()["input_blocks.1.0.in_layers.2.weight"].dtype == torch.bfloat16
+    x, t, feat = torch.randn(2, 3, 16, 16, generator=g), torch.tensor([4, 700]), torch.randn(2, 512, generator=g)
+    with torch.no_grad():
+        want = sampling(x, t, clip_feat=feat)
+    out = training(x, t, clip_feat=feat)
+    assert torch.equal(out.detach(), want) and want.abs().max() > 0
+    out.square().mean().backward()
+    grads = {n: p.grad for n, p in training.named_parameters()}
+    assert all(g is not None and g.dtype == torch.float32 for g in grads.values())
+    assert grads["input_blocks.1.0.in_layers.2.weight"].abs().max() > 0
+
+
+def test_dropout_runs_in_train_mode():
+    """Dropout (the ResBlocks' ``out_layers.2``) is active under ``model.train()``
+    and off under ``eval()``, as JAX's ``train=True``."""
+    model = UNetModel(UNetConfig(**dict(RECIPE128, variant="clip_feat", label_emb_type="mlp", dropout=0.5)))
+    g = torch.Generator().manual_seed(7)
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.1, generator=g)
+    x, t, feat = torch.randn(1, 3, 16, 16, generator=g), torch.tensor([9]), torch.randn(1, 512, generator=g)
+    with torch.no_grad():
+        model.eval()
+        assert torch.equal(model(x, t, clip_feat=feat), model(x, t, clip_feat=feat))
+        model.train()
+        assert not torch.equal(model(x, t, clip_feat=feat), model(x, t, clip_feat=feat))
