@@ -17,14 +17,17 @@ exits non-zero if any phase fails:
      after warm-up, CUDA events). K3 (one launch a call) at six maps of the
      UNet and the classifier must also give each group's mean and rstd
      within 1e-5 relative of the plain version's, and the same bits again.
-     K1 in bf16 at d = 32, 64, 128 must go to
+     K1 in bf16 (every d) must go to
      the tensor-core kernel (``launches_mma``); beside it each bf16 case
      logs ``F.scaled_dot_product_attention``, the f32-FMA kernel on the same
      bf16 input (through its C entry point, for the log only) and the bound;
+     in f32 at the classifier pool's shape (T = 65, 8 heads, d = 64, the FMA
+     kernel's one main-path user) the library call (TF32 off) and the bound
+     at the f32 rate;
   3b. the same for K2 (attention backward) at the classifier's shapes; in
      bf16 it is also held to the float64 result of the same values, where
      it may not be further off than the FMA kernel by more than f32's own
-     rounding;
+     rounding; the f32 pool shape is timed against the library as in 3;
   4. one full-width forward (batch 1, f32, TF32 off) on the card, through the
      kernels, against the same forward on the CPU, through the plain versions;
   4b. the full-width classifier's logits and guidance gradient (batch 1,
@@ -89,8 +92,12 @@ The deploy preset's sampling knobs and the last two kernels add:
 Training, the fork's recipe (``configs/config.yaml``: the CLIP-conditioned
 UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
   8a. K1 and K2 at its attention shapes (batch 48, d = 192 at T = 256 and
-      d = 256 at T = 64, the FMA-pipe kernels), f32 and bf16, against their
-      plain versions, with the library call and the bound beside them;
+      d = 256 at T = 64), f32 (the FMA-pipe kernels) and bf16 (the
+      tensor-core kernels: ``launches_mma`` rises by one each), against
+      their plain versions, the same bits again, with the library call (f32
+      with TF32 off) and the bound beside them; in bf16 also the FMA kernels'
+      time on the same input, K1 with 32 and with 64 query rows a block, and
+      both kernels held to the float64 result as in 3b;
   8b. one ``TrainLoop`` step of the full-width model (batch 4, dropout 0) on
       the card and on the CPU from the same weights, batch, t and noise: in
       f32 (TF32 off) loss, grad_norm, updated parameters and gradient within
@@ -109,22 +116,22 @@ UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
   8d. 20 timed ``run_step`` calls at batch 48 after 5 of warm-up, without
       and with ``use_checkpoint``: no host sync (``set_sync_debug_mode``),
       K1/K2/K3 launches against the counts from the modules (every K1/K2
-      launch on the FMA-pipe kernels), ms a step and its split by part,
+      launch on the tensor-core kernels), ms a step and its split by part,
       samples/s, peak memory, device time by kernel group.
 
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7 and the timed steps of 8d) and read just after it; every bf16 K1 and K2 launch of a main path
-(their torsos are bf16 at d = 64) must have been a tensor-core launch, and the
-FMA-pipe kernels must have taken only the classifier's attention pool, which
-is float32 by the reference's design (one K1 and one K2 a classifier call).
+(the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
+the FMA-pipe kernels must have taken only the classifier's attention pool,
+which is float32 by the reference's design (one K1 and one K2 a classifier call).
 Likewise every K5 launch of an int8 main path must have been a tensor-core
 launch but for the 3-channel stems and the 6-channel head, counted from the
 modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
-kernels, the GroupNorm kernel (K3, K4) or K1/K2 at d = 64 fails the run (the
-other kernels' are printed).
+kernels, the GroupNorm kernel (K3, K4) or K1/K2 at d = 64, 192 or 256 fails
+the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
 split between their tensor-core kernels, timed at d = 64 in phases 3 and 3b,
-and their FMA-pipe kernels, timed at the recipe's d = 192 in 8a; ``bound_ms`` the least time the card
+and their FMA-pipe kernels, timed in f32 at the classifier pool's shape there; ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
 that computes the same function, timed here and used nowhere in the port),
@@ -237,13 +244,19 @@ def rate(ops, ms) -> str:
     return f"{ops / (ms * 1e-3) / 1e12:.0f}"
 
 
-def attention_bound(B, T, H, d, backward: bool) -> dict:
+def attention_bound(B, T, H, d, backward: bool, f32: bool = False) -> dict:
     """``record``'s bound of K1 (q, k, v read, out written; the two products)
     or K2 (qkv and dO read, dqkv written; five T x T x d products: S again,
-    dP, dV, dQ, dK) in bf16."""
+    dP, dV, dQ, dK) in bf16, or with ``f32`` in float32 at the FMA pipes' rate."""
+    size, op_type = (4, "f32") if f32 else (2, "bf16")
     if backward:
-        return dict(nbytes=(3 + 1 + 3) * B * T * H * d * 2, ops=10 * B * H * T * T * d, op_type="bf16")
-    return dict(nbytes=4 * B * T * H * d * 2, ops=4 * B * H * T * T * d, op_type="bf16")
+        return dict(nbytes=(3 + 1 + 3) * B * T * H * d * size, ops=10 * B * H * T * T * d, op_type=op_type)
+    return dict(nbytes=4 * B * T * H * d * size, ops=4 * B * H * T * T * d, op_type=op_type)
+
+
+# the classifier's attention pool at batch 8 (8 x 8 tokens and their mean; 512 channels in heads of
+# 64, new head order): float32 by the reference's design, the FMA-pipe kernels' one main-path user
+POOL_SHAPE = (8, 65, 8, 64, True)
 
 
 def fma_attention(qkv, H, new, do=None):
@@ -270,6 +283,38 @@ def fma_attention(qkv, H, new, do=None):
                                    int(new), 1, scale, scale * scale, stream)
     build.check(rc, "the FMA attention kernel")
     return out
+
+
+def attention_fwd_f64(qkv, H, new):
+    """K1's function in float64 on the same bf16 values: q*s and k*s rounded
+    to bf16 as the contract has it, the softmax, the weights (unrounded) and
+    P V in float64."""
+    import math
+
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    q, k, v = (a.transpose(1, 2) for a in A.split_qkv(qkv, H, new))  # (B, H, T, d)
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    p = torch.softmax((q * scale).double() @ (k * scale).double().transpose(-1, -2), dim=-1)
+    return A.merge_heads((p @ v.double()).transpose(1, 2))
+
+
+def held_to_f64(name, out, fma, ref64) -> None:
+    """A tensor-core kernel's bf16 result against the float64 one, beside the
+    FMA kernel's on the same input: against the bf16 plain version both differ
+    in last places only, and which of the two meets the larger of its flipped
+    values is chance. The unrounded result tells them apart: the tensor-core
+    kernel may not be behind the FMA kernel by more than f32's own rounding
+    (one rounding of P or dS to bf16 would be 1e-3 * max|ref|)."""
+    top, exact = ref64.abs().max().item(), ref64.to(out.dtype)
+    err64, fma_err64 = ((x.double() - ref64).abs().max().item() for x in (out, fma))
+    log(f"    against the float64 result of the same bf16 values, unrounded: max|d| {err64:.6g}, the FMA "
+        f"kernel {fma_err64:.6g} (max|ref| {top:.3g}); results that differ from its bf16 rounding: "
+        f"{int((out != exact).sum())} and {int((fma != exact).sum())} of {out.numel()}")
+    if err64 > fma_err64 + 1e-5 * top:
+        raise AssertionError(f"{name}: {err64:.6g} from the float64 result, the FMA kernel {fma_err64:.6g}")
 
 
 def attention_bwd_f64(qkv, do, H, new):
@@ -327,7 +372,7 @@ def phase3_kernels(dev):
         (8, 1024, 8, 64, False), (8, 256, 16, 64, False), (8, 64, 16, 64, False),
         (8, 256, 16, 64, True), (8, 65, 4, 64, False),
         (8, 256, 1, 192, False), (8, 64, 1, 192, False),
-        (8, 256, 1, 256, False), (8, 64, 1, 256, False),
+        (8, 256, 1, 256, False), (8, 64, 1, 256, False), POOL_SHAPE,
     ]
     with torch.inference_mode():
         for B, T, H, d, new in attn_cases:
@@ -348,15 +393,17 @@ def phase3_kernels(dev):
                 pms = cuda_ms(lambda: A.qkv_attention_plain(qkv, H, new_order=new))
                 log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
                     f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE:
                     q, k, v = (t.permute(0, 2, 1, 3) for t in A.split_qkv(qkv, H, new))
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                    rec = record(err, ms, pms, **attention_bound(B, T, H, d, False), library_ms=lib)
+                    rec = record(err, ms, pms, **attention_bound(B, T, H, d, False, not mma), library_ms=lib)
                     fma = f", the FMA kernel {cuda_ms(lambda: fma_attention(qkv, H, new)):.4f} ms" if mma else ""
                     log(f"    F.scaled_dot_product_attention on the same q, k, v: {lib:.4f} ms{fma}; bound "
                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
                     if (B, T, H, d, new) == (8, 1024, 8, 64, False):
                         records["attention"] = rec
+                    elif not mma:
+                        records["attention_fma"] = rec
 
         # the UNet's 256 px maps (256, 512 channels), 128 px, 32 px, 8 px, and the classifier's 256 px
         for B, hw, C in [(8, 256 * 256, 256), (8, 8 * 8, 1024), (8, 256 * 256, 512), (8, 128 * 128, 256),
@@ -405,7 +452,8 @@ def phase3_kernels(dev):
 
 def phase3b_attention_bwd(dev):
     """K2 against attention_bwd_plain at the classifier's shapes; returns the
-    headline record (T = 1024, bf16)."""
+    headline records: the tensor-core kernel's (T = 1024, bf16) and the FMA
+    kernel's (the pool, f32)."""
     import torch
     import torch.nn.functional as F
 
@@ -413,10 +461,10 @@ def phase3b_attention_bwd(dev):
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(5)
-    headline = None
     cases = [  # (B, T, heads, d, new_order): the classifier's blocks at batch 8, then its pool
-        (8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), (8, 65, 8, 64, True),
+        (8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), POOL_SHAPE,
     ]
+    records = {}
     for B, T, H, d, new in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
@@ -440,34 +488,28 @@ def phase3b_attention_bwd(dev):
             pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
             log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
                 f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE:
                 q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, new))
                 with torch.enable_grad():
                     o = F.scaled_dot_product_attention(q, k, v)
                 dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
                 lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True))
-                rec = record(err, ms, pms, **attention_bound(B, T, H, d, True), library_ms=lib)
+                rec = record(err, ms, pms, **attention_bound(B, T, H, d, True, not mma), library_ms=lib)
+            if not mma and (B, T, H, d, new) == POOL_SHAPE:
+                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms; bound "
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, at the f32 rate)")
+                records["attention_bwd_fma"] = rec
+            if dtype == torch.bfloat16:
                 fma = fma_attention(qkv, H, new, do)
                 fma_err = (fma.float() - ref.float()).abs().max().item()
                 fma_ms = cuda_ms(lambda: fma_attention(qkv, H, new, do))
                 log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms, the FMA "
                     f"kernel {fma_ms:.4f} ms with max|d| {fma_err:.3g}; bound {rec['bound_ms']:.4f} ms "
                     f"({rec['bound_by']})")
-                # Against the bf16 plain version both kernels differ in last places only, and which of
-                # the two meets the larger of its flipped values is chance. What tells them apart is the
-                # unrounded float64 result: there the tensor-core kernel may not be behind the FMA kernel
-                # by more than f32's own rounding (one rounding of P or dS to bf16 would be 1e-3 * max|ref|).
-                ref64 = attention_bwd_f64(qkv, do, H, new)
-                top, exact = ref64.abs().max().item(), ref64.to(dtype)
-                err64, fma_err64 = ((x.double() - ref64).abs().max().item() for x in (out, fma))
-                log(f"    against the float64 result of the same bf16 values, unrounded: max|d| {err64:.6g}, the FMA "
-                    f"kernel {fma_err64:.6g} (max|ref| {top:.3g}); results that differ from its bf16 rounding: "
-                    f"{int((out != exact).sum())} and {int((fma != exact).sum())} of {out.numel()}")
-                if err64 > fma_err64 + 1e-5 * top:
-                    raise AssertionError(f"{name}: {err64:.6g} from the float64 result, the FMA kernel {fma_err64:.6g}")
+                held_to_f64(name, out, fma, attention_bwd_f64(qkv, do, H, new))
                 if T == 1024:
-                    headline = rec
-    return headline
+                    records["attention_bwd"] = rec
+    return records
 
 
 def phase3c_group_norm_quant(dev):
@@ -795,8 +837,9 @@ def reset_counters() -> None:
 def tensor_core_split(launches: dict) -> dict:
     """A path's ``counters()``, read just before with no launch since, plus the
     K1 and K2 launches that ran on the FMA-pipe kernels (``attention_fwd.cu``,
-    ``attention_bwd.cu``) as ``attention_fma`` and ``attention_bwd_fma``;
-    ``attention`` and ``attention_bwd`` keep counting both kernels."""
+    ``attention_bwd.cu``: float32 calls, every bf16 one runs the tensor-core
+    kernels) as ``attention_fma`` and ``attention_bwd_fma``; ``attention``
+    and ``attention_bwd`` keep counting both kernels."""
     from guided_diffusion_clip_tpu_torch.ops import attention as A
 
     return {**launches, "attention_fma": launches["attention"] - A.attention_fwd_cuda.launches_mma,
@@ -813,9 +856,9 @@ def f32_attention_calls(clf) -> int:
 
 
 def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> None:
-    """After a main path (bf16 torsos, d = 64): every bf16 K1 and K2 launch
-    since the counts were reset ran on the tensor cores; the FMA-pipe kernels
-    took the ``k1_f32`` and ``k2_f32`` float32 calls and nothing else."""
+    """After a main path (bf16 torsos): every bf16 K1 and K2 launch since the
+    counts were reset ran on the tensor cores; the FMA-pipe kernels took the
+    ``k1_f32`` and ``k2_f32`` float32 calls and nothing else."""
     from guided_diffusion_clip_tpu_torch.ops import attention as A
 
     for name, fn, f32 in (("K1", A.attention_fwd_cuda, k1_f32), ("K2", A.attention_bwd_cuda, k2_f32)):
@@ -1799,21 +1842,22 @@ def train_counts(model, remat: bool) -> dict:
     return {"attention": attn * (1 + remat), "attention_bwd": attn, "group_norm": gn + remat * gn_blocks}
 
 
-def phase8a_attention(dev):
+def phase8a_attention(dev) -> None:
     """K1 and K2 at the recipe's shapes (batch 48, one head, d = 192 at T = 256
-    and d = 256 at T = 64) against their plain versions, f32 (TF32 off) and
-    bf16, with the library call and the bound beside each. These run on the
-    FMA pipes (``attention_fwd.cu``, ``attention_bwd.cu``); returns their
-    records at the 16 px shape in bf16 as the training path runs it, under
-    ``attention_fma`` and ``attention_bwd_fma``."""
+    and d = 256 at T = 64) against their plain versions, f32 (TF32 off; the
+    FMA-pipe kernels) and bf16 (the tensor-core kernels, as the training path
+    runs them), the same bits on a repeat, with the library call and the bound
+    beside each. In bf16 also: the FMA kernels' time on the same input, K1
+    with 32 and with 64 query rows a block through its C entry point, and both
+    kernels held to the float64 result beside the FMA kernels (``held_to_f64``)."""
     import torch
     import torch.nn.functional as F
 
     from guided_diffusion_clip_tpu_torch.ops import attention as A
+    from guided_diffusion_clip_tpu_torch.ops import build
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(8)
-    records = {}
     for B, T, H, d in TRAIN_ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
@@ -1822,34 +1866,60 @@ def phase8a_attention(dev):
             with torch.enable_grad():
                 o = F.scaled_dot_product_attention(q, k, v)
             dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
-            for name, key, kernel, plain, library, bound in (
-                ("K1 attention", "attention_fma", lambda: A.attention_fwd_cuda(qkv, H), lambda: A.qkv_attention_plain(qkv, H),
+            mma = dtype == torch.bfloat16
+            for name, fn, kernel, plain, library, fma, bound in (
+                ("K1 attention", A.attention_fwd_cuda, lambda: A.attention_fwd_cuda(qkv, H),
+                 lambda: A.qkv_attention_plain(qkv, H),
                  lambda: F.scaled_dot_product_attention(q.detach(), k.detach(), v.detach()),
-                 attention_bound(B, T, H, d, False)),
-                ("K2 attention_bwd", "attention_bwd_fma", lambda: A.attention_bwd_cuda(qkv, do, H),
+                 lambda: fma_attention(qkv, H, False), attention_bound(B, T, H, d, False, not mma)),
+                ("K2 attention_bwd", A.attention_bwd_cuda, lambda: A.attention_bwd_cuda(qkv, do, H),
                  lambda: A.qkv_attention_bwd_plain(qkv, do, H, False),
-                 lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True), attention_bound(B, T, H, d, True)),
+                 lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True),
+                 lambda: fma_attention(qkv, H, False, do), attention_bound(B, T, H, d, True, not mma)),
             ):
+                label = f"{name} B={B} T={T} heads={H} d={d} {str(dtype)[6:]}"
+                n_mma = fn.launches_mma
                 out, ref = kernel(), plain()
                 torch.cuda.synchronize()
+                if fn.launches_mma - n_mma != int(mma):
+                    raise AssertionError(f"{label}: {'not ' if mma else ''}launched on the tensor cores")
                 diff = (out.float() - ref.float()).abs()
                 if dtype == torch.float32 and name.startswith("K1"):
                     tol, ok = "max|d| <= 1e-4", bool(diff.max() <= 1e-4)
                 else:
                     rtol = 1e-4 if dtype == torch.float32 else 2e-2
                     tol, ok = f"|d| <= {rtol:g}*max(1,|ref|)", bool((diff <= rtol * ref.float().abs().clamp(min=1.0)).all())
-                label = f"{name} B={B} T={T} heads={H} d={d} {str(dtype)[6:]}"
                 if not torch.isfinite(out.float()).all() or not ok:
                     raise AssertionError(f"{label}: max|d| {diff.max().item():.3g} fails {tol}")
-                ms, pms = cuda_ms(kernel), cuda_ms(plain)
-                lib = cuda_ms(library) if dtype == torch.bfloat16 else None
+                if not torch.equal(kernel(), out):
+                    raise AssertionError(f"{label}: a repeat run gave other bits")
+                ms, pms, lib = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
                 rec = record(diff.max().item(), ms, pms, **bound, library_ms=lib)
-                log(f"  {label}: max|d| {rec['max_abs_err']:.3g} ({tol}); kernel {ms:.4f} ms (FMA pipes), plain "
-                    f"{pms:.4f} ms" + (f", library {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                                        f"{ms / rec['bound_ms']:.1f}x the bound" if lib is not None else ""))
-                if (T, d, dtype) == (256, 192, torch.bfloat16):
-                    records[key] = rec
-    return records
+                log(f"  {label}: max|d| {rec['max_abs_err']:.3g} ({tol}), repeat bit-identical; kernel {ms:.4f} ms "
+                    f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms, library {lib:.4f} ms, bound "
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {ms / rec['bound_ms']:.1f}x the bound")
+                if not mma:
+                    continue
+                fma_out, fma_ms = fma(), cuda_ms(fma)
+                line = f"    the FMA kernel on the same input {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the tensor-core kernel)"
+                if name.startswith("K1"):
+                    lib_c, stream, scale = build.load(), torch.cuda.current_stream(dev).cuda_stream, 1 / math.sqrt(math.sqrt(d))
+
+                    def rows(n):
+                        res = torch.empty(B, T, H * d, dtype=dtype, device=dev)
+                        build.check(lib_c.gdc_attention_fwd_mma(qkv.data_ptr(), res.data_ptr(), B, T, H, d, 0, n,
+                                                                scale, stream), "gdc_attention_fwd_mma")
+                        return res
+
+                    picked = A.fwd_q_rows(T, B * H, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+                    line += (f"; through the C entry point, 32 query rows a block {cuda_ms(lambda: rows(32)):.4f} ms, "
+                             f"64 rows {cuda_ms(lambda: rows(64)):.4f} ms (fwd_q_rows picks {picked}; "
+                             f"{math.ceil(T / 32) * B * H} and {math.ceil(T / 64) * B * H} blocks)")
+                    ref64 = attention_fwd_f64(qkv, H, False)
+                else:
+                    ref64 = attention_bwd_f64(qkv, do, H, False)
+                log(line)
+                held_to_f64(label, out, fma_out, ref64)
 
 
 # The bf16-torso step, card against CPU (both bf16), in relative L2 (step_errors). Readings on an H100
@@ -2114,8 +2184,8 @@ def phase8d_time(dev, tmp):
         got = {k: counts[k] for k in want}
         if got != want or any(v for k, v in counts.items() if k not in want):
             raise AssertionError(f"{tag}: launches {counts} over 20 steps, want {want} and no other kernel")
-        if (split["attention_fma"], split["attention_bwd_fma"]) != (counts["attention"], counts["attention_bwd"]):
-            raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on the tensor cores: {split}")
+        if split["attention_fma"] or split["attention_bwd_fma"]:
+            raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on the FMA pipes: {split}")
         launched[remat] = split
         loop.flush_metrics()
 
@@ -2166,6 +2236,32 @@ def phase8d_time(dev, tmp):
     return launched
 
 
+def check_ptxas(build_log: str) -> None:
+    """Print ptxas's registers and spills by kernel; raise on a spill in a kernel the main paths launch."""
+    # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d> (K1's as name<d, warps>),
+    # any other by its (mangled) name; a spill fails the run in the former at d = 64 (the sampling paths),
+    # 192 and 256 (training) and in a kernel of the convs', the quantizer's and the GroupNorms' sources,
+    # which were built without any
+    entry, on_path = "", False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"(attention_[a-z_]+_kernel)I((?:Li\d+E)+)E", line)
+            mangled = re.search(r"Compiling entry function '(\w+)'", line)
+            args = re.findall(r"\d+", found.group(2)) if found else []
+            entry = f"{found.group(1)}<{', '.join(args)}>" if found else mangled.group(1) if mangled else ""
+            on_path = bool(args) and args[0] in ("64", "192", "256")
+            found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
+                              r"quantize_kernel|gn_fused_kernel)(\w*)'", line)
+            if found:
+                entry, on_path = found.group(1) + found.group(2), True
+        spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
+        if "registers" in line or spills:
+            log(f"  ptxas: {line.strip()}" + (f" ({entry})" if entry else ""))
+        if spills and on_path:
+            raise AssertionError(f"{entry}, a kernel the main paths launch and that was built without spills, "
+                                 f"spills: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -2190,31 +2286,12 @@ def main() -> int:
     build.load()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s): {build.library_path()}")
-    # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d>, any other by its
-    # (mangled) name; a spill fails the run in the former at d = 64 and in a kernel of the convs', the
-    # quantizer's and the GroupNorms' sources, which were built without any
-    entry, on_path = "", False
-    for line in build.build_log.splitlines():
-        if "Compiling entry function" in line:
-            found = re.search(r"(attention_[a-z_]+_kernel)ILi(\d+)E", line)
-            mangled = re.search(r"Compiling entry function '(\w+)'", line)
-            entry = f"{found.group(1)}<{found.group(2)}>" if found else mangled.group(1) if mangled else ""
-            on_path = entry.endswith("<64>")  # the paths' attention runs d = 64
-            found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
-                              r"quantize_kernel|gn_fused_kernel)(\w*)'", line)
-            if found:
-                entry, on_path = found.group(1) + found.group(2), True
-        spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
-        if "registers" in line or spills:
-            log(f"  ptxas: {line.strip()}" + (f" ({entry})" if entry else ""))
-        if spills and on_path:
-            raise AssertionError(f"{entry}, a kernel the main paths launch and that was built without spills, "
-                                 f"spills: {line.strip()}")
+    check_ptxas(build.build_log)
 
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
     log("phase 3b: K2 (attention backward) vs its plain version on the card")
-    records["attention_bwd"] = phase3b_attention_bwd(dev)
+    records.update(phase3b_attention_bwd(dev))
     log("phase 3c: K4 (quantizing GroupNorm) vs its plain version on the card")
     records["group_norm_quant"] = phase3c_group_norm_quant(dev)
     log("phase 3d: K5 (s8 conv) vs its plain version, the __dp4a kernel and cuDNN's bf16 conv on the card")
@@ -2295,7 +2372,7 @@ def main() -> int:
 
     t8 = time.perf_counter()
     log("phase 8a: K1 and K2 at the training recipe's shapes (batch 48, one head, d = 192 and 256)")
-    records.update(phase8a_attention(dev))
+    phase8a_attention(dev)
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8b: one train step of the full-width recipe, card vs CPU")
         phase8b_train_step(dev, tmp)
@@ -2305,8 +2382,8 @@ def main() -> int:
         runs.extend(phase8d_time(dev, tmp).values())
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
-    # K1 and K2 run on two kernels each: the tensor-core ones (bf16 at d = 64, the sampling paths) and the
-    # FMA-pipe ones (f32, and bf16 at the recipe's d = 192 and 256)
+    # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
+    # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)
     for run in runs:
         run["attention"] -= run["attention_fma"]
         run["attention_bwd"] -= run["attention_bwd_fma"]

@@ -19,19 +19,22 @@ card and ``attention_bwd_plain`` on the CPU; the gradient comes back as
 
 Kernel K1 replaces ``guided_diffusion_clip_tpu/ops/pallas_attention.py::
 _attn_kernel``, kernel K2 ``_attn_bwd_kernel``. On the H100 both are
-compute-bound (4*T*T*d FLOPs per head against 4*T*d elements moved, the
-backward a few times that). Each exists twice, and the wrappers pick by the
-tensor's dtype and head width d, with no setting:
+compute-bound at the UNet's T = 1024 (4*T*T*d FLOPs per head against 4*T*d
+elements moved, the backward a few times that). Each exists twice, and the
+wrappers pick by the tensor's dtype, with no setting:
 
-  - bfloat16, d in ``MMA_HEAD_DIMS``: ``csrc/attention_fwd_mma.cu`` and
-    ``csrc/attention_bwd_mma.cu``, every product on the tensor cores
-    (``mma.sync`` bf16 with f32 sums, operands brought by ``cp.async`` and
-    ``ldmatrix``); K2 feeds its f32 P and dS as three bf16 terms that hold
-    all 24 mantissa bits. They count in ``launches_mma`` as well as in ``launches``;
-  - float32 (any d of ``KERNEL_HEAD_DIMS``), and bfloat16 at d = 192 and
-    256, whose register tiles the tensor-core kernels do not hold:
-    ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` on the f32 FMA
-    pipes, exact to 1e-4 in float32.
+  - bfloat16 (every d of ``MMA_HEAD_DIMS``, which is ``KERNEL_HEAD_DIMS``):
+    ``csrc/attention_fwd_mma.cu`` and ``csrc/attention_bwd_mma.cu``, every
+    product on the tensor cores (``mma.sync`` bf16 with f32 sums, operands
+    brought by ``cp.async`` and ``ldmatrix``); K2 feeds its f32 P and dS as
+    three bf16 terms that hold all 24 mantissa bits. At d = 192 and 256 (the
+    128 px training recipe's one-head attention) K1 reloads Q's fragments at
+    each k-step and streams 32-key tiles, with 64 or 32 query rows a block
+    (``fwd_q_rows``), and K2's dK/dV kernel gives dV and dK to separate warps.
+    They count in ``launches_mma`` as well as in ``launches``;
+  - float32 (any d of ``KERNEL_HEAD_DIMS``): ``csrc/attention_fwd.cu`` and
+    ``csrc/attention_bwd.cu`` on the f32 FMA pipes, exact to 1e-4. The
+    classifier's attention pool is their one user on a main path.
 
 All run an online softmax over K/V tiles, so shared memory stays O(tile*d)
 where the TPU kernel held a whole head's K/V in VMEM; K2 is a Q-stationary
@@ -41,6 +44,7 @@ dV, with no float atomics. See the sources' headers for the designs.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,8 +55,8 @@ from . import build
 # d values K1 is instantiated for: 64 is the ADM-256 UNet's head width;
 # 192 and 256 are the fork's 128 px recipe (num_heads 1 at C = 192 and 256).
 KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
-# d values the tensor-core kernels (bfloat16 only) are instantiated for
-MMA_HEAD_DIMS = (32, 64, 128)
+# d values the tensor-core kernels (bfloat16 only) are instantiated for: all of them
+MMA_HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -130,6 +134,21 @@ def _use_mma(dtype: torch.dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
 
 
+def fwd_q_rows(T: int, bh: int, d: int, sms: int) -> int:
+    """Query rows of a block of K1's tensor-core kernel: 64, or at d = 192 and
+    256 (the only widths built with two-warp blocks) 32 where blocks of 64
+    rows, ceil(T / 64) for each of the ``bh`` (batch, head) pairs, would not
+    give each of the card's ``sms`` SMs one."""
+    if d <= 128 or -(-T // 64) * bh >= sms:
+        return 64
+    return 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_aligned(t: torch.Tensor, what: str) -> None:
     """The tensor-core kernels copy 16 bytes a ``cp.async``."""
     if t.data_ptr() % 16:
@@ -170,8 +189,9 @@ def attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, *, new_order: bool = F
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     scale = 1.0 / math.sqrt(math.sqrt(d))
     if _use_mma(qkv.dtype, d):
+        rows = fwd_q_rows(T, B * num_heads, d, _sm_count(qkv.device.index))
         rc = lib.gdc_attention_fwd_mma(
-            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order), scale, stream)
+            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order), rows, scale, stream)
         build.check(rc, "gdc_attention_fwd_mma")
         attention_fwd_cuda.launches_mma += 1
     else:

@@ -40,8 +40,9 @@ _SIGNATURES = {
     "gdc_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, dout, dqkv, stats, B, T, H, D, new_order, dtype, scale, scale2, stream
     "gdc_attention_bwd": [_P] * 4 + [_I] * 6 + [ctypes.c_float] * 2 + [_P],
-    # the bf16 tensor-core kernels: as the two above, without the dtype
-    "gdc_attention_fwd_mma": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # the bf16 tensor-core kernels: as the two above, without the dtype; the forward with the
+    # query rows of a block (q_rows) before the scale
+    "gdc_attention_fwd_mma": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "gdc_attention_bwd_mma": [_P] * 4 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
     # x, slots, gamma, beta, ss, sb, stats, y, B, HW, C, G, eps, silu, vec, dtype, grid, chunks,
     # n_chunks, ng, stream

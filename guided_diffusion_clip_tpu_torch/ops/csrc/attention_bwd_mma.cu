@@ -1,10 +1,10 @@
 // Fused QKV self-attention backward (kernel K2) on the tensor cores, for bf16
-// inputs and head widths 32, 64 and 128, on Hopper (sm_90a).
+// inputs and head widths 32, 64, 128, 192 and 256, on Hopper (sm_90a).
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_attention.py::_attn_bwd_kernel
 // (reached via _flash_bwd, the custom VJP of K1), as attention_bwd.cu does on
-// the f32 FMA pipes for float32 inputs and the wider heads. Given qkv and the
-// output cotangent dO, per (batch, head)
+// the f32 FMA pipes for float32 inputs. Given qkv and the output cotangent
+// dO, per (batch, head)
 //     dV = P^T dO,   dP = dO V^T,   dS = P o (dP - rowsum(dP o P)),
 //     dQ = dS K s^2,   dK = dS^T Q s^2,        s = d^-1/4,
 // with the TPU kernel's numerics: the logits are f32 sums of products of q*s
@@ -68,6 +68,21 @@
 //     same reason, and ptxas still reports 255 registers and 16 bytes of
 //     spills a thread; a partial sum of 32 columns in place of 64 did not
 //     remove them;
+//   * at d = 192 and 256 (the 128 px training recipe's one-head attention)
+//     kernel A holds dQ (D / 2 registers) and streams 32 rows, as at d = 128
+//     (16 at d = 256, where 32 spilled). Kernel B cannot hold dK and dV in
+//     one warp (D registers a thread beside S^T and dP^T), so its block has 8
+//     warps and two roles: warps 0-3 hold dV of their 16 key rows and form
+//     S^T and the three products of P^T dO (4 products), warps 4-7 hold dK
+//     and form S^T, dP^T and the three of dS^T Q (5). S^T is formed twice (16
+//     products a head where the other widths take 15), but both roles read
+//     the same K, V and streamed Q, dO tiles from one block's shared memory,
+//     and a warp's critical path is 5 products, as in a split of D's columns
+//     between two warps that would both form S^T and dP^T (10 products a
+//     tile, not 9). A dV kernel and a dK kernel would copy the streamed tiles
+//     twice; f32 sums of dK and dV in shared memory (128 KB at d = 256) would
+//     leave one block an SM and add a read and a write of the sums to every
+//     product;
 //   * exp(s - m) is ex2.approx(s log2(e) - m log2(e)), one FMA and one
 //     special-function op, three times a logit (sweep 1, sweep 2, kernel B):
 //     relative error 2^-22 plus the FMA's rounding of the argument, ~1e-6 of a
@@ -92,12 +107,20 @@ constexpr int kBR = 64;        // stationary rows per block, 16 a warp
 
 template <int D> struct Tile {
   static constexpr int BS = D <= 64 ? 64 : 32;  // streamed rows per tile
+  // kernel A's: at D = 256, 32 rows spilled 8 bytes (dQ is 128 registers; 32-column partial sums
+  // did not help), 16 do not, and its shared memory (110 KB) then holds two blocks an SM. At
+  // D = 192, 16 rows measured 3-5 % slower than 32.
+  static constexpr int BS_A = D > 192 ? 16 : BS;
+  // kernel B: dK and dV in one warp up to D = 128; above, a dV warp and a dK warp for each 16 key rows
+  static constexpr bool SPLIT_B = D > 128;
+  static constexpr int THREADS_B = SPLIT_B ? 256 : 128;
   static constexpr int PITCH = row_pitch<D>();
   static constexpr int ST_BYTES = kBR * PITCH;  // a stationary tile
   static constexpr int SR_BYTES = BS * PITCH;   // a streamed tile
   static constexpr int STAT_BYTES = 3 * BS * 4; // m, 1/l, rowsum of a streamed q-tile
+  static constexpr int SR_A_BYTES = BS_A * PITCH;  // a streamed tile of kernel A
   // A: round(q s), dO | two stages of (k, v) | round(k s)
-  static constexpr int smem_a = 2 * ST_BYTES + 5 * SR_BYTES;
+  static constexpr int smem_a = 2 * ST_BYTES + 5 * SR_A_BYTES;
   // B: round(k s), v | two stages of (q, dO) | round(q s) | two stages of the statistics
   static constexpr int smem_b = 2 * ST_BYTES + 5 * SR_BYTES + 2 * STAT_BYTES;
 };
@@ -136,6 +159,28 @@ __device__ __forceinline__ void two_products(unsigned a1, unsigned b1, unsigned 
       ldmatrix_x4(r, b2 + jp * 16 * PITCH + kk * 32);
       mma_bf16(t[2 * jp], fc, r[0], r[1]);
       mma_bf16(t[2 * jp + 1], fc, r[2], r[3]);
+    }
+  }
+}
+
+// s = a1 b1^T alone, as two_products
+template <int D, int NT>
+__device__ __forceinline__ void one_product(unsigned a1, unsigned b1, float (&s)[NT][4]) {
+  constexpr int PITCH = row_pitch<D>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned fa[4];
+    ldmatrix_x4(fa, a1 + kk * 32);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      unsigned r[4];
+      ldmatrix_x4(r, b1 + jp * 16 * PITCH + kk * 32);
+      mma_bf16(s[2 * jp], fa, r[0], r[1]);
+      mma_bf16(s[2 * jp + 1], fa, r[2], r[3]);
     }
   }
 }
@@ -211,12 +256,12 @@ __global__ void __launch_bounds__(kThreads)
 attention_bwd_mma_dq_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
                             __nv_bfloat16* __restrict__ dqkv, float* __restrict__ stats, Layout L) {
   using P = Tile<D>;
-  constexpr int PITCH = P::PITCH, BS = P::BS, NT = BS / 8;
+  constexpr int PITCH = P::PITCH, BS = P::BS_A, NT = BS / 8;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* Qs = smem;                       // round(q s), scaled in place
   uint8_t* dOs = Qs + P::ST_BYTES;
-  uint8_t* KV = dOs + P::ST_BYTES;          // stage i: k at i * 2 * SR_BYTES, v after it
-  uint8_t* Ks = KV + 4 * P::SR_BYTES;       // round(k s) of the tile in work
+  uint8_t* KV = dOs + P::ST_BYTES;          // stage i: k at i * 2 * SR_A_BYTES, v after it
+  uint8_t* Ks = KV + 4 * P::SR_A_BYTES;     // round(k s) of the tile in work
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -237,9 +282,9 @@ attention_bwd_mma_dq_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bf
   // step i of the two sweeps works on key tile i % ntiles in stage i & 1
   auto load_kv = [&](int i) {
     const int k0 = (i < ntiles ? i : i - ntiles) * BS;
-    const unsigned dst = kv_s + (i & 1) * 2 * P::SR_BYTES;
+    const unsigned dst = kv_s + (i & 1) * 2 * P::SR_A_BYTES;
     copy_rows_async<D, BS, kThreads>(dst, base + L.part_stride, row_stride, k0, Tn);
-    copy_rows_async<D, BS, kThreads>(dst + P::SR_BYTES, base + 2 * L.part_stride, row_stride, k0, Tn);
+    copy_rows_async<D, BS, kThreads>(dst + P::SR_A_BYTES, base + 2 * L.part_stride, row_stride, k0, Tn);
     cp_async_commit();
   };
   copy_rows_async<D, kBR, kThreads>(smem_u32(Qs), base, row_stride, q0, Tn);
@@ -262,11 +307,11 @@ attention_bwd_mma_dq_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bf
     } else {
       cp_async_wait<0>();
     }
-    const uint8_t* Kr = KV + (i & 1) * 2 * P::SR_BYTES;
+    const uint8_t* Kr = KV + (i & 1) * 2 * P::SR_A_BYTES;
     if (i == 0) scale_rows<D, kBR, kThreads>(Qs, Qs, L.scale);
     scale_rows<D, BS, kThreads>(Ks, Kr, L.scale);
     __syncthreads();
-    const unsigned v_b = kv_s + (i & 1) * 2 * P::SR_BYTES + P::SR_BYTES + b_off;
+    const unsigned v_b = kv_s + (i & 1) * 2 * P::SR_A_BYTES + P::SR_A_BYTES + b_off;
     two_products<D, NT>(q_a, ks_b, do_a, v_b, s, dp);
   };
 
@@ -352,19 +397,20 @@ attention_bwd_mma_dq_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bf
         const float ds = p * (dp[j][e] - rs[hh]);
         s[j][e] = ragged && k0 + 8 * j + 2 * t4 + (e & 1) >= Tn ? 0.f : ds;
       }
-    split_product<D, NT>(s, kv_s + (i & 1) * 2 * P::SR_BYTES + a_off, dq);
+    split_product<D, NT>(s, kv_s + (i & 1) * 2 * P::SR_A_BYTES + a_off, dq);
     __syncthreads();
   }
   store_rows<D>(dqkv + qoff, row_stride, q0 + warp * 16, Tn, dq, L.scale2);
 }
 
-// Kernel B: grid (ceil(T / 64), B * H). Writes dK and dV of its key tile.
+// Kernel B: grid (ceil(T / 64), B * H), Tile<D>::THREADS_B threads. Writes dK
+// and dV of its key tile.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::THREADS_B)
 attention_bwd_mma_dkv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
                              __nv_bfloat16* __restrict__ dqkv, const float* __restrict__ stats, Layout L) {
   using P = Tile<D>;
-  constexpr int PITCH = P::PITCH, BS = P::BS, NT = BS / 8;
+  constexpr int PITCH = P::PITCH, BS = P::BS, NT = BS / 8, kThreadsB = P::THREADS_B;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* Ks = smem;                        // round(k s), scaled in place
   uint8_t* Vs = Ks + P::ST_BYTES;
@@ -374,6 +420,7 @@ attention_bwd_mma_dkv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_b
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int rows = P::SPLIT_B ? warp & 3 : warp;  // the warp's 16 key rows: rows * 16 of the tile
   const int t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / L.H;
@@ -393,29 +440,37 @@ attention_bwd_mma_dkv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_b
   auto load_q = [&](int it) {
     const int q0 = it * BS;
     const unsigned dst = qo_s + (it & 1) * 2 * P::SR_BYTES;
-    copy_rows_async<D, BS, kThreads>(dst, base, row_stride, q0, Tn);
-    copy_rows_async<D, BS, kThreads>(dst + P::SR_BYTES, obase, C, q0, Tn);
-    for (int i = tid; i < 3 * BS; i += kThreads) {  // m, 1/l and the rowsum; zeros past T
+    copy_rows_async<D, BS, kThreadsB>(dst, base, row_stride, q0, Tn);
+    copy_rows_async<D, BS, kThreadsB>(dst + P::SR_BYTES, obase, C, q0, Tn);
+    for (int i = tid; i < 3 * BS; i += kThreadsB) {  // m, 1/l and the rowsum; zeros past T
       const int part = i / BS, q = q0 + i - part * BS;
       cp_async_4(st_s + ((it & 1) * 3 * BS + i) * 4, srow + part * nrow + (q < Tn ? q : 0), q < Tn);
     }
     cp_async_commit();
   };
-  copy_rows_async<D, kBR, kThreads>(smem_u32(Ks), base + L.part_stride, row_stride, k0, Tn);
-  copy_rows_async<D, kBR, kThreads>(smem_u32(Vs), base + 2 * L.part_stride, row_stride, k0, Tn);
+  copy_rows_async<D, kBR, kThreadsB>(smem_u32(Ks), base + L.part_stride, row_stride, k0, Tn);
+  copy_rows_async<D, kBR, kThreadsB>(smem_u32(Vs), base + 2 * L.part_stride, row_stride, k0, Tn);
   load_q(0);  // one group: K, V and the first q-tile
 
   const unsigned a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 16;  // A, and .trans B
   const unsigned b_off = ((lane & 7) + (lane >> 4) * 8) * PITCH + ((lane >> 3) & 1) * 16;  // plain B
-  const unsigned k_a = smem_u32(Ks) + warp * 16 * PITCH + a_off;
-  const unsigned v_a = smem_u32(Vs) + warp * 16 * PITCH + a_off;
+  const unsigned k_a = smem_u32(Ks) + rows * 16 * PITCH + a_off;
+  const unsigned v_a = smem_u32(Vs) + rows * 16 * PITCH + a_off;
   const unsigned qs_b = smem_u32(Qs) + b_off;
+  // above D = 128 warps 4-7 form dK and warps 0-3 dV; up to 128 every warp forms both
+  const bool dk_warp = P::SPLIT_B && warp >= 4;
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[P::SPLIT_B ? 1 : D / 8][4], dv[D / 8][4];  // SPLIT_B: dv holds the dK warps' dK
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dv[j][e] = 0.f;
+  if constexpr (!P::SPLIT_B) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[j][e] = 0.f;
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
@@ -425,14 +480,23 @@ attention_bwd_mma_dkv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_b
       cp_async_wait<0>();
     }
     const uint8_t* Qr = QO + (it & 1) * 2 * P::SR_BYTES;
-    if (it == 0) scale_rows<D, kBR, kThreads>(Ks, Ks, L.scale);
-    scale_rows<D, BS, kThreads>(Qs, Qr, L.scale);
+    if (it == 0) scale_rows<D, kBR, kThreadsB>(Ks, Ks, L.scale);
+    scale_rows<D, BS, kThreadsB>(Qs, Qr, L.scale);
     __syncthreads();
     const unsigned q_s = qo_s + (it & 1) * 2 * P::SR_BYTES, do_s = q_s + P::SR_BYTES;
 
-    // S^T = Ks Qs^T and dP^T = V dO^T: the warp's 16 key rows x BS query columns
+    // S^T = Ks Qs^T and dP^T = V dO^T: the warp's 16 key rows x BS query columns (a dV warp
+    // forms S^T alone)
     float st[NT][4], dpt[NT][4];
-    two_products<D, NT>(k_a, qs_b, v_a, do_s + b_off, st, dpt);
+    if (P::SPLIT_B && !dk_warp) {
+      one_product<D, NT>(k_a, qs_b, st);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;  // not read: P^T needs no dP^T
+    } else {
+      two_products<D, NT>(k_a, qs_b, v_a, do_s + b_off, st, dpt);
+    }
 
     // P^T and dS^T from the columns' statistics. A query column past T has
     // q s = 0, m = 0 and 1/l = 0, so P^T = dS^T = 0 there.
@@ -446,18 +510,31 @@ attention_bwd_mma_dkv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_b
       for (int e = 0; e < 4; ++e) {
         const bool odd = e & 1;
         const float p = fast_exp2(fmaf(st[j][e], kLog2e, -(odd ? mm.y : mm.x))) * (odd ? rr.y : rr.x);
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - (odd ? dd.y : dd.x));
+        if constexpr (P::SPLIT_B) {
+          st[j][e] = dk_warp ? p * (dpt[j][e] - (odd ? dd.y : dd.x)) : p;  // a dK warp's st is dS^T
+        } else {
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - (odd ? dd.y : dd.x));
+        }
       }
     }
-    split_product<D, NT>(st, do_s + a_off, dv);  // dV += P^T dO
-    split_product<D, NT>(dpt, q_s + a_off, dk);  // dK += dS^T Q
+    if constexpr (P::SPLIT_B) {
+      split_product<D, NT>(st, (dk_warp ? q_s : do_s) + a_off, dv);  // dK += dS^T Q, or dV += P^T dO
+    } else {
+      split_product<D, NT>(st, do_s + a_off, dv);  // dV += P^T dO
+      split_product<D, NT>(dpt, q_s + a_off, dk);  // dK += dS^T Q
+    }
     __syncthreads();  // this stage, Qs and the statistics are read; the next iteration may refill them
   }
 
   __nv_bfloat16* dbase = dqkv + qoff;
-  store_rows<D>(dbase + L.part_stride, row_stride, k0 + warp * 16, Tn, dk, L.scale2);
-  store_rows<D>(dbase + 2 * L.part_stride, row_stride, k0 + warp * 16, Tn, dv, 1.f);
+  if constexpr (P::SPLIT_B) {
+    if (dk_warp) store_rows<D>(dbase + L.part_stride, row_stride, k0 + rows * 16, Tn, dv, L.scale2);
+    else store_rows<D>(dbase + 2 * L.part_stride, row_stride, k0 + rows * 16, Tn, dv, 1.f);
+  } else {
+    store_rows<D>(dbase + L.part_stride, row_stride, k0 + rows * 16, Tn, dk, L.scale2);
+    store_rows<D>(dbase + 2 * L.part_stride, row_stride, k0 + rows * 16, Tn, dv, 1.f);
+  }
 }
 
 template <int D>
@@ -478,15 +555,15 @@ int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B, co
   ka<<<grid, kThreads, P::smem_a, stream>>>(q, o, g, st, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kb<<<grid, kThreads, P::smem_b, stream>>>(q, o, g, st, L);
+  kb<<<grid, P::THREADS_B, P::smem_b, stream>>>(q, o, g, st, L);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv, dqkv: (B, T, 3 * H * D); dout: (B, T, H * D); all bf16, contiguous and
-// 16-byte aligned; stats: (3, B * H, T) f32 scratch; D in {32, 64, 128}.
-// Returns a cudaError_t code (0 = both kernels launched).
+// 16-byte aligned; stats: (3, B * H, T) f32 scratch; D in {32, 64, 128, 192,
+// 256}. Returns a cudaError_t code (0 = both kernels launched).
 extern "C" int gdc_attention_bwd_mma(const void* qkv, const void* dout, void* dqkv, void* stats, int B, int Tn,
                                      int H, int D, int new_order, float scale, float scale2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -501,6 +578,8 @@ extern "C" int gdc_attention_bwd_mma(const void* qkv, const void* dout, void* dq
     case 32: return launch<32>(qkv, dout, dqkv, stats, B, L, s);
     case 64: return launch<64>(qkv, dout, dqkv, stats, B, L, s);
     case 128: return launch<128>(qkv, dout, dqkv, stats, B, L, s);
+    case 192: return launch<192>(qkv, dout, dqkv, stats, B, L, s);
+    case 256: return launch<256>(qkv, dout, dqkv, stats, B, L, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,10 @@
 // Fused QKV self-attention forward (kernel K1) on the tensor cores, for bf16
-// inputs and head widths 32, 64 and 128, on Hopper (sm_90a).
+// inputs and head widths 32, 64, 128, 192 and 256, on Hopper (sm_90a).
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_attention.py::_attn_kernel
 // (reached via _flash_bhtd / qkv_attention_pallas), as attention_fwd.cu does
-// on the f32 FMA pipes for float32 inputs and the wider heads. Per (batch,
-// head) and per tile of query rows
+// on the f32 FMA pipes for float32 inputs. Per (batch, head) and per tile of
+// query rows
 //     out = softmax((q*s)(k*s)^T) v,   s = d^-1/4,
 // with the TPU kernel's numerics: q*s and k*s each rounded to bf16 before the
 // product, the logits summed in f32, max/exp/sum in f32, the weights rounded
@@ -16,7 +16,9 @@
 // softmax (max, exp, sum, rescale and pack, ~6 an element of S), the fragment
 // loads, the copies and the k*s pass take more issue slots than the 64 mma a
 // warp and tile. On the FMA pipes the same products ran at 2 % of what the
-// tensor cores do.
+// tensor cores do. At the training recipe's T = 256, d = 192 and T = 64,
+// d = 256 it is T / 2 operations a byte, under the ~295 at which the tensor
+// cores, not the bytes, would bound it.
 //
 // What the design does about it:
 //   * both products are mma.sync m16n8k16 bf16 with f32 sums. q*s and k*s are
@@ -24,18 +26,27 @@
 //   * operands sit in shared memory as bf16 (half of f32's bytes and of its
 //     fragment traffic), copied 16 bytes a thread by cp.async straight from
 //     qkv, in place through strides in either head order: a head's row of d
-//     bf16 is contiguous. Rows past T are zero-filled. K/V tiles of 64 keys are
-//     double-buffered, so the next tile's copy runs under this tile's mma;
+//     bf16 is contiguous. Rows past T are zero-filled. K/V tiles (64 keys, 32
+//     above D = 128) are double-buffered, so the next tile's copy runs under this tile's mma;
 //   * k*s is one pass over the landed K tile (each thread rounds the chunks it
-//     copied itself, 32 values a thread and tile), q*s the same once;
+//     copied itself), q*s the same once;
 //   * fragments come from ldmatrix.x4, plain for K (a key's d values run
 //     along the reduction of Q K^T) and .trans for V (the keys do in P V);
 //     rows are padded by 16 bytes, so an ldmatrix never meets a bank conflict;
-//   * a warp owns 16 query rows and keeps Q's fragments in registers for the
-//     whole kernel. 32 rows a warp (one K or V fragment feeding two mma, half
-//     the shared-memory bytes per mma) measured no faster at T = 1024 and
-//     slower below: the softmax's arithmetic, not the fragment traffic, is
-//     what the tensor cores wait for;
+//   * a warp owns 16 query rows. Up to D = 128 it keeps Q's fragments in
+//     registers for the whole kernel. 32 rows a warp (one K or V fragment
+//     feeding two mma, half the shared-memory bytes per mma) measured no
+//     faster at T = 1024 and slower below: the softmax's arithmetic, not the
+//     fragment traffic, is what the tensor cores wait for;
+//   * at D = 192 and 256 (the 128 px training recipe's one-head attention)
+//     Q's fragments (D / 4 registers) and O (D / 2) and S for 64 keys (32)
+//     would not fit a thread's 255 registers beside the addresses. There Q's
+//     fragments are reloaded by ldmatrix at each k-step (one more load for
+//     every two mma of S), K/V tiles are 32 keys (S in 16 registers) and O
+//     stays in registers: ~77 KB of shared memory at D = 192 and ~101 KB at
+//     256, two blocks an SM. A block is 64 query rows (4 warps) or 32 (2
+//     warps): the caller picks 32 where 64-row tiles would leave SMs idle
+//     (T = 64 at batch 48 is 48 blocks of 64 rows on 132 SMs);
 //   * the f32 sums of two neighbouring n-tiles of S are, packed to bf16 pairs,
 //     the A operand of one k-step of P V: P never goes through shared memory.
 //     A row's max and sum are reduced over the 4 lanes of a quad;
@@ -60,29 +71,27 @@ namespace {
 
 using namespace gdc;
 
-constexpr int kThreads = 128;  // 4 warps, 16 query rows each
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per K/V tile
-
 template <int D> struct Tile {
+  static constexpr bool HOLD_Q = D <= 128;  // Q's fragments stay in registers
+  static constexpr int BK = HOLD_Q ? 64 : 32;  // keys per K/V tile
   static constexpr int PITCH = row_pitch<D>();
-  static constexpr int Q_BYTES = kBQ * PITCH;
-  static constexpr int KV_BYTES = kBK * PITCH;
-  static constexpr int smem_bytes = Q_BYTES + 4 * KV_BYTES;  // Q, and two stages of K and V
+  static constexpr int KV_BYTES = BK * PITCH;
+  // NW warps, 16 query rows each: Q, and two stages of K and V
+  static constexpr int smem_bytes(int nw) { return 16 * nw * PITCH + 4 * KV_BYTES; }
 };
 
 // qkv: (B, T, 3C) with row stride 3C. For head h, q starts at channel
 // h*head_stride, k at that + part_stride, v at that + 2*part_stride (legacy
 // order: head_stride 3D, part_stride D; new order: D and C). out: (B, T, C).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW)
 attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int Tn, int H,
                          int head_stride, int part_stride, float scale) {
   using P = Tile<D>;
-  constexpr int PITCH = P::PITCH;
+  constexpr int PITCH = P::PITCH, kBK = P::BK, kBQ = 16 * NW, kThreads = 32 * NW;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* Qs = smem;
-  uint8_t* KV = smem + P::Q_BYTES;  // stage i: K at i * 2 * KV_BYTES, V after it
+  uint8_t* KV = smem + kBQ * PITCH;  // stage i: K at i * 2 * KV_BYTES, V after it
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -111,7 +120,8 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
   // the plain B: (rows 0-7, bytes 0-15), (rows 0-7, 16-31), (rows 8-15, 0-15), (rows 8-15, 16-31)
   const unsigned b_off = ((lane & 7) + (lane >> 4) * 8) * PITCH + ((lane >> 3) & 1) * 16;
 
-  unsigned qf[D / 16][4];
+  unsigned qf[P::HOLD_Q ? D / 16 : 1][4];  // above D = 128, the k-step's fragment only
+  const unsigned q_a = q_s + warp * 16 * PITCH + a_off;
   float o[D / 8][4];
   // rows g and g + 8: the running max, kept as m log2(e) so that the rescale
   // 2^(m_old - m_new) and the weights 2^(s log2(e) - m_new) use the same value
@@ -132,27 +142,32 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
     if (it == 0) scale_rows<D, kBQ, kThreads>(Qs, Qs, scale);
     scale_rows<D, kBK, kThreads>(Kt, Kt, scale);
     __syncthreads();  // tile `it` has landed for every thread, K scaled
-    if (it == 0) {
+    if constexpr (P::HOLD_Q) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_s + warp * 16 * PITCH + a_off + kk * 32);
+        for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_a + kk * 32);
+      }
     }
     const unsigned k_s = kv_s + (it & 1) * 2 * P::KV_BYTES, v_s = k_s + P::KV_BYTES;
 
-    // S = (q s)(k s)^T: the warp's 16 rows x 64 keys
+    // S = (q s)(k s)^T: the warp's 16 rows x kBK keys
     float s[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (!P::HOLD_Q) ldmatrix_x4(qf[0], q_a + kk * 32);
+      const unsigned (&qa)[4] = qf[P::HOLD_Q ? kk : 0];
 #pragma unroll
       for (int jp = 0; jp < kBK / 16; ++jp) {
         unsigned r[4];
         ldmatrix_x4(r, k_s + b_off + jp * 16 * PITCH + kk * 32);
-        mma_bf16(s[2 * jp], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[2 * jp], qa, r[0], r[1]);
+        mma_bf16(s[2 * jp + 1], qa, r[2], r[3]);
       }
+    }
 
     const int k0 = it * kBK;
     if (k0 + kBK > Tn) {  // the ragged last tile: keys past T leave the softmax
@@ -163,7 +178,7 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
           if (k0 + 8 * j + 2 * t4 + (e & 1) >= Tn) s[j][e] = -INFINITY;
     }
 
-    // online softmax; a row's 64 logits lie in the 4 lanes of a quad
+    // online softmax; a row's kBK logits lie in the 4 lanes of a quad
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float mx = -INFINITY;
@@ -227,33 +242,39 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
   }
 }
 
-template <int D>
+template <int D, int NW>
 int launch(const void* qkv, void* out, int B, int Tn, int H, int new_order, float scale, cudaStream_t stream) {
-  using P = Tile<D>;
-  auto kern = attention_fwd_mma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
+  constexpr int smem = Tile<D>::smem_bytes(NW);
+  auto kern = attention_fwd_mma_kernel<D, NW>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int head_stride = new_order ? D : 3 * D;
   const int part_stride = new_order ? H * D : D;
-  dim3 grid((Tn + kBQ - 1) / kBQ, B * H);
-  kern<<<grid, kThreads, P::smem_bytes, stream>>>(static_cast<const __nv_bfloat16*>(qkv),
-                                                  static_cast<__nv_bfloat16*>(out), Tn, H, head_stride,
-                                                  part_stride, scale);
+  dim3 grid((Tn + 16 * NW - 1) / (16 * NW), B * H);
+  kern<<<grid, 32 * NW, smem, stream>>>(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+                                        Tn, H, head_stride, part_stride, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv: (B, T, 3 * H * D) bf16, out: (B, T, H * D) bf16, both contiguous and
-// 16-byte aligned; D in {32, 64, 128}. Returns a cudaError_t code (0 =
-// launched).
+// 16-byte aligned; D in {32, 64, 128, 192, 256}; q_rows, the query rows of a
+// block: 64, or at D = 192 and 256 also 32 (ops/attention.py::fwd_q_rows
+// picks). Returns a cudaError_t code (0 = launched).
 extern "C" int gdc_attention_fwd_mma(const void* qkv, void* out, int B, int Tn, int H, int D, int new_order,
-                                     float scale, void* stream) {
+                                     int q_rows, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_rows != 64 && !(q_rows == 32 && D > 128)) return (int)cudaErrorInvalidValue;
+  const bool half = q_rows == 32;
   switch (D) {
-    case 32: return launch<32>(qkv, out, B, Tn, H, new_order, scale, s);
-    case 64: return launch<64>(qkv, out, B, Tn, H, new_order, scale, s);
-    case 128: return launch<128>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 32: return launch<32, 4>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 64: return launch<64, 4>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 128: return launch<128, 4>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 192: return half ? launch<192, 2>(qkv, out, B, Tn, H, new_order, scale, s)
+                          : launch<192, 4>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 256: return half ? launch<256, 2>(qkv, out, B, Tn, H, new_order, scale, s)
+                          : launch<256, 4>(qkv, out, B, Tn, H, new_order, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -154,19 +154,30 @@ template <int D> __host__ __device__ constexpr int row_pitch() { return D * 2 + 
 // into shared rows of row_pitch<D>() bytes, 16 bytes a cp.async; rows past Tn
 // become zeros. Thread t takes chunk t % (D / 8) of the rows t / (D / 8) +
 // n * THREADS / (D / 8): the loop unrolls and the addresses are a shift and
-// an add. The chunks a thread copies are the chunks scale_rows hands it.
+// an add. Where THREADS is no multiple of D / 8 (D = 192: 24 chunks a row),
+// thread t takes the chunks t + n * THREADS of the tile in row order. The
+// chunks a thread copies are the chunks scale_rows hands it.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void copy_rows_async(unsigned dst, const __nv_bfloat16* src, long long row_stride,
                                                 int r0, int Tn) {
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
-  constexpr int RPP = THREADS / CPR;  // rows per pass of the block
-  static_assert(THREADS % CPR == 0 && ROWS % RPP == 0, "a pass of the block covers whole rows of the tile");
-  const int r = threadIdx.x / CPR, c = threadIdx.x % CPR;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CPR % THREADS == 0, "the block's passes cover the tile");
+  if constexpr (THREADS % CPR == 0) {
+    constexpr int RPP = THREADS / CPR;  // rows per pass of the block
+    const int r = threadIdx.x / CPR, c = threadIdx.x % CPR;
 #pragma unroll
-  for (int n = 0; n < ROWS / RPP; ++n) {
-    const int row = r + n * RPP;
-    const bool in = r0 + row < Tn;
-    cp_async_16(dst + row * row_pitch<D>() + c * 16, src + (in ? r0 + row : 0) * row_stride + c * 8, in);
+    for (int n = 0; n < ROWS / RPP; ++n) {
+      const int row = r + n * RPP;
+      const bool in = r0 + row < Tn;
+      cp_async_16(dst + row * row_pitch<D>() + c * 16, src + (in ? r0 + row : 0) * row_stride + c * 8, in);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
+      const int i = threadIdx.x + n * THREADS, row = i / CPR, c = i % CPR;
+      const bool in = r0 + row < Tn;
+      cp_async_16(dst + row * row_pitch<D>() + c * 16, src + (in ? r0 + row : 0) * row_stride + c * 8, in);
+    }
   }
 }
 
@@ -174,22 +185,35 @@ __device__ __forceinline__ void copy_rows_async(unsigned dst, const __nv_bfloat1
 // landed tile; dst may be src. A thread touches only the chunks it copied
 // itself, so its own cp_async_wait is enough before it and a __syncthreads()
 // after it publishes both.
+__device__ __forceinline__ void scale_chunk(uint8_t* dst, const uint8_t* src, float s) {
+  uint4 v = *reinterpret_cast<const uint4*>(src);
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    p[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
+  }
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void scale_rows(uint8_t* dst, const uint8_t* src, float s) {
   constexpr int CPR = D / 8;
-  constexpr int RPP = THREADS / CPR;
-  static_assert(THREADS % CPR == 0 && ROWS % RPP == 0, "a pass of the block covers whole rows of the tile");
-  const int off = (threadIdx.x / CPR) * row_pitch<D>() + (threadIdx.x % CPR) * 16;
+  static_assert(ROWS * CPR % THREADS == 0, "the block's passes cover the tile");
+  if constexpr (THREADS % CPR == 0) {
+    constexpr int RPP = THREADS / CPR;
+    const int off = (threadIdx.x / CPR) * row_pitch<D>() + (threadIdx.x % CPR) * 16;
 #pragma unroll
-  for (int n = 0; n < ROWS / RPP; ++n) {
-    uint4 v = *reinterpret_cast<const uint4*>(src + off + n * RPP * row_pitch<D>());
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      p[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
+    for (int n = 0; n < ROWS / RPP; ++n) {
+      const int o = off + n * RPP * row_pitch<D>();
+      scale_chunk(dst + o, src + o, s);
     }
-    *reinterpret_cast<uint4*>(dst + off + n * RPP * row_pitch<D>()) = v;
+  } else {
+#pragma unroll
+    for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
+      const int i = threadIdx.x + n * THREADS, off = (i / CPR) * row_pitch<D>() + (i % CPR) * 16;
+      scale_chunk(dst + off, src + off, s);
+    }
   }
 }
 

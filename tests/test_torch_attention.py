@@ -5,7 +5,8 @@ forward in f32 within 2e-5, the gradient (through ``AttentionFunction`` and
 tests/test_pallas_attention.py. Then the arithmetic the tensor-core kernels
 rest on, rehearsed in plain PyTorch: the tile-by-tile online softmax with
 bf16 weights, the statistics and two sweeps of the backward, and the split of an f32
-operand into bf16 terms."""
+operand into bf16 terms; at d = 192 and 256 with the tiles and the dV/dK warp
+roles of those kernels."""
 
 import math
 
@@ -24,9 +25,11 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("new_order", [False, True])
 @pytest.mark.parametrize("T", [64, 256])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 192, 256])
 def test_plain_matches_jax(T, d, new_order):
-    B, H = 2, 2
+    """d = 192 and 256 with one head: the 128 px training recipe's attention
+    (T = 256 at 16 px, T = 64 at 8 px)."""
+    B, H = 2, 2 if d <= 128 else 1
     qkv = np.random.RandomState(T + d).standard_normal((B, T, 3 * H * d)).astype(np.float32)
     out = A.attention(torch.from_numpy(qkv), H, new_order=new_order).numpy()
     ref = np.asarray(qkv_attention(jnp.asarray(qkv), H, new_order=new_order))
@@ -48,7 +51,7 @@ def _port_grad(qkv, do, H, new_order):
 
 
 @pytest.mark.parametrize("new_order", [False, True])
-@pytest.mark.parametrize("T,H,d", [(64, 2, 64), (256, 2, 32)])
+@pytest.mark.parametrize("T,H,d", [(64, 2, 64), (256, 2, 32), (256, 1, 192), (64, 1, 256)])
 def test_backward_matches_jax_pallas(T, H, d, new_order):
     """K2's plain version against jax.vjp of the Pallas kernel (interpret
     mode), whose custom VJP is _attn_bwd_kernel, in both head orders."""
@@ -131,6 +134,16 @@ def _tiled_forward(qkv, H, new_order, tile=64):
     return A.merge_heads((o / l).permute(0, 2, 1, 3).to(qkv.dtype))
 
 
+def _check_tiled(qkv, H, tile, dtype):
+    for new_order in (False, True):
+        out = _tiled_forward(qkv, H, new_order, tile).float()
+        ref = A.qkv_attention_plain(qkv, H, new_order=new_order).float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+        else:
+            assert ((out - ref).abs() <= 2e-2 * ref.abs().clamp(min=1)).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [64, 65, 100, 256])
 def test_tiled_online_softmax_matches_plain(T, dtype):
@@ -140,13 +153,18 @@ def test_tiled_online_softmax_matches_plain(T, dtype):
     different scales."""
     H, d = 2, 64
     qkv = torch.from_numpy(np.random.RandomState(T).standard_normal((2, T, 3 * H * d)).astype(np.float32)).to(dtype)
-    for new_order in (False, True):
-        out = _tiled_forward(qkv, H, new_order).float()
-        ref = A.qkv_attention_plain(qkv, H, new_order=new_order).float()
-        if dtype == torch.float32:
-            torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
-        else:
-            assert ((out - ref).abs() <= 2e-2 * ref.abs().clamp(min=1)).all()
+    _check_tiled(qkv, H, 64, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d", [(256, 192), (64, 256), (100, 192), (33, 256)])
+def test_tiled_online_softmax_wide_heads(T, d, dtype):
+    """The same at d = 192 and 256, one head, with the 32-key tiles the
+    tensor-core kernel streams there (the recipe's T = 256 and 64, and two
+    ragged T): more rescales of O a row than with 64-key tiles, the same
+    bounds."""
+    qkv = torch.from_numpy(np.random.RandomState(T + d).standard_normal((2, T, 3 * d)).astype(np.float32)).to(dtype)
+    _check_tiled(qkv, 1, 32, dtype)
 
 
 def _split(x, terms=3):
@@ -230,6 +248,79 @@ def test_two_sweep_backward_matches_plain(T):
         assert ((out - r).abs() <= 1e-5 * r.abs().clamp(min=1)).all()
 
 
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("T", [64, 100, 256])
+def test_role_split_backward_matches_plain(T, d):
+    """K2 at d = 192 and 256 in plain PyTorch, as its kernels split the work,
+    against ``attention_bwd_plain``, f32 within 1e-4 * max(1, |ref|): kernel A
+    (q-tiles of 64 rows, key tiles of 32, 16 at d = 256) forms the statistics
+    in sweep 1 and dQ in sweep 2; kernel B (key tiles of 64 rows, q-tiles of 32 with their
+    statistics) runs two passes, one for each role of its warps: the dV pass
+    forms S^T alone and sums P^T dO, the dK pass forms S^T and dP^T and sums
+    dS^T Q. P and dS enter every product as hi + mid + lo, each tile's product
+    summed on its own before it joins the running sum."""
+    rs = np.random.RandomState(T + d)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((T, d)).astype(np.float32)).bfloat16().float()
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    qs, ks = q * scale, k * scale
+
+    def split_matmul(x, b):
+        return sum(part @ b for part in reversed(_split(x)))
+
+    m, l, rowsum, dq = torch.zeros(T, 1), torch.zeros(T, 1), torch.zeros(T, 1), torch.zeros(T, d)
+    bs = 16 if d > 192 else 32
+    for q0 in range(0, T, 64):  # kernel A, one block a q-tile
+        rows = slice(q0, q0 + 64)
+        mq, lq, acc = torch.full((min(64, T - q0), 1), -math.inf), 0, 0
+        for k0 in range(0, T, bs):
+            s, dp = qs[rows] @ ks[k0:k0 + bs].T, do[rows] @ v[k0:k0 + bs].T
+            m_new = torch.maximum(mq, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(mq - m_new), torch.exp(s - m_new)
+            lq, acc, mq = lq * alpha + p.sum(-1, keepdim=True), acc * alpha + (p * dp).sum(-1, keepdim=True), m_new
+        m[rows], l[rows], rowsum[rows] = mq, lq, acc / lq
+        for k0 in range(0, T, bs):
+            p = torch.exp(qs[rows] @ ks[k0:k0 + bs].T - m[rows]) / l[rows]
+            dq[rows] += split_matmul(p * (do[rows] @ v[k0:k0 + bs].T - rowsum[rows]), k[k0:k0 + bs])
+    dk, dv = torch.zeros(T, d), torch.zeros(T, d)
+    for k0 in range(0, T, 64):  # kernel B, one block a key tile
+        keys = slice(k0, k0 + 64)
+        for q0 in range(0, T, 32):
+            cols = slice(q0, q0 + 32)
+            pt = torch.exp(ks[keys] @ qs[cols].T - m[cols].T) / l[cols].T  # both passes
+            dv[keys] += split_matmul(pt, do[cols])  # the dV warps
+            dst = pt * (v[keys] @ do[cols].T - rowsum[cols].T)  # the dK warps form dP^T as well
+            dk[keys] += split_matmul(dst, q[cols])
+    ref = A.attention_bwd_plain(q, k, v, do)
+    for out, r in zip((dq * scale * scale, dk * scale * scale, dv), ref):
+        assert ((out - r).abs() <= 1e-4 * r.abs().clamp(min=1)).all()
+
+
+def test_fwd_q_rows():
+    """K1's query rows a block: 64 up to d = 128 at any grid; at d = 192 and
+    256, 32 where 64-row blocks would leave an SM of 132 without one (the
+    recipe's 8 px attention, T = 64 at batch 48: 48 blocks), else 64 (its 16 px
+    one, T = 256: 192 blocks)."""
+    assert A.fwd_q_rows(256, 48, 192, 132) == 64
+    assert A.fwd_q_rows(64, 48, 256, 132) == 32
+    assert A.fwd_q_rows(65, 66, 192, 132) == 64  # two blocks a pair
+    assert A.fwd_q_rows(64, 131, 192, 132) == 32
+    assert A.fwd_q_rows(64, 1, 64, 132) == A.fwd_q_rows(17, 1, 128, 132) == 64
+
+
+def test_attention_tune_tool_is_card_only(monkeypatch):
+    """The sweep behind ``fwd_q_rows`` has no CPU mode (a tile has no plain
+    version): it refuses a missing card by name, and its shapes are the
+    recipe's at d = 192 and 256, with each choice of rows picked at one."""
+    from guided_diffusion_clip_tpu_torch.tools import attention_tune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        attention_tune.main()
+    assert {(T, d) for _, T, _, d in attention_tune.SHAPES} == {(256, 192), (64, 256)}
+    assert {A.fwd_q_rows(T, B * H, d, 132) for B, T, H, d in attention_tune.SHAPES} == {32, 64}
+
+
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """Checks that run before any launch (no card needed): unsupported head
     dims and dtypes, a CPU tensor, a bf16 tensor whose pointer is not 16-byte
@@ -256,8 +347,10 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         A.attention_fwd_cuda(odd, 1)
     with pytest.raises(ValueError, match="qkv 16-byte aligned"):
         A.attention_bwd_cuda(odd, torch.zeros(1, 8, 64, dtype=torch.bfloat16), 1)
-    with pytest.raises(ValueError, match="CUDA tensor"):  # d = 256 in bf16 stays on the FMA kernels
+    with pytest.raises(ValueError, match="qkv 16-byte aligned"):  # d = 256 in bf16 runs on the tensor cores too
         A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 256), 1)
-    assert A.MMA_HEAD_DIMS == (32, 64, 128) and set(A.MMA_HEAD_DIMS) < set(A.KERNEL_HEAD_DIMS)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # float32 goes to the FMA kernels at every d
+        A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256)[1:].view(1, 8, 3 * 256), 1)
+    assert A.MMA_HEAD_DIMS == A.KERNEL_HEAD_DIMS == (32, 64, 128, 192, 256)
     assert A.attention_fwd_cuda.launches == 0 and A.attention_bwd_cuda.launches == 0
     assert A.attention_fwd_cuda.launches_mma == 0 and A.attention_bwd_cuda.launches_mma == 0

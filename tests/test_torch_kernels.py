@@ -26,13 +26,16 @@ def dev():
 
 
 def _on_tensor_cores(dtype, d) -> int:
-    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 128), else 0."""
-    return int(dtype == torch.bfloat16 and d in (32, 64, 128))
+    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 128, 192, 256), else 0."""
+    return int(dtype == torch.bfloat16 and d in (32, 64, 128, 192, 256))
 
 
-# T = 1, 17 and 129: one row, under one tile, one row over two tiles (bf16, both head orders)
+# T = 1, 17 and 129: one row, under one tile, one row over two tiles (bf16, both head orders); at the
+# recipe's d = 192 with one head, 17, 129 and 255 (K1's 32-key and K2's 32-row tiles, 32- and 64-row blocks)
 _RAGGED_BF16 = [pytest.param(2, T, 2, 64, new, torch.bfloat16, 2e-2, id=f"bf16-T{T}-{'new' if new else 'legacy'}")
-                for T in (1, 17, 129) for new in (False, True)]
+                for T in (1, 17, 129) for new in (False, True)] + [
+    pytest.param(2, T, 1, 192, new, torch.bfloat16, 2e-2, id=f"bf16-d192-T{T}-{'new' if new else 'legacy'}")
+    for T in (17, 129, 255) for new in (False, True)]
 
 
 def _attention_cases(shapes):
@@ -71,8 +74,8 @@ def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
 def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
     """K2 through ``attention``'s autograd Function against
     ``attention_bwd_plain``: |d| <= tol * max(1, |ref|); one K1 and one K2
-    launch, on the tensor cores in bf16 at d = 32, 64, 128 and on the FMA
-    pipes otherwise; repeat runs bit-identical."""
+    launch, on the tensor cores in bf16 and on the FMA pipes in float32;
+    repeat runs bit-identical."""
     g = torch.Generator(device=dev).manual_seed(T + d)
     qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
     do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
@@ -98,6 +101,33 @@ def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
     assert torch.equal(A.attention_bwd_cuda(qkv, strided, H, new_order=new_order), out)
     # no atomics: the same bits every run
     assert torch.equal(grad(), out)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("T", [1, 64, 100, 256])
+def test_attention_q_rows_same_bits(dev, T, d):
+    """K1's tensor-core kernel at d = 192 and 256 with 32 and with 64 query
+    rows a block (``fwd_q_rows`` picks one by the grid): a row's arithmetic is
+    the same in both, so the bits are, in both head orders."""
+    import math
+
+    from guided_diffusion_clip_tpu_torch.ops import build
+
+    g = torch.Generator(device=dev).manual_seed(T + d)
+    B, H = 3, 2
+    qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).bfloat16()
+    lib, stream = build.load(), torch.cuda.current_stream(dev).cuda_stream
+    for new in (False, True):
+        outs = []
+        for rows in (32, 64):
+            out = torch.empty(B, T, H * d, dtype=torch.bfloat16, device=dev)
+            build.check(lib.gdc_attention_fwd_mma(qkv.data_ptr(), out.data_ptr(), B, T, H, d, int(new), rows,
+                                                  1.0 / math.sqrt(math.sqrt(d)), stream), "gdc_attention_fwd_mma")
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        ref = A.qkv_attention_plain(qkv, H, new_order=new).float()
+        assert ((outs[0].float() - ref).abs() <= 2e-2 * ref.abs().clamp(min=1)).all()
 
 
 @pytest.mark.parametrize("fused", [False, True])
