@@ -17,8 +17,13 @@ JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
   - batches from ``random.Random(1234 + rank)``'s shuffle of the indices.
 
 The CLIP dict is ``.npz`` or a ``.pt`` of tensors (loaded with
-``weights_only=True``). The native C++ loader (``GDC_NATIVE_LOADER=1``) is not
-yet ported and is refused.
+``weights_only=True``). ``load_data(native=True)`` or ``GDC_NATIVE_LOADER=1``
+decodes through the native C++ library (``data/native_loader.py``): one call
+an image, its crop and flip drawn from a seed that the dataset's ``random``
+gives, the GIL released for the call. Its pixels are the PIL path's bit for
+bit; its random crops and flips are not the same draws. Where the library
+cannot be built or loaded, ``load_data`` raises (the JAX loader falls back to
+PIL without a word).
 """
 
 from __future__ import annotations
@@ -49,12 +54,12 @@ def load_data(
     class_cond_from_filenames: bool = False,
     seed: int = 0,
     prefetch: int = 2,
+    native: bool | None = None,
 ) -> Iterator:
-    """Infinite generator of (images (B, 3, H, W) f32 in [-1, 1], cond dict) batches."""
+    """Infinite generator of (images (B, 3, H, W) f32 in [-1, 1], cond dict)
+    batches. ``native`` None reads ``GDC_NATIVE_LOADER``."""
     if not data_dir:
         raise ValueError("unspecified data directory")
-    if os.environ.get("GDC_NATIVE_LOADER", "") == "1":
-        raise NotImplementedError("GDC_NATIVE_LOADER=1: the native loader is not yet ported to the PyTorch package")
     all_files = list_image_files_recursively(data_dir)
     classes = None
     if class_cond and class_cond_from_filenames:
@@ -70,6 +75,7 @@ def load_data(
         clip_file_path=clip_file_path,
         deterministic=deterministic,
         seed=seed,
+        native=native,
     )
     return _batched_iterator(dataset, batch_size, deterministic, prefetch)
 
@@ -145,6 +151,7 @@ class ImageDataset:
         clip_file_path: str | None = None,
         deterministic: bool = False,
         seed: int = 0,
+        native: bool | None = None,
     ):
         self.resolution = resolution
         self.local_images = image_paths
@@ -155,6 +162,13 @@ class ImageDataset:
         self.clip_data = _load_clip_dict(clip_file_path) if clip_file_path else None
         self.deterministic = deterministic
         self.rng = random.Random(seed + _RANK)
+        if native is None:
+            native = os.environ.get("GDC_NATIVE_LOADER", "") == "1"
+        self.native = bool(native)
+        if self.native:
+            from . import native_loader
+
+            native_loader.load_library()  # builds it, or raises
 
     def __len__(self):
         return len(self.local_images)
@@ -175,17 +189,27 @@ class ImageDataset:
     def get_sample(self, idx: int):
         """(image (3, H, W) f32 in [-1, 1], {"y"?, "clip_feat"?}) of file ``idx``."""
         path = self.local_images[idx]
-        with Image.open(path) as pil_image:
-            pil_image.load()
-            pil_image = pil_image.convert("RGB")
-        if self.random_crop:
-            arr = random_crop_arr(pil_image, self.resolution, rng=self.rng)
+        if self.native:
+            from . import native_loader
+
+            batch, flipped = native_loader.process_batch(
+                [path], self.resolution, random_crop=self.random_crop,
+                random_flip=self.random_flip and not self.deterministic,
+                seeds=[self.rng.getrandbits(63) or 1], num_threads=1,
+            )
+            arr, img_flipped = batch[0], bool(flipped[0])
         else:
-            arr = center_crop_arr(pil_image, self.resolution)
-        img_flipped = self.random_flip and (not self.deterministic) and self.rng.random() < 0.5
-        if img_flipped:
-            arr = arr[:, ::-1]
-        arr = arr.astype(np.float32) / 127.5 - 1
+            with Image.open(path) as pil_image:
+                pil_image.load()
+                pil_image = pil_image.convert("RGB")
+            if self.random_crop:
+                arr = random_crop_arr(pil_image, self.resolution, rng=self.rng)
+            else:
+                arr = center_crop_arr(pil_image, self.resolution)
+            img_flipped = self.random_flip and (not self.deterministic) and self.rng.random() < 0.5
+            if img_flipped:
+                arr = arr[:, ::-1]
+            arr = arr.astype(np.float32) / 127.5 - 1
 
         out_dict = {}
         if self.local_classes is not None:

@@ -317,8 +317,12 @@ def space_timesteps(num_timesteps: int, section_counts) -> set:
     `section_counts` is either a list of per-section counts, or a string:
     comma-separated ints, or "ddimN" for an exact-stride DDIM schedule. The
     chain is split into len(counts) near-equal sections (earlier sections get
-    the remainder) and each contributes its own evenly-spread picks.
+    the remainder) and each contributes its own evenly-spread picks. An int
+    is one section (a YAML ``timestep_respacing: 100``, which the JAX package
+    refuses with a TypeError).
     """
+    if isinstance(section_counts, int):
+        section_counts = [section_counts]
     if isinstance(section_counts, str):
         if section_counts.startswith("ddim"):
             return _exact_stride_subset(num_timesteps, int(section_counts[4:]))

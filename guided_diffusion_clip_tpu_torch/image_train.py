@@ -14,20 +14,26 @@ checkpoints ``model{step:06d}.pt``, ``ema_{rate}_{step:06d}.pt`` and
 ``opt{step:06d}.pt`` every ``--save_interval`` steps, and the validation
 grids. ``DIFFUSION_TRAINING_TEST=1`` stops after the first save.
 
-Not yet ported, and refused at startup: ``--train_conv_impl int8``,
-``--param_sharding fsdp``, ``--opt_impl zero1``, ``--spatial_shard``,
-``--tensor_shard``, ``--ckpt_backend orbax``, ``--profile_dir`` and
-``GDC_NATIVE_LOADER=1``.
+``--train_conv_impl int8`` trains through the int8 convs (kernels K4, K5 and
+the quantize kernels in the forward, straight-through convs on cuDNN in the
+backward; ``auto`` and ``xla`` are cuDNN throughout), ``--profile_dir`` writes
+a ``torch.profiler`` trace of steps 1 to 3, and
+``GDC_NATIVE_LOADER=1`` decodes the images with the native C++ library (built
+at first use; a failed build is an error).
+
+Not yet ported, and refused at startup: ``--param_sharding fsdp``,
+``--opt_impl zero1``, ``--spatial_shard``, ``--tensor_shard`` and
+``--ckpt_backend orbax``.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
 import torch
 
 from .data.image_datasets import load_data
+from .models.unet import CONV_IMPLS
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop, check_ported
 from .utils import logger
@@ -42,22 +48,18 @@ from .utils.script_util import (
 
 
 def _refuse_unported(args) -> None:
-    """Exit on a flag that is not yet ported, before the run directory is made;
+    """Exit on a flag that is not yet ported or not known, before the run directory is made;
     ``TrainLoop`` is then given none of the flags ``check_ported`` reads (the
     model's dtype picks the bf16 torso, so ``--use_fp16``'s loss scaling has
     nothing to act on, and ``--opt_impl tree`` and ``flat`` run one AdamW)."""
     try:
         check_ported(param_sharding=args.param_sharding, opt_impl=args.opt_impl,
                      spatial_shard=args.spatial_shard, tensor_shard=args.tensor_shard,
-                     ckpt_backend=args.ckpt_backend, profile_dir=args.profile_dir)
+                     ckpt_backend=args.ckpt_backend)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
-    if args.train_conv_impl == "int8":
-        raise SystemExit("--train_conv_impl int8: not yet ported to the PyTorch package")
-    if args.train_conv_impl not in ("auto", "xla"):
-        raise SystemExit(f"--train_conv_impl {args.train_conv_impl!r}: choose from auto, xla, int8")
-    if os.environ.get("GDC_NATIVE_LOADER", "") == "1":
-        raise SystemExit("GDC_NATIVE_LOADER=1: the native loader is not yet ported to the PyTorch package")
+    if args.train_conv_impl not in CONV_IMPLS:
+        raise SystemExit(f"--train_conv_impl {args.train_conv_impl!r}: choose from {', '.join(CONV_IMPLS)}")
 
 
 def main(argv=None) -> None:
@@ -70,7 +72,8 @@ def main(argv=None) -> None:
 
     logger.log("\n\t".join(f"{k} = {v}" for k, v in vars(args).items()))
     logger.log("creating model and diffusion...")
-    model, diffusion = create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()))
+    model, diffusion = create_model_and_diffusion(
+        **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.train_conv_impl)
     model.to(device)
     schedule_sampler = create_named_schedule_sampler(args.schedule_sampler, diffusion.num_timesteps)
 
@@ -115,6 +118,7 @@ def main(argv=None) -> None:
         loss_weighting=args.loss_weighting,
         cond_dropout=args.cond_dropout,
         cond_null_y=args.cfg_null_y,
+        profile_dir=args.profile_dir,
     ).run_loop()
 
 

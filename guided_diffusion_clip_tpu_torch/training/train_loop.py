@@ -38,11 +38,23 @@ state_dicts under the reference's keys; ``opt{step:06d}.pt`` holds the Adam
 count and moments by parameter name. Unlike the JAX loop, the constructor takes
 no batch from ``data``: the model arrives with its parameters.
 
+``profile_dir``: a ``torch.profiler`` trace of steps 1 to ``PROFILE_STEPS``
+(``utils/profiling.py``), with the ``data``, ``train_step`` and
+``val_sample`` scopes named in it, as the JAX loop traces them.
+
+The int8 forward (``--train_conv_impl int8``) is the model's: build it with
+``conv_impl="int8"``. Its convs then quantize the f32 parameters at each
+call (``Conv2d.quantized_weight`` recomputes ``w_q`` when the weight's
+version changes, which ``update`` bumps after AdamW's step), the quantizing
+GroupNorms emit integer-valued floats under autograd, and the backwards are
+straight-through convs on cuDNN; the EMA copies and ``val_sample`` run the
+same convs under ``no_grad``, which emits real s8.
+
 Not yet ported, and refused by ``check_ported``: ``param_sharding !=
-"replicated"``, ``opt_impl zero1``, ``spatial_shard``, ``tensor_shard``,
-``ckpt_backend orbax`` and a ``profile_dir``. The constructor takes these
-options only to refuse them; ``image_train`` refuses its flags with the same
-function before it makes the run directory, and passes none of them on.
+"replicated"``, ``opt_impl zero1``, ``spatial_shard``, ``tensor_shard`` and
+``ckpt_backend orbax``. The constructor takes these options only to refuse
+them; ``image_train`` refuses its flags with the same function before it
+makes the run directory, and passes none of them on.
 """
 
 from __future__ import annotations
@@ -59,11 +71,12 @@ from ..diffusion.api import Diffusion
 from ..training.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..utils import checkpoint as ckpt
 from ..utils import logger
+from ..utils.profiling import StepProfiler, annotate
 from ..utils.saving_imgs import save_img, tensor2img
 
 
 def check_ported(*, param_sharding="replicated", opt_impl="tree", spatial_shard=0, tensor_shard=0,
-                 ckpt_backend="flax", profile_dir="") -> None:
+                 ckpt_backend="flax") -> None:
     """Raise NotImplementedError for the JAX loop's options this loop lacks,
     ValueError for values the JAX loop does not know either."""
     if param_sharding not in ("replicated", "fsdp"):
@@ -78,7 +91,6 @@ def check_ported(*, param_sharding="replicated", opt_impl="tree", spatial_shard=
         (f"spatial_shard {spatial_shard}", int(spatial_shard) > 1),
         (f"tensor_shard {tensor_shard}", int(tensor_shard) > 1),
         ("ckpt_backend orbax", ckpt_backend == "orbax"),
-        (f"profile_dir {profile_dir}", bool(profile_dir)),
     ):
         if unported:
             raise NotImplementedError(f"--{flag}: not yet ported to the PyTorch package")
@@ -108,6 +120,8 @@ def drop_conditioning(generator: torch.Generator, cond: dict, p: float, null_y: 
         out["y"] = torch.where(mask, torch.full_like(v, null_y), v)
     return out
 
+
+PROFILE_STEPS = 3  # steps traced under profile_dir, the JAX loop's default profile_steps
 
 _METRIC_KEYS = ("loss", "grad_norm", "param_norm", "loss_vec", "mse_vec", "vb_vec")
 
@@ -148,7 +162,7 @@ class TrainLoop:
         cond_null_y: int = -1,
     ):
         check_ported(param_sharding=param_sharding, opt_impl=opt_impl, spatial_shard=spatial_shard,
-                     tensor_shard=tensor_shard, ckpt_backend=ckpt_backend, profile_dir=profile_dir)
+                     tensor_shard=tensor_shard, ckpt_backend=ckpt_backend)
         self.model = model.float().train()
         self.device = next(model.parameters()).device
         # the schedule's tables on the model's device once, not at every step
@@ -172,6 +186,7 @@ class TrainLoop:
         self.val_datasets = val_datasets
         self.val_batch_size = val_batch_size
         self.use_ddim_for_val = use_ddim_for_val
+        self.profile_dir = profile_dir
         self.step = 0
         self.resume_step = 0
         self.global_batch = batch_size
@@ -281,6 +296,10 @@ class TrainLoop:
         for group in self.opt.param_groups:
             group["lr"] = self.lr * frac
         self.opt.step()
+        if self.model.int8:
+            # the fused AdamW writes the parameters without bumping their version
+            # counters, on which the int8 convs' cached weight quantization is keyed
+            torch.autograd.graph.increment_version(self.params)
         self.opt_count += 1
         with torch.no_grad():
             for ema, rate in zip(self.ema_params, self.ema_rate):
@@ -309,25 +328,32 @@ class TrainLoop:
 
     # ------------------------------------------------------------ main loop
     def run_loop(self):
-        while not self.lr_anneal_steps or self.step + self.resume_step < self.lr_anneal_steps:
-            with logger.profile_kv("data"):
-                batch, cond = next(self.data)
-            with logger.profile_kv("step"):
-                self.run_step(batch, cond)
-            if self.step % self.log_interval == 0:
-                self.flush_metrics()  # include this step in the dump
-                logger.dumpkvs()
-            if self.step % self.save_interval == 0 and self.step > 0:
-                self.flush_metrics()
-                with logger.profile_kv("val"):
-                    self.save()
-                    self.val_sample()
-                if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
-                    return
-            self.step += 1
-        self.flush_metrics()
-        if (self.step - 1) % self.save_interval != 0:
-            self.save()
+        prof = StepProfiler(self.profile_dir, num_steps=PROFILE_STEPS)
+        try:
+            while not self.lr_anneal_steps or self.step + self.resume_step < self.lr_anneal_steps:
+                prof.maybe_start(self.step)
+                with prof.step_scope(self.step):
+                    with logger.profile_kv("data"), annotate("data"):
+                        batch, cond = next(self.data)
+                    with logger.profile_kv("step"), annotate("train_step"):
+                        self.run_step(batch, cond)
+                prof.maybe_stop(self.step)
+                if self.step % self.log_interval == 0:
+                    self.flush_metrics()  # include this step in the dump
+                    logger.dumpkvs()
+                if self.step % self.save_interval == 0 and self.step > 0:
+                    self.flush_metrics()
+                    with logger.profile_kv("val"), annotate("val_sample"):
+                        self.save()
+                        self.val_sample()
+                    if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
+                        return
+                self.step += 1
+            self.flush_metrics()
+            if (self.step - 1) % self.save_interval != 0:
+                self.save()
+        finally:
+            prof.stop()
 
     def run_step(self, batch, cond, noise=None):
         """One update on a host batch (B, C, H, W) and its cond dict;

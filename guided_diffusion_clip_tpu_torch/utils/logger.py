@@ -10,8 +10,9 @@ fresh directory under the temporary directory. The writers are picked by
 (``progress.csv``, its header rewritten when keys appear) and ``json``
 (``progress.json``, one object a line) the dumps. ``logkv`` /
 ``logkv_mean`` collect values until ``dumpkvs``; ``profile_kv`` adds wall
-time to ``wait_*`` keys (logger.py:293-317). The TensorBoard writer and the
-per-rank formats are not ported yet.
+time to ``wait_*`` keys (logger.py:293-317); ``reset`` closes the run
+directory, so that the next ``configure`` makes another. The TensorBoard
+writer and the per-rank formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -181,6 +182,15 @@ def configure(args=None) -> str:
     stamp = datetime.datetime.now().strftime("%y%m%d_%H%M%S")
     desc = getattr(args, "description", "") or ""
     return configure_dir(os.path.join(args.main_path, f"{stamp}_{desc}" if desc else stamp))
+
+
+def reset() -> None:
+    """Close the current run directory's writers; the next ``configure``
+    starts a new one (``image_sample_repeat`` between its runs)."""
+    global _current
+    if _current is not None:
+        _current.close()
+        _current = None
 
 
 def get_current() -> Logger:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -84,13 +85,13 @@ def image_train_defaults():
         clip_file_path="",
         clip_file_path_test="",
         main_path="",
-        profile_dir="",  # not yet ported: refused
+        profile_dir="",  # a torch.profiler trace of steps 1-3 here
         param_sharding="replicated",  # "fsdp": not yet ported
         opt_impl="tree",  # "flat": fused AdamW; "zero1": not yet ported
         spatial_shard=0,  # > 1: not yet ported
         tensor_shard=0,  # > 1: not yet ported
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": not yet ported
-        train_conv_impl="xla",  # "int8": not yet ported
+        train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting
         cond_dropout=0.0,  # > 0: drop conditioning per example (train for CFG)
         cfg_null_y=-1,  # reserved null class index for cond_dropout on y models
@@ -464,3 +465,28 @@ def parse_yaml(args):
     if hasattr(args, "config_file"):
         delattr(args, "config_file")
     return args
+
+
+def load_folder_path_parse(args):
+    """Resolve ``args.model_path`` from a run-folder fragment and ``load_file``
+    (JAX ``utils/script_util.py::load_folder_path_parse``, which reconstructs
+    the reference's unshipped helper): ``--f <fragment>`` picks the run
+    directory under ``main_path`` whose name contains the fragment (the last
+    in sorted order, so the newest timestamped run), ``load_file`` names the
+    checkpoint inside it, and the result goes to ``args.model_path``. Returns
+    the folder's name, or None without a fragment or ``main_path``."""
+    fragment = getattr(args, "f", None) or getattr(args, "folder", None)
+    main_path = getattr(args, "main_path", None)
+    load_file = getattr(args, "load_file", None)
+    if not fragment or not main_path:
+        return None
+    candidates = sorted(
+        d for d in os.listdir(main_path)
+        if fragment in d and os.path.isdir(os.path.join(main_path, d))
+    )
+    if not candidates:
+        raise FileNotFoundError(f"no run folder matching {fragment!r} under {main_path}")
+    folder = candidates[-1]
+    if load_file:
+        args.model_path = os.path.join(main_path, folder, load_file)
+    return folder

@@ -4,8 +4,9 @@ The loader against the JAX package's on the same folder (the port's batches
 NCHW, the JAX loader's NHWC): deterministic, and shuffled with random crops
 and flips from the same seed (both draw from Python's ``random``). The CLI
 on the CPU at a tiny size on a generated folder, as
-tests/test_scripts_e2e.py's ``dataset`` fixture builds one, and each flag
-that is not yet ported refused.
+tests/test_scripts_e2e.py's ``dataset`` fixture builds one, with
+``--train_conv_impl int8``, ``--profile_dir`` and the native loader, and each
+flag that is not yet ported refused.
 """
 
 import csv
@@ -70,12 +71,6 @@ def test_load_data_matches_jax(dataset, deterministic, random_crop):
             np.testing.assert_array_equal(c[k], jc[k])
 
 
-def test_native_loader_is_refused(dataset, monkeypatch):
-    monkeypatch.setenv("GDC_NATIVE_LOADER", "1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TD.load_data(data_dir=dataset[0], batch_size=2, image_size=16)
-
-
 def test_config_yaml_is_the_recipe():
     """``--config-file configs/config.yaml`` gives the fork's 128 px recipe,
     its keys over the command line's."""
@@ -123,10 +118,55 @@ def test_image_train_cli(dataset, tmp_path):
     assert opt["count"] == 3 and sorted(opt) == ["count", "m", "v"]
 
 
+def test_image_train_cli_int8_native_loader_profiled(dataset, tmp_path, monkeypatch):
+    """``--train_conv_impl int8``, ``--profile_dir`` and ``GDC_NATIVE_LOADER=1``
+    together: the forwards go through the int8 convs (K5's plain version on
+    the CPU), the images through the native library, and the trace is written."""
+    from guided_diffusion_clip_tpu_torch.data import native_loader
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+    from guided_diffusion_clip_tpu_torch.utils import logger
+
+    calls = {"conv_s8": 0, "native": 0}
+
+    def counted(fn, key):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(Q, "conv_s8_plain", counted(Q.conv_s8_plain, "conv_s8"))
+    monkeypatch.setattr(native_loader, "process_batch", counted(native_loader.process_batch, "native"))
+    monkeypatch.setenv("GDC_NATIVE_LOADER", "1")
+    monkeypatch.setenv("DIFFUSION_TRAINING_TEST", "1")
+    monkeypatch.setenv("OPENAI_LOG_FORMAT", "log,csv")
+    img_dir, clip_npz, _ = dataset
+    try:
+        image_train.main([*TINY, "--device", "cpu", "--data_dir", img_dir, "--clip_file_path", clip_npz,
+                          "--batch_size", "4", "--save_interval", "2", "--log_interval", "1", "--val_batch_size", "4",
+                          "--main_path", str(tmp_path / "runs"), "--train_conv_impl", "int8",
+                          "--profile_dir", str(tmp_path / "prof")])
+    finally:
+        logger.reset()
+    (run,) = os.listdir(tmp_path / "runs")
+    files = set(os.listdir(tmp_path / "runs" / run))
+    assert {"model000002.pt", "ema_0.9999_000002.pt", "val_samples_0_000002.png"} <= files
+    with open(tmp_path / "runs" / run / "progress.csv") as f:
+        assert all(math.isfinite(float(r["loss"])) for r in csv.DictReader(f))
+    # 3 steps and the validation chain of the save, each forward 25 convs
+    assert calls["conv_s8"] >= 3 * 25 and calls["native"] >= 3 * 4
+    assert [n for n in os.listdir(tmp_path / "prof") if n.endswith(".pt.trace.json")]
+
+
+def test_unknown_train_conv_impl_is_refused(tmp_path):
+    with pytest.raises(SystemExit, match="choose from auto, xla, int8"):
+        image_train.main([*TINY, "--device", "cpu", "--data_dir", "x", "--main_path", str(tmp_path),
+                          "--train_conv_impl", "fp8"])
+    assert not os.listdir(tmp_path)
+
+
 @pytest.mark.parametrize("argv,env", [
-    (["--train_conv_impl", "int8"], {}), (["--param_sharding", "fsdp"], {}), (["--opt_impl", "zero1"], {}),
+    (["--param_sharding", "fsdp"], {}), (["--opt_impl", "zero1"], {}),
     (["--spatial_shard", "2"], {}), (["--tensor_shard", "2"], {}), (["--ckpt_backend", "orbax"], {}),
-    (["--profile_dir", "prof"], {}), ([], {"GDC_NATIVE_LOADER": "1"}),
 ])
 def test_unported_flags_are_refused(argv, env, tmp_path, monkeypatch):
     for k, v in env.items():

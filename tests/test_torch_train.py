@@ -325,7 +325,7 @@ def test_opt_impl_values_run_one_optimizer(weights):
 
 @pytest.mark.parametrize("option", [
     dict(param_sharding="fsdp"), dict(opt_impl="zero1"), dict(spatial_shard=2), dict(tensor_shard=2),
-    dict(ckpt_backend="orbax"), dict(profile_dir="/tmp/prof"),
+    dict(ckpt_backend="orbax"),
 ])
 def test_unported_options_are_refused(weights, option):
     _, params = weights
@@ -388,3 +388,123 @@ def test_log_loss_dict():
     kvs = logger.getkvs()
     assert kvs["loss"] == pytest.approx(2.75)
     assert (kvs["loss_q0"], kvs["loss_q2"], kvs["loss_q3"]) == (pytest.approx(1.5), 3.0, 5.0)
+
+
+# --- --train_conv_impl int8 ---------------------------------------------------
+
+
+def test_int8_train_step_matches_jax_teacher_forced(weights, monkeypatch):
+    """One ``run_step`` of the port's int8 model (``conv_impl="int8"``: the
+    quantizing GroupNorms emit integer-valued floats under autograd, the convs
+    run K5's plain version, the backwards are straight-through) against the
+    gradient of the JAX loop's loss under ``set_conv_impl("int8")``, from the
+    same weights, batch, t, weights and noise, with the straight-through convs
+    in f32 on both sides. The port is teacher-forced to the quantization of
+    that very JAX program (``jax_quantization``): a level
+    that rounds the other way would move the gradient by more than the
+    algorithm's difference. Loss and the per-example terms within 1e-4
+    relative; grad_norm, the gradient (relative L2 over all parameters) and
+    the updated parameters within 1e-4 relative as the bf16/f32 step is held
+    (``test_train_step_matches_jax``); the output head, which is not forced,
+    may flip a level now and then, which these bounds absorb."""
+    from test_torch_quant import _conv_prequant_bwd_f32, jax_int8, jax_quantization
+
+    from guided_diffusion_clip_tpu.ops import quant as JQ
+    from guided_diffusion_clip_tpu_torch.ops import quant as TQ
+
+    jm, params = weights
+    x, feat = _batch(6)
+    noise = np.random.RandomState(12).standard_normal((B, 16, 16, 3)).astype(np.float32)
+    model = UNetModel_clip_feat(UNetConfig(**KW), conv_impl="int8")
+    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    loop = TL.TrainLoop(model=model, diffusion=create_gaussian_diffusion(**_diffusion_kw()), data=None,
+                        **{**LOOP, "microbatch": -1})
+    # the t and weights the port's run_step draws (its np.random.default_rng(seed))
+    t, w = TR.create_named_schedule_sampler("uniform", 20).sample(B, np.random.default_rng(LOOP["seed"]))
+    jdiff = jax_diffusion(**_diffusion_kw())
+
+    def loss_fn(p):
+        captured = []
+
+        def model_fn(xx, tt, **kw):
+            out, inter = jm.apply({"params": p}, xx, tt, train=True, rngs={"dropout": jax.random.key(1)},
+                                  capture_intermediates=True, mutable=["intermediates"], **kw)
+            captured.append(inter["intermediates"])
+            return out
+
+        terms = jdiff.training_losses(model_fn, jnp.asarray(x), jnp.asarray(t), jnp.asarray(noise),
+                                      model_kwargs={"clip_feat": jnp.asarray(feat)})
+        assert len(captured) == 1
+        return jnp.mean(terms["loss"] * jnp.asarray(w)), (terms, captured[0])
+
+    JQ.conv_prequant.defvjp(JQ._conv_prequant_fwd, _conv_prequant_bwd_f32)
+    try:
+        with jax_int8():
+            (jloss, (jterms, inter)), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    finally:
+        JQ.conv_prequant.defvjp(JQ._conv_prequant_fwd, JQ._conv_prequant_bwd)
+    monkeypatch.setattr(TQ, "_STE_DTYPE", torch.float32)
+    with jax_quantization(loop.model, inter):
+        loop.run_step(nchw(x), {"clip_feat": torch.from_numpy(feat)}, noise=nchw(noise))
+    met = loop._fetch(loop._pending_log[2])
+
+    np.testing.assert_allclose(met["loss"], float(jloss), rtol=1e-4)
+    for k in ("loss", "mse", "vb"):
+        np.testing.assert_allclose(met[f"{k}_vec"], np.asarray(jterms[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+    ref = state_dict_from_flax(jax.device_get(jgrads))
+    grads = {n: p.grad.numpy() for n, p in zip(loop.names, loop.params)}
+    jnorm = np.sqrt(sum(float(np.sum(np.asarray(v, np.float64) ** 2)) for v in ref.values()))
+    np.testing.assert_allclose(met["grad_norm"], jnorm, rtol=1e-4)
+    err = _rel(grads, ref)
+    assert err <= 1e-4, f"gradient: relative L2 {err:.3g}"
+    opt = optax.adamw(lambda c: LOOP["lr"] * jnp.maximum(0.0, 1.0 - c / LOOP["lr_anneal_steps"]),
+                      weight_decay=LOOP["weight_decay"])
+    jp = {k: jnp.asarray(v.numpy()) for k, v in state_dict_from_flax(params).items()}
+    upd, _ = opt.update({k: jnp.asarray(v) for k, v in ref.items()}, opt.init(jp), jp)
+    err = _rel(_named(loop, loop.params), optax.apply_updates(jp, upd))
+    assert err <= 1e-4, f"updated parameters: relative L2 {err:.3g}"
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["foreach", "fused"])
+def test_int8_weight_quantization_follows_updates_and_ema_copies(weights, fused):
+    """``Conv2d.quantized_weight()`` caches w_q, s_w and K5's packed rows by
+    the weight's data pointer and version. AdamW writes the parameters in
+    place (the fused AdamW, the card's, without bumping their versions), the
+    EMAs move by ``_foreach_lerp_``, and ``ema_model`` copies them into a
+    model of its own: after each, the cache must equal
+    ``quantize_per_out_channel`` of the weight as it is then."""
+    from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
+    from guided_diffusion_clip_tpu_torch.ops.quant import _pack_weights, quantize_per_out_channel
+
+    _, params = weights
+    model = UNetModel_clip_feat(UNetConfig(**KW), conv_impl="int8")
+    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    logger.configure_dir(tempfile.mkdtemp(), format_strs=[])
+    loop = TL.TrainLoop(model=model, diffusion=create_gaussian_diffusion(**_diffusion_kw()), data=None,
+                        **{**LOOP, "microbatch": -1, "lr": 1e-2, "ema_rate": "0.5"})
+    if fused:
+        loop.opt = torch.optim.AdamW(loop.params, lr=1e-2, betas=(0.9, 0.999), eps=1e-8, fused=True)
+    convs = [m for m in loop.model.modules() if isinstance(m, Conv2d)]
+    assert len(convs) == 25 and all(m.int8 for m in convs)
+
+    def check(mods, label):
+        for m in mods:
+            w_q, s_w = m.quantized_weight()
+            want_q, want_s = quantize_per_out_channel(m.weight.detach().permute(2, 3, 1, 0))
+            assert torch.equal(w_q, want_q) and torch.equal(s_w, want_s), label
+            assert torch.equal(m.packed_weight(), _pack_weights(want_q)), label
+
+    x, feat = _batch(7)
+    for step in range(2):
+        before = [m.quantized_weight()[0].clone() for m in convs]
+        loop.run_step(nchw(x), {"clip_feat": torch.from_numpy(feat)})  # a forward fills the caches, then AdamW
+        check(convs, f"after update {step}")
+        assert not all(torch.equal(b, m.quantized_weight()[0]) for b, m in zip(before, convs))
+    ema = loop.ema_model(0)
+    ema_convs = [m for m in ema.modules() if isinstance(m, Conv2d)]
+    assert all(m.int8 and m.weight.dtype == torch.float32 for m in ema_convs)
+    check(ema_convs, "EMA copy")
+    assert not all(torch.equal(a.quantized_weight()[0], b.quantized_weight()[0]) for a, b in zip(ema_convs, convs))
+    with torch.no_grad():
+        ema_convs[0].weight.mul_(2)  # an in-place edit of the copy's weight
+    check(ema_convs[:1], "after an in-place edit")
