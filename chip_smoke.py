@@ -6,8 +6,9 @@
 Drives the port's main paths end to end, the serving path at the ADM-256
 widths of the fork's CLIP-conditioned UNet, classifier-guided sampling with
 ADM-G 256 and its classifier, training of the fork's 128 px recipe (bf16 and
-int8), and sampling and scoring what it trained through the fork's CLIs, and
-exits non-zero if any phase fails:
+int8), sampling and scoring what it trained through the fork's CLIs,
+training the classifier, and the fork's CLIP at ViT-B/32's widths (embeddings
+and CLIP-guided sampling), and exits non-zero if any phase fails:
 
   1. device: the card's name, power limit and compute capability (9, 0);
   2. build: the CUDA kernels of ``guided_diffusion_clip_tpu_torch/ops/csrc``
@@ -16,9 +17,11 @@ exits non-zero if any phase fails:
      PyTorch version on the card, at the shapes the paths give it, in f32
      (TF32 off) and bf16, with kernel and plain times (median of 12 runs
      after warm-up, CUDA events). K1 also at the recipe's one-head
-     attention at batch 8 and 16 (image_sample, and under CFG). K3 (one
-     launch a call) at six maps of the UNet and the classifier and at the
-     recipe's four must also give each group's mean and rstd
+     attention at batch 8 and 16 (image_sample, and under CFG) and at the
+     classifier's blocks and pool at batch 16 (classifier_train's
+     microbatches). K3 (one launch a call) at six maps of the UNet and the
+     classifier, at the recipe's four and at the classifier's 256 px map at
+     batch 16 must also give each group's mean and rstd
      within 1e-5 relative of the plain version's, and the same bits again.
      K1 in bf16 (every d) must go to
      the tensor-core kernel (``launches_mma``); beside it each bf16 case
@@ -27,7 +30,9 @@ exits non-zero if any phase fails:
      in f32 at the classifier pool's shape (T = 65, 8 heads, d = 64, the FMA
      kernel's one main-path user) the library call (TF32 off) and the bound
      at the f32 rate;
-  3b. the same for K2 (attention backward) at the classifier's shapes; in
+  3b. the same for K2 (attention backward) at the classifier's shapes at
+     batch 8 (guidance) and 16 (classifier_train), and in bf16 at the
+     ADM-256 UNet's at batch 8 (clip_guided_sample's pred-x0 guidance); in
      bf16 it is also held to the float64 result of the same values, where
      it may not be further off than the FMA kernel by more than f32's own
      rounding; the f32 pool shape is timed against the library as in 3;
@@ -40,7 +45,8 @@ exits non-zero if any phase fails:
      /sample requests (padded, explicit clip_feat, chunked, coalesced), with
      the kernels' launch counters checked against the forwards it ran;
   6. ``classifier_sample.main`` on the bf16 ADM-G 256 UNet and classifier
-     (random weights from .pt files), 250 ancestral steps at batch 8, with
+     (random weights from .pt files), 100 ancestral steps at batch 8 (the
+     250 of bench.py cut to ``GUIDED_STEPS``), with
      the launch counters checked against the steps it ran; then one guided
      step timed by part and profiled by kernel.
 
@@ -86,7 +92,7 @@ The deploy preset's sampling knobs and the last two kernels add:
       steps + refreshes times a chain;
   6c. ``classifier_sample.main`` with the preset's four knobs (``--conv_impl
       int8 --deep_cache 5 --guidance_cache 2 --guidance_interval 200,800``),
-      250 ancestral steps at batch 8: the launch counts equal those derived
+      100 ancestral steps at batch 8: the launch counts equal those derived
       from the modules (full and shallow forwards) and from the schedule
       (which steps run the classifier);
   7.  the two tool entry points, ``tools.conv_bench`` and
@@ -145,12 +151,54 @@ run directory, ``configs/image_sample_config.yaml`` pointed at 16 generated
       run directories;
   9c. ``image_nll.main`` on 8 images from 8c's EMA checkpoint: 1000 forwards, bpd and the term files.
 
+The classifier's trainer and the fork's CLIP (run inside phases 5-6's
+directory, after 6c: phase 10 guides with 6's ADM-G 256 weights, 11 and 11b
+use phase 5's ADM-256 CLIP UNet weights) add:
+  10. ``classifier_train.main`` on ADM-G 256's classifier (``CLF_TRAIN_FLAGS``:
+      batch 32 in microbatches of 16, noised, annealed, bf16 torso, 10
+      iterations, a validation batch every 5) over generated class-named 256 px
+      folders: the launches against the modules' counts (K1 and K2 a
+      microbatch for each attention block and the float32 pool, K3 for each
+      GroupNorm), progress.csv's keys, ms a step over steps 3-10 (CUDA
+      events), peak memory; each of 5 steps' launches and the busy share
+      (profiler) on the same trainer; one step (batch 2 in microbatches of 1)
+      card vs CPU in f32 (TF32 off, 1e-3 relative L2) and with the bf16
+      torso (``CLF_BF16_TOL``); then
+      ``classifier_sample.main`` guiding 5 steps with the saved
+      ``model000009.pt`` (strict=True);
+  11. ViT-B/32 at its full widths (N(0, 0.02) weights written in OpenAI's
+      names and loaded strict=True): both encoders in f32 card vs CPU (1e-3);
+      ``compute_clip_embeddings.main`` over 16 generated 256 px images card vs
+      CPU (1e-3), ms an image, and its ``.pt`` fed to ``image_train`` (the
+      recipe at batch 8) for 2 steps; the CLIP guidance gradient in pred-x0
+      mode through the ADM-256 CLIP UNet (f32, batch 2, model timestep 500 of
+      a 100-step schedule) card vs CPU (1e-3);
+  11b. ``clip_guided_sample.main`` on the ADM-256 CLIP UNet and ViT-B/32,
+      ``--target_image``, batch 8, 100 ancestral steps, in bf16, with
+      ``--conv_impl int8`` and with ``--guidance_cache 2``: the UNet's and
+      CLIP's calls against the schedule, the launches against the modules'
+      counts (two forwards and one backward a guided step), seconds a chain,
+      peak memory; a step split by part (the loop's UNet forward, the
+      cond_fn's, CLIP forward + backward, the UNet backward; profiler device
+      ms by kernel group), bf16 and int8; one int8 step (f32, batch 1)
+      teacher-forced card vs CPU within ``CLIP_INT8_TOL``.
+
+    python3 chip_smoke.py --faults
+
+builds the kernels and runs no path: it takes the two card-vs-CPU steps
+whose bounds were set from faults, the bf16-torso classifier step of phase
+10 and the int8 CLIP-guided step of 11b, once on the CPU and then on the card
+cleanly twice and under each of ``FAULTS`` (one kernel's result, or the
+GroupNorm backward's, scaled on the card only), and prints each one's
+distances beside the bounds they break.
+
 Phases 3c, 3d and 3g hold K4, K5 and the quantize kernels at the recipe's
 shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 3-channel stem and 6-channel head on ``__dp4a``; batch 8 and 48).
 
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
-6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c) and read just after it; every bf16 K1 and K2 launch of a main path
+6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
+``classifier_train`` and its guided run, each mode of 11b) and read just after it; every bf16 K1 and K2 launch of a main path
 (the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
 the FMA-pipe kernels must have taken only the classifier's attention pool,
 which is float32 by the reference's design (one K1 and one K2 a classifier call).
@@ -197,13 +245,16 @@ SLICE_FLAGS = [
 ]
 ATTN_PER_FORWARD = 16  # attention blocks of the ADM-256 UNet at 32/16/8 px
 GN_PER_FORWARD = 101   # 42 ResBlocks x 2 + 16 attention norms + the head
-# ADM-G 256 and its classifier (bench.py:170-198), 250 respaced ancestral steps
+# ADM-G 256 and its classifier (bench.py:170-198); 100 respaced ancestral steps. bench.py runs 250, with which
+# the whole smoke took 991 s of the 1200 s it is allowed on an H100; the same tree with 100 took 1034 s on a
+# slower host (its CPU steps), so 250 would leave no room there; the three chains take ~31 s at 100, ~72 s at 250
+GUIDED_STEPS = 100
 GUIDED_FLAGS = [
     "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
     "--attention_resolutions", "32,16,8", "--num_heads", "4", "--num_head_channels", "64",
     "--resblock_updown", "True", "--use_scale_shift_norm", "True", "--learn_sigma", "True",
     "--class_cond", "True", "--use_fp16", "True", "--noise_schedule", "linear",
-    "--diffusion_steps", "1000", "--timestep_respacing", "250",
+    "--diffusion_steps", "1000", "--timestep_respacing", str(GUIDED_STEPS),
     "--classifier_use_fp16", "True", "--classifier_width", "128", "--classifier_depth", "2",
     "--classifier_attention_resolutions", "32,16,8", "--classifier_use_scale_shift_norm", "True",
     "--classifier_resblock_updown", "True", "--classifier_pool", "attention",
@@ -288,6 +339,13 @@ def attention_bound(B, T, H, d, backward: bool, f32: bool = False) -> dict:
 # the classifier's attention pool at batch 8 (8 x 8 tokens and their mean; 512 channels in heads of
 # 64, new head order): float32 by the reference's design, the FMA-pipe kernels' one main-path user
 POOL_SHAPE = (8, 65, 8, 64, True)
+# (B, T, heads, d, new_order) of the classifier's attention at 32, 16 and 8 px and of its pool, in
+# classifier_train's microbatches of 16 (CLF_TRAIN_FLAGS)
+CLF_TRAIN_ATTN_SHAPES = [(16, 1024, 4, 64, False), (16, 256, 8, 64, False), (16, 64, 8, 64, False),
+                         (16, 65, 8, 64, True)]
+# the ADM-256 UNet's attention at 32, 16 and 8 px at batch 8, whose K2 clip_guided_sample's
+# pred-x0 guidance runs in bf16 (its f32 K2 runs at batch 2 in phase 11)
+UNET_ATTN_SHAPES = [(8, 1024, 8, 64, False), (8, 256, 16, 64, False), (8, 64, 16, 64, False)]
 
 
 def fma_attention(qkv, H, new, do=None):
@@ -407,6 +465,8 @@ def phase3_kernels(dev):
         # the recipe's one-head attention as image_sample runs it under CFG (batch 16; batch 8 is above),
         # where fwd_q_rows picks 32-row blocks
         (16, 256, 1, 192, False), (16, 64, 1, 256, False),
+        # the classifier's blocks and pool as classifier_train runs them (microbatches of 16)
+        *CLF_TRAIN_ATTN_SHAPES,
     ]
     with torch.inference_mode():
         for B, T, H, d, new in attn_cases:
@@ -442,7 +502,8 @@ def phase3_kernels(dev):
         # the UNet's 256 px maps (256, 512 channels), 128 px, 32 px, 8 px, the classifier's 256 px, and the
         # training recipe's maps (64 channels is 2 a group)
         for B, hw, C in [(8, 256 * 256, 256), (8, 8 * 8, 1024), (8, 256 * 256, 512), (8, 128 * 128, 256),
-                         (8, 32 * 32, 512), (8, 256 * 256, 128), *RECIPE_GN_SHAPES]:
+                         (8, 32 * 32, 512), (8, 256 * 256, 128), *RECIPE_GN_SHAPES,
+                         (16, 256 * 256, 128)]:  # the last: the classifier's 256 px maps in classifier_train
             for dtype in (torch.float32, torch.bfloat16):
                 for fused in (False, True):
                     x = (torch.randn(B, hw, C, generator=g, device=dev) * 2 + 0.5).to(dtype)
@@ -486,9 +547,11 @@ def phase3_kernels(dev):
 
 
 def phase3b_attention_bwd(dev):
-    """K2 against attention_bwd_plain at the classifier's shapes; returns the
-    headline records: the tensor-core kernel's (T = 1024, bf16) and the FMA
-    kernel's (the pool, f32)."""
+    """K2 against attention_bwd_plain at the classifier's shapes (batch 8 as
+    guidance runs it, 16 as classifier_train does) and, in bf16, the ADM-256
+    UNet's at batch 8 (clip_guided_sample); returns the headline records: the
+    tensor-core kernel's (batch 8, T = 1024, 4 heads, bf16) and the FMA
+    kernel's (the pool at batch 8, f32)."""
     import torch
     import torch.nn.functional as F
 
@@ -496,12 +559,14 @@ def phase3b_attention_bwd(dev):
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(5)
-    cases = [  # (B, T, heads, d, new_order): the classifier's blocks at batch 8, then its pool
-        (8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), POOL_SHAPE,
+    both, bf16 = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)), ((torch.bfloat16, 2e-2),)
+    cases = [  # (B, T, heads, d, new_order), dtypes: the classifier's blocks at batch 8, then its pool
+        *((c, both) for c in [(8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), POOL_SHAPE]),
+        *((c, both) for c in CLF_TRAIN_ATTN_SHAPES), *((c, bf16) for c in UNET_ATTN_SHAPES),
     ]
     records = {}
-    for B, T, H, d, new in cases:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for (B, T, H, d, new), dtypes in cases:
+        for dtype, tol in dtypes:
             qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
             do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
             n_mma = A.attention_bwd_cuda.launches_mma
@@ -542,7 +607,7 @@ def phase3b_attention_bwd(dev):
                     f"kernel {fma_ms:.4f} ms with max|d| {fma_err:.3g}; bound {rec['bound_ms']:.4f} ms "
                     f"({rec['bound_by']})")
                 held_to_f64(name, out, fma, attention_bwd_f64(qkv, do, H, new))
-                if T == 1024:
+                if (B, T, H) == (8, 1024, 4):
                     records["attention_bwd"] = rec
     return records
 
@@ -999,18 +1064,27 @@ def random_state_dict(model):
     }
 
 
+def clip_unet(sd=None, **over):
+    """The fork's CLIP-conditioned UNet at the ADM-256 widths (phases 4, 5, 11,
+    11b), f32 unless ``over`` says otherwise, in eval mode with no gradient
+    for its weights, loaded from ``sd`` when given."""
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
+
+    kw = dict(learn_sigma=True, class_cond=True, attention_resolutions="32,16,8", num_head_channels=64,
+              use_scale_shift_norm=True, resblock_updown=True, use_fp16=False)
+    kw.update(over)
+    model = create_model(256, 256, 2, **kw).eval()
+    if sd is not None:
+        model.load_state_dict(sd, strict=True)
+    return model.requires_grad_(False)
+
+
 def phase4_forward(dev, sd):
     """Full-width forward, batch 1, f32: card (kernels) vs CPU (plain)."""
     import torch
 
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
-
     tf32_off()
-    model = create_model(
-        256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
-        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, use_fp16=False,
-    ).eval()
-    model.load_state_dict(sd, strict=True)
+    model = clip_unet(sd)
     g = torch.Generator().manual_seed(2)
     x = torch.randn(1, 3, 256, 256, generator=g)
     t = torch.tensor([500])
@@ -1038,14 +1112,8 @@ def phase4e_deep_cache(dev, sd):
     which it must equal but for the order of the kernels' launches."""
     import torch
 
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
-
     tf32_off()
-    model = create_model(
-        256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
-        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, use_fp16=False,
-    ).eval()
-    model.load_state_dict(sd, strict=True)
+    model = clip_unet(sd)
     g = torch.Generator().manual_seed(12)
     x = torch.randn(1, 3, 256, 256, generator=g)
     t = torch.tensor([500])
@@ -1231,15 +1299,8 @@ def phase4c_int8_forward(dev, sd):
     teacher-forced; the free-running difference is reported."""
     import torch
 
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
-
     tf32_off()
-    model = create_model(
-        256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
-        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, use_fp16=False,
-        conv_impl="int8",
-    ).eval()
-    model.load_state_dict(sd, strict=True)
+    model = clip_unet(sd, conv_impl="int8")
     want = gn_conv_counts(model, True)
     g = torch.Generator().manual_seed(2)
     x = torch.randn(1, 3, 256, 256, generator=g)
@@ -1607,7 +1668,7 @@ PRESET_FLAGS = ["--conv_impl", "int8", "--deep_cache", "5", "--guidance_cache", 
 def phase6c_preset(dev, tmp, paths):
     """classifier_sample.main with the deploy preset's four knobs (the keys of
     configs/deploy256_fast.yaml, given as flags) on ADM-G 256 + classifier,
-    250 ancestral steps at batch 8; returns the launch counts, the samples
+    ``GUIDED_STEPS`` ancestral steps at batch 8; returns the launch counts, the samples
     and the chain's seconds. The expected counts come from the modules (what
     a full and a shallow UNet forward and a classifier forward launch) and
     from the schedule (DeepCache refreshes on steps 0, 5, ...; the classifier
@@ -1633,7 +1694,8 @@ def phase6c_preset(dev, tmp, paths):
     dp4a_full, dp4a_shallow, dp4a_clf = dp4a_convs(model), dp4a_convs(shallow_roots(model, cut)), dp4a_convs(clf)
     del model, clf
     # the schedule says which steps guide: step i runs local timestep T - 1 - i
-    tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="250").sched.timestep_map.tolist()
+    tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True,
+                                     timestep_respacing=str(GUIDED_STEPS)).sched.timestep_map.tolist()
     steps = len(tmap)
     inside = [200 <= tmap[steps - 1 - i] <= 800 for i in range(steps)]
     n_clf = sum(1 for i in range(steps) if i % 2 == 0 and inside[i])
@@ -1996,14 +2058,9 @@ def train_step_on(d, sd, x, cond, noise, tmp, forcing=None, **over) -> dict:
     """One ``run_step`` of the recipe (dropout 0) on device ``d`` from the
     weights ``sd``: its metrics, the updated parameters and the summed
     gradient (Adam's first moment after one update is 0.1 x the gradient), on
-    the host, the names of the parameters in three groups (the attention
-    blocks' qkv and norm, which K2's gradient reaches first; their proj_out,
-    which K1's output reaches; the GroupNorms), and the step's seconds (the
+    the host, the parameters' ``param_groups``, and the step's seconds (the
     first, with its set-up). With an ``Int8Forcing``, the step's roundings
     are recorded on the CPU and forced on the card."""
-    from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
-    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
-
     loop = recipe_loop(d, sd, len(x), tmp, dropout=0.0, **over)
     t0 = time.perf_counter()
     if forcing is None:
@@ -2013,16 +2070,26 @@ def train_step_on(d, sd, x, cond, noise, tmp, forcing=None, **over) -> dict:
             loop.run_step(x, cond, noise=noise)
     met = loop._fetch(loop._pending_log[2])
     secs = time.perf_counter() - t0
+    return {"met": met, "params": {n: p.detach().cpu() for n, p in zip(loop.names, loop.params)},
+            "grad": {n: 10 * loop.opt.state[p]["exp_avg"].cpu() for n, p in zip(loop.names, loop.params)},
+            "groups": param_groups(loop.model), "secs": secs}
+
+
+def param_groups(model) -> dict:
+    """The names of ``model``'s parameters in three groups: the attention
+    blocks' qkv and norm, which K2's gradient reaches first; their
+    proj_out, which K1's output reaches; the GroupNorms (K3)."""
+    from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
+
     groups: dict = {"attention qkv, norm": set(), "attention proj_out": set(), "GroupNorms": set()}
-    for m, mod in loop.model.named_modules():
+    for m, mod in model.named_modules():
         parts = ((("qkv", "attention qkv, norm"), ("norm", "attention qkv, norm"), ("proj_out", "attention proj_out"))
                  if isinstance(mod, AttentionBlock) else (("", "GroupNorms"),) if isinstance(mod, GroupNorm32) else ())
         for part, label in parts:
             sub = getattr(mod, part) if part else mod
             groups[label].update(".".join(filter(None, (m, part, n))) for n, _ in sub.named_parameters())
-    return {"met": met, "params": {n: p.detach().cpu() for n, p in zip(loop.names, loop.params)},
-            "grad": {n: 10 * loop.opt.state[p]["exp_avg"].cpu() for n, p in zip(loop.names, loop.params)},
-            "groups": groups, "secs": secs}
+    return groups
 
 
 def step_errors(a: dict, b: dict) -> dict:
@@ -2696,6 +2763,744 @@ def phase9c_nll(dev, tmp, run_dir) -> dict:
     return tensor_core_split(launches)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: training ADM-G 256's classifier (classifier_train), then guiding
+# with what it saved; phases 11 and 11b: the fork's CLIP at ViT-B/32's widths
+# (compute_clip_embeddings, the encoders, clip_guided_sample)
+# ---------------------------------------------------------------------------
+
+# ADM-G 256's classifier (bench.py:170-198: width 128, depth 2, attention at 32/16/8 px, attention pool,
+# scale-shift, resblock up/down, bf16 torso), trained as classifier_train's recipe: noised, annealed
+CLF_TRAIN_FLAGS = [
+    "--image_size", "256", "--classifier_width", "128", "--classifier_depth", "2",
+    "--classifier_attention_resolutions", "32,16,8", "--classifier_use_scale_shift_norm", "True",
+    "--classifier_resblock_updown", "True", "--classifier_pool", "attention", "--classifier_use_fp16", "True",
+    "--diffusion_steps", "1000", "--noise_schedule", "linear", "--batch_size", "32", "--microbatch", "16",
+    "--noised", "True", "--anneal_lr", "True", "--iterations", "10", "--log_interval", "1",
+    "--eval_interval", "5", "--save_interval", "10000",
+]
+CLF_TRAIN_CLASSES = 4
+# The bf16-torso classifier step (batch 2, microbatches of 1), card against CPU (both bf16), in relative L2
+# (step_errors). Readings on an H100 (python3 chip_smoke.py --faults; the same in three calls): loss 3.5e-7,
+# grad_norm 6.9e-6, updated params 2.3e-4, gradient 3.1e-4, attention qkv/norm 2.3e-3, proj_out 2.0e-3,
+# GroupNorms 1.1e-3; the control, the
+# CPU's bf16 step against its f32 step: 9.7e-7, 6.2e-6, 1.6e-3, 6.1e-4, 3.9e-3, 3.2e-3, 2.5e-3. Faults injected
+# on the card only, and what caught them: K2's output x 1.01, grad_norm 1.8e-3, qkv/norm 2.0e-2; K1's x 1.01,
+# grad_norm 1.6e-3, proj_out 5.1e-3, GroupNorms 2.6e-3; K3's saved rstd x 1.002, grad_norm 5.6e-5, qkv/norm
+# 4.3e-3, proj_out 3.8e-3, GroupNorms 2.3e-3; K3's output x 1.002, loss 1.5e-6, grad_norm 6.1e-5; the GroupNorm
+# backward's dx x 1.002, grad_norm 3.5e-5, qkv/norm 4.0e-3, proj_out 3.6e-3.
+CLF_BF16_TOL = {"loss": 1e-6, "grad_norm": 2e-5, "updated params": 5e-4, "gradient": 1e-3,
+                "gradient, attention qkv, norm": 3.5e-3, "gradient, attention proj_out": 3e-3,
+                "gradient, GroupNorms": 1.8e-3}
+
+
+def class_folder(tmp, name, n, seed) -> str:
+    """``n`` generated 256 px PNGs named ``c{class}_{i}.png``, CLF_TRAIN_CLASSES classes."""
+    import numpy as np
+    from PIL import Image
+
+    data = os.path.join(tmp, name)
+    os.makedirs(data)
+    rs = np.random.RandomState(seed)
+    for i in range(n):
+        img = rs.randint(0, 256, (256, 256, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(data, f"c{i % CLF_TRAIN_CLASSES}_{i:04d}.png"))
+    return data
+
+
+def clf_train_counts(clf) -> dict:
+    """K1, K2 and K3 launches of one classifier microbatch's forward and
+    backward, from its modules: every attention block and the attention pool
+    run K1 forward and K2 backward, every GroupNorm K3 (its backward is
+    PyTorch ops); the pool is float32, on the FMA-pipe kernels."""
+    from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d
+
+    attn = sum(isinstance(m, (AttentionBlock, AttentionPool2d)) for m in clf.modules())
+    return {"attention": attn, "attention_bwd": attn, "group_norm": sum(isinstance(m, GroupNorm32)
+                                                                         for m in clf.modules())}
+
+
+def clf_step_batch():
+    """The card-vs-CPU classifier step's batch (2 images, in microbatches of 1), labels, t and noise."""
+    import torch
+
+    g = torch.Generator().manual_seed(23)
+    return (torch.rand(2, 3, 256, 256, generator=g) * 2 - 1, torch.randint(0, 1000, (2,), generator=g),
+            torch.randint(0, 1000, (2,), generator=g), torch.randn(2, 3, 256, 256, generator=g))
+
+
+def clf_step_on(d, sd, x, y, t, noise, fp16: bool, microbatch: int) -> dict:
+    """One ``ClassifierTrainer.step`` (dropout 0) of the classifier on ``d``
+    from ``sd``, as ``train_step_on``'s record: loss and grad_norm, updated
+    parameters, the gradient, the parameter groups, the step's seconds."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_train
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier, create_gaussian_diffusion
+
+    clf = create_classifier(256, fp16, 128, 2, "32,16,8", True, True, "attention")
+    clf.load_state_dict(sd, strict=True)
+    trainer = classifier_train.ClassifierTrainer(clf.to(d), create_gaussian_diffusion(steps=1000),
+                                                 batch_size=len(x), microbatch=microbatch, lr=3e-4)
+    t0 = time.perf_counter()
+    ce, _ = trainer.step(x, y, t=t, noise=noise)
+    names, params = zip(*trainer.model.named_parameters())
+    grads = [p.grad.detach().float() for p in params]
+    met = {"loss": ce.mean().item(), "grad_norm": torch.linalg.vector_norm(torch.stack([g.norm() for g in grads])).item()}
+    secs = time.perf_counter() - t0
+    out = {"met": met, "params": {n: p.detach().cpu() for n, p in zip(names, params)},
+           "grad": {n: g.cpu() for n, g in zip(names, grads)}, "groups": param_groups(trainer.model), "secs": secs}
+    del trainer, clf
+    return out
+
+
+def phase10_classifier_train(dev, tmp, paths) -> list:
+    """``classifier_train.main`` on ADM-G 256's classifier (``CLF_TRAIN_FLAGS``:
+    batch 32 in microbatches of 16, noised, annealed, 10 iterations, a
+    validation batch every 5) over generated class-named folders; then one
+    step card against CPU in f32 (TF32 off) and with the bf16 torso
+    (``CLF_BF16_TOL``); timed steps with each step's launches and the
+    profiler's busy share; last, ``classifier_sample.main`` guiding 5 steps of
+    ADM-G 256 with the saved ``model000009.pt`` (strict=True). Returns the
+    launch counts of the two main paths."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample, classifier_train
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, classifier_and_diffusion_defaults, create_classifier_and_diffusion,
+    )
+
+    train, val = class_folder(tmp, "clf_train", 64, 20), class_folder(tmp, "clf_val", 32, 21)
+    args = classifier_train.create_argparser().parse_args(CLF_TRAIN_FLAGS)
+    clf, diffusion = create_classifier_and_diffusion(**args_to_dict(args, classifier_and_diffusion_defaults().keys()))
+    per = clf_train_counts(clf)
+    n_micro = args.batch_size // args.microbatch
+    # PyTorch's defaults, as the CLI leaves them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    run_dir = os.path.join(tmp, "clf_run")
+    os.environ.update(OPENAI_LOGDIR=run_dir, OPENAI_LOG_FORMAT="log,csv")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    try:
+        t0 = time.perf_counter()
+        out = classifier_train.main([*CLF_TRAIN_FLAGS, "--data_dir", train, "--val_data_dir", val])
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("OPENAI_LOGDIR")
+        os.environ.pop("OPENAI_LOG_FORMAT")
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps, evals = out["steps"], out["evals"]
+    want = {**dict.fromkeys(launches, 0), "attention": (n_micro * steps + evals) * per["attention"],
+            "attention_bwd": n_micro * steps * per["attention_bwd"],
+            "group_norm": (n_micro * steps + evals) * per["group_norm"]}
+    log(f"  classifier_train.main: {steps} steps at batch {args.batch_size} ({n_micro} microbatches), {evals} "
+        f"validation batches; launches {launches} (expected {want}: a microbatch {per}, a validation forward "
+        f"{per['attention']} K1 and {per['group_norm']} K3); main() {wall:.1f} s")
+    if (steps, evals) != (10, 2) or launches != want:
+        raise AssertionError(f"classifier_train: {steps} steps, {evals} evals, launches {launches} != {want}")
+    pools = f32_attention_calls(clf)
+    check_tensor_core_launches("classifier_train", pools * (n_micro * steps + evals), pools * n_micro * steps)
+    import csv
+
+    with open(os.path.join(run_dir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    keys = {"step", "samples", "loss", "acc@1", "acc@5", "val_loss", "val_acc@1", "val_acc@5"}
+    if len(rows) != 10 or set(rows[0]) != keys or not all(math.isfinite(float(r["loss"])) for r in rows):
+        raise AssertionError(f"progress.csv: {len(rows)} rows, keys {sorted(rows[0]) if rows else None}")
+    saved = sorted(p for p in os.listdir(run_dir) if p.endswith(".pt"))
+    if saved != ["model000009.pt", "opt000009.pt"]:
+        raise AssertionError(f"classifier_train saved {saved}")
+    timed = sorted(out["step_ms"][2:])
+    log(f"  steps 3-10: {timed[len(timed) // 2]:.2f} ms a step (median of {len(timed)}, CUDA events around each "
+        f"update; range {timed[0]:.2f}-{timed[-1]:.2f}), {1e3 * args.batch_size / timed[len(timed) // 2]:.1f} "
+        f"samples/s; peak memory {peak:.2f} GiB; loss {rows[0]['loss']} -> {rows[-1]['loss']}")
+    runs = [tensor_core_split(launches)]
+
+    # each step's launches, and the device's busy share, on the same trainer outside the CLI
+    rs = np.random.RandomState(22)
+    x = rs.uniform(-1, 1, (args.batch_size, 3, 256, 256)).astype(np.float32)
+    y = rs.randint(0, CLF_TRAIN_CLASSES, args.batch_size)
+    clf = clf.to(dev)
+    trainer = classifier_train.ClassifierTrainer(clf, diffusion, batch_size=args.batch_size,
+                                                 microbatch=args.microbatch, anneal_lr=True, iterations=10)
+    for _ in range(2):
+        trainer.step(x, y)
+    times = []
+    for _ in range(5):
+        before = counters()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step(x, y)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        got = {k: counters()[k] - before[k] for k in per}
+        if got != {k: n_micro * v for k, v in per.items()}:
+            raise AssertionError(f"a classifier step launched {got}, not {n_micro} x {per}")
+    step_ms = sorted(times)[2]
+    prof = _profile_kernels(lambda: trainer.step(x, y))
+    busy = sum(ms for ms, _ in prof.values())
+    groups: dict = {}
+    for k, (ms, n) in prof.items():
+        grp = groups.setdefault(_kernel_group(k), [0.0, 0.0])
+        grp[0] += ms
+        grp[1] += n
+    log(f"  a step outside the CLI: {step_ms:.2f} ms (median of 5), each launching {n_micro} x {per}; profiler: "
+        f"device busy {busy:.2f} ms ({100 * busy / step_ms:.0f} %); " + "; ".join(
+            f"{k} {ms:.2f} ms ({n:.0f})" for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    del trainer, clf
+    torch.cuda.empty_cache()
+
+    # one step card against CPU: f32 (TF32 off), then the bf16 torso against the CPU's bf16 step
+    tf32_off()
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
+
+    sd = random_state_dict(create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention"))
+    g = torch.Generator().manual_seed(23)
+    xs, ys, ts, noise = clf_step_batch()
+    st = {(fp16, d.type): clf_step_on(d, sd, xs, ys, ts, noise, fp16, 1)
+          for fp16 in (False, True) for d in (torch.device("cpu"), dev)}
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    ref = st[False, "cpu"]
+    f32 = step_errors(st[False, "cuda"], ref)
+    log(f"  classifier step {tuple(xs.shape)}, microbatch 1, f32: loss {ref['met']['loss']:.6g} (CPU); card vs CPU: "
+        f"{show(f32)} (bound 1e-3); CPU step {ref['secs']:.2f} s")
+    if any(not v <= 1e-3 for v in f32.values()) or not ref["met"]["loss"] > 0:
+        raise AssertionError(f"card classifier step (f32) differs from the CPU's: {f32}")
+    bf16 = step_errors(st[True, "cuda"], st[True, "cpu"])
+    control = step_errors(st[True, "cpu"], ref)
+    log(f"  classifier step, bf16 torso: card vs CPU (both bf16): {show(bf16)}; control, CPU bf16 vs CPU f32: "
+        f"{show(control)}; bound {CLF_BF16_TOL}; CPU step {st[True, 'cpu']['secs']:.2f} s")
+    bad = {k: bf16[k] for k, tol in CLF_BF16_TOL.items() if not bf16[k] <= tol}
+    if bad:
+        raise AssertionError(f"card classifier step (bf16 torso) differs from the CPU's: {bad}")
+    del st
+
+    # train -> guide: the saved classifier steers ADM-G 256 for 5 steps through classifier_sample
+    torch.backends.cudnn.allow_tf32 = True
+    flags = [*GUIDED_FLAGS, "--timestep_respacing", "5"]
+    argv = [*flags, "--model_path", paths["model"], "--classifier_path", os.path.join(run_dir, "model000009.pt"),
+            "--main_path", os.path.join(tmp, "runs_trained_clf"), "--device", dev.type]
+    reset_counters()
+    guided = classifier_sample.main(argv)
+    launches = counters()
+    n = guided["steps"] * guided["batches"]
+    want = {**dict.fromkeys(launches, 0), "attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * n,
+            "attention_bwd": CLF_ATTN_PER_FORWARD * n, "group_norm": (GN_PER_FORWARD + CLF_GN_PER_FORWARD) * n}
+    images = np.load(guided["path"])["arr_0"]
+    log(f"  classifier_sample.main with model000009.pt (strict=True): {n} guided steps, launches {launches} "
+        f"(expected {want}); samples {images.shape} {images.dtype}")
+    if n != 5 or launches != want or images.shape != (8, 256, 256, 3) or not images.std() > 0:
+        raise AssertionError(f"train -> guide: {n} steps, launches {launches} != {want}, samples {images.shape}")
+    check_tensor_core_launches("train -> guide", pools * n, pools * n)
+    runs.append(tensor_core_split(launches))
+    return runs
+
+
+def clip_random_state_dict(model):
+    """N(0, 0.02) for every weight of a CLIP, LayerNorm scales 1 (zero scales
+    would make every token 0) and OpenAI's logit scale, from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(WEIGHT_SEED + 1)
+    sd = {}
+    for k, v in sorted(model.state_dict().items()):
+        ln = k.endswith(".weight") and any(p in k for p in ("ln_", "ln_final"))
+        sd[k] = torch.ones(v.shape) if ln else torch.randn(v.shape, generator=g, dtype=torch.float32) * 0.02
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return sd
+
+
+def clip_unet_fn(model, target, through_unet: list):
+    """The model_fn of a CLIP-guided step: ``model`` with ``target`` as each
+    row's clip_feat. Under autograd the gradient at the UNet's input is
+    appended to ``through_unet``: the part of the pred-x0 guidance gradient
+    that the UNet's backward makes (the direct path of pred-x0 bypasses it,
+    and with N(0, 0.02) weights it is ~7e-5 of the whole in phase 11)."""
+    import torch
+
+    def model_fn(a, b, **kw):
+        if torch.is_grad_enabled() and a.requires_grad:
+            a = a + 0  # a node of its own: what reaches it is the UNet's backward alone
+            a.register_hook(through_unet.append)
+        return model(a, b, clip_feat=target.expand(a.shape[0], -1))
+
+    return model_fn
+
+
+def phase11_clip(dev, tmp, unet_path) -> str:
+    """ViT-B/32 at its full widths with N(0, 0.02) weights in OpenAI's names
+    (a .pt written here): both encoders in f32 (TF32 off) card against CPU;
+    ``compute_clip_embeddings.main`` over 16 generated 256 px images, card
+    against CPU, and its .pt fed to ``image_train`` for 2 steps; the CLIP
+    guidance gradient in pred-x0 mode through the ADM-256 CLIP UNet (f32,
+    batch 2, model timestep 500 of a 100-step schedule), card against CPU.
+    Returns the CLIP .pt's path."""
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from guided_diffusion_clip_tpu_torch import compute_clip_embeddings, image_train
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import (
+        CLIP, CLIPConfig, clip_guidance_cond_fn, load_clip_params,
+    )
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_state_dict
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    tf32_off()
+    cfg = CLIPConfig()
+    clip_path = os.path.join(tmp, "clip_vitb32_random.pt")
+    t0 = time.perf_counter()
+    torch.save(clip_random_state_dict(CLIP(cfg)), clip_path)
+    vision, text = load_clip_params(clip_path, cfg)
+    n_vision = sum(p.numel() for p in vision.parameters())
+    log(f"  ViT-B/32: {n_vision / 1e6:.1f} M vision and {(sum(p.numel() for p in text.parameters()) - n_vision) / 1e6:.1f}"
+        f" M text parameters, written in OpenAI's names and loaded strict=True in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(30)
+    pixels = torch.randn(2, 3, 224, 224, generator=g)
+    ids = torch.randint(1, cfg.vocab_size - 1, (2, cfg.context_length), generator=g)
+    ids[0, 9], ids[1, 40] = cfg.vocab_size - 1, cfg.vocab_size - 1  # the end-of-text token: the pooled position
+    with torch.no_grad():
+        refs = [vision(pixels), text(ids)]
+        text.to(dev)
+        outs = [vision(pixels.to(dev)).cpu(), text(ids.to(dev)).cpu()]
+    for name, o, r in zip(("image", "text"), outs, refs):
+        rel = ((o - r).norm() / r.norm()).item()
+        log(f"  {name} encoder {tuple(o.shape)} f32: rel L2 err card vs CPU {rel:.3g} (bound 1e-3)")
+        if o.shape != (2, 512) or not torch.isfinite(o).all() or not r.norm() > 0 or not rel <= 1e-3:
+            raise AssertionError(f"card {name} encoder differs from the CPU's: rel L2 {rel:.3g}")
+
+    # image folder -> embeddings, card and CPU
+    data = os.path.join(tmp, "clip_images")
+    os.makedirs(data)
+    rs = np.random.RandomState(31)
+    for i in range(16):
+        Image.fromarray(rs.randint(0, 256, (256, 256, 3), dtype=np.uint8)).save(os.path.join(data, f"{i:05d}.png"))
+    embs, secs = {}, {}
+    for d in ("cpu", "cuda", "cuda"):
+        out = compute_clip_embeddings.main(["--data_dir", data, "--out", os.path.join(tmp, f"clip_dict_{d}.pt"),
+                                            "--clip_model_path", clip_path, "--batch_size", "16", "--device", d])
+        secs.setdefault(f"first {d}", out["seconds"])
+        embs[d], secs[d] = torch.load(out["path"]), out["seconds"]
+    if sorted(embs["cuda"]) != sorted(os.listdir(data)) or any(v.shape != (2, 512) for v in embs["cuda"].values()):
+        raise AssertionError("compute_clip_embeddings: not one (2, 512) pair an image")
+    card, cpu = (torch.stack([e[k] for k in sorted(e)]) for e in (embs["cuda"], embs["cpu"]))
+    rel = ((card - cpu).norm() / cpu.norm()).item()
+    flip = ((card[:, 0] - card[:, 1]).norm() / card[:, 0].norm()).item()
+    log(f"  compute_clip_embeddings.main, 16 images (32 rows with the flips): rel L2 err card vs CPU {rel:.3g} "
+        f"(bound 1e-3); plain vs flipped rel L2 {flip:.3g}; {1e3 * secs['cuda'] / 16:.2f} ms an image on the card "
+        f"(second call; the first {1e3 * secs['first cuda'] / 16:.2f}), {1e3 * secs['cpu'] / 16:.1f} on the CPU")
+    if not rel <= 1e-3 or not flip > 0:
+        raise AssertionError(f"embeddings card vs CPU: rel L2 {rel:.3g}")
+
+    # embed -> train: the .pt as image_train's CLIP dict for 2 steps of the recipe
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "config.yaml")) as f:
+        rcfg = yaml.safe_load(f)
+    runs = os.path.join(tmp, "clip_train_runs")
+    rcfg.update(data_dir=data, clip_file_path=os.path.join(tmp, "clip_dict_cuda.pt"), data_dir_test="",
+                clip_file_path_test="", main_path=runs, batch_size=8, lr_anneal_steps=2, log_interval=1,
+                save_interval=10**6)
+    cfg_path = os.path.join(tmp, "clip_train.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(rcfg, f)
+    torch.backends.cudnn.allow_tf32 = True
+    image_train.main(["--config-file", cfg_path, "--device", dev.type])
+    run = os.path.join(runs, sorted(os.listdir(runs))[-1])
+    import csv
+
+    with open(os.path.join(run, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 2 or not all(math.isfinite(float(r["loss"])) for r in rows):
+        raise AssertionError(f"image_train on the computed CLIP dict: {rows}")
+    log(f"  image_train on the computed dict, 2 steps at batch 8: losses {[r['loss'] for r in rows]}, saved "
+        f"{sorted(p for p in os.listdir(run) if p.endswith('.pt'))}")
+
+    # the guidance gradient through the UNet at full width, f32
+    tf32_off()
+    text.cpu()
+    model = clip_unet(load_state_dict(unet_path))
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
+    target = embs["cpu"][sorted(embs["cpu"])[0]][0]
+    x = torch.randn(2, 3, 256, 256, generator=g)
+    t = torch.full((2,), 500, dtype=torch.long)
+    grads = []
+    for d in ("cpu", dev):
+        model.to(d), vision.to(d)
+        through_unet = []
+        cond = clip_guidance_cond_fn(
+            vision, target.to(d), 100.0, sched=diffusion.sched, mean_type=diffusion.mean_type,
+            var_type=diffusion.var_type, model_fn=clip_unet_fn(model, target.to(d), through_unet), use_pred_xstart=True)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            grads.append((cond(x.to(d), t.to(d)).cpu(), through_unet[0].cpu()))
+        secs[d] = time.perf_counter() - t0
+    (ref, ref_u), (out, out_u) = grads
+    rel, rel_u = (((o - r).norm() / r.norm()).item() for o, r in ((out, ref), (out_u, ref_u)))
+    log(f"  CLIP guidance gradient, pred-x0 mode, (2, 3, 256, 256) f32 at model timestep 500 of 100 steps: "
+        f"|ref| {ref.norm().item():.4g}, rel L2 err card vs CPU {rel:.3g}; its part through the UNet's backward "
+        f"|ref| {ref_u.norm().item():.4g}, rel L2 err {rel_u:.3g} (bounds 1e-3); CPU {secs['cpu']:.2f} s")
+    if not torch.isfinite(out).all() or not ref_u.norm() > 0 or not max(rel, rel_u) <= 1e-3:
+        raise AssertionError(f"card CLIP guidance gradient differs from the CPU's: rel L2 {rel:.3g}, "
+                             f"through the UNet {rel_u:.3g}")
+    del model, vision, text
+    torch.cuda.empty_cache()
+    return clip_path
+
+
+# ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 100 respaced ancestral steps at batch 8
+CLIP_GUIDED_FLAGS = [
+    "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
+    "--attention_resolutions", "32,16,8", "--num_head_channels", "64", "--resblock_updown", "True",
+    "--use_scale_shift_norm", "True", "--learn_sigma", "True", "--class_cond", "True", "--use_fp16", "True",
+    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "100",
+    "--clip_scale", "100", "--batch_size", "8", "--seed", "0",
+]
+CLIP_GUIDED_MODES = [("bf16", []), ("int8", ["--conv_impl", "int8"]), ("bf16, guidance_cache 2", ["--guidance_cache", "2"])]
+
+
+def clip_step_parts(dev, model, vision, target, diffusion, x):
+    """One CLIP-guided ancestral step at batch 8 in pred-x0 mode: CUDA-event
+    ms of the step, and the profiler's device ms of its parts: the loop's
+    UNet forward, the cond_fn's UNet forward (with grad), CLIP's forward and
+    backward on x0, and the UNet's backward (the cond_fn less the other two),
+    each by kernel group; peak memory of the step."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion import sampling as S
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import clip_guidance_cond_fn, preprocess_for_clip
+
+    sched = diffusion.sched.to(dev)
+    cfg = S.SamplerConfig(mean_type=diffusion.mean_type, var_type=diffusion.var_type)
+    feat = target.expand(x.shape[0], -1)
+
+    def model_fn(xx, tt, **kw):
+        return model(xx, tt, clip_feat=feat)
+
+    cond = clip_guidance_cond_fn(vision, target, 100.0, sched=sched, mean_type=diffusion.mean_type,
+                                 var_type=diffusion.var_type, model_fn=model_fn, use_pred_xstart=True)
+    t = sched.chain_timesteps(50, x.shape[0], dev)
+    tm = sched.model_timesteps(t)
+
+    def unet_fwd():
+        with torch.no_grad():
+            model_fn(x, tm)
+
+    def unet_fwd_grad():
+        with torch.enable_grad():
+            model_fn(x.detach().requires_grad_(True), tm)
+
+    def clip_fwd_bwd():
+        with torch.enable_grad():
+            x0 = x.detach().requires_grad_(True)
+            emb = vision(preprocess_for_clip(x0, 224))
+            torch.autograd.grad((emb / emb.norm(dim=-1, keepdim=True) * target).sum(), x0)
+
+    def cond_fn():
+        with torch.no_grad():
+            cond(x, tm)
+
+    def step():
+        with torch.no_grad():
+            S.p_sample_step(sched, model_fn, x, t, torch.Generator(device=dev).manual_seed(0), cfg=cfg, cond_fn=cond)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(step, runs=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = {"loop UNet forward": _profile_kernels(unet_fwd, 1),
+            "cond_fn UNet forward": _profile_kernels(unet_fwd_grad, 1),
+            "CLIP forward + backward": _profile_kernels(clip_fwd_bwd, 1)}
+    whole = _profile_kernels(cond_fn, 1)
+    rest = {k: (ms - sum(p.get(k, (0, 0))[0] for p in list(prof.values())[1:]),
+                n - sum(p.get(k, (0, 0))[1] for p in list(prof.values())[1:])) for k, (ms, n) in whole.items()}
+    prof["UNet backward"] = rest
+    busy = sum(ms for ms, _ in _profile_kernels(step, 1).values())
+    log(f"  one step at batch 8: {step_ms:.2f} ms (CUDA events, median of 5), device busy {busy:.2f} ms "
+        f"({100 * busy / step_ms:.0f} %), peak memory {peak:.2f} GiB")
+    parts = {}
+    for part, kernels in prof.items():
+        groups: dict = {}
+        for k, (ms, n) in kernels.items():
+            grp = groups.setdefault(_kernel_group(k), [0.0, 0.0])
+            grp[0] += ms
+            grp[1] += n
+        parts[part] = sum(ms for ms, _ in groups.values())
+        log(f"  {part}: device {parts[part]:.2f} ms; " + "; ".join(
+            f"{k} {ms:.2f} ms ({n:.0f} launches)" for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])
+            if abs(ms) >= 0.005))
+    return step_ms, parts, peak
+
+
+# The int8 CLIP-guided step (batch 1, f32, teacher-forced), card against CPU, in relative L2: the sample, the
+# guidance gradient and its part through the UNet's backward (clip_unet_fn; the whole gradient barely sees the
+# UNet). Its CPU step takes ~40 s at batch 1; the path's batch-8 shapes of K2 and K3 are held in phases 3 and 3b.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W (python3 chip_smoke.py --faults, twice clean): 2.44e-7, 8.45e-6
+# (8.58e-6 in another call), 2.33e-4. Faults injected on the card only: K3's saved rstd x 1.002, 2.44e-7, 1.6e-5,
+# 2.1e-3; K4's saved rstd x 1.002, 2.44e-7, 9.65e-6, 7.5e-4; the GroupNorm backward's dx x 1.002, 2.44e-7,
+# 1.72e-5, 2.3e-3; K1's and K3's outputs x 1.01 and x 1.002 fail the forcing's own checks; K2's x 1.01 moves
+# nothing at 3 digits (with N(0, 0.02) weights the attention blocks' share of the UNet's backward is that small),
+# so phase 3b holds K2 at this path's shapes. The sample's bound is the other int8 checks' 1e-3.
+CLIP_INT8_TOL = {"sample": 1e-3, "gradient": 2e-5, "gradient through the UNet": 5e-4}
+
+
+def clip_int8_step_input():
+    """x and the step's noise of the int8 CLIP-guided step held card against CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(34)
+    return torch.randn(1, 3, 256, 256, generator=g), torch.randn(1, 3, 256, 256, generator=g)
+
+
+def clip_int8_step(d, model, vision, target, diffusion, xs, z, ctx) -> tuple:
+    """One CLIP-guided ancestral step in pred-x0 mode (scale 100, step 50 of
+    ``diffusion``'s schedule) of the int8 ``model`` and ``vision``, moved to
+    ``d``, from ``xs`` with noise ``z``, under ``ctx(model)`` (an
+    ``Int8Forcing``'s ``record`` or ``force``): the sample, the guidance
+    gradient and its part through the UNet's backward (the gradient at the
+    UNet's input, which the direct path of pred-x0 bypasses) on the CPU, and
+    the step's seconds."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion import sampling as S
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import clip_guidance_cond_fn
+
+    model.to(d), vision.to(d)
+    sched, tgt = diffusion.sched.to(d), target.to(d)
+    through_unet = []
+    model_fn = clip_unet_fn(model, tgt, through_unet)
+    cond = clip_guidance_cond_fn(vision, tgt, 100.0, sched=sched, mean_type=diffusion.mean_type,
+                                 var_type=diffusion.var_type, model_fn=model_fn, use_pred_xstart=True)
+    grads = []
+    t = sched.chain_timesteps(50, len(xs), d)
+    t0 = time.perf_counter()
+    with torch.no_grad(), ctx(model):
+        sample, _ = S.p_sample_step(sched, model_fn, xs.to(d), t, None, noise=z.to(d),
+                                    cond_fn=lambda a, b, **kw: grads.append(cond(a, b)) or grads[-1],
+                                    cfg=S.SamplerConfig(mean_type=diffusion.mean_type, var_type=diffusion.var_type))
+    return {"sample": sample.cpu(), "gradient": grads[0].cpu(), "gradient through the UNet": through_unet[0].cpu(),
+            "seconds": time.perf_counter() - t0}
+
+
+def clip_int8_errors(out: dict, ref: dict) -> dict:
+    """``CLIP_INT8_TOL``'s distances of step ``out`` from step ``ref``, each in relative L2."""
+    return {k: ((out[k] - ref[k]).norm() / ref[k].norm()).item() for k in CLIP_INT8_TOL}
+
+
+def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
+    """``clip_guided_sample.main`` on the ADM-256 CLIP UNet (phase 5's N(0,
+    0.02) weights) and the random ViT-B/32, ``--target_image`` a generated
+    image, 100 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
+    the calls and the kernels' launches against the modules' counts and the
+    schedule, seconds a chain, peak memory, the samples; then a step split by
+    part (bf16 and int8), and one int8 step teacher-forced card against CPU
+    (f32, batch 1). Returns each mode's launch counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from guided_diffusion_clip_tpu_torch import clip_guided_sample
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIPConfig, load_clip_params
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_state_dict
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    target_image = os.path.join(tmp, "clip_target.png")
+    yy, xx = np.mgrid[0:256, 0:256]
+    Image.fromarray(np.stack([xx, yy, (xx + yy) // 2], -1).astype(np.uint8)).save(target_image)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    runs, samples = [], {}
+    for name, flags in CLIP_GUIDED_MODES:
+        int8 = "int8" in flags
+        model = clip_unet(use_fp16=True, conv_impl="int8" if int8 else "auto")
+        per = unet_counts(model, int8)
+        dp4a = dp4a_convs(model)
+        del model
+        cache = 2 if "--guidance_cache" in flags else 1
+        steps = 100
+        n_cond = len(range(0, steps, cache))
+        argv = [*CLIP_GUIDED_FLAGS, *flags, "--model_path", unet_path, "--clip_model_path", clip_path,
+                "--target_image", target_image, "--main_path", os.path.join(tmp, "clip_runs"), "--device", dev.type]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = clip_guided_sample.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_calls = {"unet": steps + n_cond, "clip": n_cond}
+        want = {**dict.fromkeys(launches, 0), **{k: v * (steps + n_cond) for k, v in per.items()},
+                "attention_bwd": per["attention"] * n_cond}
+        log(f"  {name}: calls {out['calls']} (expected {want_calls}); launches {launches} (expected {want}: a "
+            f"forward {per}, {steps + n_cond} forwards, {n_cond} backwards)")
+        if out["calls"] != want_calls or out["steps"] != steps or launches != want:
+            raise AssertionError(f"clip_guided_sample {name}: calls {out['calls']}, launches {launches} != {want}")
+        check_tensor_core_launches(f"CLIP-guided sampling ({name})")
+        if int8:
+            check_conv_tensor_core_launches(f"CLIP-guided sampling ({name})", dp4a * (steps + n_cond))
+        images = np.load(out["paths"][0])["arr_0"]
+        if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(im.std() > 0 for im in images):
+            raise AssertionError(f"{name}: samples {images.shape} {images.dtype}, not 8 non-constant uint8 images")
+        samples[name] = images
+        chain = out["chain_seconds"][0]
+        log(f"  {name}: chain {chain:.3f} s ({1e3 * chain / steps:.2f} ms a step, {8 * 60 / chain:.3f} samples/min), "
+            f"peak memory {peak:.2f} GiB; main() {wall:.1f} s with model building and loading")
+        runs.append(tensor_core_split(launches))
+    for name in samples:
+        if name != "bf16":
+            diff = np.abs(samples[name].astype(np.int64) - samples["bf16"].astype(np.int64))
+            log(f"  {name} vs bf16 (same seeds and weights): mean |uint8 diff| {diff.mean():.3f}")
+            if not diff.mean() > 0:
+                raise AssertionError(f"{name}'s samples equal bf16's")
+
+    # a step by part, bf16 and int8
+    cfg = CLIPConfig()
+    vision = load_clip_params(clip_path, cfg)[0].to(dev).requires_grad_(False)
+    target = torch.randn(512, generator=torch.Generator().manual_seed(32)).to(dev)
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
+    x = torch.randn(8, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(33), device=dev)
+    t_parts = time.perf_counter()
+    sd = load_state_dict(unet_path)
+    parts = {}
+    for impl in ("auto", "int8"):
+        log(f"  a CLIP-guided step by part, {'int8' if impl == 'int8' else 'bf16'}:")
+        model = clip_unet(sd, use_fp16=True, conv_impl=impl).to(dev)
+        parts[impl] = clip_step_parts(dev, model, vision, target, diffusion, x)
+        del model
+        torch.cuda.empty_cache()
+
+    # one int8 step, f32, teacher-forced: the loop's forward (s8) and the cond_fn's (under autograd)
+    log(f"  the steps by part took {time.perf_counter() - t_parts:.1f} s")
+    t_forced = time.perf_counter()
+    tf32_off()
+    model = clip_unet(sd, conv_impl="int8")
+    del sd
+    xs, z = clip_int8_step_input()
+    forcing = Int8Forcing()
+    ref = clip_int8_step(torch.device("cpu"), model, vision, target, diffusion, xs, z, forcing.record)
+    out = clip_int8_step(dev, model, vision, target, diffusion, xs, z, forcing.force)
+    errs = clip_int8_errors(out, ref)
+    log(f"  int8 CLIP-guided step {tuple(xs.shape)} f32, teacher-forced: {forcing.summary()}; "
+        + ", ".join(f"{k} rel L2 {v:.3g} (bound {CLIP_INT8_TOL[k]:g})" for k, v in errs.items())
+        + f" (the shipped {str(Q._STE_DTYPE)[6:]} straight-through convs); CPU step {ref['seconds']:.2f} s, "
+        f"{time.perf_counter() - t_forced:.1f} s in all")
+    if any(not errs[k] <= tol for k, tol in CLIP_INT8_TOL.items()) or not torch.isfinite(out["sample"]).all():
+        raise AssertionError(f"int8 CLIP-guided step card vs CPU: {errs}")
+    del model, vision
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _scaled_rstd(stats, k: float):
+    """A GroupNorm kernel's (2, B, G) mean and rstd with the rstd scaled by ``k``."""
+    import torch
+
+    return torch.stack((stats[0], stats[1] * k))
+
+
+# Faults for ``--faults``: (ops module, function, what is done to its result), on the card only; a saved rstd
+# reaches only the backward (the forward's output is the kernel's own)
+FAULTS = {
+    "K1's output x 1.01": ("attention", "attention_fwd_cuda", lambda out: out * 1.01),
+    "K2's output x 1.01": ("attention", "attention_bwd_cuda", lambda out: out * 1.01),
+    "K3's output x 1.002": ("groupnorm", "_fused_group_norm_stats", lambda out: (out[0] * 1.002, out[1])),
+    "K3's saved rstd x 1.002": ("groupnorm", "_fused_group_norm_stats",
+                                lambda out: (out[0], _scaled_rstd(out[1], 1.002))),
+    "K4's saved rstd x 1.002": ("groupnorm", "_fused_group_norm_quant_stats",
+                                lambda out: (*out[:2], _scaled_rstd(out[2], 1.002))),
+    "the GroupNorm backward's dx x 1.002": ("groupnorm", "group_norm_bwd", lambda out: (out[0] * 1.002, *out[1:])),
+}
+
+
+@contextlib.contextmanager
+def injected(fault: str):
+    """``FAULTS[fault]`` in place for the block (the function restored after it)."""
+    import importlib
+
+    mod, name, alter = FAULTS[fault]
+    module = importlib.import_module(f"guided_diffusion_clip_tpu_torch.ops.{mod}")
+    clean = getattr(module, name)
+
+    def faulty(*a, **k):
+        return alter(clean(*a, **k))
+
+    faulty.__dict__ = clean.__dict__  # the launch counters, which the clean function counts by its global name
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, clean)
+
+
+def fault_probe(dev) -> None:
+    """``--faults``: the bf16-torso classifier step of phase 10 and the int8
+    CLIP-guided step of phase 11b, each once on the CPU, then on the card
+    twice clean and once under each of its faults; each run's distances from
+    the CPU and the bounds they break."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIP, CLIPConfig
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier, create_gaussian_diffusion
+
+    tf32_off()
+    cpu = torch.device("cpu")
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    def runs(faults):
+        yield "none", contextlib.nullcontext
+        yield "none, again", contextlib.nullcontext
+        for fault in faults:
+            yield fault, lambda fault=fault: injected(fault)
+
+    log("the bf16-torso classifier step (batch 2, microbatches of 1), card vs CPU, against CLF_BF16_TOL")
+    sd = random_state_dict(create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention"))
+    batch = clf_step_batch()
+    ref = clf_step_on(cpu, sd, *batch, True, 1)
+    log(f"  control, CPU bf16 vs CPU f32: {show(step_errors(ref, clf_step_on(cpu, sd, *batch, False, 1)))}")
+    for name, ctx in runs([f for f in FAULTS if not f.startswith("K4")]):
+        with ctx():
+            errs = step_errors(clf_step_on(dev, sd, *batch, True, 1), ref)
+        broken = [k for k, tol in CLF_BF16_TOL.items() if not errs[k] <= tol]
+        log(f"  {name}: {show(errs)}; breaks {broken or 'nothing'}")
+    del ref
+    torch.cuda.empty_cache()
+
+    log("the int8 CLIP-guided step (batch 1, f32, teacher-forced), card vs CPU, against CLIP_INT8_TOL")
+    clip = CLIP(CLIPConfig())
+    clip.load_state_dict(clip_random_state_dict(clip), strict=True)
+    vision = clip.eval().visual.requires_grad_(False)
+    del clip
+    target = torch.randn(512, generator=torch.Generator().manual_seed(32))
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
+    model = clip_unet(random_state_dict(clip_unet()), conv_impl="int8")
+    xs, z = clip_int8_step_input()
+    forcing = Int8Forcing()
+    ref = clip_int8_step(cpu, model, vision, target, diffusion, xs, z, forcing.record)
+    log(f"  CPU step {ref['seconds']:.2f} s")
+    for name, ctx in runs(FAULTS):
+        try:
+            with ctx():
+                out = clip_int8_step(dev, model, vision, target, diffusion, xs, z, forcing.force)
+        except AssertionError as e:  # Int8Forcing's own checks of q, s and the convs
+            log(f"  {name}: the teacher forcing's check fails: {e}")
+            continue
+        errs = clip_int8_errors(out, ref)
+        broken = [k for k, tol in CLIP_INT8_TOL.items() if not errs[k] <= tol]
+        log(f"  {name}: {show(errs)}; breaks {broken or 'nothing'}")
+    log(f"  {forcing.summary()} (all card runs)")
+
+
 def check_ptxas(build_log: str) -> None:
     """Print ptxas's registers and spills by kernel; raise on a spill in a kernel the main paths launch."""
     # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d> (K1's as name<d, warps>),
@@ -2722,22 +3527,26 @@ def check_ptxas(build_log: str) -> None:
                                  f"spills: {line.strip()}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--faults"]):
+        print(f"chip_smoke: takes no arguments but --faults, got {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an H100", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from guided_diffusion_clip_tpu_torch.ops import build
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
 
     dev = torch.device("cuda", 0)
     log("phase 1: device")
     card = smi()
     cap = torch.cuda.get_device_capability(0)
     log(f"  nvidia-smi: {card}; torch: {torch.cuda.get_device_name(0)}, capability {cap}, "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}; {os.cpu_count()} CPUs, torch's CPU ops on "
+        f"{torch.get_num_threads()} threads")
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0) (sm_90a), found {cap}")
 
@@ -2747,6 +3556,10 @@ def main() -> int:
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s): {build.library_path()}")
     check_ptxas(build.build_log)
+    if argv:
+        fault_probe(dev)
+        print(smi())
+        return 0
 
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
@@ -2764,10 +3577,7 @@ def main() -> int:
     records["quantize"] = phase3g_quantize(dev)
 
     log("phase 4: full-width forward, card vs CPU")
-    sd = random_state_dict(create_model(
-        256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
-        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True,
-    ))
+    sd = random_state_dict(clip_unet())
     phase4_forward(dev, sd)
     log("phase 4b: full-width guidance gradient, card vs CPU")
     phase4b_guidance(dev)
@@ -2783,7 +3593,7 @@ def main() -> int:
     runs = []  # each main path's launch counts
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 5: the slice, served over HTTP")
-        ckpt = os.path.join(tmp, "model_random.pt")
+        ckpt = os.path.join(tmp, "clip_unet_random.pt")  # phase 6 writes the ADM-G UNet's model_random.pt
         torch.save(sd, ckpt)
         del sd
         runs.append(phase5_serve(dev, ckpt))
@@ -2791,7 +3601,6 @@ def main() -> int:
         runs.append(phase5_serve(dev, ckpt, "int8"))
         log("phase 5c: the slice served with --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m")
         runs.append(phase5c_serve_cfg(dev, ckpt))
-        os.remove(ckpt)
         log("phase 6: classifier-guided sampling, ADM-G 256 + classifier")
         launches, paths, bf16_images, bf16_chain = phase6_guided(dev, tmp)
         runs.append(launches)
@@ -2822,10 +3631,26 @@ def main() -> int:
             f"{100 * (diff > 0).mean():.2f} % of values differ")
         if not abs(sd_preset - sd_int8) <= 0.5 * sd_int8:
             raise AssertionError(f"preset samples' std {sd_preset:.3f} not within 0.5 of plain int8's {sd_int8:.3f}")
-        log(f"  250-step chains at batch 8, this run: preset {preset_chain:.3f} s ({480 / preset_chain:.3f} "
-            f"samples/min, {4 * preset_chain:.2f} ms a step), plain int8 {int8_chain:.3f} s "
-            f"({480 / int8_chain:.3f} samples/min, {4 * int8_chain:.2f} ms a step), bf16 {bf16_chain:.3f} s "
-            f"({480 / bf16_chain:.3f} samples/min, {4 * bf16_chain:.2f} ms a step)")
+        per_step = 1000 / GUIDED_STEPS
+        log(f"  {GUIDED_STEPS}-step chains at batch 8, this run: preset {preset_chain:.3f} s "
+            f"({480 / preset_chain:.3f} samples/min, {per_step * preset_chain:.2f} ms a step), plain int8 "
+            f"{int8_chain:.3f} s ({480 / int8_chain:.3f} samples/min, {per_step * int8_chain:.2f} ms a step), bf16 "
+            f"{bf16_chain:.3f} s ({480 / bf16_chain:.3f} samples/min, {per_step * bf16_chain:.2f} ms a step)")
+
+        t10 = time.perf_counter()
+        log("phase 10: python -m guided_diffusion_clip_tpu_torch.classifier_train on ADM-G 256's classifier, then "
+            "classifier_sample with what it saved")
+        runs.extend(phase10_classifier_train(dev, tmp, paths))
+        log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        log("phase 11: ViT-B/32 (random weights in OpenAI's names): the encoders, compute_clip_embeddings and "
+            "image_train on its dict, the guidance gradient through the UNet, card vs CPU")
+        clip_path = phase11_clip(dev, tmp, ckpt)
+        log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+        t11 = time.perf_counter()
+        log("phase 11b: python -m guided_diffusion_clip_tpu_torch.clip_guided_sample on the ADM-256 CLIP UNet")
+        runs.extend(phase11b_clip_guided(dev, tmp, ckpt, clip_path))
+        log(f"  phase 11b took {time.perf_counter() - t11:.1f} s")
 
     log("phase 7: the tool entry points (conv_bench, mxu_ceiling)")
     runs.append(phase7_tools())

@@ -17,7 +17,9 @@ JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
   - batches from ``random.Random(1234 + rank)``'s shuffle of the indices.
 
 The CLIP dict is ``.npz`` or a ``.pt`` of tensors (loaded with
-``weights_only=True``). ``load_data(native=True)`` or ``GDC_NATIVE_LOADER=1``
+``weights_only=True``). Folders, images and the dict may be URLs (gs://,
+memory://, ...), read through ``utils/bf_io.py``; the native decoder takes
+local paths only. ``load_data(native=True)`` or ``GDC_NATIVE_LOADER=1``
 decodes through the native C++ library (``data/native_loader.py``): one call
 an image, its crop and flip drawn from a seed that the dataset's ``random``
 gives, the GIL released for the call. Its pixels are the PIL path's bit for
@@ -37,6 +39,8 @@ from typing import Iterator
 
 import numpy as np
 from PIL import Image
+
+from ..utils import bf_io
 
 _RANK = 0  # one process; the rank of torch.distributed once more than one exists
 
@@ -117,26 +121,28 @@ def _batched_iterator(dataset, batch_size, deterministic, prefetch):
 
 
 def list_image_files_recursively(data_dir: str) -> list[str]:
-    """Image files under ``data_dir``, sorted by name at each level."""
+    """Image files under ``data_dir``, sorted by name at each level; a URL
+    (gs://, memory://, ...) is listed through ``bf_io`` (bf.listdir parity)."""
     results = []
-    for entry in sorted(os.listdir(data_dir)):
-        full_path = os.path.join(data_dir, entry)
+    for entry in bf_io.listdir(data_dir):
+        full_path = bf_io.join(data_dir, entry)
         ext = entry.split(".")[-1]
         if "." in entry and ext.lower() in ["jpg", "jpeg", "png", "gif"]:
             results.append(full_path)
-        elif os.path.isdir(full_path):
+        elif bf_io.isdir(full_path):
             results.extend(list_image_files_recursively(full_path))
     return results
 
 
 def _load_clip_dict(path: str) -> dict:
     """The precomputed {filename: embedding(s)} dict, from ``.npz`` or ``.pt``."""
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            return {k: data[k] for k in data.files}
-    import torch
+    with bf_io.open_file(path, "rb") as f:
+        if path.endswith(".npz"):
+            with np.load(f) as data:
+                return {k: data[k] for k in data.files}
+        import torch
 
-    data = torch.load(path, map_location="cpu", weights_only=True)
+        data = torch.load(f, map_location="cpu", weights_only=True)
     return {k: np.asarray(v) for k, v in data.items()}
 
 
@@ -199,7 +205,7 @@ class ImageDataset:
             )
             arr, img_flipped = batch[0], bool(flipped[0])
         else:
-            with Image.open(path) as pil_image:
+            with bf_io.open_file(path, "rb") as f, Image.open(f) as pil_image:
                 pil_image.load()
                 pil_image = pil_image.convert("RGB")
             if self.random_crop:

@@ -142,6 +142,21 @@ class DiffusionSchedule:
             mapped.host_t = self._host_model_timesteps[host_t]
         return mapped
 
+    def local_timesteps(self, t_model: torch.Tensor) -> torch.Tensor:
+        """The schedule's own steps (0 .. T - 1) whose ``model_timesteps``
+        are ``t_model``: the inverse of ``model_timesteps``, whose values
+        rise with the step. For a cond_fn that needs the schedule's step
+        (the loops hand it the model's timesteps)."""
+        table = self._model_timestep_table
+        idx = torch.searchsorted(table, t_model.to(table.dtype).reshape(-1))
+        return idx.clamp(max=self.num_timesteps - 1).reshape(t_model.shape)
+
+    @functools.cached_property
+    def _model_timestep_table(self) -> torch.Tensor:
+        """``model_timesteps`` of every local step, on the schedule's device
+        (built once per schedule object)."""
+        return self.model_timesteps(torch.arange(self.num_timesteps, device=self.timestep_map.device))
+
     @functools.cached_property
     def _host_model_timesteps(self) -> list:
         """``model_timesteps`` of every local step as Python numbers (one copy

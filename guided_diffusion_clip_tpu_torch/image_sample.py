@@ -57,7 +57,7 @@ from .models.unet import CONV_IMPLS
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.profiling import StepProfiler, annotate
-from .utils.sample_util import add_delta_imgimg, overlap_device_host
+from .utils.sample_util import add_delta_imgimg, overlap_device_host, to_device, to_host
 from .utils.saving_imgs import save_img, tensor2img
 from .utils.script_util import (
     add_dict_to_argparser,
@@ -176,27 +176,6 @@ def make_chain(model, diffusion, args, calls=None):
     return run_chain
 
 
-def _to_device(a, device) -> torch.Tensor:
-    """A host array on ``device``, through pinned memory without waiting for
-    the card (a pageable copy would wait for the chain in flight)."""
-    t = torch.as_tensor(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-def _to_host(t: torch.Tensor):
-    """(host copy, event): a CUDA tensor's copy into pinned memory, queued
-    behind the work that makes it; the event marks the copy's end."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
 def main(argv=None) -> dict:
     """Run the CLI; returns {"path": the npz, "batch_seconds": each chain's
     time (CUDA events on the card), "batches", "steps": steps a chain,
@@ -250,7 +229,7 @@ def main(argv=None) -> dict:
     def dispatched():
         for counter in range(n_batches):
             imgs, kwargs = next(data)
-            model_kwargs = {k: _to_device(v, device) for k, v in add_delta_imgimg(kwargs).items()}
+            model_kwargs = {k: to_device(v, device) for k, v in add_delta_imgimg(kwargs).items()}
             init_image = model_kwargs.get("img2") if dsp != -1 else None
             rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, counter))
             prof.maybe_start(counter)
@@ -267,7 +246,7 @@ def main(argv=None) -> dict:
             else:
                 timing = time.perf_counter() - t0
             prof.maybe_stop(counter)
-            yield counter, imgs, _to_host(sample), timing
+            yield counter, imgs, to_host(sample), timing
 
     def write_batch(item):
         counter, imgs, (host, event), timing = item

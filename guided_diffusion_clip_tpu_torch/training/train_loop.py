@@ -69,9 +69,11 @@ import torch
 
 from ..diffusion.api import Diffusion
 from ..training.resample import LossAwareSampler, ScheduleSampler, UniformSampler
+from ..utils import bf_io
 from ..utils import checkpoint as ckpt
 from ..utils import logger
 from ..utils.profiling import StepProfiler, annotate
+from ..utils.sample_util import to_device
 from ..utils.saving_imgs import save_img, tensor2img
 
 
@@ -240,10 +242,10 @@ class TrainLoop:
                 self.ema_params[i] = [sd[n].to(p) for n, p in zip(self.names, self.params)]
             else:
                 self.ema_params[i] = [p.detach().clone() for p in self.params]
-        opt_path = os.path.join(os.path.dirname(resume), ckpt.checkpoint_name("opt", self.resume_step))
-        if os.path.exists(opt_path):
+        opt_path = bf_io.join(os.path.dirname(resume), ckpt.checkpoint_name("opt", self.resume_step))
+        if bf_io.exists(opt_path):
             logger.log(f"loading optimizer state from checkpoint: {opt_path}")
-            self._load_opt(torch.load(opt_path, map_location="cpu", weights_only=True))
+            self._load_opt(ckpt.load_state_dict(opt_path))
 
     def _opt_state_for_save(self) -> dict:
         """{"count", "m", "v"}: the Adam count and moments by parameter name."""
@@ -267,12 +269,8 @@ class TrainLoop:
 
     # ------------------------------------------------------------ the step
     def _upload(self, a) -> torch.Tensor:
-        """A host array or tensor on the model's device, copied without
-        waiting for the card (pinned memory) when it goes there."""
-        t = torch.as_tensor(a)
-        if t.device.type == "cpu" and self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        """A host array or tensor on the model's device (``to_device``)."""
+        return to_device(a, self.device)
 
     def micro_loss(self, x, cond, t, weights, noise=None):
         """One microbatch's forward: (mean(loss * weights), terms)."""

@@ -7,7 +7,8 @@ The port's native format is the reference torch ``state_dict``. A JAX
 writes the reference's names (train_util.py:243-267) with the ``.pt``
 extension: ``model{step:06d}.pt``, ``ema_{rate}_{step:06d}.pt`` (state_dicts
 under the reference's keys, which the JAX package's ``load_params`` reads) and
-``opt{step:06d}.pt``.
+``opt{step:06d}.pt``. Paths may be URLs (gs://, memory://, ...): the files
+are read and written through ``utils/bf_io.py``, as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import re
 
 import torch
 from torch import nn
+
+from . import bf_io
 
 
 def checkpoint_name(kind: str, step: int, ema_rate: float | str | None = None, ext: str = "pt") -> str:
@@ -41,8 +44,8 @@ def find_ema_checkpoint(main_checkpoint: str | None, step: int, rate) -> str | N
     if main_checkpoint is None:
         return None
     ext = main_checkpoint.rsplit(".", 1)[-1]
-    path = os.path.join(os.path.dirname(main_checkpoint), checkpoint_name("ema", step, rate, ext=ext))
-    return path if os.path.exists(path) else None
+    path = bf_io.join(os.path.dirname(main_checkpoint), checkpoint_name("ema", step, rate, ext=ext))
+    return path if bf_io.exists(path) else None
 
 
 def save_state_dict(path: str, state_dict: dict) -> None:
@@ -55,7 +58,8 @@ def save_state_dict(path: str, state_dict: dict) -> None:
             return {k: host(x) for k, x in v.items()}
         return v
 
-    torch.save(host(state_dict), path)
+    with bf_io.open_file(path, "wb") as f:
+        torch.save(host(state_dict), f)
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -65,7 +69,8 @@ def load_state_dict(path: str) -> dict[str, torch.Tensor]:
             f"{path}: the PyTorch package loads reference-format .pt files; convert a "
             ".flax checkpoint with guided_diffusion_clip_tpu.utils.checkpoint.save_pt_copy"
         )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    with bf_io.open_file(path, "rb") as f:
+        return torch.load(f, map_location="cpu", weights_only=True)
 
 
 def load_model_weights(model: nn.Module, path: str) -> nn.Module:

@@ -13,6 +13,13 @@ do) and a flax tree saved as msgpack-free numpy can reach the port. Layouts:
 
 The output head's names depend on the model and, for the classifier
 (``model="encoder"``), on its pool (JAX ``torch_import.py::_head_map``).
+
+``model="clip"`` takes the JAX CLIP's ``(vision, text, logit_scale)`` trees
+(``models/clip_vit.py``) to OpenAI CLIP's names, the inverse of the JAX
+``import_openai_clip_pt``: the patch kernel HWIO -> OIHW, ``q_proj``,
+``k_proj`` and ``v_proj`` concatenated into ``in_proj_weight`` and
+``in_proj_bias``, dense kernels transposed, ``visual_projection`` and
+``text_projection`` kept (W, D) as they are stored.
 """
 
 from __future__ import annotations
@@ -115,10 +122,52 @@ def _iter_leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(params: Mapping, *, model: str = "unet", pool: str | None = None) -> dict[str, torch.Tensor]:
+def _clip_block(p: Mapping, prefix: str) -> dict:
+    f32 = lambda a: np.asarray(a, dtype=np.float32)
+    attn = p["self_attn"]
+    out = {
+        f"{prefix}.attn.in_proj_weight": np.concatenate([f32(attn[f"{n}_proj"]["kernel"]).T for n in "qkv"]),
+        f"{prefix}.attn.in_proj_bias": np.concatenate([f32(attn[f"{n}_proj"]["bias"]) for n in "qkv"]),
+        f"{prefix}.attn.out_proj.weight": f32(attn["out_proj"]["kernel"]).T,
+        f"{prefix}.attn.out_proj.bias": f32(attn["out_proj"]["bias"]),
+    }
+    for src, dst in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2")):
+        out[f"{prefix}.{dst}.weight"], out[f"{prefix}.{dst}.bias"] = f32(p[src]["scale"]), f32(p[src]["bias"])
+    for src, dst in (("fc1", "mlp.c_fc"), ("fc2", "mlp.c_proj")):
+        out[f"{prefix}.{dst}.weight"], out[f"{prefix}.{dst}.bias"] = f32(p[src]["kernel"]).T, f32(p[src]["bias"])
+    return out
+
+
+def _clip_state_dict(vision: Mapping, text: Mapping, logit_scale) -> dict:
+    f32 = lambda a: np.asarray(a, dtype=np.float32)
+    out = {
+        "visual.conv1.weight": f32(vision["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1),
+        "visual.class_embedding": f32(vision["class_embedding"]),
+        "visual.positional_embedding": f32(vision["position_embedding"]),
+        "visual.proj": f32(vision["visual_projection"]["kernel"]),
+        "token_embedding.weight": f32(text["token_embedding"]["embedding"]),
+        "positional_embedding": f32(text["position_embedding"]),
+        "text_projection": f32(text["text_projection"]["kernel"]),
+        "logit_scale": np.asarray(logit_scale, dtype=np.float32),
+    }
+    for src, dst in ((vision["pre_layernorm"], "visual.ln_pre"), (vision["post_layernorm"], "visual.ln_post"),
+                     (text["final_layer_norm"], "ln_final")):
+        out[f"{dst}.weight"], out[f"{dst}.bias"] = f32(src["scale"]), f32(src["bias"])
+    for tree, prefix in ((vision, "visual.transformer.resblocks"), (text, "transformer.resblocks")):
+        i = 0
+        while f"layer_{i}" in tree:
+            out.update(_clip_block(tree[f"layer_{i}"], f"{prefix}.{i}"))
+            i += 1
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).reshape(v.shape) for k, v in out.items()}
+
+
+def state_dict_from_flax(params, *, model: str = "unet", pool: str | None = None) -> dict[str, torch.Tensor]:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
-    port's ``state_dict`` (f32 CPU tensors). ``model`` is "unet" or
-    "encoder"; an encoder also names its ``pool``."""
+    port's ``state_dict`` (f32 CPU tensors). ``model`` is "unet", "encoder"
+    (which also names its ``pool``) or "clip", whose ``params`` are the JAX
+    CLIP's ``(vision, text, logit_scale)``."""
+    if model == "clip":
+        return _clip_state_dict(*params)
     out = {}
     for path, value in _iter_leaves(params):
         arr = np.ascontiguousarray(_from_flax_tensor(np.asarray(value, dtype=np.float32), path))

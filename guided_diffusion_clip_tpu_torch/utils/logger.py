@@ -11,8 +11,13 @@ fresh directory under the temporary directory. The writers are picked by
 (``progress.json``, one object a line) the dumps. ``logkv`` /
 ``logkv_mean`` collect values until ``dumpkvs``; ``profile_kv`` adds wall
 time to ``wait_*`` keys (logger.py:293-317); ``reset`` closes the run
-directory, so that the next ``configure`` makes another. The TensorBoard
-writer and the per-rank formats are not ported yet.
+directory, so that the next ``configure`` makes another. ``tensorboard``
+(``tb{suffix}/``) writes each dump's numbers as scalars at the dump's
+``step`` through ``torch.utils.tensorboard.SummaryWriter``, and does nothing
+where that does not import. ``log_suffix`` names the files
+(``log{suffix}.txt``, ...); ``scoped_configure`` logs to another directory
+for the length of a block. The per-rank formats (``OPENAI_LOG_FORMAT_MPI``,
+``-rank%03i``) wait for more than one process.
 """
 
 from __future__ import annotations
@@ -102,16 +107,49 @@ class CSVOutputFormat:
         self.file.close()
 
 
-def make_output_format(fmt: str, ev_dir: str):
+class TensorBoardOutputFormat:
+    """Each dump's numbers as TensorBoard scalars at its ``step`` key (else one
+    past the last dump's); a no-op where no TensorBoard backend imports
+    (JAX ``utils/logger.py:138-163``)."""
+
+    def __init__(self, logdir):
+        self.writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.writer = SummaryWriter(logdir)
+        except Exception:  # no tensorboard package: log without it
+            pass
+        self.step = 0
+
+    def writekvs(self, kvs):
+        if self.writer is None:
+            return
+        step = int(kvs.get("step", self.step))
+        for k, v in kvs.items():
+            if hasattr(v, "__float__"):
+                self.writer.add_scalar(k, float(v), step)
+        self.writer.flush()
+        self.step = step + 1
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+def make_output_format(fmt: str, ev_dir: str, log_suffix: str = ""):
+    os.makedirs(ev_dir, exist_ok=True)
     if fmt == "stdout":
         return HumanOutputFormat(sys.stdout, own_file=False)
     if fmt == "log":
-        return HumanOutputFormat(open(os.path.join(ev_dir, "log.txt"), "a"), own_file=True)
+        return HumanOutputFormat(open(os.path.join(ev_dir, f"log{log_suffix}.txt"), "a"), own_file=True)
     if fmt == "json":
-        return JSONOutputFormat(os.path.join(ev_dir, "progress.json"))
+        return JSONOutputFormat(os.path.join(ev_dir, f"progress{log_suffix}.json"))
     if fmt == "csv":
-        return CSVOutputFormat(os.path.join(ev_dir, "progress.csv"))
-    raise ValueError(f"log format {fmt!r}: choose from stdout, log, json, csv (tensorboard is not yet ported)")
+        return CSVOutputFormat(os.path.join(ev_dir, f"progress{log_suffix}.csv"))
+    if fmt == "tensorboard":
+        return TensorBoardOutputFormat(os.path.join(ev_dir, f"tb{log_suffix}"))
+    raise ValueError(f"log format {fmt!r}: choose from stdout, log, json, csv, tensorboard")
 
 
 class Logger:
@@ -152,10 +190,11 @@ class Logger:
 _current: Logger | None = None
 
 
-def configure_dir(dir: str | None = None, format_strs=None) -> str:
+def configure_dir(dir: str | None = None, format_strs=None, log_suffix: str = "") -> str:
     """Make ``dir`` (default: $OPENAI_LOGDIR, else a new temporary directory)
     the current log directory, with the writers ``format_strs`` (default:
-    $OPENAI_LOG_FORMAT, else stdout, log, csv); returns it."""
+    $OPENAI_LOG_FORMAT, else stdout, log, csv), their files named with
+    ``log_suffix``; returns it."""
     global _current
     if dir is None:
         dir = os.getenv("OPENAI_LOGDIR")
@@ -168,7 +207,7 @@ def configure_dir(dir: str | None = None, format_strs=None) -> str:
         format_strs = os.getenv("OPENAI_LOG_FORMAT", "stdout,log,csv").split(",")
     if _current is not None:
         _current.close()
-    _current = Logger(dir, [make_output_format(f, dir) for f in format_strs if f])
+    _current = Logger(dir, [make_output_format(f, dir, log_suffix) for f in format_strs if f])
     log(f"Logging to {dir}")
     return dir
 
@@ -237,3 +276,18 @@ def profile_kv(scopename):
         yield
     finally:
         get_current().name2val[logkey] += time.time() - tstart
+
+
+@contextmanager
+def scoped_configure(dir=None, format_strs=None):
+    """Log to ``dir`` with ``format_strs`` inside the block, then close those
+    writers and log where the block began (JAX ``utils/logger.py:398-406``)."""
+    global _current
+    prev = _current
+    _current = None  # configure_dir would close the writers it replaces
+    configure_dir(dir=dir, format_strs=format_strs)
+    try:
+        yield
+    finally:
+        _current.close()
+        _current = prev

@@ -2,10 +2,37 @@
 
 The reference star-imports ``guided_diffusion.sample_util`` and never ships
 it; the JAX package reconstructed the three helpers from their call sites,
-and the port keeps them as they are there.
+and the port keeps them as they are there. ``to_device`` and ``to_host`` are
+the port's own: the copies between host and card that its CLIs and trainers
+queue without waiting for the card.
 """
 
 from __future__ import annotations
+
+import torch
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array or tensor on ``device``; from the host to the card through
+    pinned memory, without waiting for the card (a pageable copy would wait
+    for the work in flight)."""
+    t = torch.as_tensor(a)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor):
+    """(host copy, event): a CUDA tensor's copy into pinned memory, queued
+    behind the work that makes it, and the event that marks the copy's end;
+    a CPU tensor as it is and None."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 def overlap_device_host(dispatched, process):
