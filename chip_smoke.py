@@ -7,8 +7,9 @@ Drives the port's main paths end to end, the serving path at the ADM-256
 widths of the fork's CLIP-conditioned UNet, classifier-guided sampling with
 ADM-G 256 and its classifier, training of the fork's 128 px recipe (bf16 and
 int8), sampling and scoring what it trained through the fork's CLIs,
-training the classifier, and the fork's CLIP at ViT-B/32's widths (embeddings
-and CLIP-guided sampling), and exits non-zero if any phase fails:
+training the classifier, the fork's CLIP at ViT-B/32's widths (embeddings
+and CLIP-guided sampling) and the fork's SR models through the four SR CLIs,
+and exits non-zero if any phase fails; each phase's seconds are logged:
 
   1. device: the card's name, power limit and compute capability (9, 0);
   2. build: the CUDA kernels of ``guided_diffusion_clip_tpu_torch/ops/csrc``
@@ -174,7 +175,8 @@ use phase 5's ADM-256 CLIP UNet weights) add:
       mode through the ADM-256 CLIP UNet (f32, batch 2, model timestep 500 of
       a 100-step schedule) card vs CPU (1e-3);
   11b. ``clip_guided_sample.main`` on the ADM-256 CLIP UNet and ViT-B/32,
-      ``--target_image``, batch 8, 100 ancestral steps, in bf16, with
+      ``--target_image``, batch 8, 40 ancestral steps (cut from 100 to pay
+      for phase 12), in bf16, with
       ``--conv_impl int8`` and with ``--guidance_cache 2``: the UNet's and
       CLIP's calls against the schedule, the launches against the modules'
       counts (two forwards and one backward a guided step), seconds a chain,
@@ -182,6 +184,34 @@ use phase 5's ADM-256 CLIP UNet weights) add:
       cond_fn's, CLIP forward + backward, the UNet backward; profiler device
       ms by kernel group), bf16 and int8; one int8 step (f32, batch 1)
       teacher-forced card vs CPU within ``CLIP_INT8_TOL``.
+
+The fork's SR models (run inside phases 8-9's directory, after 9c, on 8c's
+images and CLIP dict and phase 9's test set, checkpoint and samples): the
+SR-delta model ``SRImageModel_Feat`` at the recipe's widths (x ++ img2, 6
+input channels, the CLIP delta clip_feat - clip_feat2 + bias_feat as its
+label) and the upstream ``SuperResModel`` (x ++ low_res upsampled 64 -> 128)
+add:
+  12a. the SR-delta model card vs CPU from N(0, 0.02) weights: a forward
+      (batch 2, f32, TF32 off) within 1e-3 relative L2; one train step
+      (batch 4, dropout 0, as 8b) with the bf16 torso within
+      ``TRAIN_BF16_TOL``; one ``--train_conv_impl int8`` step teacher-forced
+      in f32 within ``INT8_TRAIN_TOL``;
+  12b. ``super_res_unsup.main`` on 8c's folder and dict with ``--data_dir_test``
+      (the recipe's file, respaced to 100 steps so that the save's two
+      validation chains are 100 steps each), 11 steps at batch 48 and the
+      save at step 10; then ``--load`` of that run with ``--train_conv_impl
+      int8`` for 5 steps: the launches against the modules' counts, the files,
+      the resume; then 10 timed steps at batch 48 each way, as 8d;
+  12c. ``super_res_train.main`` (the upstream model, ``low_res`` from the
+      loader) 3 steps at batch 48, its checkpoint loading strict=True into
+      ``super_res_sample``'s model; ``super_res_sample.main`` from N(0, 0.02)
+      weights on phase 9's samples area-downsampled to 64 px, batch 16, 100
+      ancestral steps, bf16 and ``--conv_impl int8``: (16, 128, 128, 3) uint8
+      samples, launches against the modules' counts, int8's samples other than
+      bf16's and their spread within 0.5 of it;
+  12d. ``super_res_depth_sweep_sample.main`` from phase 9's checkpoint on its
+      test set: chains of 50, 70 and 90 respaced steps at batch 8 from img2,
+      a PNG each plus ``target.png`` and ``start.png``, with their seconds.
 
     python3 chip_smoke.py --faults
 
@@ -194,17 +224,19 @@ distances beside the bounds they break.
 
 Phases 3c, 3d and 3g hold K4, K5 and the quantize kernels at the recipe's
 shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
-3-channel stem and 6-channel head on ``__dp4a``; batch 8 and 48).
+3-channel stem, the SR models' 6-channel stem and the 6-channel head on
+``__dp4a``; batch 8, 16 and 48).
 
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
-``classifier_train`` and its guided run, each mode of 11b) and read just after it; every bf16 K1 and K2 launch of a main path
+``classifier_train`` and its guided run, each mode of 11b, each CLI run and
+the timed steps of 12b-12d) and read just after it; every bf16 K1 and K2 launch of a main path
 (the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
 the FMA-pipe kernels must have taken only the classifier's attention pool,
 which is float32 by the reference's design (one K1 and one K2 a classifier call).
 Likewise every K5 launch of an int8 main path must have been a tensor-core
-launch but for the 3-channel stems and the 6-channel head, counted from the
-modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
+launch but for the stems (3 channels in, 6 in the SR models) and the 6-channel
+head, counted from the modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
 kernels, the GroupNorm kernel (K3, K4) or K1/K2 at d = 64, 192 or 256 fails
 the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
@@ -222,6 +254,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import glob
 import io
 import json
 import math
@@ -615,7 +648,9 @@ def phase3b_attention_bwd(dev):
 # The training recipe's int8 shapes (configs/config.yaml: 64/128/192/256 channels at 128/32/16/8 px;
 # sampling at batch 8, training at batch 48): K4's maps, K5's convs (3x3, the 1x1 skips, the
 # stride-2 downsamples, the 3-channel stem and the 6-channel head on __dp4a) and the quantize
-# kernels' inputs of int8_conv (the stem's image, a skip's and a downsample's input)
+# kernels' inputs of int8_conv (the stem's image, a skip's and a downsample's input); and the SR
+# models' 6-channel stem (x ++ img2 or x ++ low_res) on __dp4a, at super_res_sample's batch 16 and
+# the trainers' 48
 RECIPE_GN_SHAPES = [(8, 128 * 128, 64), (8, 16 * 16, 192), (8, 8 * 8, 256), (48, 128 * 128, 64)]
 RECIPE_CONVS = [
     ("recipe 3x3 128px", 8, 128, 64, 64, 3, 1, True), ("recipe 3x3 16px", 8, 16, 192, 192, 3, 1, True),
@@ -623,8 +658,10 @@ RECIPE_CONVS = [
     ("recipe head", 8, 128, 64, 6, 3, 1, False), ("recipe 1x1 32px", 8, 32, 64, 128, 1, 1, False),
     ("recipe 1x1 16px", 8, 16, 384, 192, 1, 1, False), ("recipe stride 2", 8, 128, 64, 64, 3, 2, False),
     ("recipe 3x3 128px", 48, 128, 64, 64, 3, 1, True), ("recipe stem", 48, 128, 3, 64, 3, 1, False),
+    ("SR stem", 16, 128, 6, 64, 3, 1, False), ("SR stem", 48, 128, 6, 64, 3, 1, False),
 ]
-RECIPE_QUANTIZE_SHAPES = [(8, 128, 128, 3), (8, 128, 128, 64), (48, 128, 128, 64), (8, 16, 16, 384)]
+RECIPE_QUANTIZE_SHAPES = [(8, 128, 128, 3), (8, 128, 128, 64), (48, 128, 128, 64), (8, 16, 16, 384),
+                          (16, 128, 128, 6), (48, 128, 128, 6)]
 
 
 def phase3c_group_norm_quant(dev):
@@ -988,14 +1025,15 @@ def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> N
 
 def dp4a_convs(model) -> int:
     """The convs of ``model``'s structure (a module or a list of modules) that
-    K5 keeps on ``__dp4a`` under int8: the stems (3 channels in) and the head
-    (6 channels out), counted from the modules' channels alone and not by the
+    K5 keeps on ``__dp4a`` under int8: the stems (3 channels in; 6, x and its
+    partner or its upsampled low_res, in the SR models) and the head (6
+    channels out), counted from the modules' channels alone and not by the
     wrapper's own dispatch rule, so that a rule that sent any other conv to
     ``__dp4a`` would fail the count."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
 
     roots = model if isinstance(model, (list, tuple)) else [model]
-    return sum(isinstance(m, Conv2d) and (m.in_channels == 3 or m.out_channels == 6)
+    return sum(isinstance(m, Conv2d) and (m.in_channels in (3, 6) or m.out_channels == 6)
                for root in roots for m in root.modules())
 
 
@@ -1009,7 +1047,7 @@ def check_conv_tensor_core_launches(path: str, dp4a: int) -> None:
         raise AssertionError(f"{path}: {k5.launches_mma} of K5's {k5.launches} launches ran on the tensor cores, "
                              f"with {dp4a} stem and head convs")
     log(f"  {path}: {k5.launches_mma} of {k5.launches} K5 launches ran on the tensor cores: all but the {dp4a} "
-        f"stem (3 channels in) and head (6 channels out) convs")
+        f"stem (3 or 6 channels in) and head (6 channels out) convs")
 
 
 def gn_conv_counts(model, int8: bool) -> dict:
@@ -1907,12 +1945,20 @@ def recipe_args(**over):
     return args
 
 
-def recipe_model(**over):
+def recipe_model(sr=False, **over):
+    """(args, model, diffusion) of the recipe; with ``sr`` the SR-delta model
+    at its widths (``sr_create_model_and_diffusion``, large_size its
+    image_size: x ++ img2, the CLIP delta as its label)."""
     from guided_diffusion_clip_tpu_torch.utils.script_util import (
-        args_to_dict, create_model_and_diffusion, model_and_diffusion_defaults,
+        args_to_dict, create_model_and_diffusion, model_and_diffusion_defaults, sr_create_model_and_diffusion,
+        sr_model_and_diffusion_defaults,
     )
 
     args = recipe_args(**over)
+    if sr:
+        kw = {k: getattr(args, k, v) for k, v in sr_model_and_diffusion_defaults().items()}
+        return args, *sr_create_model_and_diffusion(**dict(kw, large_size=args.image_size),
+                                                    conv_impl=args.train_conv_impl)
     return args, *create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()),
                                              conv_impl=args.train_conv_impl)
 
@@ -2148,6 +2194,42 @@ def phase8b_train_step(dev, tmp):
         raise AssertionError(f"card train step (bf16 torso) differs from the CPU's: {bad}")
 
 
+def train_folder(tmp):
+    """64 generated 128 px PNGs and their CLIP dict (.pt, one embedding a
+    flip): (folder, dict path)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    data = os.path.join(tmp, "images")
+    os.makedirs(data)
+    rs = np.random.RandomState(4)
+    clip = {}
+    for i in range(64):
+        name = f"{i:05d}.png"
+        Image.fromarray(rs.randint(0, 256, (128, 128, 3), dtype=np.uint8)).save(os.path.join(data, name))
+        clip[name] = torch.from_numpy(rs.standard_normal((2, 512)).astype(np.float32))
+    clip_path = os.path.join(tmp, "clip_dict.pt")
+    torch.save(clip, clip_path)
+    return data, clip_path
+
+
+def train_config(tmp, name, data, clip_path, main_path, **over) -> str:
+    """configs/config.yaml with save_interval 10, log_interval 5, the folder
+    as both training and test set and ``main_path``, then ``over``, written to
+    ``tmp`` (a config file's keys win over the command line's)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(save_interval=10, log_interval=5, data_dir=data, clip_file_path=clip_path, data_dir_test=data,
+               clip_file_path_test=clip_path, main_path=main_path, **over)
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
 def phase8c_cli(dev, tmp):
     """``python -m guided_diffusion_clip_tpu_torch.image_train --config-file``
     on 64 generated 128 px PNGs and a .pt CLIP dict: configs/config.yaml with
@@ -2169,32 +2251,14 @@ def phase8c_cli(dev, tmp):
     import csv
     import math
 
-    import numpy as np
     import torch
-    import yaml
-    from PIL import Image
 
     from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_model_weights, load_state_dict
 
     root = os.path.dirname(os.path.abspath(__file__))
-    data = os.path.join(tmp, "images")
-    os.makedirs(data)
-    rs = np.random.RandomState(4)
-    clip = {}
-    for i in range(64):
-        name = f"{i:05d}.png"
-        Image.fromarray(rs.randint(0, 256, (128, 128, 3), dtype=np.uint8)).save(os.path.join(data, name))
-        clip[name] = torch.from_numpy(rs.standard_normal((2, 512)).astype(np.float32))
-    clip_path = os.path.join(tmp, "clip_dict.pt")
-    torch.save(clip, clip_path)
-    with open(os.path.join(root, "configs", "config.yaml")) as f:
-        cfg = yaml.safe_load(f)
+    data, clip_path = train_folder(tmp)
     runs = os.path.join(tmp, "runs")
-    cfg.update(save_interval=10, log_interval=5, data_dir=data, clip_file_path=clip_path, data_dir_test=data,
-               clip_file_path_test=clip_path, main_path=runs)
-    cfg_path = os.path.join(tmp, "config.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(cfg, f)
+    cfg_path = train_config(tmp, "config", data, clip_path, runs)
 
     def run(argv, env):
         """Run image_train: (seconds, {step: seconds from the start to its log row})."""
@@ -2285,15 +2349,15 @@ def phase8c_cli(dev, tmp):
     return run_dir
 
 
-def time_train_steps(dev, tmp, sd, x, cond, tag, **over) -> dict:
-    """20 ``run_step`` calls of the recipe (``over`` on top) at batch 48 after 5
+def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=20, **over) -> dict:
+    """``n_steps`` ``run_step`` calls of the recipe (``over`` on top) at batch 48 after 5
     of warm-up (and 2 under ``torch.cuda.set_sync_debug_mode("error")``: no
-    step waits for the card), the kernels' launches of those 20 against
+    step waits for the card), the kernels' launches of those ``n_steps`` against
     ``train_counts`` (every K1/K2 launch on the tensor cores; under int8 every
     K5 launch but the stem's and the head's too), ms a step (median, CUDA
     events) and its split into forward, backward and optimizer + EMA,
     samples/s, peak memory and the profiler's device time by kernel group.
-    Returns {"launches": the 20 steps' counts, "step_ms", "parts", "busy_ms",
+    Returns {"launches": the ``n_steps`` steps' counts, "step_ms", "parts", "busy_ms",
     "peak_gib"}."""
     import torch
 
@@ -2312,7 +2376,7 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, **over) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     steps = []
-    for _ in range(20):
+    for _ in range(n_steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         loop.run_step(x, cond)
@@ -2323,20 +2387,20 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, **over) -> dict:
     split = tensor_core_split(counts)
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = train_counts(loop.model, remat)
-    want = {k: 20 * v for k, v in per_step.items()}
+    want = {k: n_steps * v for k, v in per_step.items()}
     got = {k: counts[k] for k in want}
     if got != want or any(v for k, v in counts.items() if k not in want):
-        raise AssertionError(f"{tag}: launches {counts} over 20 steps, want {want} and no other kernel")
+        raise AssertionError(f"{tag}: launches {counts} over {n_steps} steps, want {want} and no other kernel")
     if split["attention_fma"] or split["attention_bwd_fma"]:
         raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on the FMA pipes: {split}")
     if loop.model.int8:
-        check_conv_tensor_core_launches(tag, 20 * dp4a_convs(loop.model))
+        check_conv_tensor_core_launches(tag, n_steps * dp4a_convs(loop.model))
     loop.flush_metrics()
 
     # forward, backward and optimizer + EMA of the same step, by events between them
     xb, cb = loop._upload(x).float(), {k: loop._upload(v) for k, v in cond.items()}
     parts = {"forward": [], "backward": [], "optimizer + EMA": []}
-    for _ in range(20):
+    for _ in range(n_steps):
         t_np, w_np = loop.schedule_sampler.sample(TRAIN_BATCH, loop.np_rng)
         t, w = loop._upload(t_np).long(), loop._upload(w_np)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -2363,10 +2427,10 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, **over) -> dict:
         grp[0] += ms
         grp[1] += n
     log(f"  {tag}, batch {TRAIN_BATCH}, bf16 torso, f32 parameters, fused AdamW (either opt_impl): step {step_ms:.2f} ms "
-        f"(median of 20, CUDA events; range {min(steps):.2f}-{max(steps):.2f}), {1e3 * TRAIN_BATCH / step_ms:.1f} "
+        f"(median of {n_steps}, CUDA events; range {min(steps):.2f}-{max(steps):.2f}), {1e3 * TRAIN_BATCH / step_ms:.1f} "
         f"samples/s; forward {med['forward']:.2f}, backward {med['backward']:.2f}, optimizer + EMA "
         f"{med['optimizer + EMA']:.2f} ms; peak memory {peak:.2f} GiB")
-    log(f"  {tag}: launches a step {per_step} (from the modules; 20 steps counted {got}); no host sync in 2 steps "
+    log(f"  {tag}: launches a step {per_step} (from the modules; {n_steps} steps counted {got}); no host sync in 2 steps "
         f"under set_sync_debug_mode('error')")
     log(f"  {tag}, profiler: device busy {busy:.2f} ms of the {step_ms:.2f} ms step "
         f"({100 * busy / step_ms:.0f} %); " + "; ".join(
@@ -2765,6 +2829,311 @@ def phase9c_nll(dev, tmp, run_dir) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the fork's SR models through the four SR CLIs (the SR-delta model
+# SRImageModel_Feat at the recipe's widths, the upstream SuperResModel 64 ->
+# 128 px, the depth sweep of the recipe's CLIP UNet), inside phases 8-9's
+# directory
+# ---------------------------------------------------------------------------
+
+# super_res_train's and super_res_sample's model: the recipe's widths through the SR factory (128 px from
+# 64, mult (1, 1, 2, 3, 4), one head at 16 and 8 px, learned sigma, bf16 torso), class_cond off: the upstream
+# cascade conditions on low_res, and the loader's batches carry no class labels
+SR_FLAGS = ["--large_size", "128", "--small_size", "64", "--num_channels", "64", "--num_res_blocks", "2",
+            "--num_heads", "1", "--learn_sigma", "True", "--use_fp16", "True", "--noise_schedule", "cosine",
+            "--diffusion_steps", "1000"]
+SR_SAMPLE_BATCH = 16  # super_res_sample's default batch
+SR_SAMPLE_STEPS = 100
+
+
+def run_counted(main, argv, env=None) -> tuple:
+    """A CLI's ``main(argv)`` in this process, ``env`` set around it: (its
+    return, the kernels' launches of the run, ``tensor_core_split``, and its
+    seconds). The counts are set to 0 just before it."""
+    from guided_diffusion_clip_tpu_torch.utils import logger
+
+    env = env or {}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        out = main(argv)
+        launches = tensor_core_split(counters())
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        logger.reset()
+    return out, launches, time.perf_counter() - t0
+
+
+def expected(launches: dict, *terms) -> dict:
+    """Every kernel of ``launches`` at 0, plus n x each (n, counts) of ``terms``."""
+    want = dict.fromkeys(launches, 0)
+    for n, counts in terms:
+        for k, v in counts.items():
+            want[k] += n * v
+    return want
+
+
+def phase12a_sr_card_vs_cpu(dev, tmp) -> None:
+    """The SR-delta model at the recipe's widths from N(0, 0.02) weights, card
+    against CPU: a forward (batch 2, f32, TF32 off) within 1e-3 relative L2;
+    one train step (batch 4, dropout 0) with the bf16 torso within
+    ``TRAIN_BF16_TOL``, as 8b; one ``--train_conv_impl int8`` step,
+    teacher-forced, in f32 (TF32 off, f32 straight-through convs) within
+    ``INT8_TRAIN_TOL``, the bf16 step's bound and tighter than 8e's f32 1e-3.
+
+    Not in bf16: there an output block's per-tensor ``int8_conv`` reads a
+    bf16 input that differs from the CPU's by the roundings of the unforced
+    float path (K1's bf16 output, the residual adds), and the levels it
+    flips moved that conv's output by 9.8e-3 relative L2 on an H100, past
+    the forcing's own 5e-3 check (8e's recipe, other weights and batch,
+    stays under it)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    tf32_off()
+    model = recipe_model(sr=True, use_fp16=False)[1]
+    sd = random_state_dict(model)
+    model.load_state_dict(sd, strict=True)
+    model.eval().requires_grad_(False)
+    x, cond = recipe_batch(2, seed=7)
+    xt, ct, t = torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in cond.items()}, torch.tensor([100, 700])
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = model(xt, t, **ct)
+        cpu_s = time.perf_counter() - t0
+        model.to(dev)
+        out = model(xt.to(dev), t.to(dev), **{k: v.to(dev) for k, v in ct.items()}).cpu()
+    del model
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log(f"  SR-delta forward (2, 3 + 3, 128, 128) f32: |ref| {ref.norm().item():.4g}, rel L2 err card vs CPU {rel:.3g} "
+        f"(bound 1e-3); CPU forward {cpu_s:.2f} s")
+    if out.shape != (2, 6, 128, 128) or not torch.isfinite(out).all() or not ref.norm() > 0 or not rel <= 1e-3:
+        raise AssertionError(f"SR-delta forward {tuple(out.shape)}: card vs CPU rel L2 {rel:.3g}")
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    x, cond = recipe_batch(4, seed=8)
+    noise = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(9))
+    cpu, card = (train_step_on(d, sd, x, cond, noise, os.path.join(tmp, f"sr_step_{d.type}"), sr=True)
+                 for d in (torch.device("cpu"), dev))
+    bf16 = step_errors(card, cpu)
+    log(f"  SR-delta train step (4, 3, 128, 128), bf16 torso: loss {float(cpu['met']['loss']):.6g} (CPU); card vs "
+        f"CPU: {show(bf16)}; bound {TRAIN_BF16_TOL}; CPU step {cpu['secs']:.2f} s")
+    bad = {k: bf16[k] for k, tol in TRAIN_BF16_TOL.items() if not bf16[k] <= tol}
+    if bad or not math.isfinite(float(card["met"]["loss"])) or not float(cpu["met"]["loss"]) > 0:
+        raise AssertionError(f"card SR-delta train step (bf16 torso) differs from the CPU's: {bad}")
+    try:
+        Q._STE_DTYPE = torch.float32
+        cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "sr_int8"), sr=True,
+                                           use_fp16=False)
+    finally:
+        Q._STE_DTYPE = torch.bfloat16
+    int8 = step_errors(card, cpu)
+    log(f"  SR-delta int8 train step (4, 3, 128, 128) f32: loss {float(cpu['met']['loss']):.6g} (CPU); card vs CPU "
+        f"teacher-forced: {show(int8)}; bound {INT8_TRAIN_TOL}; {forced}; CPU step {cpu['secs']:.2f} s")
+    bad = {k: int8[k] for k, tol in INT8_TRAIN_TOL.items() if not int8[k] <= tol}
+    if bad or not math.isfinite(float(card["met"]["loss"])):
+        raise AssertionError(f"card SR-delta int8 train step differs from the CPU's: {bad}")
+
+
+def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
+    """``super_res_unsup.main`` on 8c's folder and dict, ``--data_dir_test``
+    the same folder: the recipe's file (batch 48) respaced to 100 steps, so
+    that the save at step 10 runs its two validation chains (``--data_dir``,
+    ``--data_dir_test``, 8 samples each) over 100 steps and not 1000; 11
+    steps, the save, launches against the modules' counts. Then ``--load``
+    of that run with ``--train_conv_impl int8`` for 5 steps (resume_step 10).
+    Then 10 timed steps at batch 48 each way (``time_train_steps``). Returns
+    the launch counts of the four."""
+    import csv
+
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import super_res_unsup
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    runs_dir = os.path.join(tmp, "sr_runs")
+    cfg = train_config(tmp, "sr_unsup", data, clip_path, runs_dir, timestep_respacing="100")
+    with torch.device("meta"):  # the modules alone, for their counts
+        bf16_model, int8_model = (recipe_model(sr=True, train_conv_impl=impl)[1] for impl in ("xla", "int8"))
+    per_step, per_fwd = train_counts(bf16_model, False), unet_counts(bf16_model, False)
+
+    _, launches, secs = run_counted(super_res_unsup.main, ["--config-file", cfg, "--device", dev.type, "-d", "sr_unsup"],
+                                    {"DIFFUSION_TRAINING_TEST": "1", "OPENAI_LOG_FORMAT": "log,csv"})
+    check_tensor_core_launches("super_res_unsup")
+    (first,) = os.listdir(runs_dir)
+    run_dir = os.path.join(runs_dir, first)
+    files = set(os.listdir(run_dir))
+    want_files = {"model000010.pt", "ema_0.9999_000010.pt", "opt000010.pt", "progress.csv", "val_samples_0_000010.png",
+                  "val_samples_1_000010.png"}
+    with open(os.path.join(run_dir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    sd = load_state_dict(os.path.join(run_dir, "model000010.pt"))
+    if (not want_files <= files or [int(r["step"]) for r in rows] != [0, 5, 10]
+            or not all(math.isfinite(v) and v > 0 for v in losses)
+            or sd["bias_feat"].shape != (512,) or sd["input_blocks.0.0.weight"].shape[1] != 6):
+        raise AssertionError(f"super_res_unsup: {run_dir} holds {sorted(files)}, progress.csv steps "
+                             f"{[r['step'] for r in rows]}, losses {losses}")
+    # 11 steps (step 0 is an update), then 2 validation chains of 100 forwards at batch 8
+    want = expected(launches, (11, per_step), (200, per_fwd))
+    log(f"  super_res_unsup (batch 48, 128 px, 100 respaced steps; the save at step 10 with two 100-step validation "
+        f"chains of 8): {secs:.1f} s in all; {first}: {', '.join(sorted(files))}; losses {losses}; launches "
+        f"{launches} (expected {want}: 11 steps of {per_step}, 200 forwards of {per_fwd})")
+    if launches != want:
+        raise AssertionError(f"super_res_unsup: launch counts {launches} != {want}")
+    log(f"  super_res_unsup steps 6-10 (progress.csv): the loop waited {1e3 * float(rows[2]['wait_data']) / 5:.2f} ms "
+        f"a step for the loader and spent {1e3 * float(rows[2]['wait_step']) / 5:.2f} ms in run_step")
+
+    per8 = train_counts(int8_model, False)
+    _, launches8, secs8 = run_counted(super_res_unsup.main, [
+        "--config-file", cfg, "--device", dev.type, "-d", "sr_unsup_int8", "--load", "sr_unsup", "--load_file",
+        "model000010.pt", "--lr_anneal_steps", "15", "--train_conv_impl", "int8"], {"OPENAI_LOG_FORMAT": "log,csv"})
+    check_tensor_core_launches("super_res_unsup --train_conv_impl int8")
+    check_conv_tensor_core_launches("super_res_unsup --train_conv_impl int8", 5 * dp4a_convs(int8_model))
+    second = next(d for d in os.listdir(runs_dir) if d.endswith("_sr_unsup_int8"))
+    with open(os.path.join(runs_dir, second, "log.txt")) as f:
+        text = f.read()
+    want8 = expected(launches8, (5, per8))
+    log(f"  super_res_unsup --load {first} --train_conv_impl int8, 5 steps: {secs8:.1f} s; {second}: "
+        f"{', '.join(sorted(os.listdir(os.path.join(runs_dir, second))))}; launches {launches8} (expected {want8})")
+    if ("(step 10)" not in text or "model000015.pt" not in os.listdir(os.path.join(runs_dir, second))
+            or launches8 != want8):
+        raise AssertionError(f"super_res_unsup --load: launches {launches8} != {want8}, or it did not resume step 10 "
+                             f"and save step 15:\n{text[-2000:]}")
+
+    sd = random_state_dict(bf16_model)
+    x, cond = recipe_batch(TRAIN_BATCH, seed=2)
+    timed = {impl: time_train_steps(dev, tmp, sd, x, cond, f"SR-delta {label}", n_steps=10, sr=True, train_conv_impl=impl)
+             for impl, label in (("xla", "bf16"), ("int8", "int8"))}
+    log(f"  SR-delta train step at batch {TRAIN_BATCH}: bf16 {timed['xla']['step_ms']:.2f} ms (busy "
+        f"{timed['xla']['busy_ms']:.2f}, peak {timed['xla']['peak_gib']:.2f} GiB), int8 {timed['int8']['step_ms']:.2f} "
+        f"ms (busy {timed['int8']['busy_ms']:.2f}, peak {timed['int8']['peak_gib']:.2f} GiB)")
+    return [launches, launches8, timed["xla"]["launches"], timed["int8"]["launches"]]
+
+
+def phase12c_sr_train_sample(dev, tmp, data, samples_npz) -> list:
+    """``super_res_train.main`` (``SR_FLAGS``: the upstream model, low_res
+    area-downsampled by its loader) 3 steps at batch 48 on 8c's folder, its
+    checkpoint loading strict=True into ``super_res_sample``'s model; then
+    ``super_res_sample.main`` from N(0, 0.02) weights (an EMA of 3 steps is
+    the initialization, whose zero output convs make eps 0) on phase 9's
+    samples area-downsampled to 64 px, batch 16, 100 ancestral steps, bf16 and
+    ``--conv_impl int8``. Returns the launch counts of the three runs."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import super_res_sample, super_res_train
+    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_model_weights
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, sr_create_model_and_diffusion, sr_model_and_diffusion_defaults, upstream_super_res,
+    )
+
+    def sr_model(*flags):
+        args = super_res_sample.create_argparser().parse_args([*SR_FLAGS, *flags])
+        model = sr_create_model_and_diffusion(**args_to_dict(args, sr_model_and_diffusion_defaults().keys()),
+                                              conv_impl=args.conv_impl)[0]
+        return upstream_super_res(model, args.class_cond)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.device("meta"):
+        models = {"bf16": sr_model(), "int8": sr_model("--conv_impl", "int8")}
+    train_dir = os.path.join(tmp, "sr_train")
+    _, launches, secs = run_counted(super_res_train.main, [
+        *SR_FLAGS, "--data_dir", data, "--batch_size", str(TRAIN_BATCH), "--lr_anneal_steps", "3", "--main_path",
+        train_dir, "--device", dev.type, "-d", "sr_train"], {"OPENAI_LOG_FORMAT": "log,csv"})
+    check_tensor_core_launches("super_res_train")
+    (run,) = os.listdir(train_dir)
+    want = expected(launches, (3, train_counts(models["bf16"], False)))
+    load_model_weights(sr_model(), os.path.join(train_dir, run, "model000003.pt"))
+    log(f"  super_res_train (batch 48, 128 px from 64): 3 steps in {secs:.1f} s with the model's building; {run}: "
+        f"{', '.join(sorted(os.listdir(os.path.join(train_dir, run))))}; model000003.pt loads strict=True into "
+        f"super_res_sample's model; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"super_res_train: launch counts {launches} != {want}")
+
+    ckpt = os.path.join(tmp, "sr_random.pt")
+    torch.save(random_state_dict(models["bf16"]), ckpt)
+    big = np.load(samples_npz)["arr_0"]
+    n = len(big)
+    base = os.path.join(tmp, "sr_base_64.npz")
+    np.savez(base, big.astype(np.float32).reshape(n, 64, 2, 64, 2, 3).mean(axis=(2, 4)).round().astype(np.uint8))
+    runs, images = [launches], {}
+    for name, flags in (("bf16", []), ("int8", ["--conv_impl", "int8"])):
+        model = models[name]
+        per = unet_counts(model, name == "int8")
+        out, launches, wall = run_counted(super_res_sample.main, [
+            *SR_FLAGS, *flags, "--model_path", ckpt, "--base_samples", base, "--timestep_respacing",
+            str(SR_SAMPLE_STEPS), "--batch_size", str(SR_SAMPLE_BATCH), "--num_samples", str(SR_SAMPLE_BATCH),
+            "--main_path", os.path.join(tmp, "sr_samples"), "--device", dev.type, "-d", f"sr_{name}"],
+            {"OPENAI_LOG_FORMAT": "log"})
+        check_tensor_core_launches(f"super_res_sample {name}")
+        if name == "int8":
+            check_conv_tensor_core_launches(f"super_res_sample {name}", SR_SAMPLE_STEPS * dp4a_convs(model))
+        want = expected(launches, (SR_SAMPLE_STEPS, per))
+        images[name] = np.load(out["path"])["arr_0"]
+        secs = out["batch_seconds"][0]
+        log(f"  super_res_sample {name} (batch {SR_SAMPLE_BATCH}, {SR_SAMPLE_STEPS} ancestral steps, 64 -> 128 px): "
+            f"{secs:.3f} s a batch (CUDA events), {1e3 * secs / SR_SAMPLE_STEPS:.2f} ms a step; main() {wall:.1f} s with "
+            f"the model's building and loading; {os.path.basename(out['path'])}; calls {out['calls']}; launches "
+            f"{launches} (expected {want}: per forward {per})")
+        if (launches != want or out["calls"] != {"unet": SR_SAMPLE_STEPS} or images[name].shape != (SR_SAMPLE_BATCH, 128, 128, 3)
+                or images[name].dtype != np.uint8 or not all(im.std() > 0 for im in images[name])):
+            raise AssertionError(f"super_res_sample {name}: calls {out['calls']}, samples {images[name].shape} "
+                                 f"{images[name].dtype}, launches {launches} != {want}")
+        runs.append(launches)
+    sd_bf16, sd_int8 = (images[k].astype(np.float64).std() for k in ("bf16", "int8"))
+    diff = np.abs(images["int8"].astype(np.int64) - images["bf16"].astype(np.int64))
+    log(f"  super_res_sample samples' std: int8 {sd_int8:.3f}, bf16 {sd_bf16:.3f} (bound: within 0.5 relative); int8 "
+        f"vs bf16 (same seeds and weights): mean |uint8 diff| {diff.mean():.3f} (bound: > 0)")
+    if not abs(sd_int8 - sd_bf16) <= 0.5 * sd_bf16 or not diff.mean() > 0:
+        raise AssertionError(f"super_res_sample: int8 samples' std {sd_int8:.3f} against bf16's {sd_bf16:.3f}, "
+                             f"mean |diff| {diff.mean():.3f}")
+    return runs
+
+
+def phase12d_depth_sweep(dev, tmp, run_dir, data, clip) -> dict:
+    """``super_res_depth_sweep_sample.main`` from ``RANDOM_CKPT`` in 8c's run
+    directory on phase 9's test set (configs/image_sample_config.yaml: batch 8,
+    100 respaced steps): chains of 50, 70 and 90 steps from img2 (depths 500,
+    699 and 898), the PNGs, the forwards and launches against the schedule
+    and the modules. Returns the launch counts."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import super_res_depth_sweep_sample as sweep
+    from guided_diffusion_clip_tpu_torch.image_sample import respaced_start
+
+    cfg = sample_config(tmp, "sr_sweep", run_dir, data, clip, load_file=RANDOM_CKPT)
+    with torch.device("meta"):
+        _, model, diffusion = sampling_model(cfg)
+    steps = [respaced_start(diffusion, d) for d in sweep.DEPTHS]
+    per = unet_counts(model, False)
+    out, launches, wall = run_counted(sweep.main, ["--config-file", cfg, "--device", dev.type, "-d", "sr_sweep"],
+                                      {"OPENAI_LOG_FORMAT": "log"})
+    check_tensor_core_launches("super_res_depth_sweep_sample")
+    want = expected(launches, (sum(steps), per))
+    pngs = {*(f"depth_{d}.png" for d in sweep.DEPTHS), "target.png", "start.png"}
+    log(f"  super_res_depth_sweep_sample (batch 8): " + ", ".join(
+        f"depth {d} -> {st} steps {secs:.3f} s" for d, (st, secs) in out["depths"].items())
+        + f" (CUDA events); main() {wall:.1f} s; calls {out['calls']}; launches {launches} (expected {want})")
+    if (launches != want or out["calls"] != {"unet": sum(steps)} or [st for st, _ in out["depths"].values()] != steps
+            or not pngs <= set(os.listdir(out["dir"]))):
+        raise AssertionError(f"super_res_depth_sweep_sample: {sorted(os.listdir(out['dir']))}, calls {out['calls']}, "
+                             f"launches {launches} != {want}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: training ADM-G 256's classifier (classifier_train), then guiding
 # with what it saved; phases 11 and 11b: the fork's CLIP at ViT-B/32's widths
 # (compute_clip_embeddings, the encoders, clip_guided_sample)
@@ -3157,12 +3526,13 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     return clip_path
 
 
-# ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 100 respaced ancestral steps at batch 8
+# ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 40 respaced ancestral steps at batch 8
+# (cut from 100 to pay for phase 12 within the smoke's time limit)
 CLIP_GUIDED_FLAGS = [
     "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
     "--attention_resolutions", "32,16,8", "--num_head_channels", "64", "--resblock_updown", "True",
     "--use_scale_shift_norm", "True", "--learn_sigma", "True", "--class_cond", "True", "--use_fp16", "True",
-    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "100",
+    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "40",
     "--clip_scale", "100", "--batch_size", "8", "--seed", "0",
 ]
 CLIP_GUIDED_MODES = [("bf16", []), ("int8", ["--conv_impl", "int8"]), ("bf16, guidance_cache 2", ["--guidance_cache", "2"])]
@@ -3298,7 +3668,7 @@ def clip_int8_errors(out: dict, ref: dict) -> dict:
 def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
     """``clip_guided_sample.main`` on the ADM-256 CLIP UNet (phase 5's N(0,
     0.02) weights) and the random ViT-B/32, ``--target_image`` a generated
-    image, 100 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
+    image, 40 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
     the calls and the kernels' launches against the modules' counts and the
     schedule, seconds a chain, peak memory, the samples; then a step split by
     part (bf16 and int8), and one int8 step teacher-forced card against CPU
@@ -3326,7 +3696,7 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
         dp4a = dp4a_convs(model)
         del model
         cache = 2 if "--guidance_cache" in flags else 1
-        steps = 100
+        steps = int(CLIP_GUIDED_FLAGS[CLIP_GUIDED_FLAGS.index("--timestep_respacing") + 1])
         n_cond = len(range(0, steps, cache))
         argv = [*CLIP_GUIDED_FLAGS, *flags, "--model_path", unet_path, "--clip_model_path", clip_path,
                 "--target_image", target_image, "--main_path", os.path.join(tmp, "clip_runs"), "--device", dev.type]
@@ -3561,6 +3931,7 @@ def main(argv=None) -> int:
         print(smi())
         return 0
 
+    t3 = time.perf_counter()
     log("phase 3: kernels vs plain versions on the card")
     records = phase3_kernels(dev)
     log("phase 3b: K2 (attention backward) vs its plain version on the card")
@@ -3575,7 +3946,9 @@ def main(argv=None) -> int:
     records["mma_probe"] = phase3f_mma_probe(dev)
     log("phase 3g: int8_conv's quantize kernels vs quantize_per_tensor on the card")
     records["quantize"] = phase3g_quantize(dev)
+    log(f"  phases 3-3g took {time.perf_counter() - t3:.1f} s")
 
+    t4 = time.perf_counter()
     log("phase 4: full-width forward, card vs CPU")
     sd = random_state_dict(clip_unet())
     phase4_forward(dev, sd)
@@ -3587,11 +3960,13 @@ def main(argv=None) -> int:
     phase4d_int8_guidance(dev)
     log("phase 4e: full-width DeepCache forwards (full, shallow), card vs CPU")
     phase4e_deep_cache(dev, sd)
+    log(f"  phases 4-4e took {time.perf_counter() - t4:.1f} s")
 
     import numpy as np
 
     runs = []  # each main path's launch counts
     with tempfile.TemporaryDirectory() as tmp:
+        t5 = time.perf_counter()
         log("phase 5: the slice, served over HTTP")
         ckpt = os.path.join(tmp, "clip_unet_random.pt")  # phase 6 writes the ADM-G UNet's model_random.pt
         torch.save(sd, ckpt)
@@ -3636,6 +4011,7 @@ def main(argv=None) -> int:
             f"({480 / preset_chain:.3f} samples/min, {per_step * preset_chain:.2f} ms a step), plain int8 "
             f"{int8_chain:.3f} s ({480 / int8_chain:.3f} samples/min, {per_step * int8_chain:.2f} ms a step), bf16 "
             f"{bf16_chain:.3f} s ({480 / bf16_chain:.3f} samples/min, {per_step * bf16_chain:.2f} ms a step)")
+        log(f"  phases 5-6c took {time.perf_counter() - t5:.1f} s")
 
         t10 = time.perf_counter()
         log("phase 10: python -m guided_diffusion_clip_tpu_torch.classifier_train on ADM-G 256's classifier, then "
@@ -3652,8 +4028,10 @@ def main(argv=None) -> int:
         runs.extend(phase11b_clip_guided(dev, tmp, ckpt, clip_path))
         log(f"  phase 11b took {time.perf_counter() - t11:.1f} s")
 
+    t7 = time.perf_counter()
     log("phase 7: the tool entry points (conv_bench, mxu_ceiling)")
     runs.append(phase7_tools())
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
     t8 = time.perf_counter()
     log("phase 8a: K1 and K2 at the training recipe's shapes (batch 48, one head, d = 192 and 256)")
@@ -3681,6 +4059,20 @@ def main(argv=None) -> int:
         log("phase 9c: image_nll on 8 images")
         runs.append(phase9c_nll(dev, tmp, run_dir))
         log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+        t12 = time.perf_counter()
+        data, clip_path = os.path.join(tmp, "images"), os.path.join(tmp, "clip_dict.pt")
+        (samples_npz,) = glob.glob(os.path.join(tmp, "**", "*_bf16", "samples_16x128x128x3.npz"), recursive=True)
+        log("phase 12a: the SR-delta model (SRImageModel_Feat) at the recipe's widths, card vs CPU")
+        phase12a_sr_card_vs_cpu(dev, tmp)
+        log("phase 12b: python -m guided_diffusion_clip_tpu_torch.super_res_unsup on 8c's folder, then --load with "
+            "--train_conv_impl int8; train steps at batch 48")
+        runs.extend(phase12b_sr_unsup(dev, tmp, data, clip_path))
+        log("phase 12c: super_res_train, then super_res_sample on phase 9's samples at 64 px, bf16 and int8")
+        runs.extend(phase12c_sr_train_sample(dev, tmp, data, samples_npz))
+        log("phase 12d: super_res_depth_sweep_sample from phase 9's checkpoint")
+        runs.append(phase12d_depth_sweep(dev, tmp, run_dir, os.path.join(tmp, "test_images"),
+                                         os.path.join(tmp, "test_clip_dict.pt")))
+        log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)

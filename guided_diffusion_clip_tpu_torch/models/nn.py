@@ -205,6 +205,16 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def bilinear_resize(x: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear upsampling with half-pixel centres, in x's dtype: what
+    ``SuperResModel`` does to ``low_res`` (reference unet.py:679), and
+    ``jax.image.resize(..., "linear")`` for a size that does not shrink.
+    A shrink raises: JAX antialiases there and this path never shrinks."""
+    if new_hw[0] < x.shape[-2] or new_hw[1] < x.shape[-1]:
+        raise ValueError(f"bilinear_resize upsamples only: {tuple(x.shape[-2:])} -> {tuple(new_hw)}")
+    return F.interpolate(x, size=tuple(new_hw), mode="bilinear", align_corners=False)
+
+
 def upsample_nearest_2x_cl(x: torch.Tensor) -> torch.Tensor:
     """Nearest-x2 of a (B, C, H, W) channels_last tensor of any dtype (the
     s8 q of the int8 path), as an expand and reshape of its NHWC memory:

@@ -1,5 +1,6 @@
-"""The ADM UNet (the ``unet`` and ``clip_feat`` variants) and the
-``EncoderUNetModel`` classifier as PyTorch modules.
+"""The ADM UNet (the ``unet``, ``clip_feat``, ``sr_img_feat``, ``super_res``
+and ``spat_feat`` variants) and the ``EncoderUNetModel`` classifier as
+PyTorch modules.
 
 Counterpart of ``guided_diffusion_clip_tpu/models/unet.py``. Config-driven
 modules; ``build_plan`` unrolls the structure exactly as the JAX package does,
@@ -51,6 +52,7 @@ from .nn import (
     Conv1x1,
     Conv2d,
     avg_pool_2x,
+    bilinear_resize,
     conv2d,
     linear,
     normalization,
@@ -60,6 +62,7 @@ from .nn import (
 )
 
 CONV_IMPLS = ("auto", "xla", "int8")
+VARIANTS = ("unet", "clip_feat", "sr_img_feat", "super_res", "spat_feat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +86,12 @@ class UNetConfig:
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
     use_new_attention_order: bool = False
-    # "embedding" = class table; "mlp" = 2-layer MLP on a float vector (the
-    # JAX package's "mlp_zero" warm-start variant is not ported yet)
+    # "embedding" = class table; "mlp" = 2-layer MLP on a float vector;
+    # "mlp_zero" = that MLP zero-initialized (the SRImageModel_Feat_cont warm start)
     label_emb_type: str = "embedding"
-    # "unet" (plain UNetModel) or "clip_feat" (y = clip_feat); the other JAX
-    # variants are not ported yet
+    # "unet" (plain UNetModel), "clip_feat" (y = clip_feat), "sr_img_feat"
+    # (x ++ img2, y = clip_feat - clip_feat2 + bias_feat), "super_res"
+    # (x ++ upsampled low_res) or "spat_feat" (x ++ two 128x128 feature planes)
     variant: str = "unet"
 
     @property
@@ -378,21 +382,33 @@ def _set_conv_impl(model: nn.Module, conv_impl: str) -> bool:
 
 
 class UNetModel(nn.Module):
-    """The ADM UNet (reference unet.py:396-664), ``unet`` and ``clip_feat`` variants.
+    """The ADM UNet (reference unet.py:396-664) and the fork's variants
+    (reference unet_other.py), as the JAX ``UNetModel`` builds them from
+    ``config.variant``.
 
-    Call: ``model(x, timesteps, y=None, clip_feat=None)`` with x of shape
-    (B, in_channels, H, W); returns (B, out_channels, H, W) in x's dtype.
-    ``low_res``, ``clip_feat2`` and ``img2`` (the inputs of the SR and
-    image-pair variants, which the data loader yields with every CLIP batch)
-    are accepted and ignored, as by the JAX model, so one call serves every
-    variant.
+    Call: ``model(x, timesteps, y=None, clip_feat=None, low_res=None,
+    clip_feat2=None, img2=None)`` with x of shape (B, 3, H, W) (B,
+    in_channels, H, W for ``unet`` and ``clip_feat``); returns (B,
+    out_channels, H, W) in x's dtype. The inputs a variant does not read
+    (the loader yields ``img2`` and ``clip_feat2`` with every CLIP batch) are
+    ignored, so one call serves every variant. Before the torso:
+
+      ``clip_feat``    y = clip_feat
+      ``sr_img_feat``  y = clip_feat - clip_feat2 + bias_feat (f32; ``bias_feat``
+                       an N(0, 1) parameter of shape (num_classes,), f32 under
+                       a bf16 torso), x = x ++ img2 on the channels
+      ``super_res``    x = x ++ ``bilinear_resize(low_res)`` to x's size
+      ``spat_feat``    x = x ++ the 512-d clip_feat tiled 32 times into a
+                       128x128 plane ++ that plane transposed (128 px only)
+
+    ``config.in_channels`` counts the channels after the concatenation.
     ``conv_impl``: "auto"/"xla" (cuDNN) or "int8" (see the module docstring).
     """
 
     def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32, conv_impl: str = "auto"):
         super().__init__()
-        if config.variant not in ("unet", "clip_feat"):
-            raise NotImplementedError(f"UNet variant {config.variant!r}: not yet ported")
+        if config.variant not in VARIANTS:
+            raise ValueError(f"UNet variant {config.variant!r}: choose from {VARIANTS}")
         self.config = cfg = config
         self.dtype = dtype
         mc, ted = cfg.model_channels, cfg.time_embed_dim
@@ -401,10 +417,15 @@ class UNetModel(nn.Module):
         if cfg.num_classes is not None:
             if cfg.label_emb_type == "embedding":
                 self.label_emb = nn.Embedding(cfg.num_classes, ted)
-            elif cfg.label_emb_type == "mlp":
-                self.label_emb = nn.Sequential(linear(cfg.num_classes, ted), nn.SiLU(), linear(ted, ted))
+            elif cfg.label_emb_type in ("mlp", "mlp_zero"):
+                zero = cfg.label_emb_type == "mlp_zero"
+                self.label_emb = nn.Sequential(linear(cfg.num_classes, ted, zero=zero), nn.SiLU(),
+                                               linear(ted, ted, zero=zero))
             else:
-                raise NotImplementedError(f"label_emb_type {cfg.label_emb_type!r}: not yet ported")
+                raise ValueError(f"label_emb_type {cfg.label_emb_type!r}")
+        if cfg.variant == "sr_img_feat" and cfg.num_classes is not None:
+            # built without num_classes only to be re-dispatched (``upstream_super_res``); it cannot run
+            self.bias_feat = nn.Parameter(torch.randn(cfg.num_classes))
 
         input_plan, middle_plan, output_plan, _ = build_plan(cfg)
         ch = cfg.in_channels
@@ -451,12 +472,30 @@ class UNetModel(nn.Module):
         ``num_res_blocks + 1`` (the full-resolution level).
         """
         cfg = self.config
-        if x.shape[1] != cfg.in_channels:
-            raise ValueError(f"input channels {x.shape[1]} != config {cfg.in_channels}")
+        B = x.shape[0]
         if cfg.variant == "clip_feat" and cfg.num_classes is not None:
             if clip_feat is None:
                 raise ValueError("clip_feat-conditional model requires clip_feat")
-            y = clip_feat.reshape(x.shape[0], -1).float()
+            y = clip_feat.reshape(B, -1).float()
+        elif cfg.variant == "sr_img_feat":
+            if cfg.num_classes is None:
+                raise ValueError("the sr_img_feat model conditions on the CLIP delta: it needs num_classes")
+            if clip_feat is None or clip_feat2 is None or img2 is None:
+                raise ValueError("the sr_img_feat model requires clip_feat, clip_feat2 and img2")
+            y = clip_feat.reshape(B, -1).float() - clip_feat2.reshape(B, -1).float() + self.bias_feat.float()
+            x = torch.cat([x, img2.to(x.dtype)], dim=1)
+        elif cfg.variant == "super_res":
+            if low_res is None:
+                raise ValueError("the super_res model requires low_res")
+            x = torch.cat([x, bilinear_resize(low_res.to(x.dtype), x.shape[2:])], dim=1)
+        elif cfg.variant == "spat_feat":
+            if clip_feat is None:
+                raise ValueError("the spat_feat model requires clip_feat")
+            # row-major over (H, W), as the JAX model's NHWC reshape (reference unet_other.py:19-22)
+            plane = clip_feat.reshape(B, 512).to(x.dtype).tile(1, 32).reshape(B, 1, 128, 128)
+            x = torch.cat([x, plane, plane.transpose(2, 3)], dim=1)
+        if x.shape[1] != cfg.in_channels:
+            raise ValueError(f"input channels {x.shape[1]} != config {cfg.in_channels}")
 
         # timestep + label embedding, f32
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels))

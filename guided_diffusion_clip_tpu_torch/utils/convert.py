@@ -75,6 +75,8 @@ def flax_path_to_torch_key(path: tuple[str, ...], *, model: str = "unet", pool: 
         parts = parts[:-2] + [parts[-1]]
     leaf_t = _LEAF.get(parts[-1], parts[-1])
 
+    if top == "bias_feat":  # the SR-delta model's learned offset of the CLIP delta
+        return "bias_feat"
     if top in ("time_embed_0", "time_embed_2"):
         return f"time_embed.{top[-1]}.{leaf_t}"
     if top == "label_emb":

@@ -1,7 +1,8 @@
 """Config/factory layer: defaults dicts, model+diffusion factories, CLI glue.
 
-Counterpart of ``guided_diffusion_clip_tpu/utils/script_util.py``, the part
-that serving and classifier-guided sampling need. The flag surface is the
+Counterpart of ``guided_diffusion_clip_tpu/utils/script_util.py``: the
+defaults and factories of the CLIP UNet, the upstream UNet, the classifier
+and the SR models, and the CLIs' flag handling. The flag surface is the
 reference's; ``use_fp16`` and ``classifier_use_fp16`` map to a bf16 torso.
 NUM_CLASSES = 512: the fork repurposes the class count as the CLIP embedding
 dimension (the upstream UNet and the classifier keep 1000 ImageNet classes).
@@ -13,13 +14,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import os
 
 import torch
 
 from ..diffusion.api import Diffusion
 from ..diffusion.schedules import LossType, ModelMeanType, ModelVarType, build_schedule
-from ..models.clip_models import UNetModel_clip_feat
+from ..models.clip_models import SRImageModel_Feat, UNetModel_clip_feat
 from ..models.unet import EncoderUNetModel, UNetConfig, UNetModel
 
 NUM_CLASSES = 512
@@ -340,6 +342,136 @@ def create_model_and_diffusion(
         timestep_respacing=timestep_respacing,
     )
     return model, diffusion
+
+
+def sr_model_and_diffusion_defaults():
+    """SR defaults, pruned to ``sr_create_model_and_diffusion``'s arguments
+    (reference script_util.py:272-280)."""
+    res = model_and_diffusion_defaults()
+    res["large_size"] = 128
+    res["small_size"] = 64
+    arg_names = inspect.getfullargspec(sr_create_model_and_diffusion)[0]
+    return {k: v for k, v in res.items() if k in arg_names}
+
+
+def sr_channel_mult(large_size: int) -> tuple:
+    """The SR model's channel_mult by its output size (reference script_util.py:356-365)."""
+    if large_size in (512, 256):
+        return (1, 1, 2, 2, 4, 4)
+    if large_size == 128:
+        return (1, 1, 2, 3, 4)
+    if large_size == 64:
+        return (1, 2, 3, 4)
+    raise ValueError(f"unsupported large size: {large_size}")
+
+
+def sr_create_model(
+    large_size,
+    small_size,
+    num_channels,
+    num_res_blocks,
+    learn_sigma,
+    class_cond,
+    use_checkpoint,
+    attention_resolutions,
+    num_heads,
+    num_head_channels,
+    num_heads_upsample,
+    use_scale_shift_norm,
+    dropout,
+    resblock_updown,
+    use_fp16,
+    conv_impl="auto",
+) -> UNetModel:
+    """The fork's SR model, SRImageModel_Feat (reference script_util.py:337-389):
+    6 input channels (x and img2), the CLIP delta as its label when ``class_cond``."""
+    del small_size
+    cfg = UNetConfig(
+        image_size=large_size,
+        in_channels=6,
+        model_channels=num_channels,
+        out_channels=(3 if not learn_sigma else 6),
+        num_res_blocks=num_res_blocks,
+        attention_resolutions=parse_attention_resolutions(attention_resolutions, large_size),
+        dropout=dropout,
+        channel_mult=sr_channel_mult(large_size),
+        num_classes=(NUM_CLASSES if class_cond else None),
+        use_checkpoint=use_checkpoint,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        resblock_updown=resblock_updown,
+    )
+    return SRImageModel_Feat(cfg, dtype=_dtype(use_fp16), conv_impl=conv_impl)
+
+
+def sr_create_model_and_diffusion(
+    large_size,
+    small_size,
+    class_cond,
+    learn_sigma,
+    num_channels,
+    num_res_blocks,
+    num_heads,
+    num_head_channels,
+    num_heads_upsample,
+    attention_resolutions,
+    dropout,
+    diffusion_steps,
+    noise_schedule,
+    timestep_respacing,
+    use_kl,
+    predict_xstart,
+    rescale_timesteps,
+    rescale_learned_sigmas,
+    use_checkpoint,
+    use_scale_shift_norm,
+    resblock_updown,
+    use_fp16,
+    conv_impl="auto",
+):
+    model = sr_create_model(
+        large_size,
+        small_size,
+        num_channels,
+        num_res_blocks,
+        learn_sigma=learn_sigma,
+        class_cond=class_cond,
+        use_checkpoint=use_checkpoint,
+        attention_resolutions=attention_resolutions,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        dropout=dropout,
+        resblock_updown=resblock_updown,
+        use_fp16=use_fp16,
+        conv_impl=conv_impl,
+    )
+    diffusion = create_gaussian_diffusion(
+        steps=diffusion_steps,
+        learn_sigma=learn_sigma,
+        noise_schedule=noise_schedule,
+        use_kl=use_kl,
+        predict_xstart=predict_xstart,
+        rescale_timesteps=rescale_timesteps,
+        rescale_learned_sigmas=rescale_learned_sigmas,
+        timestep_respacing=timestep_respacing,
+    )
+    return model, diffusion
+
+
+def upstream_super_res(model: UNetModel, class_cond: bool) -> UNetModel:
+    """The upstream cascade's SuperResModel at the SR factory's
+    configuration: the ``super_res`` variant (x ++ upsampled ``low_res``)
+    with a class table when ``class_cond``. ``super_res_train`` and
+    ``super_res_sample`` re-dispatch to it, as the JAX scripts do: the fork's
+    factory builds the img2 / CLIP-delta model, and their batches carry
+    ``low_res``."""
+    cfg = dataclasses.replace(model.config, variant="super_res", label_emb_type="embedding",
+                              num_classes=model.config.num_classes if class_cond else None)
+    return UNetModel(cfg, dtype=model.dtype, conv_impl=model.conv_impl)
 
 
 def create_classifier_and_diffusion(
