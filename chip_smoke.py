@@ -46,8 +46,8 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      /sample requests (padded, explicit clip_feat, chunked, coalesced), with
      the kernels' launch counters checked against the forwards it ran;
   6. ``classifier_sample.main`` on the bf16 ADM-G 256 UNet and classifier
-     (random weights from .pt files), 100 ancestral steps at batch 8 (the
-     250 of bench.py cut to ``GUIDED_STEPS``), with
+     (random weights from .pt files), 50 ancestral steps at batch 8 (the
+     250 of bench.py cut to ``GUIDED_STEPS``, 100 before phase 13 came), with
      the launch counters checked against the steps it ran; then one guided
      step timed by part and profiled by kernel.
 
@@ -93,7 +93,7 @@ The deploy preset's sampling knobs and the last two kernels add:
       steps + refreshes times a chain;
   6c. ``classifier_sample.main`` with the preset's four knobs (``--conv_impl
       int8 --deep_cache 5 --guidance_cache 2 --guidance_interval 200,800``),
-      100 ancestral steps at batch 8: the launch counts equal those derived
+      ``GUIDED_STEPS`` ancestral steps at batch 8: the launch counts equal those derived
       from the modules (full and shallow forwards) and from the schedule
       (which steps run the classifier);
   7.  the two tool entry points, ``tools.conv_bench`` and
@@ -117,7 +117,8 @@ UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
       printed beside it as the control;
   8c. ``python -m guided_diffusion_clip_tpu_torch.image_train --config-file``
       on 64 generated PNGs and a ``.pt`` CLIP dict (the recipe's file with
-      save_interval 10, log_interval 5 and the paths pointed at them), with
+      save_interval 10, log_interval 5, the paths pointed at them and,
+      respaced to 100 steps for its validation chains), with
       ``DIFFUSION_TRAINING_TEST=1``: the three checkpoints, finite losses in
       progress.csv, the model loading strict=True into the sampler, and the
       entry point's ms a step and samples/s over steps 6-10, loader
@@ -126,7 +127,7 @@ UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
       the resume runs with ``--profile_dir``, whose trace must hold the
       ``train_step`` scope (``GDC_NATIVE_LOADER=1`` is not run: the native
       decoder needs libjpeg's and libpng's headers to build);
-  8d. 20 timed ``run_step`` calls at batch 48 after 5 of warm-up, without
+  8d. 10 timed ``run_step`` calls at batch 48 after 5 of warm-up, without
       and with ``use_checkpoint``: no host sync (``set_sync_debug_mode``),
       K1/K2/K3 launches against the counts from the modules (every K1/K2
       launch on the tensor-core kernels), ms a step and its split by part,
@@ -175,8 +176,8 @@ use phase 5's ADM-256 CLIP UNet weights) add:
       mode through the ADM-256 CLIP UNet (f32, batch 2, model timestep 500 of
       a 100-step schedule) card vs CPU (1e-3);
   11b. ``clip_guided_sample.main`` on the ADM-256 CLIP UNet and ViT-B/32,
-      ``--target_image``, batch 8, 40 ancestral steps (cut from 100 to pay
-      for phase 12), in bf16, with
+      ``--target_image``, batch 8, 20 ancestral steps (cut from 100 to 40 to
+      pay for phase 12, and to 20 for phase 13), in bf16, with
       ``--conv_impl int8`` and with ``--guidance_cache 2``: the UNet's and
       CLIP's calls against the schedule, the launches against the modules'
       counts (two forwards and one backward a guided step), seconds a chain,
@@ -213,6 +214,39 @@ add:
       test set: chains of 50, 70 and 90 respaced steps at batch 8 from img2,
       a PNG each plus ``target.png`` and ``start.png``, with their seconds.
 
+More than one process, at world 1 (the card's machine has one GPU, and NCCL
+takes one GPU a rank; ``parallel/``):
+  13a. in this process, a world-1 process group (NCCL for CUDA tensors, gloo
+      beside it) started and ended inside the phase: from one state and one
+      batch of the recipe (batch 48, bf16 torso, dropout 0, the same t and
+      noise), two plain steps (no group), then one step under DDP, one under
+      FSDP2 (``param_sharding fsdp``) and one under ZeRO-1 (``opt_impl
+      zero1``), each within ``TRAIN_BF16_TOL`` of the first plain step and
+      within the plain steps' spread plus ``DIST_FLOOR`` (an f32 sum in
+      another order); the spread is the larger of the two plain steps' and
+      of a plain step with FSDP2's association of the gradient sums
+      (``fsdp_association``) against the first, and FSDP2 must equal that step
+      within ``DIST_FLOOR``; K1, K2 and K3 counted against the modules in
+      each; each mode's step time beside the plain one (CUDA events). Then
+      ``--train_conv_impl int8`` at batch 4, DDP and FSDP2 teacher-forced to
+      the plain int8 step's roundings on the card (``Int8Forcing``, as 8e)
+      within ``INT8_TRAIN_TOL`` of the plain int8 step of their association,
+      K4, K5 and the quantize kernels counted too;
+      a second FSDP2 int8 step must find every conv's cached ``w_q`` the
+      quantization of the weights it read (FSDP2 refills the unsharded
+      weights in place without a new version);
+  13b. through ``python -m torch.distributed.run --standalone --nproc_per_node
+      1``: ``image_train --param_sharding fsdp --ckpt_backend orbax`` from
+      N(0, 0.02) weights on 8c's folder (the recipe, respaced to 25 steps so
+      that the save's validation chain is 25 steps), stopped after its DCP
+      save at step 3; resumed from ``<run>/orbax`` under ``--opt_impl zero1``
+      for 3 more steps and a DCP save, while ``image_sample`` from
+      ``<run>/orbax@ema_0.9999`` (25 steps, batch 8) runs under torchrun
+      beside it (most of each child's time is its start); then
+      ``image_sample`` in this process without torchrun: the same bytes.
+      The DCP saves' seconds (blocking the loop, and until written) from the
+      runs' logs.
+
     python3 chip_smoke.py --faults
 
 builds the kernels and runs no path: it takes the two card-vs-CPU steps
@@ -230,7 +264,7 @@ shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
-the timed steps of 12b-12d) and read just after it; every bf16 K1 and K2 launch of a main path
+the timed steps of 12b-12d, each mode's step of 13a) and read just after it; every bf16 K1 and K2 launch of a main path
 (the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
 the FMA-pipe kernels must have taken only the classifier's attention pool,
 which is float32 by the reference's design (one K1 and one K2 a classifier call).
@@ -278,10 +312,11 @@ SLICE_FLAGS = [
 ]
 ATTN_PER_FORWARD = 16  # attention blocks of the ADM-256 UNet at 32/16/8 px
 GN_PER_FORWARD = 101   # 42 ResBlocks x 2 + 16 attention norms + the head
-# ADM-G 256 and its classifier (bench.py:170-198); 100 respaced ancestral steps. bench.py runs 250, with which
+# ADM-G 256 and its classifier (bench.py:170-198); 50 respaced ancestral steps. bench.py runs 250, with which
 # the whole smoke took 991 s of the 1200 s it is allowed on an H100; the same tree with 100 took 1034 s on a
-# slower host (its CPU steps), so 250 would leave no room there; the three chains take ~31 s at 100, ~72 s at 250
-GUIDED_STEPS = 100
+# slower host (its CPU steps), so 250 would leave no room there; the three chains take ~31 s at 100, ~72 s at 250.
+# 50 to pay for phase 13 (with it and 100 steps the smoke took 1068 s)
+GUIDED_STEPS = 50
 GUIDED_FLAGS = [
     "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
     "--attention_resolutions", "32,16,8", "--num_heads", "4", "--num_head_channels", "64",
@@ -1822,11 +1857,15 @@ def _kernel_group(name: str) -> str:
         return "cuBLAS matmuls"
     if "at::native" in name:
         return "PyTorch ops (elementwise, reductions, pools, copies)"
+    if "nccl" in name.lower():
+        return "NCCL"
     return "other"
 
 
 def _profile_kernels(fn, reps: int = 2) -> dict:
-    """Device time (ms per call) and count per call of every kernel ``fn`` launches."""
+    """Device time (ms per call) and count per call of every kernel ``fn`` launches (not the device
+    ranges of ``record_function`` annotations, such as ``DistributedDataParallel.forward``, which
+    the profiler lists beside them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1839,7 +1878,7 @@ def _profile_kernels(fn, reps: int = 2) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
             out[e.key] = (us / 1000 / reps, e.count / reps)
     return out
@@ -2223,7 +2262,8 @@ def train_config(tmp, name, data, clip_path, main_path, **over) -> str:
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "config.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.update(save_interval=10, log_interval=5, data_dir=data, clip_file_path=clip_path, data_dir_test=data,
-               clip_file_path_test=clip_path, main_path=main_path, **over)
+               clip_file_path_test=clip_path, main_path=main_path)
+    cfg.update(over)
     path = os.path.join(tmp, f"{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -2258,7 +2298,8 @@ def phase8c_cli(dev, tmp):
     root = os.path.dirname(os.path.abspath(__file__))
     data, clip_path = train_folder(tmp)
     runs = os.path.join(tmp, "runs")
-    cfg_path = train_config(tmp, "config", data, clip_path, runs)
+    # respaced to 100 steps so that the save's two validation chains are 100 steps each, not 1000
+    cfg_path = train_config(tmp, "config", data, clip_path, runs, timestep_respacing="100")
 
     def run(argv, env):
         """Run image_train: (seconds, {step: seconds from the start to its log row})."""
@@ -2305,7 +2346,7 @@ def phase8c_cli(dev, tmp):
         raise AssertionError(f"progress.csv: steps {[r['step'] for r in rows]}, losses {losses}")
     sampler = recipe_model()[1]
     load_model_weights(sampler, os.path.join(run_dir, "model000010.pt"))
-    log(f"  image_train --config-file (batch 48, 128 px, save at step 10 with two 1000-step validation chains of 8): "
+    log(f"  image_train --config-file (batch 48, 128 px, save at step 10 with two 100-step validation chains of 8): "
         f"{secs:.1f} s; {run_dir}: {', '.join(sorted(files))}; progress.csv losses {losses}; model000010.pt "
         f"loads strict=True into the sampler model (bf16 torso)")
     if sorted(row_at) != [0, 5, 10]:
@@ -2349,7 +2390,7 @@ def phase8c_cli(dev, tmp):
     return run_dir
 
 
-def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=20, **over) -> dict:
+def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=10, **over) -> dict:
     """``n_steps`` ``run_step`` calls of the recipe (``over`` on top) at batch 48 after 5
     of warm-up (and 2 under ``torch.cuda.set_sync_debug_mode("error")``: no
     step waits for the card), the kernels' launches of those ``n_steps`` against
@@ -2491,7 +2532,7 @@ def phase8e_int8_train(dev, tmp) -> dict:
     0, batch 4) on the CPU and on the card, teacher-forced, twice: in f32
     (TF32 off, the straight-through convs in f32) within 1e-3 relative L2, as
     8b's f32 step; with the recipe's bf16 torso and the bf16 straight-through
-    convs as shipped within ``INT8_TRAIN_TOL``. Then 20 timed int8 steps at
+    convs as shipped within ``INT8_TRAIN_TOL``. Then 10 timed int8 steps at
     batch 48 (``time_train_steps``). Returns the timed steps' record."""
     import torch
 
@@ -3532,7 +3573,7 @@ CLIP_GUIDED_FLAGS = [
     "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
     "--attention_resolutions", "32,16,8", "--num_head_channels", "64", "--resblock_updown", "True",
     "--use_scale_shift_norm", "True", "--learn_sigma", "True", "--class_cond", "True", "--use_fp16", "True",
-    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "40",
+    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "20",
     "--clip_scale", "100", "--batch_size", "8", "--seed", "0",
 ]
 CLIP_GUIDED_MODES = [("bf16", []), ("int8", ["--conv_impl", "int8"]), ("bf16, guidance_cache 2", ["--guidance_cache", "2"])]
@@ -3668,7 +3709,7 @@ def clip_int8_errors(out: dict, ref: dict) -> dict:
 def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
     """``clip_guided_sample.main`` on the ADM-256 CLIP UNet (phase 5's N(0,
     0.02) weights) and the random ViT-B/32, ``--target_image`` a generated
-    image, 40 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
+    image, 20 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
     the calls and the kernels' launches against the modules' counts and the
     schedule, seconds a chain, peak memory, the samples; then a step split by
     part (bf16 and int8), and one int8 step teacher-forced card against CPU
@@ -3768,6 +3809,356 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
     del model, vision
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: more than one process, at world 1 (parallel/: DDP, FSDP2, ZeRO-1, DCP)
+# ---------------------------------------------------------------------------
+
+DIST_MODES = [("DDP", {}), ("FSDP2", {"param_sharding": "fsdp"}), ("ZeRO-1", {"opt_impl": "zero1"})]
+# What a mode's step may add to the plain steps' spread: f32 sums taken in another order (FSDP2's global norms are
+# sums of its shards' squares, and the time embedding's gradient gathers its terms in another order)
+DIST_FLOOR = 1e-6
+
+
+def fsdp_association(model) -> list:
+    """An autograd identity on each ``TimestepEmbedSequential`` block's tensor
+    inputs, as FSDP2 puts one on each unit's inputs
+    (``RegisterPostBackwardFunction``); returns the hooks. A block's input
+    then sums its gradient from the block's own layers first and adds the
+    skip connection's after, where the plain graph adds the three terms in
+    the order they arrive. In the bf16 torso that reassociation moves the
+    gradient by bf16 roundings: the plain step with it is the spread that
+    FSDP2's step is held to."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.unet import TimestepEmbedSequential
+
+    class Identity(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *xs):
+            return tuple(x.view_as(x) for x in xs)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            return grads
+
+    return [m.register_forward_pre_hook(lambda mod, args: Identity.apply(*args))
+            for m in model.modules() if isinstance(m, TimestepEmbedSequential)]
+
+
+@contextlib.contextmanager
+def world1_group():
+    """torchrun's variables for a world of 1 and the port's process group
+    (``parallel/dist.py``: NCCL for CUDA tensors, gloo beside it) for the
+    block; both gone after it."""
+    import socket
+
+    from guided_diffusion_clip_tpu_torch.parallel import dist as pdist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not pdist.setup_dist("cuda"):
+            raise AssertionError("setup_dist did not start a process group under torchrun's variables")
+        yield
+    finally:
+        pdist.destroy()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_loop(dev, sd, tmp, batch, int8=False, **kw):
+    """A ``TrainLoop`` of the recipe (dropout 0) on ``dev`` from ``sd``, with
+    the loop's options ``kw`` (``param_sharding``, ``opt_impl``)."""
+    from guided_diffusion_clip_tpu_torch.training.train_loop import TrainLoop
+    from guided_diffusion_clip_tpu_torch.utils import logger
+
+    args, model, diffusion = recipe_model(dropout=0.0, **({"train_conv_impl": "int8"} if int8 else {}))
+    model.load_state_dict(sd, strict=True)
+    logger.configure_dir(tmp, format_strs=[])
+    return TrainLoop(model=model.to(dev), diffusion=diffusion, data=None, batch_size=batch, microbatch=-1,
+                     lr=args.lr, ema_rate=args.ema_rate, log_interval=10**9, save_interval=10**9,
+                     weight_decay=args.weight_decay, **kw)
+
+
+def dist_step(loop, x, cond, noise, t, forcing=None, record=False) -> dict:
+    """One ``run_step`` with the counts set to 0 just before and read just
+    after: the metrics, the full updated parameters and gradient on the host,
+    ``param_groups`` and the launches (``tensor_core_split``)."""
+    from guided_diffusion_clip_tpu_torch.parallel.mesh import full_tensor
+
+    reset_counters()
+    ctx = contextlib.nullcontext() if forcing is None else (
+        forcing.record(loop.model) if record else forcing.force(loop.model))
+    with ctx:
+        loop.run_step(x, cond, noise=noise, t=t)
+    met = loop._fetch(loop._pending_log[2])
+    launches = tensor_core_split(counters())
+    return {"met": met, "launches": launches, "groups": param_groups(loop.model),
+            "params": {n: full_tensor(p.detach(), p).cpu() for n, p in zip(loop.names, loop.params)},
+            "grad": {n: full_tensor(p.grad, p).cpu() for n, p in zip(loop.names, loop.params)}}
+
+
+def dist_step_ms(loop, x, cond, n=5) -> tuple:
+    """(median ms of ``n`` steps after one of warm-up, by CUDA events; the
+    profiler's kernel time of one more step by kernel group, ms: NCCL's
+    kernels run on a stream of their own, beside the backward's)."""
+    import torch
+
+    loop.run_step(x, cond)
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.run_step(x, cond)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    groups: dict = {}
+    prof = _profile_kernels(lambda: loop.run_step(x, cond), reps=1)
+    for k, (kernel_ms, _) in prof.items():
+        groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0.0) + kernel_ms
+    others = sorted(((kernel_ms, k) for k, (kernel_ms, _) in prof.items() if _kernel_group(k) == "other"), reverse=True)
+    groups.update({f"other: {k[:60]}": kernel_ms for kernel_ms, k in others[:2]})
+    loop.flush_metrics()
+    return sorted(times)[len(times) // 2], groups
+
+
+def check_dist_launches(tag, loop, launches) -> dict:
+    """One step's launches against ``train_counts`` (every K1/K2 launch on
+    the tensor cores; under int8 every K5 but the stems' and the head's)."""
+    want = train_counts(loop.model, False)
+    got = {k: launches[k] for k in want}
+    if got != want or any(v for k, v in launches.items() if k not in want and not k.endswith("_fma")):
+        raise AssertionError(f"13a {tag}: launches {launches}, want {want} and no other kernel")
+    if launches["attention_fma"] or launches["attention_bwd_fma"]:
+        raise AssertionError(f"13a {tag}: K1/K2 at d = 192 and 256 ran on the FMA pipes: {launches}")
+    if loop.model.int8:
+        check_conv_tensor_core_launches(f"13a {tag}", dp4a_convs(loop.model))
+    return launches
+
+
+def stale_w_q(loop, weights: dict) -> list:
+    """The int8 convs whose cached ``w_q`` is not the quantization of
+    ``weights``, the parameters their last forward read."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
+    from guided_diffusion_clip_tpu_torch.ops.quant import quantize_per_out_channel
+
+    def fresh(name, m):
+        return m._wq is not None and torch.equal(m._wq[0], quantize_per_out_channel(
+            weights[f"{name}.weight"].to(m._wq[0].device).permute(2, 3, 1, 0))[0])
+
+    return [name for name, m in loop.model.named_modules() if isinstance(m, Conv2d) and not fresh(name, m)]
+
+
+def phase13a_dist_steps(dev, tmp) -> list:
+    """The recipe's step under DDP, FSDP2 and ZeRO-1 at world 1 against the
+    plain step (see the module's docstring). Returns each mode's launches."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    sd = random_state_dict(recipe_model()[1])
+    x, cond = recipe_batch(TRAIN_BATCH, seed=13)
+    noise = torch.randn(TRAIN_BATCH, 3, 128, 128, generator=torch.Generator().manual_seed(14))
+    t = np.random.default_rng(15).integers(0, 1000, TRAIN_BATCH)
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    steps, ms, runs = {}, {}, []
+    for i, tag in enumerate(("plain 0", "plain 1", "plain, FSDP2's association")):
+        loop = dist_loop(dev, sd, os.path.join(tmp, f"plain{i}"), TRAIN_BATCH)
+        hooks = fsdp_association(loop.model) if i == 2 else []
+        steps[tag] = dist_step(loop, x, cond, noise, t)
+        check_dist_launches("plain", loop, steps[tag]["launches"])
+        if i == 1:
+            ms["plain"] = dist_step_ms(loop, x, cond)
+        for h in hooks:
+            h.remove()
+        del loop
+        torch.cuda.empty_cache()
+    runs_apart = step_errors(steps["plain 1"], steps["plain 0"])
+    assoc = step_errors(steps["plain, FSDP2's association"], steps["plain 0"])
+    spread = {k: max(runs_apart[k], assoc[k]) for k in runs_apart}
+    per_step = {k: steps["plain 0"]["launches"][k] for k in ("attention", "attention_bwd", "group_norm")}
+    log(f"  plain step (batch {TRAIN_BATCH}, bf16 torso): loss {float(steps['plain 0']['met']['loss']):.6g}, "
+        f"grad_norm {float(steps['plain 0']['met']['grad_norm']):.6g}; two plain steps apart: {show(runs_apart)}; "
+        f"the plain step with FSDP2's association of the gradient sums against it: {show(assoc)}; launches a step "
+        f"{per_step} (from the modules)")
+    # int8, batch 4 (the forcing keeps every rounding of a step on the host): the plain step records
+    sd8 = random_state_dict(recipe_model(train_conv_impl="int8")[1])
+    x8, cond8 = recipe_batch(4, seed=16)
+    noise8 = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(17))
+    forcing = Int8Forcing(1e-2)
+    loop = dist_loop(dev, sd8, os.path.join(tmp, "plain_int8"), 4, int8=True)
+    steps["plain int8"] = dist_step(loop, x8, cond8, noise8, t[:4], forcing, record=True)
+    loop = dist_loop(dev, sd8, os.path.join(tmp, "plain_int8_assoc"), 4, int8=True)
+    fsdp_association(loop.model)
+    steps["plain int8, FSDP2's association"] = dist_step(loop, x8, cond8, noise8, t[:4], forcing)
+    del loop
+
+    with world1_group():
+        for name, kw in DIST_MODES:
+            loop = dist_loop(dev, sd, os.path.join(tmp, name), TRAIN_BATCH, **kw)
+            got = steps[name] = dist_step(loop, x, cond, noise, t)
+            runs.append(check_dist_launches(name, loop, got["launches"]))
+            errs = step_errors(got, steps["plain 0"])
+            same = step_errors(got, steps["plain, FSDP2's association" if kw.get("param_sharding") else "plain 0"])
+            bound = {k: min(tol, spread[k] + DIST_FLOOR) for k, tol in TRAIN_BF16_TOL.items()}
+            log(f"  {name} (world 1): against the plain step {show(errs)}; bound {show(bound)} (TRAIN_BF16_TOL, and "
+                f"the plain steps' spread plus {DIST_FLOOR:g}); against the plain step of its association {show(same)} "
+                f"(bound {DIST_FLOOR:g})")
+            bad = {k: errs[k] for k, b in bound.items() if not errs[k] <= b}
+            bad.update({f"{k}, same association": v for k, v in same.items() if not v <= DIST_FLOOR})
+            if bad or not math.isfinite(float(got["met"]["loss"])):
+                raise AssertionError(f"13a {name}: the step differs from the plain step's: {bad}")
+            ms[name] = dist_step_ms(loop, x, cond)
+            del loop
+            torch.cuda.empty_cache()
+        for name, kw in DIST_MODES[:2]:
+            loop = dist_loop(dev, sd8, os.path.join(tmp, f"{name}_int8"), 4, int8=True, **kw)
+            got = dist_step(loop, x8, cond8, noise8, t[:4], forcing)
+            runs.append(check_dist_launches(f"{name} int8", loop, got["launches"]))
+            ref = "plain int8, FSDP2's association" if kw else "plain int8"
+            errs, plain = step_errors(got, steps[ref]), step_errors(got, steps["plain int8"])
+            log(f"  {name} int8 (world 1, batch 4), teacher-forced to the plain int8 step's roundings: against the "
+                f"plain int8 step of its association {show(errs)}; bound {INT8_TRAIN_TOL}; against the plain int8 step "
+                f"{show(plain)}; {forcing.summary()}")
+            bad = {k: errs[k] for k, tol in INT8_TRAIN_TOL.items() if not errs[k] <= tol}
+            if bad:
+                raise AssertionError(f"13a {name} int8: the step differs from the plain int8 step's: {bad}")
+            if kw:  # FSDP2: a second step reads the updated weights, refilled in place
+                loop.run_step(x8, cond8)
+                stale = stale_w_q(loop, got["params"])
+                if stale:
+                    raise AssertionError(f"13a FSDP2 int8: {len(stale)} convs kept a stale w_q: {stale[:4]}")
+                log("  FSDP2 int8, a second step: every conv's cached w_q is the quantization of the updated weights")
+                loop.flush_metrics()
+            del loop
+            torch.cuda.empty_cache()
+    log(f"  step at batch {TRAIN_BATCH}, world 1, median of 5 (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, (v, _) in ms.items()))
+    for k, (_, groups) in ms.items():
+        total = sum(t for g, t in groups.items() if not g.startswith("other: "))
+        log(f"    {k}, kernel time of one step by group (profiler): {total:.2f} ms; " + "; ".join(
+            f"{g} {t:.2f}" for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    return runs
+
+
+def torchrun(module, argv, env=None) -> subprocess.Popen:
+    """Start ``python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m module argv`` from the checkout's root; ``finish`` waits for it."""
+    env = {**{k: v for k, v in os.environ.items() if k not in ("DIFFUSION_TRAINING_TEST", "DIFFUSION_BLOB_LOGDIR")},
+           "PYTHONUNBUFFERED": "1", **(env or {})}
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                             "-m", module, *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, what, timeout=600) -> float:
+    """Wait for a ``torchrun`` child; its seconds from now, or an error with its output."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(f"torchrun {what} ran past {timeout} s:\n{out[-3000:]}\n{err[-5000:]}") from None
+    if proc.returncode:
+        raise AssertionError(f"torchrun {what} exited {proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}")
+    return time.perf_counter() - t0
+
+
+def dcp_save_times(log_txt) -> list:
+    """(step, seconds blocking the loop, seconds until written) of each DCP save a run's log.txt records."""
+    with open(log_txt) as f:
+        return [(int(m.group(1)), float(m.group(2)), float(m.group(3))) for m in re.finditer(
+            r"orbax \(DCP\) save of step (\d+): ([\d.]+) s blocking the loop, written ([\d.]+) s", f.read())]
+
+
+def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
+    """``image_train`` under FSDP2 with DCP saves, its resume under ZeRO-1,
+    and ``image_sample`` from the DCP directory with and without torchrun
+    (see the module's docstring). Returns the launches of the last run, in
+    this process."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import image_sample
+
+    root = os.path.join(tmp, "dist")
+    os.makedirs(root)
+    init = os.path.join(root, "model_random.pt")
+    torch.save(random_state_dict(recipe_model()[1]), init)
+    runs = os.path.join(root, "runs")
+    cfg = train_config(root, "config13", data, clip_path, runs, save_interval=3, log_interval=1,
+                       timestep_respacing="25", data_dir_test="", clip_file_path_test="")
+    secs = finish(torchrun("guided_diffusion_clip_tpu_torch.image_train",
+                           ["--config-file", cfg, "--param_sharding", "fsdp", "--ckpt_backend", "orbax",
+                            "--resume_checkpoint", init], {"DIFFUSION_TRAINING_TEST": "1"}), "image_train (FSDP2)")
+    (first,) = os.listdir(runs)
+    run_dir = os.path.join(runs, first)
+    orbax = os.path.join(run_dir, "orbax")
+    if sorted(os.listdir(orbax)) != ["3"] or ".metadata" not in os.listdir(os.path.join(orbax, "3")):
+        raise AssertionError(f"{orbax}: {os.listdir(orbax)}, want one DCP step, 3")
+    saves = dcp_save_times(os.path.join(run_dir, "log.txt"))
+    log(f"  image_train --param_sharding fsdp --ckpt_backend orbax under torchrun, 4 steps and the DCP save at step 3 "
+        f"with a 25-step validation chain: {secs:.1f} s; {orbax}/3: {sorted(os.listdir(os.path.join(orbax, '3')))}; "
+        f"DCP saves (step, s blocking the loop, s until written): {saves}")
+
+    # the resume and the sampling under torchrun read the first run's DCP directory and write apart: they run at
+    # once, most of each child's time its start (the card's kernels run while the other starts)
+    cfgs = [sample_config(root, f"sample13_{where}", run_dir, os.path.join(tmp, "test_images"),
+                          os.path.join(tmp, "test_clip_dict.pt"), f="", load_file="", sub_dir_tstsave="",
+                          main_path=os.path.join(root, where), model_path=orbax + "@ema_0.9999", num_samples=8,
+                          timestep_respacing="25") for where in ("sampled_torchrun", "sampled")]
+    t0 = time.perf_counter()
+    resume = torchrun("guided_diffusion_clip_tpu_torch.image_train",
+                      ["--config-file", cfg, "--opt_impl", "zero1", "--ckpt_backend", "orbax", "--resume_checkpoint",
+                       orbax, "--lr_anneal_steps", "6"])
+    sample = torchrun("guided_diffusion_clip_tpu_torch.image_sample", ["--config-file", cfgs[0]])
+    try:
+        finish(sample, "image_sample")
+        secs_sample = time.perf_counter() - t0
+        finish(resume, "image_train (ZeRO-1)")
+        secs = time.perf_counter() - t0
+    finally:
+        for proc in (resume, sample):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    (second,) = set(os.listdir(runs)) - {first}
+    res_dir = os.path.join(runs, second)
+    with open(os.path.join(res_dir, "log.txt")) as f:
+        text = f.read()
+    res_saves = dcp_save_times(os.path.join(res_dir, "log.txt"))
+    steps = sorted(int(n) for n in os.listdir(os.path.join(res_dir, "orbax")))
+    if "orbax (DCP) checkpoint" not in text or "(step 3)" not in text or steps != [6]:
+        raise AssertionError(f"the zero1 resume did not restore step 3 from {orbax} or save step 6: {steps}\n"
+                             f"{text[-2000:]}")
+    log(f"  resumed from {orbax} under --opt_impl zero1 for 3 steps and a DCP save at step 6 (beside the sampling "
+        f"below): {secs:.1f} s; DCP saves {res_saves}")
+    (path_tr,) = glob.glob(os.path.join(root, "sampled_torchrun", "*", "samples_8x128x128x3.npz"))
+    out, launches, secs1 = run_counted(image_sample.main, ["--config-file", cfgs[1]])
+    a, b = check_samples(path_tr, 8), check_samples(out["path"], 8)
+    if not np.array_equal(a, b) or path_tr == out["path"]:
+        raise AssertionError(f"image_sample from {orbax}@ema_0.9999: {path_tr} under torchrun and {out['path']} "
+                             f"without it differ on {int((a != b).sum())} values")
+    log(f"  image_sample from {orbax}@ema_0.9999 (25 steps, batch 8): under torchrun {secs_sample:.1f} s (beside the "
+        f"resume), in this process {secs1:.1f} s; the same bytes")
+    return launches
 
 
 def _scaled_rstd(stats, k: float):
@@ -4073,6 +4464,13 @@ def main(argv=None) -> int:
         runs.append(phase12d_depth_sweep(dev, tmp, run_dir, os.path.join(tmp, "test_images"),
                                          os.path.join(tmp, "test_clip_dict.pt")))
         log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+        t13 = time.perf_counter()
+        log("phase 13a: the recipe's step under DDP, FSDP2 and ZeRO-1 at world 1 against the plain step, bf16 and int8")
+        runs.extend(phase13a_dist_steps(dev, tmp))
+        log("phase 13b: image_train under torchrun (FSDP2, DCP), resumed under ZeRO-1, image_sample from its DCP "
+            "directory with and without torchrun")
+        runs.append(phase13b_torchrun(dev, tmp, data, clip_path))
+        log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)

@@ -35,8 +35,12 @@ refreshes the generator's deep sub-UNet one step in N (the classifier's
 gradient stays as fresh as the other two flags leave it), and ``--sampler
 dpm++2m`` takes guidance through ``condition_score``.
 
-Not yet ported, and rejected at startup: ``--spatial_shard`` and
-``--tensor_shard``.
+Under torchrun (JAX :171-203) each rank runs ``ceil(num_samples / (B *
+world))`` chains from its own two generators, seeded ``sample_seed(seed,
+2 * rank)`` and ``sample_seed(seed, 2 * rank + 1)`` (rank 0's as one
+process's); every batch is gathered in rank order and rank 0 writes the
+``.npz``, then a barrier. Not yet ported, and rejected at startup:
+``--spatial_shard`` and ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from .diffusion.guidance import (
 )
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.script_util import (
@@ -97,11 +102,15 @@ def main(argv=None) -> dict:
     network ran: {"unet_full", "unet_shallow", "classifier"}}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path or not args.classifier_path:
         raise SystemExit("--model_path and --classifier_path: reference-format .pt state_dicts are required")
+    with pdist.process_group(args.device) as device:
+        return sample(args, device)
+
+
+def sample(args, device: torch.device) -> dict:
     diffusion = create_gaussian_diffusion(
         steps=args.diffusion_steps,
         learn_sigma=args.learn_sigma,
@@ -162,9 +171,10 @@ def main(argv=None) -> dict:
         model_state0 = zero_state(model.config, B, deep_cut, dtype=model.dtype, device=device)
 
     logger.log("sampling...")
-    noise_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 0))
-    class_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 1))
-    n_batches = -(-args.num_samples // B)
+    rank, world = pdist.rank(), pdist.world_size()
+    noise_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 2 * rank))
+    class_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 2 * rank + 1))
+    n_batches = -(-args.num_samples // (B * world))
     all_images, all_labels, chain_seconds = [], [], []
     for _ in range(n_batches):
         # the classifier and the label table have 1000 classes (NUM_CLASSES
@@ -178,17 +188,19 @@ def main(argv=None) -> dict:
                 model_state0=model_state0, cond_state0=cond_state0,
             )
             sample = ((sample + 1) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
-            all_images.append(sample.cpu().numpy())
+            all_images.extend(pdist.all_gather_host(sample.cpu().numpy()))  # rank order
         chain_seconds.append(time.perf_counter() - t0)
-        all_labels.append(classes.cpu().numpy().astype(np.int32))
+        all_labels.extend(pdist.all_gather_host(classes.cpu().numpy().astype(np.int32)))
         logger.log(f"created {len(all_images) * B} samples ({chain_seconds[-1]:.3f} s for the batch)")
 
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
     label_arr = np.concatenate(all_labels, axis=0)[: args.num_samples]
     shape_str = "x".join(str(x) for x in arr.shape)
     out_path = os.path.join(logger.get_dir(), f"samples_{shape_str}.npz")
-    logger.log(f"saving to {out_path}")
-    np.savez(out_path, arr, label_arr)
+    if rank == 0:
+        logger.log(f"saving to {out_path}")
+        np.savez(out_path, arr, label_arr)
+    pdist.barrier("sampling")
     logger.log("sampling complete")
     return {
         "path": out_path, "chain_seconds": chain_seconds,

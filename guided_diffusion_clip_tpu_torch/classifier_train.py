@@ -15,15 +15,17 @@ parameters under a bf16 torso, as ``training/train_loop.py`` does for the
 UNet.
 
 A step (``ClassifierTrainer.step``, JAX ``train_step`` :161-213): timesteps
-from the schedule sampler (``np.random.default_rng(0)``, as the JAX script's
-rank 0; all zero without ``--noised``), the batch noised by ``q_sample``
-(noise from the trainer's ``torch.Generator``, seeded 0), cross-entropy, and
+from the schedule sampler (``np.random.default_rng(rank)``, rank 0's as the
+JAX script's; all zero without ``--noised``), the batch noised by
+``q_sample`` (noise from the trainer's ``torch.Generator``, seeded with the
+rank), cross-entropy, and
 microbatches whose gradients are scaled by ``micro / B`` and summed; then
 one ``torch.optim.AdamW`` (fused on the card; b1 0.9, b2 0.999, eps 1e-8,
 decay ``weight_decay`` times the rate, as ``optax.adamw``) at the rate
 ``lr * max(0, 1 - count / iterations)`` under ``--anneal_lr``, ``count`` the
-updates made before. Dropout draws from torch's default generator, seeded 0.
-Each step's ``loss``, ``acc@1`` and ``acc@5`` are read back one step late
+updates made before. Dropout draws from torch's default generator, seeded
+with the rank. Each step's ``loss``, ``acc@1`` and ``acc@5`` (over every
+rank's rows) are read back one step late
 (pinned memory behind an event), with ``step`` and ``samples``; every
 ``--eval_interval`` steps the classifier's logits at t = 0 on a
 ``--val_data_dir`` batch give ``val_loss``, ``val_acc@1`` and ``val_acc@5``.
@@ -36,13 +38,20 @@ the parameters only, and the loop starts at the step in its name, as the JAX
 script does; a ``.flax`` file is refused with the conversion's recipe.
 ``DIFFUSION_TRAINING_TEST=1`` stops after the first save.
 
-One process: ``--param_sharding fsdp``, ``--spatial_shard`` and
+Under torchrun (JAX :63, :143-153, :270-305) each rank reads its shard of the
+folders and ``--batch_size`` is each rank's: the model runs under DDP (the
+gradient the mean over the ranks, the first microbatches under
+``no_sync()``), or FSDP2 under ``--param_sharding fsdp`` (which needs
+torchrun, at one process too; ``parallel/mesh.py``); rank 0 writes the
+checkpoints, full values under the same names in both modes, and the run ends
+with ``barrier("classifier_train")``. ``--spatial_shard`` and
 ``--tensor_shard`` are not yet ported and are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -52,6 +61,8 @@ import torch.nn.functional as F
 
 from .data.image_datasets import load_data
 from .diffusion.gaussian import q_sample
+from .parallel import dist as pdist
+from .parallel import mesh as pmesh
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import get_blob_logdir
 from .utils import bf_io
@@ -76,8 +87,10 @@ def compute_top_k(logits, labels, k: int) -> float:
 def _refuse(args) -> None:
     if args.param_sharding not in ("replicated", "fsdp"):
         raise SystemExit(f"--param_sharding {args.param_sharding!r}: choose from replicated, fsdp")
+    if args.param_sharding == "fsdp" and not pdist.under_torchrun():
+        raise SystemExit("--param_sharding fsdp: launch under torchrun (python -m torch.distributed.run "
+                         "--nproc_per_node N -m ...); FSDP2 needs a process group")
     for flag, unported in (
-        ("param_sharding fsdp", args.param_sharding == "fsdp"),
         (f"spatial_shard {args.spatial_shard}", int(args.spatial_shard) > 1),
         (f"tensor_shard {args.tensor_shard}", int(args.tensor_shard) > 1),
     ):
@@ -86,11 +99,15 @@ def _refuse(args) -> None:
 
 
 class ClassifierTrainer:
-    """The classifier, its AdamW and the step of scripts/classifier_train.py."""
+    """The classifier, its AdamW and the step of scripts/classifier_train.py;
+    under a process group wrapped in DDP, or FSDP2 with ``fsdp``."""
 
     def __init__(self, model, diffusion, *, batch_size: int, microbatch: int = -1, lr: float = 3e-4,
                  weight_decay: float = 0.0, anneal_lr: bool = False, iterations: int = 1, noised: bool = True,
-                 schedule_sampler=None, seed: int = 0):
+                 schedule_sampler=None, seed: int = 0, fsdp: bool = False):
+        if fsdp and not pdist.is_initialized():
+            raise ValueError("fsdp needs a process group: launch under torchrun")
+        self.rank, self.fsdp = pdist.rank(), fsdp
         self.model = model.float().train()
         self.device = next(model.parameters()).device
         self.sched = diffusion.sched.to(self.device)
@@ -100,9 +117,17 @@ class ClassifierTrainer:
             raise ValueError(f"batch_size {batch_size} is not a multiple of microbatch {self.microbatch}")
         self.lr, self.anneal_lr, self.iterations, self.noised = lr, anneal_lr, iterations, noised
         self.schedule_sampler = schedule_sampler or create_named_schedule_sampler("uniform", diffusion.num_timesteps)
-        self.np_rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        torch.manual_seed(seed)  # the model's dropout
+        self.np_rng = np.random.default_rng(seed + self.rank)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.rank)
+        torch.manual_seed(seed + self.rank)  # the model's dropout
+        self.ddp = None
+        if fsdp:
+            pmesh.shard_model(self.model, pmesh.data_mesh(self.device))
+        elif pdist.is_initialized():
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None)
         opt_kw = {"fused": True} if self.device.type == "cuda" else {"foreach": True}
         self.opt = torch.optim.AdamW(self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=weight_decay, **opt_kw)
@@ -123,7 +148,7 @@ class ClassifierTrainer:
             if noise is None:
                 noise = torch.randn(x.shape, generator=self.generator, device=self.device)
             x = q_sample(self.sched, x, t, noise)
-        logits = self.model(x, t)
+        logits = (self.ddp or self.model)(x, t)
         return F.cross_entropy(logits.float(), y.long(), reduction="none"), logits
 
     def step(self, batch, labels, t=None, noise=None):
@@ -140,14 +165,23 @@ class ClassifierTrainer:
         B, m = self.batch_size, self.microbatch
         for i in range(B // m):
             rows = slice(i * m, (i + 1) * m)
-            ce, lg = self.losses(x[rows], y[rows], t[rows], None if noise is None else noise[rows])
-            # microbatch scaling m / B (classifier_train.py:136): the summed
-            # gradients are the full batch's mean
-            (ce.mean() * (m / B)).backward()
+            with self._grad_sync(i == B // m - 1):
+                ce, lg = self.losses(x[rows], y[rows], t[rows], None if noise is None else noise[rows])
+                # microbatch scaling m / B (classifier_train.py:136): the summed
+                # gradients are the full batch's mean
+                (ce.mean() * (m / B)).backward()
             ces.append(ce.detach())
             logits.append(lg.detach())
         self.update()
         return torch.cat(ces), torch.cat(logits)
+
+    def _grad_sync(self, last: bool):
+        """Only the last microbatch reduces the gradients over the ranks."""
+        if self.fsdp:
+            self.model.set_requires_gradient_sync(last)
+        elif self.ddp is not None and not last:
+            return self.ddp.no_sync()
+        return contextlib.nullcontext()
 
     def update(self) -> None:
         for p in self.model.parameters():  # a parameter no loss reached still decays, as under optax
@@ -170,9 +204,17 @@ class ClassifierTrainer:
             self.model.train()
 
     def save(self, step: int) -> None:
-        out = get_blob_logdir()
-        ckpt.save_state_dict(bf_io.join(out, ckpt.checkpoint_name("model", step)), self.model.state_dict())
-        ckpt.save_state_dict(bf_io.join(out, ckpt.checkpoint_name("opt", step)), self.opt.state_dict())
+        """Every rank takes part (FSDP2 gathers the full values); rank 0 writes."""
+        def full(v):
+            return v.full_tensor() if pmesh.is_dtensor(v) else v
+
+        model = {k: full(v) for k, v in self.model.state_dict().items()}
+        opt = self.opt.state_dict()
+        opt["state"] = {i: {k: full(v) for k, v in st.items()} for i, st in opt["state"].items()}
+        if self.rank == 0:
+            out = get_blob_logdir()
+            ckpt.save_state_dict(bf_io.join(out, ckpt.checkpoint_name("model", step)), model)
+            ckpt.save_state_dict(bf_io.join(out, ckpt.checkpoint_name("opt", step)), opt)
 
 
 def main(argv=None) -> dict:
@@ -181,9 +223,13 @@ def main(argv=None) -> dict:
     the update on the card, else wall time), "dir": the run directory}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        return train(args, device)
+
+
+def train(args, device: torch.device) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
@@ -203,6 +249,7 @@ def main(argv=None) -> dict:
         weight_decay=args.weight_decay, anneal_lr=args.anneal_lr, iterations=args.iterations,
         noised=args.noised,
         schedule_sampler=create_named_schedule_sampler(args.schedule_sampler, diffusion.num_timesteps),
+        fsdp=args.param_sharding == "fsdp",
     )
 
     logger.log("creating data loader...")
@@ -228,8 +275,10 @@ def main(argv=None) -> dict:
         for event in (ev_ces, ev_logits):
             if event is not None:
                 event.synchronize()
-        logits_np = logits.float().numpy()
-        logger.logkv_mean("loss", float(ces.numpy().mean()))
+        # every rank's rows
+        ces, logits_np, labels_p = (pdist.all_gather_host(a) for a in (ces.numpy(), logits.float().numpy(), labels_p))
+        logits_np, labels_p = logits_np.reshape(-1, logits_np.shape[-1]), labels_p.reshape(-1)
+        logger.logkv_mean("loss", float(ces.mean()))
         logger.logkv_mean("acc@1", compute_top_k(logits_np, labels_p, 1))
         logger.logkv_mean("acc@5", compute_top_k(logits_np, labels_p, 5))
 
@@ -237,7 +286,7 @@ def main(argv=None) -> dict:
     for step in range(args.iterations - resume_step):
         cur = step + resume_step
         logger.logkv("step", cur)
-        logger.logkv("samples", (cur + 1) * args.batch_size)
+        logger.logkv("samples", (cur + 1) * args.batch_size * pdist.world_size())
         batch, cond = next(data)
         labels = cond["y"]
         if cuda:
@@ -257,11 +306,12 @@ def main(argv=None) -> dict:
 
         if val_data is not None and not cur % args.eval_interval:
             vb, vcond = next(val_data)
-            vlogits = trainer.eval_logits(vb).cpu()
-            vce = F.cross_entropy(vlogits, torch.as_tensor(vcond["y"]).long(), reduction="none")
+            vlogits = pdist.all_gather_host(trainer.eval_logits(vb).cpu().numpy())
+            vlogits, vy = vlogits.reshape(-1, vlogits.shape[-1]), pdist.all_gather_host(vcond["y"]).reshape(-1)
+            vce = F.cross_entropy(torch.from_numpy(vlogits), torch.as_tensor(vy).long(), reduction="none")
             logger.logkv_mean("val_loss", float(vce.mean()))
-            logger.logkv_mean("val_acc@1", compute_top_k(vlogits.numpy(), vcond["y"], 1))
-            logger.logkv_mean("val_acc@5", compute_top_k(vlogits.numpy(), vcond["y"], 5))
+            logger.logkv_mean("val_acc@1", compute_top_k(vlogits, vy, 1))
+            logger.logkv_mean("val_acc@5", compute_top_k(vlogits, vy, 5))
             evals += 1
 
         if not cur % args.log_interval:
@@ -276,6 +326,7 @@ def main(argv=None) -> dict:
     flush_pending()
     logger.log("saving final model...")
     trainer.save(args.iterations - 1)
+    pdist.barrier("classifier_train")
     step_ms += [s.elapsed_time(e) for s, e in timings]  # the save synchronized the card
     return {"steps": steps, "evals": evals, "resume_step": resume_step, "step_ms": step_ms,
             "dir": logger.get_dir()}
@@ -298,7 +349,7 @@ def create_argparser():
         log_interval=10,
         eval_interval=5,
         save_interval=10000,
-        param_sharding="replicated",  # "fsdp": not yet ported
+        param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         spatial_shard=0,  # > 1: not yet ported
         tensor_shard=0,  # > 1: not yet ported
         device="cuda",

@@ -28,7 +28,8 @@ clip_guidance_cond_fn``). Under ``--conv_impl int8`` that backward runs the
 int8 UNet's straight-through VJPs (``ops/quant.py``, the quantizing
 GroupNorm's), while the loop's own forwards emit real s8. ``--clip_scale`` is a
 comma list: one chain a scale, each drawing from its own per-sample
-generators (``sample_seed(seed, scale_index * batch_size + i)``).
+generators (``sample_seed(seed, (scale_index * world + rank) * batch_size +
+i)``, so that one process draws what it always drew).
 ``--cfg_scale`` (with ``--cfg_cache``) guides the embedding conditioning
 without a classifier (a zero ``clip_feat`` as the null) while the CLIP
 gradient keeps the plain conditional model; ``--guidance_interval lo,hi``
@@ -38,8 +39,9 @@ picks the loop (``resolve_sampler``). The UNet runs under ``torch.no_grad()``
 and the gradient is taken inside the cond_fn.
 
 Written to the logger's directory, per scale: ``clip_guided_scale{s:g}.png``
-(a grid) and ``clip_guided_scale{s:g}.npz`` (uint8 NHWC). One process:
-``--spatial_shard`` and ``--tensor_shard`` above 1 are refused.
+(a grid) and ``clip_guided_scale{s:g}.npz`` (uint8 NHWC). Under torchrun
+(JAX :87, :169, :253) each rank runs its own chains and rank 0 writes its
+own. ``--spatial_shard`` and ``--tensor_shard`` above 1 are refused.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from .diffusion.guidance import (
 from .diffusion.sampling import sample_generators
 from .models.clip_vit import clip_config, clip_guidance_cond_fn, load_clip_params, preprocess_for_clip
 from .models.unet import CONV_IMPLS
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.saving_imgs import save_img, tensor2img
@@ -114,9 +117,13 @@ def main(argv=None) -> dict:
     UNet's forwards and the CLIP encoder's, over all chains}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        return sample(args, device)
+
+
+def sample(args, device: torch.device) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
@@ -168,6 +175,7 @@ def main(argv=None) -> dict:
     loop = resolve_sampler(diffusion, args)
     scales = [float(s) for s in str(args.clip_scale).split(",")]
     paths, chain_seconds = [], []
+    rank, world = pdist.rank(), pdist.world_size()
     for j, scale in enumerate(scales):
         # classifier-free guidance over the embedding conditioning; the CLIP
         # gradient keeps the plain conditional model
@@ -196,7 +204,8 @@ def main(argv=None) -> dict:
         cond_state0 = None
         if int(args.guidance_cache) > 1:
             cond_fn, cond_state0 = cached_cond_fn(cond_fn, int(args.guidance_cache), shape, device=device)
-        rng = sample_generators([args.seed] * B, range(j * B, (j + 1) * B), device)
+        first = (j * world + rank) * B
+        rng = sample_generators([args.seed] * B, range(first, first + B), device)
         t0 = time.perf_counter()
         if device.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -212,10 +221,12 @@ def main(argv=None) -> dict:
         else:
             chain_seconds.append(time.perf_counter() - t0)
         out = os.path.join(logger.get_dir(), f"clip_guided_scale{scale:g}.png")
-        save_img(tensor2img(sample), out)
         paths.append(os.path.join(logger.get_dir(), f"clip_guided_scale{scale:g}.npz"))
-        np.savez(paths[-1], ((sample + 1) * 127.5).clip(0, 255).astype(np.uint8))
+        if rank == 0:
+            save_img(tensor2img(sample), out)
+            np.savez(paths[-1], ((sample + 1) * 127.5).clip(0, 255).astype(np.uint8))
         logger.log(f"scale {scale} -> {out}")
+    pdist.barrier("clip_guided_sample")
     logger.log("clip-guided sampling complete")
     return {"paths": paths, "chain_seconds": chain_seconds, "steps": diffusion.num_timesteps, "calls": calls}
 

@@ -1,9 +1,11 @@
 """Image data pipeline with CLIP-embedding pairing (reference image_datasets.py).
 
-The port's copy of ``guided_diffusion_clip_tpu/data/image_datasets.py`` for
-one process (rank 0 of 1): a host-side numpy pipeline with a background
-prefetch thread. The same files, crops, flips, pairings and batch order as the
-JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
+The port's copy of ``guided_diffusion_clip_tpu/data/image_datasets.py``: a
+host-side numpy pipeline with a background prefetch thread. Each rank reads
+its shard of the files, ``files[rank::world]`` (``shard``/``num_shards``
+override the process group's rank and world), its crops, flips and pairings
+drawn from ``random.Random(seed + shard)``. The same files, crops, flips,
+pairings and batch order as the JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
 (the JAX loader's are NHWC).
 
   - recursive listing of {jpg, jpeg, png, gif} files (:76-85);
@@ -14,7 +16,8 @@ JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
   - ``img2`` / ``clip_feat2``: the image itself 15 % of the time and a random
     partner 85 %; under ``deterministic``, idx pairs with idx - 1 for idx >= 4
     (:117-137);
-  - batches from ``random.Random(1234 + rank)``'s shuffle of the indices.
+  - batches from ``random.Random(1234 + rank)``'s shuffle of the shard's
+    indices, ``rank`` the process's (JAX :67-81, :156-173).
 
 The CLIP dict is ``.npz`` or a ``.pt`` of tensors (loaded with
 ``weights_only=True``). Folders, images and the dict may be URLs (gs://,
@@ -40,9 +43,8 @@ from typing import Iterator
 import numpy as np
 from PIL import Image
 
+from ..parallel import dist as pdist
 from ..utils import bf_io
-
-_RANK = 0  # one process; the rank of torch.distributed once more than one exists
 
 
 def load_data(
@@ -59,9 +61,12 @@ def load_data(
     seed: int = 0,
     prefetch: int = 2,
     native: bool | None = None,
+    shard: int | None = None,
+    num_shards: int | None = None,
 ) -> Iterator:
     """Infinite generator of (images (B, 3, H, W) f32 in [-1, 1], cond dict)
-    batches. ``native`` None reads ``GDC_NATIVE_LOADER``."""
+    batches of this rank's shard. ``native`` None reads ``GDC_NATIVE_LOADER``;
+    ``shard``/``num_shards`` None take the process group's rank and world."""
     if not data_dir:
         raise ValueError("unspecified data directory")
     all_files = list_image_files_recursively(data_dir)
@@ -74,6 +79,8 @@ def load_data(
         image_size,
         all_files,
         classes=classes,
+        shard=pdist.rank() if shard is None else shard,
+        num_shards=pdist.world_size() if num_shards is None else num_shards,
         random_crop=random_crop,
         random_flip=random_flip,
         clip_file_path=clip_file_path,
@@ -86,7 +93,7 @@ def load_data(
 
 def _batched_iterator(dataset, batch_size, deterministic, prefetch):
     def gen():
-        order_rng = random.Random(1234 + _RANK)
+        order_rng = random.Random(1234 + pdist.rank())
         while True:
             order = list(range(len(dataset)))
             if not deterministic:
@@ -152,6 +159,8 @@ class ImageDataset:
         resolution: int,
         image_paths: list[str],
         classes=None,
+        shard: int = 0,
+        num_shards: int = 1,
         random_crop: bool = False,
         random_flip: bool = True,
         clip_file_path: str | None = None,
@@ -160,14 +169,14 @@ class ImageDataset:
         native: bool | None = None,
     ):
         self.resolution = resolution
-        self.local_images = image_paths
-        self.local_classes = classes
+        self.local_images = image_paths[shard:][::num_shards]
+        self.local_classes = None if classes is None else classes[shard:][::num_shards]
         self.random_crop = random_crop
         self.random_flip = random_flip
         self.clip_file_path = clip_file_path
         self.clip_data = _load_clip_dict(clip_file_path) if clip_file_path else None
         self.deterministic = deterministic
-        self.rng = random.Random(seed + _RANK)
+        self.rng = random.Random(seed + shard)
         if native is None:
             native = os.environ.get("GDC_NATIVE_LOADER", "") == "1"
         self.native = bool(native)

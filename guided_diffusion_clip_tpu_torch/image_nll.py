@@ -7,9 +7,12 @@ The flags are scripts/image_nll.py's, plus ``--device`` (default ``cuda``; a
 missing card is an error). Each batch of the folder (in order, no crop or
 flip) runs the whole chain of ``calc_bpd_loop`` (every t of the schedule, one
 UNet forward each) under ``torch.inference_mode``, its noise from one
-``torch.Generator`` seeded 0. Logged: the running mean bpd. Written to the
+``torch.Generator`` seeded with the rank (0 for one process). Logged: the running mean bpd. Written to the
 run directory: ``vb_terms.npz``, ``mse_terms.npz`` and ``xstart_mse_terms.npz``,
 each the (T,) per-t term averaged over the batch and then over the batches.
+Under torchrun (JAX :98-110) each rank scores its shard of the folder, each
+batch's terms and bpd are averaged over the ranks, and rank 0 writes the
+files, then a barrier.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .data.image_datasets import load_data
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.script_util import (
@@ -35,9 +39,13 @@ from .utils.script_util import (
 def main(argv=None) -> dict:
     """Run the CLI; returns ``run_bpd_evaluation``'s result."""
     args = parse_yaml(create_argparser().parse_args(argv))
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        return evaluate(args, device)
+
+
+def evaluate(args, device: torch.device) -> dict:
     model, diffusion = create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()))
     try:
         load_model_weights(model, args.model_path)
@@ -68,7 +76,7 @@ def run_bpd_evaluation(model, diffusion, data, num_samples, clip_denoised, *, no
     ``noise``), for tests. Returns {"bpd": each batch's mean total bpd,
     "terms": the three (T,) arrays, "samples": images done}."""
     device = next(model.parameters()).device
-    rng = torch.Generator(device=device).manual_seed(0)
+    rng = torch.Generator(device=device).manual_seed(pdist.rank())
     all_bpd = []
     all_metrics = {"vb": [], "mse": [], "xstart_mse": []}
     num_complete = 0
@@ -82,16 +90,18 @@ def run_bpd_evaluation(model, diffusion, data, num_samples, clip_denoised, *, no
                 clip_denoised=clip_denoised, model_kwargs=kwargs,
             )
         for key, term_list in all_metrics.items():
-            term_list.append(metrics[key].float().mean(dim=0).cpu().numpy())
-        all_bpd.append(float(metrics["total_bpd"].float().mean()))
-        num_complete += x.shape[0]
+            term_list.append(pdist.all_gather_host(metrics[key].float().mean(dim=0).cpu().numpy()).mean(axis=0))
+        all_bpd.append(float(pdist.all_gather_host(metrics["total_bpd"].float().mean().cpu().numpy()).mean()))
+        num_complete += pdist.world_size() * x.shape[0]
         logger.log(f"done {num_complete} samples: bpd={np.mean(all_bpd)}")
 
     terms = {name: np.mean(np.stack(v), axis=0) for name, v in all_metrics.items()}
-    for name, value in terms.items():
-        out_path = os.path.join(logger.get_dir(), f"{name}_terms.npz")
-        logger.log(f"saving {name} terms to {out_path}")
-        np.savez(out_path, value)
+    if pdist.is_primary():
+        for name, value in terms.items():
+            out_path = os.path.join(logger.get_dir(), f"{name}_terms.npz")
+            logger.log(f"saving {name} terms to {out_path}")
+            np.savez(out_path, value)
+    pdist.barrier("nll")
     logger.log("evaluation complete")
     return {"bpd": all_bpd, "terms": terms, "samples": num_complete}
 

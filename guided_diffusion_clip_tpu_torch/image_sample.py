@@ -36,7 +36,14 @@ Written to the run directory: ``samples_test{i}.png`` and ``target_{i}.png``
 and its uint8 conversion run while the card works on batch i + 1's chain
 (``overlap_device_host``; the copy goes to pinned memory behind an event).
 
-One process: ``--spatial_shard`` and ``--tensor_shard`` above 1 are not yet
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+guided_diffusion_clip_tpu_torch.image_sample ...``, one GPU a rank; JAX
+:65-83, :240-279) each rank samples ``--batch_size`` rows a batch from its
+shard of the test set, ``ceil(num_samples / (batch_size * world))`` batches;
+batch i of rank r seeds its generator ``sample_seed(seed, i * world + r)``,
+so one process draws what it always drew. Every batch is gathered in rank
+order; rank 0 writes the PNGs of its own rows and the ``.npz``, then a
+barrier. ``--spatial_shard`` and ``--tensor_shard`` above 1 are not yet
 ported and are refused.
 """
 
@@ -54,6 +61,7 @@ from .diffusion.deep_cache import cfg_deep_cache_pair, deep_cache_model_fn, zero
 from .diffusion.guidance import cfg_cached_model_fn, cfg_cached_state0, cfg_model_fn, parse_guidance_interval
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.profiling import StepProfiler, annotate
@@ -182,9 +190,13 @@ def main(argv=None) -> dict:
     "calls": the UNet's full and shallow forwards}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        return sample(args, device)
+
+
+def sample(args, device: torch.device) -> dict:
     load_folder_path_parse(args)
     if getattr(args, "main_path", None) and getattr(args, "sub_dir_tstsave", None):
         args.main_path = os.path.join(args.main_path, args.sub_dir_tstsave)
@@ -222,7 +234,8 @@ def main(argv=None) -> dict:
     # the first batch's chain builds the kernels' plans; the second is the steady state
     prof = StepProfiler(args.profile_dir, first_step=1, num_steps=1)
     cuda = device.type == "cuda"
-    n_batches = -(-args.num_samples // args.batch_size)
+    rank, world = pdist.rank(), pdist.world_size()
+    n_batches = -(-args.num_samples // (args.batch_size * world))
     all_images, batch_seconds = [], []
     logger.log("sampling...")
 
@@ -231,7 +244,7 @@ def main(argv=None) -> dict:
             imgs, kwargs = next(data)
             model_kwargs = {k: to_device(v, device) for k, v in add_delta_imgimg(kwargs).items()}
             init_image = model_kwargs.get("img2") if dsp != -1 else None
-            rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, counter))
+            rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, counter * world + rank))
             prof.maybe_start(counter)
             if cuda:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -256,10 +269,11 @@ def main(argv=None) -> dict:
         batch_seconds.append(timing)
         sample_np = host.numpy()
         sample_u8 = ((sample_np + 1) * 127.5).clip(0, 255).astype(np.uint8)
-        save_img(tensor2img(sample_np), os.path.join(logger.get_dir(), f"samples_test{counter}.png"))
-        save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)),
-                 os.path.join(logger.get_dir(), f"target_{counter}.png"))
-        all_images.append(sample_u8)
+        if rank == 0:
+            save_img(tensor2img(sample_np), os.path.join(logger.get_dir(), f"samples_test{counter}.png"))
+            save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)),
+                     os.path.join(logger.get_dir(), f"target_{counter}.png"))
+        all_images.extend(pdist.all_gather_host(sample_u8))  # rank order
         logger.log(f"created {len(all_images) * args.batch_size} samples ({timing:.3f} s for the batch)")
 
     try:
@@ -270,8 +284,10 @@ def main(argv=None) -> dict:
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
     shape_str = "x".join(str(x) for x in arr.shape)
     out_path = os.path.join(logger.get_dir(), f"samples_{shape_str}.npz")
-    logger.log(f"saving to {out_path}")
-    np.savez(out_path, arr)
+    if rank == 0:
+        logger.log(f"saving to {out_path}")
+        np.savez(out_path, arr)
+    pdist.barrier("sampling")
     logger.log("sampling complete")
     return {"path": out_path, "batch_seconds": batch_seconds, "batches": n_batches,
             "steps": diffusion.num_timesteps if dsp == -1 else dsp, "calls": calls}

@@ -21,9 +21,17 @@ a ``torch.profiler`` trace of steps 1 to 3, and
 ``GDC_NATIVE_LOADER=1`` decodes the images with the native C++ library (built
 at first use; a failed build is an error).
 
-Not yet ported, and refused at startup: ``--param_sharding fsdp``,
-``--opt_impl zero1``, ``--spatial_shard``, ``--tensor_shard`` and
-``--ckpt_backend orbax``.
+More than one process: launch under torchrun, one GPU a rank,
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \\
+        -m guided_diffusion_clip_tpu_torch.image_train --config-file configs/config.yaml
+
+(``--device cpu`` runs the ranks on gloo). ``--batch_size`` is each rank's;
+each rank reads its shard of the folder. ``--param_sharding fsdp`` (FSDP2)
+and ``--opt_impl zero1`` (ZeRO-1) need torchrun, at one process too;
+``--ckpt_backend orbax`` saves ``torch.distributed.checkpoint`` directories
+(``training/train_loop.py``). Not yet ported, and refused at startup:
+``--spatial_shard`` and ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from .data.image_datasets import load_data
 from .models.unet import CONV_IMPLS
+from .parallel import dist as pdist
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop, check_ported
 from .utils import logger
@@ -48,16 +57,21 @@ from .utils.script_util import (
 
 
 def _refuse_unported(args) -> None:
-    """Exit on a flag that is not yet ported or not known, before the run directory is made;
-    ``TrainLoop`` is then given none of the flags ``check_ported`` reads (the
-    model's dtype picks the bf16 torso, so ``--use_fp16``'s loss scaling has
-    nothing to act on, and ``--opt_impl tree`` and ``flat`` run one AdamW)."""
+    """Exit on a flag that is not yet ported or not known, or that needs
+    torchrun outside it, before the run directory is made (the model's dtype
+    picks the bf16 torso, so ``--use_fp16``'s loss scaling has nothing to act
+    on, and ``--opt_impl tree`` and ``flat`` run one AdamW)."""
     try:
         check_ported(param_sharding=args.param_sharding, opt_impl=args.opt_impl,
                      spatial_shard=args.spatial_shard, tensor_shard=args.tensor_shard,
                      ckpt_backend=args.ckpt_backend)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
+    for flag, on in ((f"param_sharding {args.param_sharding}", args.param_sharding == "fsdp"),
+                     (f"opt_impl {args.opt_impl}", args.opt_impl == "zero1")):
+        if on and not pdist.under_torchrun():
+            raise SystemExit(f"--{flag} needs a process group: launch under torchrun "
+                             "(python -m torch.distributed.run --nproc_per_node N -m ...)")
     if args.train_conv_impl not in CONV_IMPLS:
         raise SystemExit(f"--train_conv_impl {args.train_conv_impl!r}: choose from {', '.join(CONV_IMPLS)}")
 
@@ -65,9 +79,13 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> None:
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        train(args, device)
+
+
+def train(args, device: torch.device) -> None:
     logger.configure(args=args)
 
     logger.log("\n\t".join(f"{k} = {v}" for k, v in vars(args).items()))
@@ -119,6 +137,9 @@ def main(argv=None) -> None:
         cond_dropout=args.cond_dropout,
         cond_null_y=args.cfg_null_y,
         profile_dir=args.profile_dir,
+        param_sharding=args.param_sharding,
+        opt_impl=args.opt_impl,
+        ckpt_backend=args.ckpt_backend,
     ).run_loop()
 
 

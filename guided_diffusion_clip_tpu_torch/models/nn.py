@@ -141,14 +141,21 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x, prequant_scales=None, out_dtype=None):
         if prequant_scales is None and not self.int8:
-            if self.weight.dtype != x.dtype:
+            w = self.weight
+            if w.dtype != x.dtype or not w.is_contiguous(memory_format=torch.channels_last):
                 # f32 parameters under a bf16 torso (training), as flax's
                 # Conv(dtype=...) with f32 params: cast at the call, so
-                # autograd hands the f32 weight an f32 gradient
-                return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+                # autograd hands the f32 weight an f32 gradient; a channels_last
+                # copy where FSDP2 holds the weight NCHW (parallel/mesh.py), so
+                # that cuDNN runs the convs it runs on the model's own weights
+                w = w.to(x.dtype, memory_format=torch.channels_last)
+                return self._conv_forward(x, w, self.bias.to(x.dtype))
             return super().forward(x)
         w_q, s_w = self.quantized_weight()
-        w = self.weight.permute(2, 3, 1, 0)  # HWIO view
+        w = self.weight
+        if not w.is_contiguous(memory_format=torch.channels_last):
+            w = w.contiguous(memory_format=torch.channels_last)  # FSDP2's NCHW weight, laid out as the model's
+        w = w.permute(2, 3, 1, 0)  # HWIO view
         if prequant_scales is not None:
             y = conv_prequant(
                 x.movedim(1, -1), prequant_scales, w, self.bias, self.stride[0],

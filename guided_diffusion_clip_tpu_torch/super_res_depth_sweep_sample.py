@@ -10,7 +10,9 @@ batch of the test set (in order, no crop or flip; its kwargs staged by
 ``range(500, 1000, 199)`` (original-schedule steps, reference :62), mapped
 into the respaced chain as ``image_sample``'s ``--denoise_start_point``
 (``respaced_start``), by the ancestral loop. Depth i draws from a
-``torch.Generator`` seeded ``sample_seed(seed, i)``. The checkpoint is
+``torch.Generator`` seeded ``sample_seed(seed, i * world + rank)``: under
+torchrun (JAX :50, :93) each rank sweeps the first batch of its shard of the
+test set, and rank 0 writes the PNGs of its own. The checkpoint is
 ``--model_path``, or ``{main_path}/{run}/{load_file}`` with ``--f``
 (``load_folder_path_parse``); ``--sub_dir_tstsave`` puts the run directory
 under ``{main_path}/{sub_dir_tstsave}``.
@@ -34,6 +36,7 @@ import torch
 from .data.image_datasets import load_data
 from .diffusion.sampling import sample_seed
 from .image_sample import _refuse, respaced_start
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import process1, to_device
@@ -56,9 +59,13 @@ def main(argv=None) -> dict:
     forwards}. A chain's seconds are CUDA events on the card."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        return sweep(args, device)
+
+
+def sweep(args, device: torch.device) -> dict:
     load_folder_path_parse(args)
     if getattr(args, "main_path", None) and getattr(args, "sub_dir_tstsave", None):
         args.main_path = os.path.join(args.main_path, args.sub_dir_tstsave)
@@ -90,9 +97,10 @@ def main(argv=None) -> dict:
     start = model_kwargs.get("img2", to_device(imgs, device))
     shape = (len(imgs), 3, args.image_size, args.image_size)
     out, cuda = {}, device.type == "cuda"
+    rank, world = pdist.rank(), pdist.world_size()
     for i, depth in enumerate(DEPTHS):
         st = respaced_start(diffusion, depth)
-        rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, i))
+        rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, i * world + rank))
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
@@ -105,11 +113,15 @@ def main(argv=None) -> dict:
         sample = sample.permute(0, 2, 3, 1).float().cpu().numpy()  # waits for the chain
         secs = ev[0].elapsed_time(ev[1]) / 1e3 if cuda else time.perf_counter() - t0
         path = os.path.join(logger.get_dir(), f"depth_{depth}.png")
-        save_img(tensor2img(sample), path)
+        if rank == 0:
+            save_img(tensor2img(sample), path)
         out[depth] = (st, secs)
         logger.log(f"depth {depth} (respaced {st}) -> {path} ({secs:.3f} s)")
-    save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)), os.path.join(logger.get_dir(), "target.png"))
-    save_img(tensor2img(start.permute(0, 2, 3, 1).float().cpu().numpy()), os.path.join(logger.get_dir(), "start.png"))
+    if rank == 0:
+        save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)), os.path.join(logger.get_dir(), "target.png"))
+        save_img(tensor2img(start.permute(0, 2, 3, 1).float().cpu().numpy()),
+                 os.path.join(logger.get_dir(), "start.png"))
+    pdist.barrier("sweep")
     logger.log("sweep complete")
     return {"dir": logger.get_dir(), "depths": out, "calls": calls}
 

@@ -5,13 +5,14 @@
 
 The base samples are an ``image_sample`` npz (NHWC uint8, ``arr_0``; with
 ``--class_cond`` the labels ``arr_1``), read in order and looped
-(``load_data_for_worker``, rank 0 of 1) as ``low_res`` in [-1, 1] NCHW. The
+(``load_data_for_worker``, rows ``rank::world``) as ``low_res`` in [-1, 1] NCHW. The
 model is ``super_res_train``'s: the SR factory's configuration re-dispatched
 to the upstream ``super_res`` variant, loaded strict from a reference-format
 ``.pt``. Each batch runs the ancestral chain, as the reference (which ignores
 ``--use_ddim`` here); ``--sampler ddim`` or ``dpm++2m`` is the opt-in for a
-fast chain. One ``torch.Generator`` a batch, seeded ``sample_seed(seed,
-batch)``. ``--conv_impl int8`` runs the int8 convs (kernels K4 and K5).
+fast chain. One ``torch.Generator`` a batch, batch i of rank r seeded
+``sample_seed(seed, i * world + r)``. ``--conv_impl int8`` runs the int8
+convs (kernels K4 and K5).
 
 The flags are the JAX script's, plus ``--device`` (default ``cuda``; a
 missing card is an error). The run directory is ``{main_path}/{yymmdd_HHMMSS}_
@@ -20,8 +21,10 @@ missing card is an error). The run directory is ``{main_path}/{yymmdd_HHMMSS}_
 uint8 conversion run while the card works on batch i + 1's chain
 (``overlap_device_host``).
 
-One process: ``--spatial_shard`` and ``--tensor_shard`` above 1 are not yet
-ported and are refused.
+Under torchrun (JAX :45-46, :126-152) each rank runs ``ceil(num_samples /
+(batch_size * world))`` batches of its rows; every batch is gathered in rank
+order and rank 0 writes the ``.npz``, then a barrier. ``--spatial_shard`` and
+``--tensor_shard`` above 1 are not yet ported and are refused.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
+from .parallel import dist as pdist
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import overlap_device_host, to_device, to_host
@@ -58,16 +62,17 @@ def _refuse(args) -> None:
 
 
 def load_data_for_worker(base_samples, batch_size, class_cond):
-    """Batches of the npz's rows in order, looped (super_res_sample.py:77-100,
-    rank 0 of 1): {"low_res": (B, 3, h, w) f32 in [-1, 1]} and, with
-    ``class_cond`` and labels in the file, "y"."""
+    """Batches of this rank's rows of the npz (``rank::world``) in order,
+    looped (super_res_sample.py:77-100): {"low_res": (B, 3, h, w) f32 in
+    [-1, 1]} and, with ``class_cond`` and labels in the file, "y"."""
     with open(base_samples, "rb") as f:
         obj = np.load(f)
         image_arr = obj["arr_0"]
         label_arr = obj["arr_1"] if class_cond and "arr_1" in obj else None
+    rank, world = pdist.rank(), pdist.world_size()
     buffer, label_buffer = [], []
     while True:
-        for i in range(len(image_arr)):
+        for i in range(rank, len(image_arr), world):
             buffer.append(image_arr[i])
             if label_arr is not None:
                 label_buffer.append(label_arr[i])
@@ -109,11 +114,15 @@ def main(argv=None) -> dict:
     "calls": the UNet's forwards}."""
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path:
         raise SystemExit("--model_path: a reference-format .pt is required")
+    with pdist.process_group(args.device) as device:
+        return sample(args, device)
+
+
+def sample(args, device: torch.device) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model...")
@@ -131,14 +140,15 @@ def main(argv=None) -> dict:
     logger.log("loading data...")
     data = load_data_for_worker(args.base_samples, args.batch_size, args.class_cond)
     cuda = device.type == "cuda"
-    n_batches = -(-args.num_samples // args.batch_size)
+    rank, world = pdist.rank(), pdist.world_size()
+    n_batches = -(-args.num_samples // (args.batch_size * world))
     all_images, batch_seconds = [], []
     logger.log("creating samples...")
 
     def dispatched():
         for counter in range(n_batches):
             model_kwargs = {k: to_device(v, device) for k, v in next(data).items()}
-            rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, counter))
+            rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, counter * world + rank))
             if cuda:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -159,7 +169,8 @@ def main(argv=None) -> dict:
             event.synchronize()
             timing = timing[0].elapsed_time(timing[1]) / 1e3
         batch_seconds.append(timing)
-        all_images.append(((host.float().numpy() + 1) * 127.5).clip(0, 255).astype(np.uint8))
+        # rank order
+        all_images.extend(pdist.all_gather_host(((host.float().numpy() + 1) * 127.5).clip(0, 255).astype(np.uint8)))
         logger.log(f"created {len(all_images) * args.batch_size} samples ({timing:.3f} s for the batch)")
 
     overlap_device_host(dispatched(), gather_batch)
@@ -167,8 +178,10 @@ def main(argv=None) -> dict:
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
     shape_str = "x".join(str(x) for x in arr.shape)
     out_path = os.path.join(logger.get_dir(), f"samples_{shape_str}.npz")
-    logger.log(f"saving to {out_path}")
-    np.savez(out_path, arr)
+    if rank == 0:
+        logger.log(f"saving to {out_path}")
+        np.savez(out_path, arr)
+    pdist.barrier("sr_sampling")
     logger.log("sampling complete")
     return {"path": out_path, "batch_seconds": batch_seconds, "batches": n_batches,
             "steps": diffusion.num_timesteps, "calls": calls}

@@ -12,7 +12,8 @@ img2 / CLIP-delta model, and these batches carry ``low_res``; the checkpoint
 is the one ``super_res_sample`` reads. The flags are the JAX script's, plus
 ``--device`` (default ``cuda``; a missing card is an error); the rest is
 ``image_train``'s: the run directory, the checkpoints, ``--train_conv_impl
-int8`` and the refusals of what is not yet ported.
+int8``, torchrun with ``--param_sharding fsdp``, ``--opt_impl zero1`` and
+``--ckpt_backend orbax``, and the refusals of what is not yet ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
+from .parallel import dist as pdist
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -59,9 +61,13 @@ def load_superres_data(data_dir, batch_size, large_size, small_size, class_cond=
 def main(argv=None) -> None:
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    with pdist.process_group(args.device) as device:
+        train(args, device)
+
+
+def train(args, device: torch.device) -> None:
     logger.configure(args=args)
 
     logger.log("creating model...")
@@ -91,6 +97,9 @@ def main(argv=None) -> None:
         weight_decay=args.weight_decay,
         lr_anneal_steps=args.lr_anneal_steps,
         loss_weighting=args.loss_weighting,
+        param_sharding=args.param_sharding,
+        opt_impl=args.opt_impl,
+        ckpt_backend=args.ckpt_backend,
     ).run_loop()
 
 
@@ -111,11 +120,11 @@ def create_argparser() -> argparse.ArgumentParser:
         resume_checkpoint="",
         use_fp16=False,
         fp16_scale_growth=1e-3,
-        param_sharding="replicated",  # "fsdp": not yet ported
-        opt_impl="tree",  # "flat": the same fused AdamW; "zero1": not yet ported
+        param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
+        opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # > 1: not yet ported
         tensor_shard=0,  # > 1: not yet ported
-        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": not yet ported
+        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting
         device="cuda",

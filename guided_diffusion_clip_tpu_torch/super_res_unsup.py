@@ -16,9 +16,10 @@ missing card is an error); ``--train_conv_impl int8`` trains through the int8
 convs, as ``image_train``. The run directory and its checkpoints are
 ``image_train``'s.
 
-Not yet ported, and refused at startup with ``image_train``'s messages:
-``--param_sharding fsdp``, ``--opt_impl zero1``, ``--spatial_shard``,
-``--tensor_shard`` and ``--ckpt_backend orbax``.
+Under torchrun each rank trains on its shard of the folder, and
+``--param_sharding fsdp``, ``--opt_impl zero1`` and ``--ckpt_backend orbax``
+run as under ``image_train``. Not yet ported, and refused at startup with
+``image_train``'s messages: ``--spatial_shard`` and ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
+from .parallel import dist as pdist
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -45,13 +47,17 @@ from .utils.script_util import (
 def main(argv=None) -> None:
     args = parse_yaml(create_argparser().parse_args(argv))
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     if args.load:
         args.f = args.load
         load_folder_path_parse(args)
         args.resume_checkpoint = args.model_path
+    with pdist.process_group(args.device) as device:
+        train(args, device)
+
+
+def train(args, device: torch.device) -> None:
     logger.configure(args=args)
     logger.log("\n\t".join(f"{k} = {v}" for k, v in vars(args).items()))
 
@@ -90,6 +96,9 @@ def main(argv=None) -> None:
         val_datasets=val_datasets or None,
         val_batch_size=args.val_batch_size,
         loss_weighting=args.loss_weighting,
+        param_sharding=args.param_sharding,
+        opt_impl=args.opt_impl,
+        ckpt_backend=args.ckpt_backend,
     ).run_loop()
 
 
@@ -112,11 +121,11 @@ def create_argparser() -> argparse.ArgumentParser:
         resume_checkpoint="",
         use_fp16=False,
         fp16_scale_growth=1e-3,
-        param_sharding="replicated",  # "fsdp": not yet ported
-        opt_impl="tree",  # "flat": the same fused AdamW; "zero1": not yet ported
+        param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
+        opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # > 1: not yet ported
         tensor_shard=0,  # > 1: not yet ported
-        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": not yet ported
+        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting
         # the fork's extras (super_res_unsup.py:148-149)

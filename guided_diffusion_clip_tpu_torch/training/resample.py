@@ -6,13 +6,15 @@ numpy only: ``UniformSampler`` (resample.py:61) and
 training timesteps on the host and return per-example weights
 1 / (T * p[t]), so that the expected loss is unbiased (resample.py:42-59).
 With the same ``np.random.Generator`` they draw the same t and weights as the
-JAX package's samplers. One process: the local (t, loss) pairs are all of
-them (the cross-process gather waits for more than one process).
+JAX package's samplers. A loss-aware sampler gathers every rank's (t, loss)
+pairs before it updates, so every rank keeps the same history.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..parallel.dist import all_gather_host
 
 
 def create_named_schedule_sampler(name: str, num_timesteps: int):
@@ -52,8 +54,11 @@ class UniformSampler(ScheduleSampler):
 
 class LossAwareSampler(ScheduleSampler):
     def update_with_local_losses(self, local_ts, local_losses) -> None:
-        """Update from this process's (t, loss) pairs (resample.py:71-104)."""
-        self.update_with_all_losses(np.asarray(local_ts).tolist(), np.asarray(local_losses).tolist())
+        """Gather every rank's (t, loss) pairs in rank order, then update
+        (resample.py:71-104; JAX ``training/resample.py:60-76``)."""
+        ts = np.ravel(all_gather_host(np.asarray(local_ts)))
+        losses = np.ravel(all_gather_host(np.asarray(local_losses)))
+        self.update_with_all_losses(ts.tolist(), losses.tolist())
 
     def update_with_all_losses(self, ts, losses) -> None:
         raise NotImplementedError

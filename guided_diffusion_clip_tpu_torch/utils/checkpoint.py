@@ -9,6 +9,14 @@ extension: ``model{step:06d}.pt``, ``ema_{rate}_{step:06d}.pt`` (state_dicts
 under the reference's keys, which the JAX package's ``load_params`` reads) and
 ``opt{step:06d}.pt``. Paths may be URLs (gs://, memory://, ...): the files
 are read and written through ``utils/bf_io.py``, as the JAX package's are.
+
+Under ``--ckpt_backend orbax`` the trainer writes ``torch.distributed.checkpoint``
+(DCP) directories, ``{run}/orbax/{step}/`` holding ``model``, ``ema_{rate}``
+and ``opt``, on a local file system. ``load_state_dict`` reads
+``<run>/orbax`` (the newest step's ``model``) and ``<run>/orbax@ema_<rate>``
+(another entry), as the JAX package's ``load_params`` does, so the sampling
+CLIs take them as they are. A JAX orbax directory (tensorstore files) is
+refused with the recipe that converts it.
 """
 
 from __future__ import annotations
@@ -62,8 +70,52 @@ def save_state_dict(path: str, state_dict: dict) -> None:
         torch.save(host(state_dict), f)
 
 
+def is_dcp_path(path: str) -> bool:
+    """``<run>/orbax`` or ``<run>/orbax@<entry>``."""
+    return os.path.basename(path.split("@", 1)[0].rstrip("/")) == "orbax"
+
+
+def latest_dcp_step(orbax_dir: str) -> tuple[int, str]:
+    """(step, its directory) of the newest step under a DCP ``orbax``
+    directory; a JAX orbax directory raises ``ValueError`` with the recipe
+    that converts it."""
+    steps = sorted(int(n) for n in os.listdir(orbax_dir) if n.isdigit()) if os.path.isdir(orbax_dir) else []
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {orbax_dir}")
+    step_dir = os.path.join(orbax_dir, str(steps[-1]))
+    if not os.path.exists(os.path.join(step_dir, ".metadata")):
+        raise ValueError(
+            f"{step_dir} is not a torch.distributed.checkpoint directory (a JAX orbax checkpoint's tensorstore "
+            "files?): write a .pt with the JAX package, guided_diffusion_clip_tpu.utils.checkpoint.save_pt_copy("
+            "path, load_params('<run>/orbax@ema_<rate>', template))"
+        )
+    return steps[-1], step_dir
+
+
+def load_dcp_entry(path: str) -> dict[str, torch.Tensor]:
+    """One entry (``model`` unless ``@<entry>`` names another) of the newest
+    step of a DCP ``orbax`` directory, full tensors on the CPU, read without
+    a process group."""
+    import torch.distributed.checkpoint as dcp
+
+    base, entry = path.split("@", 1) if "@" in os.path.basename(path) else (path, "model")
+    step, step_dir = latest_dcp_step(base.rstrip("/"))
+    meta = dcp.FileSystemReader(step_dir).read_metadata().state_dict_metadata
+    prefix = entry + "."
+    out = {k[len(prefix):]: torch.empty(m.size, dtype=m.properties.dtype)
+           for k, m in meta.items() if k.startswith(prefix) and hasattr(m, "size")}
+    if not out:
+        entries = sorted({m.group(1) for k in meta if (m := re.match(r"(model|opt|ema_[\d.]*\d)\.", k))})
+        raise KeyError(f"{entry!r} is not in {step_dir} (step {step}), which holds {entries}")
+    dcp.load({entry: out}, checkpoint_id=step_dir, no_dist=True)
+    return out
+
+
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """Read a ``.pt`` state_dict onto the CPU (tensors only, no pickled code)."""
+    """Read a ``.pt`` state_dict, or an entry of a DCP ``orbax`` directory
+    (``is_dcp_path``), onto the CPU (tensors only, no pickled code)."""
+    if is_dcp_path(path):
+        return load_dcp_entry(path)
     if not path.endswith(".pt"):
         raise ValueError(
             f"{path}: the PyTorch package loads reference-format .pt files; convert a "

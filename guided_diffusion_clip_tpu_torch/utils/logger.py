@@ -16,8 +16,11 @@ directory, so that the next ``configure`` makes another. ``tensorboard``
 ``step`` through ``torch.utils.tensorboard.SummaryWriter``, and does nothing
 where that does not import. ``log_suffix`` names the files
 (``log{suffix}.txt``, ...); ``scoped_configure`` logs to another directory
-for the length of a block. The per-rank formats (``OPENAI_LOG_FORMAT_MPI``,
-``-rank%03i``) wait for more than one process.
+for the length of a block. Under more than one process every rank logs into
+rank 0's directory: rank 0 with the writers above, rank r > 0 with
+``$OPENAI_LOG_FORMAT_MPI`` (default ``log``) into files suffixed
+``-rank%03i`` (JAX ``utils/logger.py:362-370``); ``distributed_weighted_mean``
+averages a dict of values over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import tempfile
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+from ..parallel import dist as pdist
 
 
 class HumanOutputFormat:
@@ -200,11 +205,17 @@ def configure_dir(dir: str | None = None, format_strs=None, log_suffix: str = ""
         dir = os.getenv("OPENAI_LOGDIR")
     if dir is None:
         stamp = datetime.datetime.now().strftime("openai-%Y-%m-%d-%H-%M-%S-%f")
-        dir = os.path.join(tempfile.gettempdir(), stamp)
+        dir = pdist.broadcast_object(os.path.join(tempfile.gettempdir(), stamp))
     dir = os.path.expanduser(dir)
     os.makedirs(dir, exist_ok=True)
+    rank = pdist.rank()
+    if log_suffix == "" and rank > 0:
+        log_suffix = "-rank%03i" % rank
     if format_strs is None:
-        format_strs = os.getenv("OPENAI_LOG_FORMAT", "stdout,log,csv").split(",")
+        if rank == 0:
+            format_strs = os.getenv("OPENAI_LOG_FORMAT", "stdout,log,csv").split(",")
+        else:
+            format_strs = os.getenv("OPENAI_LOG_FORMAT_MPI", "log").split(",")
     if _current is not None:
         _current.close()
     _current = Logger(dir, [make_output_format(f, dir, log_suffix) for f in format_strs if f])
@@ -218,7 +229,7 @@ def configure(args=None) -> str:
     set, else ``configure_dir()``."""
     if args is None or not getattr(args, "main_path", None):
         return configure_dir()
-    stamp = datetime.datetime.now().strftime("%y%m%d_%H%M%S")
+    stamp = pdist.broadcast_object(datetime.datetime.now().strftime("%y%m%d_%H%M%S"))
     desc = getattr(args, "description", "") or ""
     return configure_dir(os.path.join(args.main_path, f"{stamp}_{desc}" if desc else stamp))
 
@@ -261,6 +272,21 @@ def logkvs(d) -> None:
 
 def dumpkvs() -> dict:
     return get_current().dumpkvs()
+
+
+def distributed_weighted_mean(name2val, name2cnt=None) -> dict:
+    """The mean of each value over the ranks, weighted by its count
+    (default 1): reference mpi_weighted_mean (logger.py:412-439), JAX
+    ``utils/logger.py:203-222``. One process returns the values as they are."""
+    if pdist.world_size() <= 1:
+        return dict(name2val)
+    import numpy as np
+
+    keys = sorted(name2val)
+    vals = np.array([float(name2val[k]) for k in keys], np.float64)
+    cnts = np.array([float((name2cnt or {}).get(k, 1)) for k in keys], np.float64)
+    gv, gc = pdist.all_gather_host(vals), pdist.all_gather_host(cnts)
+    return {k: float((gv[:, i] * gc[:, i]).sum() / max(gc[:, i].sum(), 1e-12)) for i, k in enumerate(keys)}
 
 
 def getkvs():

@@ -88,11 +88,11 @@ def image_train_defaults():
         clip_file_path_test="",
         main_path="",
         profile_dir="",  # a torch.profiler trace of steps 1-3 here
-        param_sharding="replicated",  # "fsdp": not yet ported
-        opt_impl="tree",  # "flat": fused AdamW; "zero1": not yet ported
+        param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
+        opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # > 1: not yet ported
         tensor_shard=0,  # > 1: not yet ported
-        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": not yet ported
+        ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting
         cond_dropout=0.0,  # > 0: drop conditioning per example (train for CFG)

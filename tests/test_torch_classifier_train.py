@@ -248,7 +248,9 @@ def test_training_test_env_stops_after_the_first_save(folders, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--param_sharding", "fsdp"], "param_sharding fsdp: not yet ported"),
+    # the id from when the flag was not yet ported: outside torchrun it is now refused for want of a process group
+    pytest.param(["--param_sharding", "fsdp"], "param_sharding fsdp: launch under torchrun",
+                 id="flags0-param_sharding fsdp: not yet ported"),
     (["--spatial_shard", "2"], "spatial_shard 2: not yet ported"),
     (["--tensor_shard", "2"], "tensor_shard 2: not yet ported"),
     (["--resume_checkpoint", "model000005.flax"], "convert a .flax checkpoint"),

@@ -325,11 +325,18 @@ def test_opt_impl_values_run_one_optimizer(weights):
 
 @pytest.mark.parametrize("option", [
     dict(param_sharding="fsdp"), dict(opt_impl="zero1"), dict(spatial_shard=2), dict(tensor_shard=2),
-    dict(ckpt_backend="orbax"),
+    dict(ckpt_backend="tensorstore"),
 ])
 def test_unported_options_are_refused(weights, option):
+    """``spatial_shard``/``tensor_shard`` are not yet ported; ``fsdp`` and
+    ``zero1`` need a process group (``tests/test_torch_train_dist.py`` runs
+    them on two ranks); ``ckpt_backend`` takes flax or orbax only."""
     _, params = weights
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    error, match = {"param_sharding": (ValueError, "need a process group"),
+                    "opt_impl": (ValueError, "need a process group"),
+                    "ckpt_backend": (ValueError, "ckpt_backend 'tensorstore'")}.get(
+        next(iter(option)), (NotImplementedError, "not yet ported"))
+    with pytest.raises(error, match=match):
         _port_loop(params, **option)
 
 
