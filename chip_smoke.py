@@ -49,7 +49,8 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      (random weights from .pt files), 50 ancestral steps at batch 8 (the
      250 of bench.py cut to ``GUIDED_STEPS``, 100 before phase 13 came), with
      the launch counters checked against the steps it ran; then one guided
-     step timed by part and profiled by kernel.
+     step timed by part (each part as calls back to back, as the chain
+     issues them) and profiled by kernel.
 
 The int8 path (``--conv_impl int8``, kernels K4 and K5) adds:
   3c. K4 (the quantizing GroupNorm) against its plain version at the paths'
@@ -176,15 +177,17 @@ use phase 5's ADM-256 CLIP UNet weights) add:
       mode through the ADM-256 CLIP UNet (f32, batch 2, model timestep 500 of
       a 100-step schedule) card vs CPU (1e-3);
   11b. ``clip_guided_sample.main`` on the ADM-256 CLIP UNet and ViT-B/32,
-      ``--target_image``, batch 8, 20 ancestral steps (cut from 100 to 40 to
-      pay for phase 12, and to 20 for phase 13), in bf16, with
+      ``--target_image``, batch 8, 10 ancestral steps (cut from 100 to 40 to
+      pay for phase 12, to 20 for phase 13 and to 10 for phase 14), in bf16, with
       ``--conv_impl int8`` and with ``--guidance_cache 2``: the UNet's and
       CLIP's calls against the schedule, the launches against the modules'
       counts (two forwards and one backward a guided step), seconds a chain,
-      peak memory; a step split by part (the loop's UNet forward, the
+      peak memory; a bf16 step split by part (the loop's UNet forward, the
       cond_fn's, CLIP forward + backward, the UNet backward; profiler device
-      ms by kernel group), bf16 and int8; one int8 step (f32, batch 1)
-      teacher-forced card vs CPU within ``CLIP_INT8_TOL``.
+      ms by kernel group). Until phase 14 came it also split an int8 step and held
+      one int8 step (f32, batch 1) teacher-forced card vs CPU within
+      ``CLIP_INT8_TOL``; ``--faults`` runs that step (twice clean, then
+      under each fault), and the default run left both to pay for phase 14.
 
 The fork's SR models (run inside phases 8-9's directory, after 9c, on 8c's
 images and CLIP dict and phase 9's test set, checkpoint and samples): the
@@ -247,11 +250,37 @@ takes one GPU a rank; ``parallel/``):
       The DCP saves' seconds (blocking the loop, and until written) from the
       runs' logs.
 
+The measuring tools (``guided_diffusion_clip_tpu_torch/tools/``), each through
+its ``main()`` at its headline configuration, only its repeats and windows
+cut by its own environment variables; each row's keys finite and positive,
+its card the one ``nvidia-smi`` names, its launches counted against the
+modules:
+  14a. ``train_step_bench`` on the recipe (``TSB_CONFIG fork128``, batch 48),
+      bf16 and ``TSB_CONV_IMPL int8``, 2 windows of the tool's default 10
+      steps: its device ms a step (the profiler's kernel sum) within
+      ``TOOL_AGREEMENT`` of 8d's (8e's int8 ratio logged), its window's ms
+      a step against 8d's median logged, and its FLOP count
+      (``utils/flops.py``) the same both ways; run right after 8e;
+  14b. ``perf_breakdown`` at batch 8, bf16: each part's device ms within
+      ``TOOL_AGREEMENT`` of phase 6's profile of the same part
+      (``profile_guided_step``), its CUDA-event ms against phase 6's
+      logged, and the guided step's FLOP count; run right after that split,
+      so that both run in the same state of the process (at the end of the
+      run the same parts' device ms read 0.71-1.01 of phase 6's).
+      Wall-clock agreement is logged and not held: the recipe's step and
+      the classifier's forward are host-bound (the card busy for 63-76 %
+      and a quarter to a third of them), and on the shared host the same
+      reading moved from 0.61 to 1.54 of the phase's within one run;
+  14c. ``serve_bench`` at ADM-256, batch 8, ddim25, int8, 3 requests a
+      measure: its server runs in another process, so the launches are the
+      server's own, read from its ``/healthz`` against its forwards;
+  14d. ``block_microbench`` at its four shapes.
+
     python3 chip_smoke.py --faults
 
 builds the kernels and runs no path: it takes the two card-vs-CPU steps
 whose bounds were set from faults, the bf16-torso classifier step of phase
-10 and the int8 CLIP-guided step of 11b, once on the CPU and then on the card
+10 and the int8 CLIP-guided step (11b's until phase 14 came), once on the CPU and then on the card
 cleanly twice and under each of ``FAULTS`` (one kernel's result, or the
 GroupNorm backward's, scaled on the card only), and prints each one's
 distances beside the bounds they break.
@@ -264,7 +293,7 @@ shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
-the timed steps of 12b-12d, each mode's step of 13a) and read just after it; every bf16 K1 and K2 launch of a main path
+the timed steps of 12b-12d, each mode's step of 13a, each tool of 14) and read just after it; every bf16 K1 and K2 launch of a main path
 (the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
 the FMA-pipe kernels must have taken only the classifier's attention pool,
 which is float32 by the reference's design (one K1 and one K2 a classifier call).
@@ -996,27 +1025,17 @@ def phase3f_mma_probe(dev):
                   ops=t_lo * ops, op_type="s8", library_ms=t_lo * one_s8)
 
 
-def _wrappers() -> dict:
-    """Kernel name -> the wrapper that launches it (and counts its launches)."""
-    from guided_diffusion_clip_tpu_torch.ops import attention as A
-    from guided_diffusion_clip_tpu_torch.ops import fused_conv as FC
-    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
-    from guided_diffusion_clip_tpu_torch.ops import mma_probe as MP
-    from guided_diffusion_clip_tpu_torch.ops import quant as Q
-
-    return {"attention": A.attention_fwd_cuda, "attention_bwd": A.attention_bwd_cuda,
-            "group_norm": G.fused_group_norm, "group_norm_quant": G.fused_group_norm_quant,
-            "conv_s8": Q.conv_s8_cuda, "quantize": Q.quantize_per_tensor_cuda,
-            "conv_fused": FC.fused_conv3x3_cuda, "mma_probe": MP.accumulating_dots_cuda}
-
-
 def counters() -> dict:
     """Every kernel wrapper's launch count."""
-    return {fn_name: fn.launches for fn_name, fn in _wrappers().items()}
+    from guided_diffusion_clip_tpu_torch.ops import kernel_wrappers
+
+    return {fn_name: fn.launches for fn_name, fn in kernel_wrappers().items()}
 
 
 def reset_counters() -> None:
-    for fn in _wrappers().values():
+    from guided_diffusion_clip_tpu_torch.ops import kernel_wrappers
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_mma"):
             fn.launches_mma = 0
@@ -1862,39 +1881,19 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile_kernels(fn, reps: int = 2) -> dict:
-    """Device time (ms per call) and count per call of every kernel ``fn`` launches (not the device
-    ranges of ``record_function`` annotations, such as ``DistributedDataParallel.forward``, which
-    the profiler lists beside them)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-            out[e.key] = (us / 1000 / reps, e.count / reps)
-    return out
-
-
 def profile_guided_step(dev, paths, conv_impl="auto"):
     """One guided ancestral step at batch 8: CUDA-event times of its parts,
     and torch.profiler device time by kernel group for the UNet forward, the
     classifier forward and the classifier backward (cond_fn less the
-    forward); returns the step's ms."""
+    forward); returns (the parts' ms by CUDA events, their device ms by the
+    profiler)."""
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample
     from guided_diffusion_clip_tpu_torch.diffusion import sampling as S
     from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
     from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_model_weights
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
     from guided_diffusion_clip_tpu_torch.utils.script_util import (
         args_to_dict, create_classifier, create_gaussian_diffusion, create_upstream_model,
     )
@@ -1937,12 +1936,15 @@ def profile_guided_step(dev, paths, conv_impl="auto"):
     parts["classifier backward"] = parts["classifier forward + backward"] - parts["classifier forward"]
     log("  CUDA events, ms: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
 
-    prof = {"UNet forward": _profile_kernels(unet_fwd), "classifier forward": _profile_kernels(clf_fwd)}
-    both, fwd = _profile_kernels(clf_fwd_bwd), prof["classifier forward"]
+    prof = {"UNet forward": kernel_times(unet_fwd), "classifier forward": kernel_times(clf_fwd)}
+    both, fwd = kernel_times(clf_fwd_bwd), prof["classifier forward"]
     prof["classifier backward"] = {
         k: (ms - fwd.get(k, (0, 0))[0], n - fwd.get(k, (0, 0))[1]) for k, (ms, n) in both.items()
     }
-    busy = sum(ms for ms, _ in _profile_kernels(step).values())
+    busy = sum(ms for ms, _ in kernel_times(step).values())
+    device = {"UNet forward": sum(ms for ms, _ in prof["UNet forward"].values()),
+              "classifier forward": sum(ms for ms, _ in fwd.values()),
+              "classifier forward + backward": sum(ms for ms, _ in both.values()), "guided step": busy}
     log(f"  profiler: device busy {busy:.2f} ms of the {parts['guided step']:.2f} ms step "
         f"(idle {100 * (1 - busy / parts['guided step']):.0f} %)")
     for part, kernels in prof.items():
@@ -1957,7 +1959,7 @@ def profile_guided_step(dev, paths, conv_impl="auto"):
     log("  classifier backward, top kernels (ms, launches):")
     for k, (ms, n) in sorted(prof["classifier backward"].items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"    {ms:8.3f} x{n:<5.0f} {k[:110]}")
-    return parts["guided step"]
+    return parts, device
 
 
 # ---------------------------------------------------------------------------
@@ -2402,6 +2404,8 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=10, **over) -> dict:
     "peak_gib"}."""
     import torch
 
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
+
     loop = recipe_loop(dev, sd, TRAIN_BATCH, os.path.join(tmp, f"time_{tag}".replace(" ", "_")), **over)
     remat = bool(over.get("use_checkpoint"))
     for _ in range(5):
@@ -2459,7 +2463,7 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=10, **over) -> dict:
     med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
     step_ms = sorted(steps)[len(steps) // 2]
 
-    prof = _profile_kernels(lambda: loop.run_step(x, cond))
+    prof = kernel_times(lambda: loop.run_step(x, cond))
     loop.flush_metrics()
     busy = sum(ms for ms, _ in prof.values())
     groups: dict = {}
@@ -3279,6 +3283,7 @@ def phase10_classifier_train(dev, tmp, paths) -> list:
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample, classifier_train
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
     from guided_diffusion_clip_tpu_torch.utils.script_util import (
         args_to_dict, classifier_and_diffusion_defaults, create_classifier_and_diffusion,
     )
@@ -3353,7 +3358,7 @@ def phase10_classifier_train(dev, tmp, paths) -> list:
         if got != {k: n_micro * v for k, v in per.items()}:
             raise AssertionError(f"a classifier step launched {got}, not {n_micro} x {per}")
     step_ms = sorted(times)[2]
-    prof = _profile_kernels(lambda: trainer.step(x, y))
+    prof = kernel_times(lambda: trainer.step(x, y))
     busy = sum(ms for ms, _ in prof.values())
     groups: dict = {}
     for k, (ms, n) in prof.items():
@@ -3567,13 +3572,13 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     return clip_path
 
 
-# ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 40 respaced ancestral steps at batch 8
-# (cut from 100 to pay for phase 12 within the smoke's time limit)
+# ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 10 respaced ancestral steps at batch 8
+# (cut from 100 to 40, 20 and 10 to pay for phases 12, 13 and 14 within the smoke's time limit)
 CLIP_GUIDED_FLAGS = [
     "--image_size", "256", "--num_channels", "256", "--num_res_blocks", "2",
     "--attention_resolutions", "32,16,8", "--num_head_channels", "64", "--resblock_updown", "True",
     "--use_scale_shift_norm", "True", "--learn_sigma", "True", "--class_cond", "True", "--use_fp16", "True",
-    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "20",
+    "--noise_schedule", "linear", "--diffusion_steps", "1000", "--timestep_respacing", "10",
     "--clip_scale", "100", "--batch_size", "8", "--seed", "0",
 ]
 CLIP_GUIDED_MODES = [("bf16", []), ("int8", ["--conv_impl", "int8"]), ("bf16, guidance_cache 2", ["--guidance_cache", "2"])]
@@ -3589,6 +3594,7 @@ def clip_step_parts(dev, model, vision, target, diffusion, x):
 
     from guided_diffusion_clip_tpu_torch.diffusion import sampling as S
     from guided_diffusion_clip_tpu_torch.models.clip_vit import clip_guidance_cond_fn, preprocess_for_clip
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
 
     sched = diffusion.sched.to(dev)
     cfg = S.SamplerConfig(mean_type=diffusion.mean_type, var_type=diffusion.var_type)
@@ -3627,14 +3633,14 @@ def clip_step_parts(dev, model, vision, target, diffusion, x):
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(step, runs=5, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    prof = {"loop UNet forward": _profile_kernels(unet_fwd, 1),
-            "cond_fn UNet forward": _profile_kernels(unet_fwd_grad, 1),
-            "CLIP forward + backward": _profile_kernels(clip_fwd_bwd, 1)}
-    whole = _profile_kernels(cond_fn, 1)
+    prof = {"loop UNet forward": kernel_times(unet_fwd, 1),
+            "cond_fn UNet forward": kernel_times(unet_fwd_grad, 1),
+            "CLIP forward + backward": kernel_times(clip_fwd_bwd, 1)}
+    whole = kernel_times(cond_fn, 1)
     rest = {k: (ms - sum(p.get(k, (0, 0))[0] for p in list(prof.values())[1:]),
                 n - sum(p.get(k, (0, 0))[1] for p in list(prof.values())[1:])) for k, (ms, n) in whole.items()}
     prof["UNet backward"] = rest
-    busy = sum(ms for ms, _ in _profile_kernels(step, 1).values())
+    busy = sum(ms for ms, _ in kernel_times(step, 1).values())
     log(f"  one step at batch 8: {step_ms:.2f} ms (CUDA events, median of 5), device busy {busy:.2f} ms "
         f"({100 * busy / step_ms:.0f} %), peak memory {peak:.2f} GiB")
     parts = {}
@@ -3709,7 +3715,7 @@ def clip_int8_errors(out: dict, ref: dict) -> dict:
 def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
     """``clip_guided_sample.main`` on the ADM-256 CLIP UNet (phase 5's N(0,
     0.02) weights) and the random ViT-B/32, ``--target_image`` a generated
-    image, 20 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
+    image, 10 ancestral steps at batch 8, in each of ``CLIP_GUIDED_MODES``:
     the calls and the kernels' launches against the modules' counts and the
     schedule, seconds a chain, peak memory, the samples; then a step split by
     part (bf16 and int8), and one int8 step teacher-forced card against CPU
@@ -3720,7 +3726,6 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
 
     from guided_diffusion_clip_tpu_torch import clip_guided_sample
     from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIPConfig, load_clip_params
-    from guided_diffusion_clip_tpu_torch.ops import quant as Q
     from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_state_dict
     from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
 
@@ -3773,39 +3778,18 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
             if not diff.mean() > 0:
                 raise AssertionError(f"{name}'s samples equal bf16's")
 
-    # a step by part, bf16 and int8
+    # a step by part, bf16 (the int8 split, and the int8 step teacher-forced card vs CPU that --faults runs, paid
+    # for phase 14)
     cfg = CLIPConfig()
     vision = load_clip_params(clip_path, cfg)[0].to(dev).requires_grad_(False)
     target = torch.randn(512, generator=torch.Generator().manual_seed(32)).to(dev)
     diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
     x = torch.randn(8, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(33), device=dev)
     t_parts = time.perf_counter()
-    sd = load_state_dict(unet_path)
-    parts = {}
-    for impl in ("auto", "int8"):
-        log(f"  a CLIP-guided step by part, {'int8' if impl == 'int8' else 'bf16'}:")
-        model = clip_unet(sd, use_fp16=True, conv_impl=impl).to(dev)
-        parts[impl] = clip_step_parts(dev, model, vision, target, diffusion, x)
-        del model
-        torch.cuda.empty_cache()
-
-    # one int8 step, f32, teacher-forced: the loop's forward (s8) and the cond_fn's (under autograd)
-    log(f"  the steps by part took {time.perf_counter() - t_parts:.1f} s")
-    t_forced = time.perf_counter()
-    tf32_off()
-    model = clip_unet(sd, conv_impl="int8")
-    del sd
-    xs, z = clip_int8_step_input()
-    forcing = Int8Forcing()
-    ref = clip_int8_step(torch.device("cpu"), model, vision, target, diffusion, xs, z, forcing.record)
-    out = clip_int8_step(dev, model, vision, target, diffusion, xs, z, forcing.force)
-    errs = clip_int8_errors(out, ref)
-    log(f"  int8 CLIP-guided step {tuple(xs.shape)} f32, teacher-forced: {forcing.summary()}; "
-        + ", ".join(f"{k} rel L2 {v:.3g} (bound {CLIP_INT8_TOL[k]:g})" for k, v in errs.items())
-        + f" (the shipped {str(Q._STE_DTYPE)[6:]} straight-through convs); CPU step {ref['seconds']:.2f} s, "
-        f"{time.perf_counter() - t_forced:.1f} s in all")
-    if any(not errs[k] <= tol for k, tol in CLIP_INT8_TOL.items()) or not torch.isfinite(out["sample"]).all():
-        raise AssertionError(f"int8 CLIP-guided step card vs CPU: {errs}")
+    log("  a CLIP-guided step by part, bf16:")
+    model = clip_unet(load_state_dict(unet_path), use_fp16=True).to(dev)
+    clip_step_parts(dev, model, vision, target, diffusion, x)
+    log(f"  the step by part took {time.perf_counter() - t_parts:.1f} s")
     del model, vision
     torch.cuda.empty_cache()
     return runs
@@ -3913,6 +3897,8 @@ def dist_step_ms(loop, x, cond, n=5) -> tuple:
     kernels run on a stream of their own, beside the backward's)."""
     import torch
 
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
+
     loop.run_step(x, cond)
     times = []
     for _ in range(n):
@@ -3923,7 +3909,7 @@ def dist_step_ms(loop, x, cond, n=5) -> tuple:
         end.synchronize()
         times.append(start.elapsed_time(end))
     groups: dict = {}
-    prof = _profile_kernels(lambda: loop.run_step(x, cond), reps=1)
+    prof = kernel_times(lambda: loop.run_step(x, cond), reps=1)
     for k, (kernel_ms, _) in prof.items():
         groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0.0) + kernel_ms
     others = sorted(((kernel_ms, k) for k, (kernel_ms, _) in prof.items() if _kernel_group(k) == "other"), reverse=True)
@@ -4161,6 +4147,198 @@ def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the measuring tools (tools/train_step_bench, perf_breakdown, serve_bench, block_microbench) and the
+# FLOP counts (utils/flops.py), each tool through its main() at its headline configuration, the repeats and
+# windows cut by its own environment variables
+# ---------------------------------------------------------------------------
+
+TOOL_AGREEMENT = (0.8, 1.25)  # a tool's device ms over the phase's that measures the same work in this run
+
+# two windows of the tool's default length, each ended by the metrics' flush and a sync
+TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "2", "TSB_WINDOW": "10"}
+BD_BATCH, BD_REPS = 8, 8  # perf_breakdown at phase 6's batch, its default repeats
+SB_ENV = {"SB_REQUESTS": "3"}
+# the parts of perf_breakdown against profile_guided_step's
+BD_PARTS = {"unet_fwd_ms": "UNet forward", "cls_fwd_ms": "classifier forward",
+            "cls_grad_ms": "classifier forward + backward", "full_step_ms": "guided step"}
+PEAK_BF16 = PEAK_OPS_PER_S["bf16"]
+
+
+def check_row(tool: str, row: dict, keys) -> None:
+    """Every key of ``keys`` in ``row``, each number finite and positive."""
+    bad = {k: row.get(k) for k in keys
+           if not (isinstance(row.get(k), (int, float)) and math.isfinite(row[k]) and row[k] > 0)}
+    if bad:
+        raise AssertionError(f"{tool}: keys missing, not finite or not positive: {bad} in {row}")
+
+
+def agreement(tool: str, ours: float, phase: str, theirs: float) -> float:
+    """``ours`` over ``theirs`` (device ms), printed, within ``TOOL_AGREEMENT``."""
+    ratio = ours / theirs
+    log(f"  {tool} {ours:.2f} ms against {phase} {theirs:.2f} ms on the card in this run: ratio {ratio:.3f} "
+        f"(bound {TOOL_AGREEMENT})")
+    if not TOOL_AGREEMENT[0] <= ratio <= TOOL_AGREEMENT[1]:
+        raise AssertionError(f"{tool} and {phase} disagree: {ours:.2f} ms against {theirs:.2f} ms")
+    return ratio
+
+
+def phase14a_train_step_bench(timed: dict) -> list:
+    """``train_step_bench.main`` on the recipe (``TSB_CONFIG fork128``, batch
+    48, its whole batch a microbatch) in bf16 and with ``TSB_CONV_IMPL int8``,
+    right after 8e: the row, the launches of its 1 + 2 x 10 timed steps and
+    3 profiled against ``train_counts``, its device ms a step against 8d's
+    (bf16; 8e's, int8, logged), its window's ms a step against 8d's and 8e's
+    medians and its own device ms logged, the FLOP count equal both ways. ``timed`` holds 8d's and 8e's records by
+    ``TSB_CONV_IMPL``. Returns the two runs' launch counts."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.tools import train_step_bench
+
+    window = int(TSB_ENV["TSB_WINDOW"])
+    steps = 1 + int(TSB_ENV["TSB_REPEATS"]) * window + 3  # kernel_times: a warm-up step and two
+    runs, rows = [], {}
+    for impl in ("xla", "int8"):
+        with torch.device("meta"):
+            model = recipe_model(train_conv_impl=impl)[1]
+        per_step, dp4a = train_counts(model, False), dp4a_convs(model)
+        row, launches, secs = run_counted(train_step_bench.main, [], {**TSB_ENV, "TSB_CONV_IMPL": impl})
+        check_row(f"train_step_bench {impl}", row, ("ms_per_step", "samples_per_sec_per_chip", "compile_sec",
+                                                     "window_steps", "flops_per_step", "model_tflops_per_s",
+                                                     "device_ms_per_step"))
+        want = expected(launches, (steps, per_step))
+        want.update(attention_fma=0, attention_bwd_fma=0)
+        log(f"  train_step_bench {impl}: {row} ({secs:.1f} s in all); launches {launches} (expected {want}: "
+            f"{steps} steps of {per_step})")
+        if launches != want or row["card"] != smi() or row["window_steps"] != window:
+            raise AssertionError(f"train_step_bench {impl}: launches {launches} != {want}, or row {row}")
+        if impl == "int8":
+            check_conv_tensor_core_launches("train_step_bench int8", steps * dp4a)
+        rows[impl] = row
+        runs.append(launches)
+    agreement("train_step_bench bf16 device_ms_per_step", rows["xla"]["device_ms_per_step"],
+              "8d's plain busy", timed["xla"]["busy_ms"])
+    for impl, phase in (("xla", "8d's plain"), ("int8", "8e's")):
+        tool, ref = rows[impl], timed[impl]
+        log(f"  train_step_bench {impl}, logged only: device {tool['device_ms_per_step']:.2f} ms against {phase} busy "
+            f"{ref['busy_ms']:.2f} ms (ratio {tool['device_ms_per_step'] / ref['busy_ms']:.3f}); window "
+            f"{tool['ms_per_step']:.2f} ms a step against {phase} median {ref['step_ms']:.2f} ms (ratio "
+            f"{tool['ms_per_step'] / ref['step_ms']:.3f}; host clock, sustained over {window} steps, against CUDA "
+            f"events around one synchronized step) and against its own device ms (ratio "
+            f"{tool['ms_per_step'] / tool['device_ms_per_step']:.3f})")
+    flops = rows["xla"]["flops_per_step"]
+    if rows["int8"]["flops_per_step"] != flops:
+        raise AssertionError(f"the recipe's step counts {flops} in bf16 and {rows['int8']['flops_per_step']} in int8")
+    for impl in ("xla", "int8"):
+        ms = timed[impl]["step_ms"]
+        log(f"  the recipe's train step at batch 48: {flops / 1e12:.4f} TFLOP (utils/flops.py, counted on the CPU at "
+            f"batch 1); {'bf16' if impl == 'xla' else 'int8'} at the tool's {rows[impl]['ms_per_step']:.2f} ms "
+            f"{rows[impl]['model_tflops_per_s']:.2f} TFLOP/s ({100e12 * rows[impl]['model_tflops_per_s'] / PEAK_BF16:.2f}"
+            f" % of 989 TFLOP/s bf16), at 8d/8e's {ms:.2f} ms {flops / ms / 1e9:.2f} TFLOP/s")
+    return runs
+
+
+def phase14b_perf_breakdown(guided_parts: dict, guided_device: dict) -> dict:
+    """``perf_breakdown.main`` at batch 8, bf16 (ADM-G 256 and its classifier,
+    random weights): the row, the launches (each part 1 + 5 x ``BD_REPS``
+    timed calls and 1 + 2 profiled) against the modules, each part's device
+    ms against phase 6's profile of the same part (``guided_device``), its
+    CUDA-event ms against phase 6's (``guided_parts``) logged; then the guided
+    step's FLOP count. Returns the launch counts."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.tools import perf_breakdown
+    from guided_diffusion_clip_tpu_torch.utils.script_util import args_to_dict, create_classifier, create_upstream_model
+
+    args = classifier_sample.create_argparser().parse_args(GUIDED_FLAGS)
+    with torch.device("meta"):
+        unet = unet_counts(create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS)), False)
+        clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))
+    pools = f32_attention_calls(clf)
+    clf_fwd = {"attention": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, False)}
+    clf_grad = {**clf_fwd, "attention_bwd": CLF_ATTN_PER_FORWARD}
+    calls = 1 + 5 * BD_REPS + 1 + 2  # a warm-up call and five runs in turns, kernel_times' warm-up and two
+    row, launches, secs = run_counted(perf_breakdown.main, [str(BD_BATCH)], {"BD_REPS": str(BD_REPS)})
+    check_row("perf_breakdown", row, [*BD_PARTS, *perf_breakdown.DEVICE_KEYS.values(), "batch",
+                                      "per_sample_step_ms", "proj_samples_per_min_250"])
+    # the parts: a UNet forward; a classifier forward; its forward and backward; the whole step (all of them)
+    want = expected(launches, (calls, unet), (calls, clf_fwd), (calls, clf_grad), (calls, unet), (calls, clf_grad))
+    want.update(attention_fma=3 * calls * pools, attention_bwd_fma=2 * calls * pools)
+    log(f"  perf_breakdown {BD_BATCH}: {row} ({secs:.1f} s in all); launches {launches} (expected {want}: "
+        f"{calls} calls a part)")
+    if launches != want or row["card"] != smi() or row["batch"] != BD_BATCH:
+        raise AssertionError(f"perf_breakdown: launches {launches} != {want}, or row {row}")
+    ratios = {k: agreement(f"perf_breakdown {perf_breakdown.DEVICE_KEYS[k]}", row[perf_breakdown.DEVICE_KEYS[k]],
+                           f"6's {v}", guided_device[v]) for k, v in BD_PARTS.items()}
+    log("  perf_breakdown's CUDA-event ms against phase 6's, logged only (host-bound parts follow the host): " + ", ".join(
+        f"{k} {row[k]:.2f}/{guided_parts[v]:.2f} = {row[k] / guided_parts[v]:.3f}" for k, v in BD_PARTS.items()))
+    t0 = time.perf_counter()
+    flops = perf_breakdown.step_flops(BD_BATCH, 256)
+    log(f"  the guided step at batch {BD_BATCH}: {flops / 1e12:.4f} TFLOP (utils/flops.py, counted on the CPU at "
+        f"batch 1 in {time.perf_counter() - t0:.1f} s); at perf_breakdown's {row['full_step_ms']:.2f} ms "
+        f"{flops / row['full_step_ms'] / 1e9:.2f} TFLOP/s ({100 * flops / row['full_step_ms'] * 1e3 / PEAK_BF16:.2f} "
+        f"% of 989 TFLOP/s bf16); device ratios {ratios}")
+    return launches
+
+
+def phase14c_serve_bench(tmp) -> dict:
+    """``serve_bench.main`` at its headline (ADM-256, batch 8, ddim25, int8),
+    3 requests a measure: the row, and the server's launches (its /healthz,
+    from its own process) against its forwards and the modules. Returns them
+    as ``tensor_core_split`` lays out a run's counts."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import serve
+    from guided_diffusion_clip_tpu_torch.tools import serve_bench
+    from guided_diffusion_clip_tpu_torch.utils.script_util import args_to_dict, create_model_and_diffusion, model_and_diffusion_defaults
+
+    args = serve.create_argparser().parse_args(serve_bench.model_flags(256, 256))
+    with torch.device("meta"):
+        model = create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()),
+                                           conv_impl="int8")[0]
+    per, dp4a = unet_counts(model, True), dp4a_convs(model)
+    n_req = int(SB_ENV["SB_REQUESTS"])
+    out, here, secs = run_counted(serve_bench.main, [], {**SB_ENV, "SB_CKPT_DIR": tmp})
+    if any(here.values()):
+        raise AssertionError(f"serve_bench launched kernels in this process, not its server's: {here}")
+    server = out.pop("server")
+    check_row("serve_bench", out, ("compile_to_healthy_s", "first_request_s", "warm_latency_best_s",
+                                   "warm_latency_median_s", "sustained_sec_per_request", "requests_per_min",
+                                   "samples_per_min"))
+    got = server["kernel_launches"]
+    launches = {k: v for k, v in got.items() if not k.endswith("_mma")}
+    forwards = server["forwards"]
+    want = expected(launches, (forwards, per))
+    log(f"  serve_bench: {out} ({secs:.1f} s in all); the server's /healthz: {server['dispatches']} chains, "
+        f"{forwards} forwards, launches {got} (expected {want}: a forward {per})")
+    # two warm-up chains, the first request, and n_req timed and n_req back-to-back ones, 25 steps each
+    if (server["dispatches"] != 3 + 2 * n_req or forwards != 25 * server["dispatches"] or launches != want
+            or got["attention_mma"] != got["attention"] or got["conv_s8"] - got["conv_s8_mma"] != forwards * dp4a
+            or out["card"] != smi()):
+        raise AssertionError(f"serve_bench: the server ran {server}, want {want}")
+    return {**launches, "attention_fma": 0, "attention_bwd_fma": 0}
+
+
+def phase14d_block_microbench() -> dict:
+    """``block_microbench.main`` at its four shapes: the rows, and each row's
+    1 + 3 x 20 calls' launches (K3 in bf16_block and gn_only, K4 in
+    int8_block and gnq_only, K5 on the tensor cores in int8_block)."""
+    from guided_diffusion_clip_tpu_torch.tools import block_microbench
+
+    rows, launches, secs = run_counted(block_microbench.main, [], {"CMB_ITERS": "20"})
+    for row in rows:
+        check_row("block_microbench", row, [k for k in row if k not in ("shape", "card")])
+    n = len(block_microbench.SHAPES) * 61
+    want = expected(launches, (n, {"group_norm": 2, "group_norm_quant": 2, "conv_s8": 1}))
+    want.update(attention_fma=0, attention_bwd_fma=0)
+    log(f"  block_microbench ({secs:.1f} s): launches {launches} (expected {want})")
+    if len(rows) != 4 or launches != want or any(r["card"] != smi() for r in rows):
+        raise AssertionError(f"block_microbench: launches {launches} != {want}, or rows {rows}")
+    check_conv_tensor_core_launches("block_microbench", 0)
+    return launches
+
+
 def _scaled_rstd(stats, k: float):
     """A GroupNorm kernel's (2, B, G) mean and rstd with the rstd scaled by ``k``."""
     import torch
@@ -4204,7 +4382,7 @@ def injected(fault: str):
 
 def fault_probe(dev) -> None:
     """``--faults``: the bf16-torso classifier step of phase 10 and the int8
-    CLIP-guided step of phase 11b, each once on the CPU, then on the card
+    CLIP-guided step (phase 11b's until phase 14 came), each once on the CPU, then on the card
     twice clean and once under each of its faults; each run's distances from
     the CPU and the bounds they break."""
     import torch
@@ -4371,7 +4549,12 @@ def main(argv=None) -> int:
         launches, paths, bf16_images, bf16_chain = phase6_guided(dev, tmp)
         runs.append(launches)
         log("phase 6, profile: one guided step at batch 8")
-        bf16_step = profile_guided_step(dev, paths)
+        guided_parts, guided_device = profile_guided_step(dev, paths)
+        bf16_step = guided_parts["guided step"]
+        t14b = time.perf_counter()
+        log("phase 14b: tools.perf_breakdown at batch 8, bf16, against phase 6's split just taken")
+        runs.append(phase14b_perf_breakdown(guided_parts, guided_device))
+        log(f"  phase 14b took {time.perf_counter() - t14b:.1f} s")
         log("phase 6b: classifier-guided sampling with --conv_impl int8")
         launches, _, int8_images, int8_chain = phase6_guided(dev, tmp, "int8", paths)
         runs.append(launches)
@@ -4384,7 +4567,7 @@ def main(argv=None) -> int:
         if not abs(sd_int8 - sd_bf16) <= 0.5 * sd_bf16:
             raise AssertionError(f"int8 samples' std {sd_int8:.3f} not within 0.5 of bf16's {sd_bf16:.3f}")
         log("phase 6b, profile: one int8 guided step at batch 8")
-        int8_step = profile_guided_step(dev, paths, "int8")
+        int8_step = profile_guided_step(dev, paths, "int8")[0]["guided step"]
         log(f"  guided step at batch 8: int8 {int8_step:.2f} ms, bf16 {bf16_step:.2f} ms (CUDA events, "
             f"this run)")
         log("phase 6c: classifier-guided sampling with the deploy preset's knobs")
@@ -4442,6 +4625,10 @@ def main(argv=None) -> int:
         log(f"  train step at batch {TRAIN_BATCH}, this run: int8 {int8_timed['step_ms']:.2f} ms (busy "
             f"{int8_timed['busy_ms']:.2f}), bf16 {timed[False]['step_ms']:.2f} ms (busy {timed[False]['busy_ms']:.2f})")
         log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+        t14a = time.perf_counter()
+        log("phase 14a: tools.train_step_bench on the recipe at batch 48, bf16 and int8, against 8d and 8e just taken")
+        runs.extend(phase14a_train_step_bench({"xla": timed[False], "int8": int8_timed}))
+        log(f"  phase 14a took {time.perf_counter() - t14a:.1f} s")
         t9 = time.perf_counter()
         log("phase 9: python -m guided_diffusion_clip_tpu_torch.image_sample from random weights in 8c's run directory")
         runs.extend(phase9_image_sample(dev, tmp, run_dir))
@@ -4471,6 +4658,14 @@ def main(argv=None) -> int:
             "directory with and without torchrun")
         runs.append(phase13b_torchrun(dev, tmp, data, clip_path))
         log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 14c: tools.serve_bench, ADM-256 at batch 8, ddim25, int8, in a server process")
+        runs.append(phase14c_serve_bench(tmp))
+        log("phase 14d: tools.block_microbench at its four shapes")
+        runs.append(phase14d_block_microbench())
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)

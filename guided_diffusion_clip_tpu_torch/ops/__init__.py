@@ -1,1 +1,29 @@
 """Ops: attention and GroupNorm, each a plain PyTorch version beside its CUDA kernel."""
+
+
+def kernel_wrappers() -> dict:
+    """Kernel name -> the wrapper that launches it and counts its launches
+    (``.launches``; K1's, K2's and K5's also ``.launches_mma``, those that ran
+    on the tensor-core kernels): K1 ``attention``, K2 ``attention_bwd``, K3
+    ``group_norm``, K4 ``group_norm_quant``, K5 ``conv_s8``, the quantize
+    kernels ``quantize``, K6 ``conv_fused``, K7 ``mma_probe``. A wrapper
+    counts where it launches its kernel and nowhere else."""
+    from . import attention as A
+    from . import fused_conv as FC
+    from . import groupnorm as G
+    from . import mma_probe as MP
+    from . import quant as Q
+
+    return {"attention": A.attention_fwd_cuda, "attention_bwd": A.attention_bwd_cuda,
+            "group_norm": G.fused_group_norm, "group_norm_quant": G.fused_group_norm_quant,
+            "conv_s8": Q.conv_s8_cuda, "quantize": Q.quantize_per_tensor_cuda,
+            "conv_fused": FC.fused_conv3x3_cuda, "mma_probe": MP.accumulating_dots_cuda}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches in this process, by ``kernel_wrappers``' names,
+    and as ``<name>_mma`` the tensor-core share of K1's, K2's and K5's."""
+    wrappers = kernel_wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({f"{name}_mma": fn.launches_mma for name, fn in wrappers.items() if hasattr(fn, "launches_mma")})
+    return out

@@ -4,7 +4,8 @@
         --image_size 256 --num_channels 256 ... --timestep_respacing ddim25 \\
         --use_ddim True --batch_size 8 --port 8080
 
-    GET  /healthz            -> {"ok": true, "compiled": true, ...}
+    GET  /healthz            -> {"ok": true, "compiled": true, ...,
+                                 "forwards": n, "kernel_launches": {...}}
     POST /sample             <- {"num_samples": 4, "seed": 7,
                                  "clip_feat": [[...512 floats...], ...]
                                  (optional on conditioned models),
@@ -14,7 +15,11 @@
 
 The same flags, endpoints, JSON and npz bytes as scripts/serve.py, plus
 ``--device`` (default ``cuda``; the model runs where it says, and a missing
-card is an error). ``--model_path`` is a reference-format ``.pt`` state_dict.
+card is an error) and two keys of /healthz: ``forwards``, the model forwards
+run so far, and ``kernel_launches``, each kernel's launches in the server's
+process (``ops.launch_counts``), so that a client in another process can
+check which kernels the chains ran. ``--model_path`` is a reference-format
+``.pt`` state_dict.
 ``--conv_impl int8`` runs the convs on the int8 path (kernels K4 and K5);
 ``auto`` and ``xla`` run them through cuDNN in the model's dtype.
 
@@ -66,6 +71,7 @@ from .diffusion.guidance import (
 )
 from .diffusion.sampling import sample_generators
 from .models.unet import CONV_IMPLS
+from .ops import launch_counts
 from .utils.checkpoint import load_model_weights
 from .utils.saving_imgs import tensor2img
 from .utils.script_util import (
@@ -368,6 +374,8 @@ def make_handler(sampler: Sampler):
                 "max_request": sampler.max_request,
                 "dispatches": sampler.dispatches,
                 "coalesced_requests": sampler.coalesced_requests,
+                "forwards": sampler.forwards,
+                "kernel_launches": launch_counts(),
             })
 
         def do_POST(self):

@@ -1,4 +1,5 @@
-"""``torch.profiler`` traces of a window of steps (``--profile_dir``).
+"""``torch.profiler`` traces of a window of steps (``--profile_dir``), and the
+device time of a call by kernel (``kernel_times``).
 
 Counterpart of ``guided_diffusion_clip_tpu/utils/profiling.py``: the train
 and sample CLIs take ``--profile_dir <dir>`` and write a TensorBoard trace
@@ -70,3 +71,26 @@ class StepProfiler:
 def annotate(name: str):
     """A named scope in the trace's timeline (host ops and the kernels they launch)."""
     return torch.profiler.record_function(name)
+
+
+def kernel_times(fn, reps: int = 2) -> dict:
+    """The card's kernels that ``fn()`` launches: {kernel name: (device ms a
+    call, launches a call)}, from ``torch.profiler`` over ``reps`` calls after
+    one warm-up call. Only the kernels: the profiler also lists the device
+    ranges of ``record_function`` annotations (``DistributedDataParallel.forward``),
+    which would count their kernels twice. Needs a CUDA device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            out[e.key] = (us / 1000 / reps, e.count / reps)
+    return out

@@ -3,7 +3,8 @@
 The two ranks run ``tests/torch_dist_worker.py`` under torchrun once for the
 module (``scenario_train``): from the same weights, each rank takes its half
 of a batch of 2B with given timesteps and noise, in each mode (DDP for
-``tree``/``flat``, ``zero1``, ``fsdp``), saves, resumes in another mode and
+``tree``/``flat``, ``zero1``, ``fsdp``; ``use_checkpoint`` under
+``tree``, ``zero1`` and ``fsdp``), saves, resumes in another mode and
 takes a second step; int8 under DDP and FSDP2; a DCP save and resume; the
 classifier's step under DDP and FSDP2. Here the one-rank port takes the same
 steps on the doubled batch (the one-rank step is held to the JAX loop by
@@ -58,10 +59,12 @@ def one_rank():
 
 
 @pytest.mark.timeout(120)
-@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("mode", [*MODES, "remat_tree", "remat_zero1", "remat_fsdp"])
 def test_two_rank_step_matches_one_rank_on_doubled_batch(ranks, one_rank, mode):
     """The gradient (the mean over the ranks), the logged loss (gathered over
-    the ranks) and the updated parameters against the one-rank step."""
+    the ranks) and the updated parameters against the one-rank step; the
+    ``remat_`` modes with ``use_checkpoint``, whose recomputed blocks give the
+    same step."""
     _, out = ranks
     got, ref = out[0][mode], one_rank["step1"]
     assert rel(got["grad"], ref["grad"]) <= 1e-5

@@ -50,10 +50,11 @@ def run_ranks(scenario: str, directory: str, n: int = 2, timeout: int = 240) -> 
                            f"{proc.stderr[-8000:]}")
 
 
-def tiny_model(int8: bool = False):
+def tiny_model(int8: bool = False, remat: bool = False):
     """The tiny CLIP UNet, every weight drawn from N(0, 0.05) (GroupNorm
-    scales about 1) with a fixed seed, so that every parameter gets a gradient."""
-    model = UNetModel_clip_feat(UNetConfig(**KW), conv_impl="int8" if int8 else "xla")
+    scales about 1) with a fixed seed, so that every parameter gets a
+    gradient; ``remat``: with ``use_checkpoint`` (the same parameters)."""
+    model = UNetModel_clip_feat(UNetConfig(**KW, use_checkpoint=remat), conv_impl="int8" if int8 else "xla")
     rs = np.random.RandomState(0)
     with torch.no_grad():
         for p in model.parameters():
@@ -77,9 +78,9 @@ def batches(n: int, seed: int) -> dict:
             "noise": rs.standard_normal((n, 3, 16, 16)).astype(np.float32)}
 
 
-def make_loop(log_dir: str, batch_size: int = B, int8: bool = False, **kw) -> TrainLoop:
+def make_loop(log_dir: str, batch_size: int = B, int8: bool = False, remat: bool = False, **kw) -> TrainLoop:
     logger.configure_dir(log_dir, format_strs=[])
-    return TrainLoop(model=tiny_model(int8), diffusion=diffusion(), data=None, batch_size=batch_size,
+    return TrainLoop(model=tiny_model(int8, remat), diffusion=diffusion(), data=None, batch_size=batch_size,
                      **{"microbatch": -1, **LOOP, **kw})
 
 
@@ -165,7 +166,8 @@ def scenario_sample(d: str) -> None:
 
 def scenario_train(d: str) -> None:
     """One step in each mode from the same weights, each rank on its half of
-    a batch of 2B; the checkpoints; a second step after a resume across modes;
+    a batch of 2B, and with ``use_checkpoint`` under tree, zero1 and fsdp; the
+    checkpoints; a second step after a resume across modes;
     int8 under DDP and FSDP2; a DCP save and resume; the classifier's step."""
     pdist.setup_dist("cpu")
     r = pdist.rank()
@@ -178,6 +180,10 @@ def scenario_train(d: str) -> None:
         step(loop, b1, rows)
         out[mode] = state(loop)
         loop.save()
+    for mode in ("tree", "zero1", "fsdp"):  # the blocks recomputed in the backward
+        loop = make_loop(os.path.join(d, f"remat_{mode}"), remat=True, **MODES[mode])
+        step(loop, b1, rows)
+        out[f"remat_{mode}"] = state(loop)
     loop = make_loop(os.path.join(d, "tree_micro"), microbatch=2)
     step(loop, b1, rows)
     out["tree_micro"] = state(loop)
