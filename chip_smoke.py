@@ -264,7 +264,8 @@ modules:
   14b. ``perf_breakdown`` at batch 8, bf16: each part's device ms within
       ``TOOL_AGREEMENT`` of phase 6's profile of the same part
       (``profile_guided_step``), its CUDA-event ms against phase 6's
-      logged, and the guided step's FLOP count; run right after that split,
+      logged (tests/test_torch_flops.py holds the guided step's FLOP
+      count); run right after that split,
       so that both run in the same state of the process (at the end of the
       run the same parts' device ms read 0.71-1.01 of phase 6's).
       Wall-clock agreement is logged and not held: the recipe's step and
@@ -275,6 +276,35 @@ modules:
       measure: its server runs in another process, so the launches are the
       server's own, read from its ``/healthz`` against its forwards;
   14d. ``block_microbench`` at its four shapes.
+
+The sampling benches, each through its ``main()`` on ADM-G 256 and its
+classifier (``tools/_timing.make_models``: phase 6's configuration, the
+tool's own N(0, 0.02) weights), int8, at a cut depth: ``PHASE15_BATCH``
+images and ``PHASE15_STEPS`` respaced steps a chain; each row's keys finite,
+its card the one ``nvidia-smi`` names, and its launches equal to those
+derived from the modules (a full and a shallow UNet forward, a classifier
+forward and backward) and from the schedule (which steps refresh a cache
+or lie in a window), each chain run twice (warm-up, timed):
+  15a. ``int8_quality_check`` at batch 1: one xla (bf16) and one int8 UNet
+      forward and guidance gradient;
+  15b. ``sampler_family_bench`` ``ddim10;dpm10;ancestral10`` under the
+      classifier, then ``ddim10`` under ``cfg`` with ``SFB_CFG_CACHE 2`` (the
+      UNet on the conditional batch each step and the unconditional one on
+      every other step);
+  15c. ``deep_cache_bench`` with ``DCB_INTERVALS 1,2,5``: the uncached chain's
+      full forwards, then DeepCache's full forwards on the refresh steps and
+      shallow ones between, the classifier every step; N = 1 refreshes
+      every step, so it runs the uncached chain again, and its samples must
+      equal the uncached chain's bit for bit (``rel_rmse`` 0), while each
+      cached chain's must differ (``rel_rmse`` > 0);
+  15d. ``guidance_interval_bench`` with ``GIB_WINDOWS 0,1000;200,800``: the
+      classifier only on the steps whose model timestep lies in the window;
+      the window [0, 1000] holds every step, so it runs the always-guided
+      chain again, and its samples must equal that chain's bit for bit,
+      while the windowed chain's must differ;
+  15e. ``sample_overlap_bench`` with ``OB_BATCHES 1``: six unguided ddim25
+      chains (warm-up, the host-only write's, two serial and two
+      overlapped).
 
     python3 chip_smoke.py --faults
 
@@ -293,7 +323,8 @@ shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
-the timed steps of 12b-12d, each mode's step of 13a, each tool of 14) and read just after it; every bf16 K1 and K2 launch of a main path
+the timed steps of 12b-12d, each mode's step of 13a, each tool of 14 and 15) and read just after it; every bf16
+K1 and K2 launch of a main path
 (the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
 the FMA-pipe kernels must have taken only the classifier's attention pool,
 which is float32 by the reference's design (one K1 and one K2 a classifier call).
@@ -1702,17 +1733,18 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     args = classifier_sample.create_argparser().parse_args(flags)
     per = {}
     new_paths = {}
-    for name, model in (
-        ("model", create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))),
-        ("classifier", create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))),
-    ):
+    with torch.device("meta"):  # the structure only: the counts, and the random weights' shapes
+        models = (("model", create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))),
+                  ("classifier",
+                   create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))))
+    for name, model in models:
         per[name] = gn_conv_counts(model, int8)
         per[name]["dp4a"] = dp4a_convs(model)
         pools = f32_attention_calls(model)  # the last model of the loop is the classifier
         if paths is None:
             new_paths[name] = os.path.join(tmp, f"{name}_random.pt")
             torch.save(random_state_dict(model), new_paths[name])
-        del model
+    del models, model
     paths = paths or new_paths
     argv = [*flags, "--model_path", paths["model"], "--classifier_path", paths["classifier"],
             "--main_path", os.path.join(tmp, f"runs_{conv_impl}"), "--device", dev.type]
@@ -1769,22 +1801,14 @@ def phase6c_preset(dev, tmp, paths):
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample
-    from guided_diffusion_clip_tpu_torch.utils.script_util import (
-        args_to_dict, create_classifier, create_gaussian_diffusion, create_upstream_model,
-    )
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
 
     flags = [*GUIDED_FLAGS, *PRESET_FLAGS]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    args = classifier_sample.create_argparser().parse_args(flags)
-    model = create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS), conv_impl="int8")
-    cut = model.config.num_res_blocks + 1
-    per_full, per_shallow = unet_counts(model, True), unet_counts(model, True, cut)
-    clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()), conv_impl="int8")
-    per_clf = {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, True)}
-    pools = f32_attention_calls(clf)
-    dp4a_full, dp4a_shallow, dp4a_clf = dp4a_convs(model), dp4a_convs(shallow_roots(model, cut)), dp4a_convs(clf)
-    del model, clf
+    counts = adm_g_counts(True)
+    per_full, per_shallow, per_clf, pools = counts["full"], counts["shallow"], counts["clf"], counts["pools"]
+    dp4a_full, dp4a_shallow, dp4a_clf = (counts["dp4a"][k] for k in ("full", "shallow", "clf"))
     # the schedule says which steps guide: step i runs local timestep T - 1 - i
     tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True,
                                      timestep_respacing=str(GUIDED_STEPS)).sched.timestep_map.tolist()
@@ -3737,7 +3761,8 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
     runs, samples = [], {}
     for name, flags in CLIP_GUIDED_MODES:
         int8 = "int8" in flags
-        model = clip_unet(use_fp16=True, conv_impl="int8" if int8 else "auto")
+        with torch.device("meta"):
+            model = clip_unet(use_fp16=True, conv_impl="int8" if int8 else "auto")
         per = unet_counts(model, int8)
         dp4a = dp4a_convs(model)
         del model
@@ -4243,8 +4268,8 @@ def phase14b_perf_breakdown(guided_parts: dict, guided_device: dict) -> dict:
     random weights): the row, the launches (each part 1 + 5 x ``BD_REPS``
     timed calls and 1 + 2 profiled) against the modules, each part's device
     ms against phase 6's profile of the same part (``guided_device``), its
-    CUDA-event ms against phase 6's (``guided_parts``) logged; then the guided
-    step's FLOP count. Returns the launch counts."""
+    CUDA-event ms against phase 6's (``guided_parts``) logged. Returns the
+    launch counts."""
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample
@@ -4273,12 +4298,7 @@ def phase14b_perf_breakdown(guided_parts: dict, guided_device: dict) -> dict:
                            f"6's {v}", guided_device[v]) for k, v in BD_PARTS.items()}
     log("  perf_breakdown's CUDA-event ms against phase 6's, logged only (host-bound parts follow the host): " + ", ".join(
         f"{k} {row[k]:.2f}/{guided_parts[v]:.2f} = {row[k] / guided_parts[v]:.3f}" for k, v in BD_PARTS.items()))
-    t0 = time.perf_counter()
-    flops = perf_breakdown.step_flops(BD_BATCH, 256)
-    log(f"  the guided step at batch {BD_BATCH}: {flops / 1e12:.4f} TFLOP (utils/flops.py, counted on the CPU at "
-        f"batch 1 in {time.perf_counter() - t0:.1f} s); at perf_breakdown's {row['full_step_ms']:.2f} ms "
-        f"{flops / row['full_step_ms'] / 1e9:.2f} TFLOP/s ({100 * flops / row['full_step_ms'] * 1e3 / PEAK_BF16:.2f} "
-        f"% of 989 TFLOP/s bf16); device ratios {ratios}")
+    log(f"  device ratios {ratios}")
     return launches
 
 
@@ -4337,6 +4357,145 @@ def phase14d_block_microbench() -> dict:
         raise AssertionError(f"block_microbench: launches {launches} != {want}, or rows {rows}")
     check_conv_tensor_core_launches("block_microbench", 0)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the sampling benches (tools/int8_quality_check, sampler_family_bench, deep_cache_bench,
+# guidance_interval_bench, sample_overlap_bench) through their main() at a cut depth
+# ---------------------------------------------------------------------------
+
+PHASE15_BATCH, PHASE15_STEPS = 4, 10
+PHASE15_ENV = {  # int8 is every tool's default
+    "SFB": {"SFB_BATCH": str(PHASE15_BATCH), "SFB_SAMPLERS": f"ddim{PHASE15_STEPS};dpm{PHASE15_STEPS};"
+            f"ancestral{PHASE15_STEPS}"},
+    "SFB_CFG": {"SFB_BATCH": str(PHASE15_BATCH), "SFB_SAMPLERS": f"ddim{PHASE15_STEPS}", "SFB_GUIDANCE": "cfg",
+                "SFB_CFG_CACHE": "2"},
+    # N = 1 refreshes every step and the window [0, 1000] holds every step: each repeats its tool's reference chain
+    "DCB": {"DCB_BATCH": str(PHASE15_BATCH), "DCB_STEPS": str(PHASE15_STEPS), "DCB_INTERVALS": "1,2,5"},
+    "GIB": {"GIB_BATCH": str(PHASE15_BATCH), "GIB_STEPS": str(PHASE15_STEPS), "GIB_WINDOWS": "0,1000;200,800"},
+    "OB": {"OB_BATCH": str(PHASE15_BATCH), "OB_BATCHES": "1"},
+}
+
+
+def adm_g_counts(int8: bool) -> dict:
+    """Launches of one call of each network of ADM-G 256 and its classifier
+    (``GUIDED_FLAGS``), from the modules: ``full`` and ``shallow`` UNet
+    forwards (the default DeepCache cut), ``clf`` a classifier forward and
+    backward; ``pools`` its float32 attention pools; ``dp4a`` each call's
+    convs on ``__dp4a`` under int8."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.utils.script_util import args_to_dict, create_classifier, create_upstream_model
+
+    args = classifier_sample.create_argparser().parse_args(GUIDED_FLAGS)
+    impl = "int8" if int8 else "auto"
+    with torch.device("meta"):
+        model = create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS), conv_impl=impl)
+        clf = create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()), conv_impl=impl)
+    cut = model.config.num_res_blocks + 1
+    return {
+        "full": unet_counts(model, int8), "shallow": unet_counts(model, int8, cut),
+        "clf": {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, int8)},
+        "pools": f32_attention_calls(clf),
+        "dp4a": {"full": dp4a_convs(model), "shallow": dp4a_convs(shallow_roots(model, cut)), "clf": dp4a_convs(clf)}
+        if int8 else {"full": 0, "shallow": 0, "clf": 0},
+    }
+
+
+def check_bench(tool: str, launches: dict, calls: list, counts: dict) -> dict:
+    """A tool's launches against the networks' calls: ``calls`` holds (int8,
+    {"full": n, "shallow": n, "clf": n}) for each conv path the run took,
+    ``counts`` ``adm_g_counts`` by int8. Checks the tensor-core split too
+    (read from the live counters, so right after the run). Returns
+    ``launches``."""
+    terms, pools, dp4a = [], 0, 0
+    for int8, n in calls:
+        c = counts[int8]
+        terms += [(n.get(k, 0), c[k]) for k in ("full", "shallow", "clf")]
+        pools += c["pools"] * n.get("clf", 0)
+        dp4a += sum(c["dp4a"][k] * n.get(k, 0) for k in ("full", "shallow", "clf"))
+    want = expected(launches, *terms)
+    want.update(attention_fma=pools, attention_bwd_fma=pools)
+    log(f"  {tool}: launches {launches} (expected {want}: network calls {calls})")
+    if launches != want:
+        raise AssertionError(f"{tool}: launch counts {launches} != {want}")
+    check_tensor_core_launches(tool, pools, pools)
+    check_conv_tensor_core_launches(tool, dp4a)
+    return launches
+
+
+def check_bench_row(tool: str, row: dict, keys, deviation=None) -> None:
+    """``check_row`` for each of ``row``'s nested rows (or the row itself),
+    and its card the one ``nvidia-smi`` names. ``deviation`` is (the key of
+    the samples' rel_rmse against the reference chain's, the row that
+    repeats the reference chain): that row's rel_rmse must be exactly 0, so
+    the chain is repeatable bit for bit on the card, and every other row's
+    above it."""
+    nested = {k: v for k, v in row.items() if isinstance(v, dict)} or {"": row}
+    for name, r in nested.items():
+        check_row(tool, r, [k for k in keys if deviation is None or name != deviation[1] or k != deviation[0]])
+    if deviation is not None:
+        key, repeat = deviation
+        if nested[repeat][key] != 0 or any(not r[key] > 0 for name, r in nested.items() if name != repeat):
+            raise AssertionError(f"{tool}: {key} of {repeat} (the reference chain again) is not 0, or another "
+                                 f"chain's is not above it: {row}")
+    if row["card"] != smi():
+        raise AssertionError(f"{tool}: card {row['card']!r} is not {smi()!r}")
+
+
+def phase15_sampling_benches() -> list:
+    """The five sampling benches through their ``main()`` (see the module's
+    docstring): each row, its launches against the modules and the
+    schedule, the cached and windowed chains' samples against their
+    reference chains' (``check_bench_row``'s ``deviation``: the reference
+    chain run again equal bit for bit, the others not). Returns each run's
+    launch counts."""
+    from guided_diffusion_clip_tpu_torch.tools import (
+        deep_cache_bench, guidance_interval_bench, int8_quality_check, sample_overlap_bench, sampler_family_bench,
+    )
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    T, counts = PHASE15_STEPS, {int8: adm_g_counts(int8) for int8 in (False, True)}
+    tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True,
+                                     timestep_respacing=str(T)).sched.timestep_map.tolist()
+    inside = sum(200 <= tmap[T - 1 - i] <= 800 for i in range(T))  # step i runs local timestep T - 1 - i
+    log(f"  {inside} of the {T} steps lie inside the window [200, 800] (model timesteps {tmap[::-1]})")
+    refreshes = {n: len(range(0, T, n)) for n in (1, 2, 5)}  # DeepCache's full forwards a chain at N = 1, 2 and 5
+    chain_keys = ("secs_per_chain", "samples_per_min_per_chip", "steps", "peak_memory_gib")
+    # (label, main, argv, env, the keys of each row, (the deviation's key, the row repeating the reference chain),
+    # the networks' calls: each chain runs twice)
+    benches = [
+        ("15a int8_quality_check at batch 1", int8_quality_check.main, ["1"], None,
+         ("rel_rmse_vs_signal_std", "max_abs_rel", "corr"), None,
+         [(False, {"full": 1, "clf": 1}), (True, {"full": 1, "clf": 1})]),
+        ("15b sampler_family_bench, classifier", sampler_family_bench.main, [], PHASE15_ENV["SFB"], chain_keys, None,
+         [(True, {"full": 2 * 3 * T, "clf": 2 * 3 * T})]),
+        # the conditional branch every step, the unconditional one on the steps 0, 2, ...
+        ("15b sampler_family_bench, cfg with its cache 2", sampler_family_bench.main, [], PHASE15_ENV["SFB_CFG"],
+         chain_keys, None, [(True, {"full": 2 * (T + len(range(0, T, 2)))})]),
+        ("15c deep_cache_bench", deep_cache_bench.main, [], PHASE15_ENV["DCB"],
+         ("samples_per_min", "secs_per_chain", "speedup", "corr", "rel_rmse"), ("rel_rmse", "dc1"),
+         [(True, {"full": 2 * (T + sum(refreshes.values())), "shallow": 2 * sum(T - r for r in refreshes.values()),
+                  "clf": 2 * 4 * T})]),
+        ("15d guidance_interval_bench", guidance_interval_bench.main, [], PHASE15_ENV["GIB"],
+         ("samples_per_min", "secs_per_chain", "speedup", "corr_vs_full_context_only", "rel_rmse_vs_full"),
+         ("rel_rmse_vs_full", "interval[0,1000]"), [(True, {"full": 2 * 3 * T, "clf": 2 * (2 * T + inside)})]),
+        # six ddim25 chains: the warm-up, the host-only write's, two serial and two overlapped
+        ("15e sample_overlap_bench", sample_overlap_bench.main, [], PHASE15_ENV["OB"],
+         ("host_s", "serial_a", "overlap_a", "overlap_b", "serial_b", "serial", "overlapped"), None,
+         [(True, {"full": 6 * 25})]),
+    ]
+    runs = []
+    for label, main, argv, env, keys, deviation, calls in benches:
+        row, launches, secs = run_counted(main, argv, env)
+        tool = main.__module__.rsplit(".", 1)[1]
+        check_bench_row(tool, row, keys, deviation)
+        log(f"  {label} ({secs:.1f} s): {row}")
+        if main is sampler_family_bench.main and {r["steps"] for r in row.values() if isinstance(r, dict)} != {T}:
+            raise AssertionError(f"sampler_family_bench: steps {row}")
+        runs.append(check_bench(tool, launches, calls, counts))
+    return runs
 
 
 def _scaled_rstd(stats, k: float):
@@ -4666,6 +4825,10 @@ def main(argv=None) -> int:
         log("phase 14d: tools.block_microbench at its four shapes")
         runs.append(phase14d_block_microbench())
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    log(f"phase 15: the sampling benches at batch {PHASE15_BATCH}, {PHASE15_STEPS} steps, int8")
+    runs.extend(phase15_sampling_benches())
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)

@@ -59,29 +59,10 @@ from ..models.unet import CONV_IMPLS
 from ..ops import build
 from ..utils.flops import flops_per_step
 from ..utils.profiling import kernel_times
-from ..utils.script_util import create_classifier, create_gaussian_diffusion, create_upstream_model
-from ._timing import card_label, pick_device, random_weights_, seconds_per_call_in_turns
+from ._timing import card_label, make_models, pick_device, seconds_per_call_in_turns
 
 PARTS = ("unet_fwd_ms", "cls_fwd_ms", "cls_grad_ms", "full_step_ms")
 DEVICE_KEYS = {name: name.replace("_ms", "_device_ms") for name in PARTS}  # None on the CPU
-
-
-def make_models(size: int, conv_impl: str, channels: int, clf_width: int) -> tuple:
-    """(UNet, classifier, diffusion) with N(0, 0.02) weights (seeds 0 and 1), on the CPU."""
-    model = create_upstream_model(
-        image_size=size, num_channels=channels, num_res_blocks=2, channel_mult="", learn_sigma=True,
-        class_cond=True, use_checkpoint=False, attention_resolutions="32,16,8", num_heads=4,
-        num_head_channels=64, num_heads_upsample=-1, use_scale_shift_norm=True, dropout=0.0,
-        resblock_updown=True, use_fp16=True, use_new_attention_order=False, conv_impl=conv_impl,
-    )
-    classifier = create_classifier(
-        image_size=size, classifier_use_fp16=True, classifier_width=clf_width, classifier_depth=2,
-        classifier_attention_resolutions="32,16,8", classifier_use_scale_shift_norm=True,
-        classifier_resblock_updown=True, classifier_pool="attention", conv_impl=conv_impl,
-    )
-    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, noise_schedule="linear",
-                                          timestep_respacing="250")
-    return random_weights_(model, 0), random_weights_(classifier, 1), diffusion
 
 
 def build_step(batch: int, size: int, conv_impl: str, channels: int, clf_width: int,
@@ -89,9 +70,7 @@ def build_step(batch: int, size: int, conv_impl: str, channels: int, clf_width: 
     """The guided step's parts on ``device``: ``parts`` maps each of ``PARTS``
     to a function of no argument; ``full_step(noise=None)`` returns the step's
     sample, with the given noise in place of the generator's draw."""
-    model, classifier, diffusion = make_models(size, conv_impl, channels, clf_width)
-    model = model.to(device).eval().requires_grad_(False)
-    classifier = classifier.to(device).eval().requires_grad_(False)
+    model, classifier, diffusion = make_models(size, conv_impl, channels, clf_width, device=device)
     sched = diffusion.sched.to(device)
     cfg = S.SamplerConfig(mean_type=diffusion.mean_type, var_type=diffusion.var_type)
     g = torch.Generator(device=device).manual_seed(2)
