@@ -18,9 +18,10 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      PyTorch version on the card, at the shapes the paths give it, in f32
      (TF32 off) and bf16, with kernel and plain times (median of 12 runs
      after warm-up, CUDA events). K1 also at the recipe's one-head
-     attention at batch 8 and 16 (image_sample, and under CFG) and at the
+     attention at batch 8 and 16 (image_sample, and under CFG), at the
      classifier's blocks and pool at batch 16 (classifier_train's
-     microbatches). K3 (one launch a call) at six maps of the UNet and the
+     microbatches) and at the 64 px quality proxies' (phase 16: d = 96 and
+     128 in the generator, d = 96 in the classifier, batch 16). K3 (one launch a call) at six maps of the UNet and the
      classifier, at the recipe's four and at the classifier's 256 px map at
      batch 16 must also give each group's mean and rstd
      within 1e-5 relative of the plain version's, and the same bits again.
@@ -28,17 +29,16 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      the tensor-core kernel (``launches_mma``); beside it each bf16 case
      logs ``F.scaled_dot_product_attention``, the f32-FMA kernel on the same
      bf16 input (through its C entry point, for the log only) and the bound;
-     in f32 at the classifier pool's shape (T = 65, 8 heads, d = 64, the FMA
-     kernel's one main-path user) the library call (TF32 off) and the bound
-     at the f32 rate;
+     in f32 at the classifier pool's shape (T = 65, 8 heads, d = 64) and at
+     d = 96 the library call (TF32 off) and the bound at the f32 rate;
   3b. the same for K2 (attention backward) at the classifier's shapes at
      batch 8 (guidance) and 16 (classifier_train), and in bf16 at the
-     ADM-256 UNet's at batch 8 (clip_guided_sample's pred-x0 guidance); in
+     ADM-256 UNet's at batch 8 (clip_guided_sample's pred-x0 guidance), and
+     at the quality proxies' d = 96 in f32 and bf16; in
      bf16 it is also held to the float64 result of the same values, where
      it may not be further off than the FMA kernel by more than f32's own
-     rounding; the f32 pool shape is timed against the library as in 3;
-  4. one full-width forward (batch 1, f32, TF32 off) on the card, through the
-     kernels, against the same forward on the CPU, through the plain versions;
+     rounding; the f32 pool shape and d = 96 are timed against the library
+     as in 3;
   4b. the full-width classifier's logits and guidance gradient (batch 1,
      f32, TF32 off), card (K1, K2, K3) against the CPU (plain versions);
   5. the HTTP server (``guided_diffusion_clip_tpu_torch.serve``) built from
@@ -88,7 +88,10 @@ The deploy preset's sampling knobs and the last two kernels add:
       wrapped sums included; bf16 at small T), then its two-T rate;
   4e. a full-width ``cache_mode="full"`` forward and a ``"shallow"`` one fed
       its deep feature (batch 1, f32, TF32 off), card against CPU, and on
-      the card the shallow forward against the plain one at the same (x, t);
+      the card the shallow forward against the plain one at the same (x, t)
+      and the plain one (through the kernels) against the CPU's full one
+      (through the plain versions), which a phase 4 once held with a CPU
+      forward of its own;
   5c. ``serve --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m``, bf16, 25
       steps: the same request twice gives the same bytes, and the model ran
       steps + refreshes times a chain;
@@ -152,7 +155,9 @@ run directory, ``configs/image_sample_config.yaml`` pointed at 16 generated
       at batch 2, bf16 and int8 (teacher-forced) at batch 8;
   9b. ``image_sample_repeat.main --repeats 2`` from 8c's EMA checkpoint: two
       run directories;
-  9c. ``image_nll.main`` on 8 images from 8c's EMA checkpoint: 1000 forwards, bpd and the term files.
+  9c. ``image_nll.main`` on 8 images from 8c's EMA checkpoint over a
+      ``NLL_STEPS``-step schedule (its forwards, bpd and the term files;
+      1000 once, whose other 900 forwards repeated phase 9's bf16 forward).
 
 The classifier's trainer and the fork's CLIP (run inside phases 5-6's
 directory, after 6c: phase 10 guides with 6's ADM-G 256 weights, 11 and 11b
@@ -256,7 +261,7 @@ cut by its own environment variables; each row's keys finite and positive,
 its card the one ``nvidia-smi`` names, its launches counted against the
 modules:
   14a. ``train_step_bench`` on the recipe (``TSB_CONFIG fork128``, batch 48),
-      bf16 and ``TSB_CONV_IMPL int8``, 2 windows of the tool's default 10
+      bf16 and ``TSB_CONV_IMPL int8``, one window of the tool's default 10
       steps: its device ms a step (the profiler's kernel sum) within
       ``TOOL_AGREEMENT`` of 8d's (8e's int8 ratio logged), its window's ms
       a step against 8d's median logged, and its FLOP count
@@ -306,6 +311,27 @@ or lie in a window), each chain run twice (warm-up, timed):
       chains (warm-up, the host-only write's, two serial and two
       overlapped).
 
+The quality tools, each through its ``main()`` at a cut depth
+(``PHASE16_ENV``: ``PHASE16_TRAIN`` train steps of each proxy, one set of
+``PHASE16_BATCH`` images, ``PHASE16_STEPS`` respaced steps a chain); each
+line's keys the JAX tool's plus ``card``, every number finite, the card the
+one ``nvidia-smi`` names, and its launches equal to those derived from the
+modules (a float32 train step of the generator and of the classifier, bf16
+and int8 generator forwards, full and shallow, the classifier's guidance
+call and its forward), the train steps and the schedule:
+  16a. ``int8_chain_quality`` at 16 px with ``INT8Q_VARIANT int8+dc5+gc2``:
+      the generator and the noised classifier trained, four base-chain sets
+      (bf16, fully guided) and the variant (the int8 generator refreshing its
+      deep features on steps 0 and 5, the int8 classifier's gradient on every
+      other step), the feature extractor's 20 steps;
+  16b. ``guidance_quality_sweep`` at its 64 px default (K1 at d = 96 and 128
+      in bf16 sampling and f32 training, K1 and K2 at d = 96 in the f32
+      classifier), the points ``off:gc1`` and ``200:800:gc2`` (the
+      classifier on the refresh steps inside the window) and the unguided
+      set, the classifier's accuracy on each;
+  16c. ``opt_long_horizon`` over ``tree,flat,zero1`` at 16 px (its one-rank
+      process group started and ended in the tool).
+
     python3 chip_smoke.py --faults
 
 builds the kernels and runs no path: it takes the two card-vs-CPU steps
@@ -323,16 +349,17 @@ shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
-the timed steps of 12b-12d, each mode's step of 13a, each tool of 14 and 15) and read just after it; every bf16
+the timed steps of 12b-12d, each mode's step of 13a, each tool of 14, 15 and 16) and read just after it; every bf16
 K1 and K2 launch of a main path
-(the sampling torsos at d = 64, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
-the FMA-pipe kernels must have taken only the classifier's attention pool,
-which is float32 by the reference's design (one K1 and one K2 a classifier call).
+(the sampling torsos at d = 64 and 96, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
+the FMA-pipe kernels must have taken only the float32 calls: the classifier's attention pool,
+float32 by the reference's design (one K1 and one K2 a classifier call), and in phase 16 the
+quality tools' float32 training and classifiers.
 Likewise every K5 launch of an int8 main path must have been a tensor-core
 launch but for the stems (3 channels in, 6 in the SR models) and the 6-channel
-head, counted from the modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
-kernels, the GroupNorm kernel (K3, K4) or K1/K2 at d = 64, 192 or 256 fails
-the run (the other kernels' are printed).
+heads (3-channel in the quality tools' proxies and their classifier), counted from the modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
+kernels, the GroupNorm kernel (K3, K4), K1/K2 at d = 64, 192 or 256 or K1 at d = 96
+fails the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
 split between their tensor-core kernels, timed at d = 64 in phases 3 and 3b,
 and their FMA-pipe kernels, timed in f32 at the classifier pool's shape there; ``bound_ms`` the least time the card
@@ -474,6 +501,9 @@ CLF_TRAIN_ATTN_SHAPES = [(16, 1024, 4, 64, False), (16, 256, 8, 64, False), (16,
 # the ADM-256 UNet's attention at 32, 16 and 8 px at batch 8, whose K2 clip_guided_sample's
 # pred-x0 guidance runs in bf16 (its f32 K2 runs at batch 2 in phase 11)
 UNET_ATTN_SHAPES = [(8, 1024, 8, 64, False), (8, 256, 16, 64, False), (8, 64, 16, 64, False)]
+# the 64 px quality proxies (tools/_proxies.py) at the tools' batch 16: the generator's attention at 16 and
+# 8 px (384 and 512 channels in 4 heads), the classifier's at 16 px (192 channels in 2)
+PROXY_ATTN_SHAPES = [(16, 256, 4, 96, False), (16, 64, 4, 128, False), (16, 256, 2, 96, False)]
 
 
 def fma_attention(qkv, H, new, do=None):
@@ -595,6 +625,9 @@ def phase3_kernels(dev):
         (16, 256, 1, 192, False), (16, 64, 1, 256, False),
         # the classifier's blocks and pool as classifier_train runs them (microbatches of 16)
         *CLF_TRAIN_ATTN_SHAPES,
+        # the 64 px quality proxies' at the tools' batch (phase 16): the generator's 4 heads at 16 and 8 px
+        # (d = 96 and 128, bf16 sampling, f32 training) and the classifier's 2 at 16 px (d = 96, f32)
+        *PROXY_ATTN_SHAPES,
     ]
     with torch.inference_mode():
         for B, T, H, d, new in attn_cases:
@@ -615,7 +648,7 @@ def phase3_kernels(dev):
                 pms = cuda_ms(lambda: A.qkv_attention_plain(qkv, H, new_order=new))
                 log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
                     f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-                if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE:
+                if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE or d == 96:
                     q, k, v = (t.permute(0, 2, 1, 3) for t in A.split_qkv(qkv, H, new))
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
                     rec = record(err, ms, pms, **attention_bound(B, T, H, d, False, not mma), library_ms=lib)
@@ -624,7 +657,7 @@ def phase3_kernels(dev):
                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
                     if (B, T, H, d, new) == (8, 1024, 8, 64, False):
                         records["attention"] = rec
-                    elif not mma:
+                    elif not mma and (B, T, H, d, new) == POOL_SHAPE:
                         records["attention_fma"] = rec
 
         # the UNet's 256 px maps (256, 512 channels), 128 px, 32 px, 8 px, the classifier's 256 px, and the
@@ -691,6 +724,8 @@ def phase3b_attention_bwd(dev):
     cases = [  # (B, T, heads, d, new_order), dtypes: the classifier's blocks at batch 8, then its pool
         *((c, both) for c in [(8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), POOL_SHAPE]),
         *((c, both) for c in CLF_TRAIN_ATTN_SHAPES), *((c, bf16) for c in UNET_ATTN_SHAPES),
+        # the 64 px quality proxies' d = 96 (float32 on their paths: the classifier's gradient, training)
+        *((c, both) for c in PROXY_ATTN_SHAPES if c[3] == 96),
     ]
     records = {}
     for (B, T, H, d, new), dtypes in cases:
@@ -716,17 +751,18 @@ def phase3b_attention_bwd(dev):
             pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
             log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
                 f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-            if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE:
+            if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE or d == 96:
                 q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, new))
                 with torch.enable_grad():
                     o = F.scaled_dot_product_attention(q, k, v)
                 dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
                 lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True))
                 rec = record(err, ms, pms, **attention_bound(B, T, H, d, True, not mma), library_ms=lib)
-            if not mma and (B, T, H, d, new) == POOL_SHAPE:
+            if not mma and ((B, T, H, d, new) == POOL_SHAPE or d == 96):
                 log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms; bound "
                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, at the f32 rate)")
-                records["attention_bwd_fma"] = rec
+                if (B, T, H, d, new) == POOL_SHAPE:
+                    records["attention_bwd_fma"] = rec
             if dtype == torch.bfloat16:
                 fma = fma_attention(qkv, H, new, do)
                 fma_err = (fma.float() - ref.float()).abs().max().item()
@@ -1105,20 +1141,21 @@ def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> N
                                  f"cores, with {f32} float32 calls")
     log(f"  {path}: {A.attention_fwd_cuda.launches_mma} of {A.attention_fwd_cuda.launches} K1 and "
         f"{A.attention_bwd_cuda.launches_mma} of {A.attention_bwd_cuda.launches} K2 launches ran on the tensor cores: "
-        f"every bf16 one (float32 calls, the classifier's attention pool: {k1_f32} and {k2_f32})")
+        f"every bf16 one (float32 calls: {k1_f32} and {k2_f32})")
 
 
 def dp4a_convs(model) -> int:
     """The convs of ``model``'s structure (a module or a list of modules) that
     K5 keeps on ``__dp4a`` under int8: the stems (3 channels in; 6, x and its
     partner or its upsampled low_res, in the SR models) and the head (6
-    channels out), counted from the modules' channels alone and not by the
+    channels out; 3 in the quality tools' proxies and their classifier's
+    1x1 head), counted from the modules' channels alone and not by the
     wrapper's own dispatch rule, so that a rule that sent any other conv to
     ``__dp4a`` would fail the count."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
 
     roots = model if isinstance(model, (list, tuple)) else [model]
-    return sum(isinstance(m, Conv2d) and (m.in_channels in (3, 6) or m.out_channels == 6)
+    return sum(isinstance(m, Conv2d) and (m.in_channels in (3, 6) or m.out_channels in (3, 6))
                for root in roots for m in root.modules())
 
 
@@ -1132,7 +1169,7 @@ def check_conv_tensor_core_launches(path: str, dp4a: int) -> None:
         raise AssertionError(f"{path}: {k5.launches_mma} of K5's {k5.launches} launches ran on the tensor cores, "
                              f"with {dp4a} stem and head convs")
     log(f"  {path}: {k5.launches_mma} of {k5.launches} K5 launches ran on the tensor cores: all but the {dp4a} "
-        f"stem (3 or 6 channels in) and head (6 channels out) convs")
+        f"stem (3 or 6 channels in) and head (3 or 6 channels out) convs")
 
 
 def gn_conv_counts(model, int8: bool) -> dict:
@@ -1202,37 +1239,13 @@ def clip_unet(sd=None, **over):
     return model.requires_grad_(False)
 
 
-def phase4_forward(dev, sd):
-    """Full-width forward, batch 1, f32: card (kernels) vs CPU (plain)."""
-    import torch
-
-    tf32_off()
-    model = clip_unet(sd)
-    g = torch.Generator().manual_seed(2)
-    x = torch.randn(1, 3, 256, 256, generator=g)
-    t = torch.tensor([500])
-    feat = torch.randn(1, 512, generator=g)
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        ref = model(x, t, clip_feat=feat)
-        cpu_s = time.perf_counter() - t0
-        model.to(dev)
-        out = model(x.to(dev), t.to(dev), clip_feat=feat.to(dev)).cpu()
-    if out.shape != (1, 6, 256, 256) or not torch.isfinite(out).all():
-        raise AssertionError(f"forward output {tuple(out.shape)} not finite (1, 6, 256, 256)")
-    rel = ((out - ref).norm() / ref.norm()).item()
-    log(f"  forward (1, 3, 256, 256) f32: |ref| {ref.norm().item():.4g}, rel L2 err card vs CPU "
-        f"{rel:.3g} (bound 1e-3); CPU forward {cpu_s:.2f} s")
-    if not ref.norm() > 0 or not rel <= 1e-3:
-        raise AssertionError(f"card forward differs from the CPU forward: rel L2 {rel:.3g}")
-    del model
-
-
 def phase4e_deep_cache(dev, sd):
     """The UNet's cache modes at full width, batch 1, f32: a ``full`` forward
     and a ``shallow`` one fed its deep feature, card against CPU; on the card
     the shallow forward against the plain (``off``) one at the same (x, t),
-    which it must equal but for the order of the kernels' launches."""
+    which it must equal but for the order of the kernels' launches, and the
+    plain forward against the CPU's full one (the same function; a phase 4 once
+    ran a second CPU forward for it)."""
     import torch
 
     tf32_off()
@@ -1274,6 +1287,10 @@ def phase4e_deep_cache(dev, sd):
         f"forward launches {per_full}, a shallow one {per_shallow} (cut {cut})")
     if not rel <= 1e-5:
         raise AssertionError(f"shallow forward differs from the plain forward: rel L2 {rel:.3g}")
+    rel = ((off.cpu() - ref[0]).norm() / ref[0].norm()).item()
+    log(f"  the plain forward (1, 3, 256, 256) f32 on the card against the CPU's: rel L2 {rel:.3g} (bound 1e-3)")
+    if tuple(off.shape) != (1, 6, 256, 256) or not torch.isfinite(off).all() or not rel <= 1e-3:
+        raise AssertionError(f"card forward {tuple(off.shape)} differs from the CPU forward: rel L2 {rel:.3g}")
     del model
 
 
@@ -2858,11 +2875,15 @@ def phase9b_repeat(dev, tmp, run_dir) -> dict:
     return tensor_core_split(launches)
 
 
+NLL_STEPS = 100  # 9c's schedule; 1000 once, whose other 900 forwards repeated phase 9's bf16 forward at batch 8
+
+
 def phase9c_nll(dev, tmp, run_dir) -> dict:
     """``image_nll.main`` on the 8 first test images (batch 8) with the recipe's
-    model and its 1000-step cosine schedule: ``calc_bpd_loop``'s 1000 UNet
-    forwards, the kernels' launches against them, a finite positive bpd and
-    the three (1000,) term files. Returns the launch counts."""
+    model and a ``NLL_STEPS``-step cosine schedule: ``calc_bpd_loop``'s
+    ``NLL_STEPS`` UNet forwards, the kernels' launches against them, a finite
+    positive bpd and the three (``NLL_STEPS``,) term files. Returns the launch
+    counts."""
     import numpy as np
 
     from guided_diffusion_clip_tpu_torch import image_nll
@@ -2872,7 +2893,7 @@ def phase9c_nll(dev, tmp, run_dir) -> dict:
     model = recipe_model()[1]
     argv = ["--image_size", "128", "--num_channels", "64", "--num_res_blocks", "2", "--learn_sigma", "True",
             "--class_cond", "True", "--num_heads", "1", "--use_fp16", "True", "--noise_schedule", "cosine",
-            "--diffusion_steps", "1000", "--model_path", os.path.join(run_dir, "ema_0.9999_000010.pt"),
+            "--diffusion_steps", str(NLL_STEPS), "--model_path", os.path.join(run_dir, "ema_0.9999_000010.pt"),
             "--data_dir", data, "--clip_file_path", clip, "--batch_size", "8", "--num_samples", "8",
             "--main_path", os.path.join(tmp, "nll"), "--device", dev.type]
     reset_counters()
@@ -2882,13 +2903,13 @@ def phase9c_nll(dev, tmp, run_dir) -> dict:
     launches = counters()
     run = logger.get_dir()
     logger.reset()
-    want = {**dict.fromkeys(launches, 0), **{k: 1000 * v for k, v in unet_counts(model, False).items()}}
+    want = {**dict.fromkeys(launches, 0), **{k: NLL_STEPS * v for k, v in unet_counts(model, False).items()}}
     terms = {n: np.load(os.path.join(run, f"{n}_terms.npz"))["arr_0"] for n in ("vb", "mse", "xstart_mse")}
-    log(f"  image_nll on 8 images: bpd {out['bpd']}, {wall:.1f} s with the model's building ({wall:.2f} ms a "
-        f"forward of batch 8); launches {launches} (expected {want}); terms {', '.join(f'{k} {v.shape}' for k, v in terms.items())}")
+    log(f"  image_nll on 8 images: bpd {out['bpd']}, {wall:.1f} s with the model's building ({1e3 * wall / NLL_STEPS:.2f} "
+        f"ms a forward of batch 8); launches {launches} (expected {want}); terms {', '.join(f'{k} {v.shape}' for k, v in terms.items())}")
     if out["samples"] != 8 or not all(math.isfinite(b) and b > 0 for b in out["bpd"]):
         raise AssertionError(f"image_nll: {out['samples']} samples, bpd {out['bpd']}")
-    if any(v.shape != (1000,) or not np.isfinite(v).all() for v in terms.values()):
+    if any(v.shape != (NLL_STEPS,) or not np.isfinite(v).all() for v in terms.values()):
         raise AssertionError(f"image_nll terms: {[(k, v.shape) for k, v in terms.items()]}")
     if launches != want:
         raise AssertionError(f"image_nll: launch counts {launches} != {want}")
@@ -3858,30 +3879,15 @@ def fsdp_association(model) -> list:
 
 @contextlib.contextmanager
 def world1_group():
-    """torchrun's variables for a world of 1 and the port's process group
-    (``parallel/dist.py``: NCCL for CUDA tensors, gloo beside it) for the
-    block; both gone after it."""
-    import socket
-
+    """The port's process group of one rank (``parallel/dist.py::one_rank_group``:
+    torchrun's variables for a world of 1, NCCL for CUDA tensors, gloo beside
+    it) for the block; both gone after it."""
     from guided_diffusion_clip_tpu_torch.parallel import dist as pdist
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        if not pdist.setup_dist("cuda"):
-            raise AssertionError("setup_dist did not start a process group under torchrun's variables")
+    with pdist.one_rank_group("cuda"):
+        if not pdist.is_initialized() or pdist.world_size() != 1:
+            raise AssertionError("one_rank_group did not start a process group of one rank")
         yield
-    finally:
-        pdist.destroy()
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def dist_loop(dev, sd, tmp, batch, int8=False, **kw):
@@ -4180,8 +4186,9 @@ def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
 
 TOOL_AGREEMENT = (0.8, 1.25)  # a tool's device ms over the phase's that measures the same work in this run
 
-# two windows of the tool's default length, each ended by the metrics' flush and a sync
-TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "2", "TSB_WINDOW": "10"}
+# one window of the tool's default length, ended by the metrics' flush and a sync (a second window repeated
+# the first's measurement)
+TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "1", "TSB_WINDOW": "10"}
 BD_BATCH, BD_REPS = 8, 8  # perf_breakdown at phase 6's batch, its default repeats
 SB_ENV = {"SB_REQUESTS": "3"}
 # the parts of perf_breakdown against profile_guided_step's
@@ -4211,7 +4218,7 @@ def agreement(tool: str, ours: float, phase: str, theirs: float) -> float:
 def phase14a_train_step_bench(timed: dict) -> list:
     """``train_step_bench.main`` on the recipe (``TSB_CONFIG fork128``, batch
     48, its whole batch a microbatch) in bf16 and with ``TSB_CONV_IMPL int8``,
-    right after 8e: the row, the launches of its 1 + 2 x 10 timed steps and
+    right after 8e: the row, the launches of its 1 + 10 timed steps and
     3 profiled against ``train_counts``, its device ms a step against 8d's
     (bf16; 8e's, int8, logged), its window's ms a step against 8d's and 8e's
     medians and its own device ms logged, the FLOP count equal both ways. ``timed`` holds 8d's and 8e's records by
@@ -4498,6 +4505,140 @@ def phase15_sampling_benches() -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the quality tools (tools/_proxies.py's blob proxies, trained on the
+# card), each through its main() at a cut depth
+# ---------------------------------------------------------------------------
+
+PHASE16_TRAIN = 24  # train steps of each proxy (the tools' 400 and 600 cut)
+PHASE16_STEPS = 10  # respaced steps a chain (the tools' 100 and 250 cut)
+# one batch a set of 36 images: a 32-d feature covariance of fewer samples is singular, and the Frechet
+# distance's sqrtm refuses it, as the evaluator's does
+PHASE16_BATCH = 36
+PHASE16_ENV = {
+    "int8_chain_quality": {"INT8Q_TRAIN_STEPS": str(PHASE16_TRAIN), "INT8Q_SAMPLES": str(PHASE16_BATCH),
+                           "INT8Q_BATCH": str(PHASE16_BATCH), "INT8Q_RESPACING": str(PHASE16_STEPS),
+                           "INT8Q_FEAT_STEPS": "20", "INT8Q_VARIANT": "int8+dc5+gc2"},
+    "guidance_quality_sweep": {"GQS_TRAIN_STEPS": str(PHASE16_TRAIN), "GQS_SAMPLES": str(PHASE16_BATCH),
+                               "GQS_BATCH": str(PHASE16_BATCH), "GQS_RESPACING": str(PHASE16_STEPS),
+                               "GQS_FEAT_STEPS": "20", "GQS_SWEEP": "off:gc1,200:800:gc2"},
+    "opt_long_horizon": {"OLH_STEPS": str(PHASE16_TRAIN), "OLH_BATCH": "16"},
+}
+# the keys of the JAX tools' lines (tools/int8_chain_quality.py:431-448, guidance_quality_sweep.py:257-306,
+# opt_long_horizon.py:86-109 at OLH_IMPLS tree,flat,zero1)
+PHASE16_KEYS = {
+    "int8_chain_quality": {"config", "variant", "same_seed_pixel_corr_mean", "same_seed_pixel_corr_min",
+                           "same_seed_rel_rmse_mean", "same_seed_rel_rmse_max", "set_frechet",
+                           "feat_extractor_final_loss", "posctrl_separated", "variant_within_floor", "wall_s"},
+    "guidance_quality_sweep": {"config", "feat_extractor_final_loss", "floor_real_vs_real", "sweep",
+                               "unguided_frechet_to_real_mean", "unguided_classifier_acc", "wall_s"},
+    "opt_long_horizon": {"config", "impls", "tree_final_third_loss_mean", "tree_step_noise_sd",
+                         *(f"{i}_{k}" for i in ("flat", "zero1")
+                           for k in ("final_third_loss_mean", "mean_abs_delta_vs_tree", "delta_over_step_noise",
+                                     "mean_diff_in_sems"))},
+}
+
+
+def proxy_counts(size: int) -> dict:
+    """Launches of one call of each network of the quality tools' proxies at
+    ``size`` px, from the modules (built on ``meta``): ``train`` a float32
+    generator train step, ``clf_train`` a classifier train step, ``full``
+    and ``shallow`` bf16 or int8 generator forwards (the default DeepCache
+    cut), ``clf`` a guidance call of the float32 classifier (forward and
+    backward; xla or int8), ``clf_fwd`` its forward alone; ``attn`` the
+    classifier's attention blocks (float32: the FMA-pipe kernels), ``dp4a``
+    each int8 call's convs on ``__dp4a``."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, EncoderUNetModel, UNetModel
+    from guided_diffusion_clip_tpu_torch.tools import _proxies as P
+
+    with torch.device("meta"):
+        gen = {impl: UNetModel(P.generator_config(size), conv_impl=impl) for impl in ("auto", "int8")}
+        clf = {impl: EncoderUNetModel(P.classifier_config(size), pool="adaptive", conv_impl=impl)
+               for impl in ("auto", "int8")}
+    cut = gen["auto"].config.num_res_blocks + 1
+    attn = sum(isinstance(m, AttentionBlock) for m in clf["auto"].modules())
+    out = {"train": train_counts(gen["auto"], False), "clf_train": clf_train_counts(clf["auto"]),
+           "clf_fwd": {"attention": attn, **gn_conv_counts(clf["auto"], False)}, "attn": attn}
+    for int8, impl in ((False, "auto"), (True, "int8")):
+        tag = "int8" if int8 else "xla"
+        out[f"full_{tag}"] = unet_counts(gen[impl], int8)
+        out[f"shallow_{tag}"] = unet_counts(gen[impl], int8, cut)
+        out[f"clf_{tag}"] = {"attention": attn, "attention_bwd": attn, **gn_conv_counts(clf[impl], int8)}
+    out["dp4a"] = {"full": dp4a_convs(gen["int8"]), "shallow": dp4a_convs(shallow_roots(gen["int8"], cut)),
+                   "clf": dp4a_convs(clf["int8"])}
+    return out
+
+
+def finite_numbers(tool: str, value, path: str = "") -> None:
+    """Every number in ``value`` (nested dicts and lists) finite."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite_numbers(tool, v, f"{path}.{k}")
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            finite_numbers(tool, v, f"{path}[{i}]")
+    elif isinstance(value, (int, float)) and not isinstance(value, bool) and not math.isfinite(value):
+        raise AssertionError(f"{tool}: {path} is {value}")
+
+
+def phase16_quality_tools() -> list:
+    """The quality tools through their ``main()`` (see the module's
+    docstring): each row's keys the JAX tool's plus ``card``, every number
+    finite, the card the one ``nvidia-smi`` names, and the launches equal to
+    those derived from the modules, the train steps and the schedule.
+    Returns each run's launch counts."""
+    from guided_diffusion_clip_tpu_torch.tools import guidance_quality_sweep, int8_chain_quality, opt_long_horizon
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    n, T = PHASE16_TRAIN, PHASE16_STEPS
+    small, big = proxy_counts(16), proxy_counts(64)
+    tmap = create_gaussian_diffusion(steps=1000, noise_schedule="cosine",
+                                     timestep_respacing=str(T)).sched.timestep_map.tolist()
+    # the window's cached gradient: refreshed on the steps 0, 2, ..., computed where step i's model timestep
+    # tmap[T - 1 - i] lies in [200, 800]
+    windowed = sum(200 <= tmap[T - 1 - i] <= 800 for i in range(0, T, 2))
+    log(f"  guidance_quality_sweep's 200:800:gc2 runs the classifier on {windowed} of its {T} steps "
+        f"(model timesteps {tmap[::-1]})")
+    refresh, cached = len(range(0, T, 5)), len(range(0, T, 2))  # int8+dc5+gc2's full forwards, classifier calls
+    # (terms: (n, counts) of each network's calls; float32 K1 calls: training and the classifier)
+    plans = {
+        # training (generator, classifier), 4 base-chain sets (a, b, c, the positive control), the variant
+        "int8_chain_quality": (
+            [(n, small["train"]), (n, small["clf_train"]), (4 * T, small["full_xla"]), (4 * T, small["clf_xla"]),
+             (refresh, small["full_int8"]), (T - refresh, small["shallow_int8"]), (cached, small["clf_int8"])],
+            n * (small["train"]["attention"] + small["attn"]) + (4 * T + cached) * small["attn"],
+            refresh * small["dp4a"]["full"] + (T - refresh) * small["dp4a"]["shallow"] + cached * small["dp4a"]["clf"]),
+        # training, two sweep points and the unguided set (T generator forwards each), their guidance, the
+        # classifier's accuracy on each set (one forward of the batch)
+        "guidance_quality_sweep": (
+            [(n, big["train"]), (n, big["clf_train"]), (3 * T, big["full_xla"]), (T + windowed, big["clf_xla"]),
+             (3, big["clf_fwd"])],
+            n * (big["train"]["attention"] + big["attn"]) + (T + windowed + 3) * big["attn"], 0),
+        # three layouts' training
+        "opt_long_horizon": ([(3 * n, small["train"])], 3 * n * small["train"]["attention"], 0),
+    }
+    runs = []
+    for main in (int8_chain_quality.main, guidance_quality_sweep.main, opt_long_horizon.main):
+        tool = main.__module__.rsplit(".", 1)[1]
+        row, launches, secs = run_counted(main, [], PHASE16_ENV[tool])
+        log(f"  {tool} ({secs:.1f} s): {json.dumps(row)}")
+        if set(row) != PHASE16_KEYS[tool] | {"card"} or row["card"] != smi():
+            raise AssertionError(f"{tool}: keys {sorted(row)} (want the JAX tool's and card), card {row['card']!r}")
+        finite_numbers(tool, row)
+        terms, k1_f32, dp4a = plans[tool]
+        want = expected(launches, *terms)
+        want.update(attention_fma=k1_f32, attention_bwd_fma=want["attention_bwd"])
+        log(f"  {tool}: launches {launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{tool}: launch counts {launches} != {want}")
+        check_tensor_core_launches(tool, k1_f32, want["attention_bwd"])
+        check_conv_tensor_core_launches(tool, dp4a)
+        runs.append(launches)
+    return runs
+
+
 def _scaled_rstd(stats, k: float):
     """A GroupNorm kernel's (2, B, G) mean and rstd with the rstd scaled by ``k``."""
     import torch
@@ -4603,8 +4744,9 @@ def check_ptxas(build_log: str) -> None:
     """Print ptxas's registers and spills by kernel; raise on a spill in a kernel the main paths launch."""
     # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d> (K1's as name<d, warps>),
     # any other by its (mangled) name; a spill fails the run in the former at d = 64 (the sampling paths),
-    # 192 and 256 (training) and in a kernel of the convs', the quantizer's and the GroupNorms' sources,
-    # which were built without any
+    # 192 and 256 (training), in K1's at d = 96 (the 64 px quality proxies' bf16 sampling; their K2 runs in
+    # float32, and K2's tensor-core dK/dV kernel spills at d = 96 as at 128) and in a kernel of the convs',
+    # the quantizer's and the GroupNorms' sources, which were built without any
     entry, on_path = "", False
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -4612,7 +4754,8 @@ def check_ptxas(build_log: str) -> None:
             mangled = re.search(r"Compiling entry function '(\w+)'", line)
             args = re.findall(r"\d+", found.group(2)) if found else []
             entry = f"{found.group(1)}<{', '.join(args)}>" if found else mangled.group(1) if mangled else ""
-            on_path = bool(args) and args[0] in ("64", "192", "256")
+            on_path = bool(args) and (args[0] in ("64", "192", "256")
+                                      or (args[0] == "96" and found.group(1) == "attention_fwd_mma_kernel"))
             found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
                               r"quantize_kernel|gn_fused_kernel)(\w*)'", line)
             if found:
@@ -4677,18 +4820,16 @@ def main(argv=None) -> int:
     log(f"  phases 3-3g took {time.perf_counter() - t3:.1f} s")
 
     t4 = time.perf_counter()
-    log("phase 4: full-width forward, card vs CPU")
     sd = random_state_dict(clip_unet())
-    phase4_forward(dev, sd)
     log("phase 4b: full-width guidance gradient, card vs CPU")
     phase4b_guidance(dev)
     log("phase 4c: full-width int8 forward, card vs CPU")
     phase4c_int8_forward(dev, sd)
     log("phase 4d: full-width int8 guidance gradient, card vs CPU")
     phase4d_int8_guidance(dev)
-    log("phase 4e: full-width DeepCache forwards (full, shallow), card vs CPU")
+    log("phase 4e: full-width forwards (full, shallow and plain), card vs CPU")
     phase4e_deep_cache(dev, sd)
-    log(f"  phases 4-4e took {time.perf_counter() - t4:.1f} s")
+    log(f"  phases 4b-4e took {time.perf_counter() - t4:.1f} s")
 
     import numpy as np
 
@@ -4829,6 +4970,11 @@ def main(argv=None) -> int:
     log(f"phase 15: the sampling benches at batch {PHASE15_BATCH}, {PHASE15_STEPS} steps, int8")
     runs.extend(phase15_sampling_benches())
     log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    log(f"phase 16: the quality tools at {PHASE16_TRAIN} train steps, one batch of {PHASE16_BATCH} a set, "
+        f"{PHASE16_STEPS} steps")
+    runs.extend(phase16_quality_tools())
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)

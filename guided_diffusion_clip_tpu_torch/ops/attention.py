@@ -52,11 +52,14 @@ from torch.autograd.function import once_differentiable
 
 from . import build
 
-# d values K1 is instantiated for: 64 is the ADM-256 UNet's head width;
-# 192 and 256 are the fork's 128 px recipe (num_heads 1 at C = 192 and 256).
-KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
+# d values K1 and K2 are instantiated for: 64 is the ADM-256 UNet's and its
+# classifier's head width; 96 and 128 are the 64 px quality proxies' (the
+# generator's 4 heads at 384 and 512 channels, the classifier's 2 at 192;
+# tools/_proxies.py); 192 and 256 are the fork's 128 px recipe (num_heads 1 at
+# C = 192 and 256); 32 is the tests' narrow models'.
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 192, 256)
 # d values the tensor-core kernels (bfloat16 only) are instantiated for: all of them
-MMA_HEAD_DIMS = (32, 64, 128, 192, 256)
+MMA_HEAD_DIMS = KERNEL_HEAD_DIMS
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

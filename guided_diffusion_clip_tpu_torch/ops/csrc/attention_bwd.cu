@@ -436,6 +436,7 @@ int dispatch_d(const void* qkv, const void* dout, void* dqkv, void* stats, int B
   switch (D) {
     case 32: return launch<T, 32>(qkv, dout, dqkv, stats, B, L, stream);
     case 64: return launch<T, 64>(qkv, dout, dqkv, stats, B, L, stream);
+    case 96: return launch<T, 96>(qkv, dout, dqkv, stats, B, L, stream);
     case 128: return launch<T, 128>(qkv, dout, dqkv, stats, B, L, stream);
     case 192: return launch<T, 192>(qkv, dout, dqkv, stats, B, L, stream);
     case 256: return launch<T, 256>(qkv, dout, dqkv, stats, B, L, stream);

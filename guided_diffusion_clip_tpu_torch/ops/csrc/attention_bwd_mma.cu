@@ -1,5 +1,5 @@
 // Fused QKV self-attention backward (kernel K2) on the tensor cores, for bf16
-// inputs and head widths 32, 64, 128, 192 and 256, on Hopper (sm_90a).
+// inputs and head widths 32, 64, 96, 128, 192 and 256, on Hopper (sm_90a).
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_attention.py::_attn_bwd_kernel
 // (reached via _flash_bwd, the custom VJP of K1), as attention_bwd.cu does on
@@ -68,6 +68,9 @@
 //     same reason, and ptxas still reports 255 registers and 16 bytes of
 //     spills a thread; a partial sum of 32 columns in place of 64 did not
 //     remove them;
+//   * at d = 96 (the 64 px quality proxies: the generator's 4 heads at 384
+//     channels, the classifier's 2 at 192) the streamed tile is 32 rows, as at d = 128, and the P^T dO
+//     and dS^T Q products are summed over two passes of 48 columns;
 //   * at d = 192 and 256 (the 128 px training recipe's one-head attention)
 //     kernel A holds dQ (D / 2 registers) and streams 32 rows, as at d = 128
 //     (16 at d = 256, where 32 spilled). Kernel B cannot hold dK and dV in
@@ -192,7 +195,10 @@ __device__ __forceinline__ void one_product(unsigned a1, unsigned b1, float (&s)
 template <int D, int NT>
 __device__ __forceinline__ void split_product(const float (&x)[NT][4], unsigned b, float (&acc)[D / 8][4]) {
   constexpr int PITCH = row_pitch<D>();
-  constexpr int CW = D < 64 ? D : 64;  // columns of acc at a time: wider spills more at D = 128
+  // columns of acc at a time: wider spills more at D = 128; at D = 96, which 64 does not divide, two
+  // passes of 48
+  constexpr int CW = D < 64 ? D : D % 64 ? D / 2 : 64;
+  static_assert(D % CW == 0 && CW % 16 == 0, "the passes cover acc's columns in whole k-steps");
 #pragma unroll
   for (int c0 = 0; c0 < D; c0 += CW) {
     // The tile's product is summed on its own and added to acc by the FMA
@@ -562,8 +568,8 @@ int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B, co
 }  // namespace
 
 // qkv, dqkv: (B, T, 3 * H * D); dout: (B, T, H * D); all bf16, contiguous and
-// 16-byte aligned; stats: (3, B * H, T) f32 scratch; D in {32, 64, 128, 192,
-// 256}. Returns a cudaError_t code (0 = both kernels launched).
+// 16-byte aligned; stats: (3, B * H, T) f32 scratch; D in {32, 64, 96, 128,
+// 192, 256}. Returns a cudaError_t code (0 = both kernels launched).
 extern "C" int gdc_attention_bwd_mma(const void* qkv, const void* dout, void* dqkv, void* stats, int B, int Tn,
                                      int H, int D, int new_order, float scale, float scale2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -577,6 +583,7 @@ extern "C" int gdc_attention_bwd_mma(const void* qkv, const void* dout, void* dq
   switch (D) {
     case 32: return launch<32>(qkv, dout, dqkv, stats, B, L, s);
     case 64: return launch<64>(qkv, dout, dqkv, stats, B, L, s);
+    case 96: return launch<96>(qkv, dout, dqkv, stats, B, L, s);
     case 128: return launch<128>(qkv, dout, dqkv, stats, B, L, s);
     case 192: return launch<192>(qkv, dout, dqkv, stats, B, L, s);
     case 256: return launch<256>(qkv, dout, dqkv, stats, B, L, s);

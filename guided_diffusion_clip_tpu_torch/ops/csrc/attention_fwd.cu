@@ -223,6 +223,7 @@ int dispatch_d(const void* qkv, void* out, int B, int Tn, int H, int D, int new_
   switch (D) {
     case 32: return launch<T, 32>(qkv, out, B, Tn, H, new_order, scale, stream);
     case 64: return launch<T, 64>(qkv, out, B, Tn, H, new_order, scale, stream);
+    case 96: return launch<T, 96>(qkv, out, B, Tn, H, new_order, scale, stream);
     case 128: return launch<T, 128>(qkv, out, B, Tn, H, new_order, scale, stream);
     case 192: return launch<T, 192>(qkv, out, B, Tn, H, new_order, scale, stream);
     case 256: return launch<T, 256>(qkv, out, B, Tn, H, new_order, scale, stream);

@@ -1,5 +1,5 @@
 // Fused QKV self-attention forward (kernel K1) on the tensor cores, for bf16
-// inputs and head widths 32, 64, 128, 192 and 256, on Hopper (sm_90a).
+// inputs and head widths 32, 64, 96, 128, 192 and 256, on Hopper (sm_90a).
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_attention.py::_attn_kernel
 // (reached via _flash_bhtd / qkv_attention_pallas), as attention_fwd.cu does
@@ -259,7 +259,7 @@ int launch(const void* qkv, void* out, int B, int Tn, int H, int new_order, floa
 }  // namespace
 
 // qkv: (B, T, 3 * H * D) bf16, out: (B, T, H * D) bf16, both contiguous and
-// 16-byte aligned; D in {32, 64, 128, 192, 256}; q_rows, the query rows of a
+// 16-byte aligned; D in {32, 64, 96, 128, 192, 256}; q_rows, the query rows of a
 // block: 64, or at D = 192 and 256 also 32 (ops/attention.py::fwd_q_rows
 // picks). Returns a cudaError_t code (0 = launched).
 extern "C" int gdc_attention_fwd_mma(const void* qkv, void* out, int B, int Tn, int H, int D, int new_order,
@@ -270,6 +270,7 @@ extern "C" int gdc_attention_fwd_mma(const void* qkv, void* out, int B, int Tn, 
   switch (D) {
     case 32: return launch<32, 4>(qkv, out, B, Tn, H, new_order, scale, s);
     case 64: return launch<64, 4>(qkv, out, B, Tn, H, new_order, scale, s);
+    case 96: return launch<96, 4>(qkv, out, B, Tn, H, new_order, scale, s);
     case 128: return launch<128, 4>(qkv, out, B, Tn, H, new_order, scale, s);
     case 192: return half ? launch<192, 2>(qkv, out, B, Tn, H, new_order, scale, s)
                           : launch<192, 4>(qkv, out, B, Tn, H, new_order, scale, s);

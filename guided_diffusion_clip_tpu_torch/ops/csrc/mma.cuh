@@ -146,7 +146,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // bytes of one shared row of D bf16: 16 bytes of padding put the 8 rows of an
-// ldmatrix matrix on distinct banks (D * 2 is a multiple of 128 at D >= 64)
+// ldmatrix matrix on distinct banks (D * 2 is a multiple of 128 at D = 64, 128
+// and 256; at D = 96 and 192 a row is 52 and 100 words, and rows 0-7 start at
+// banks 0, 20, 8, 28, 16, 4, 24, 12 and 0, 4, ..., 28: distinct 4-bank groups)
 template <int D> __host__ __device__ constexpr int row_pitch() { return D * 2 + 16; }
 
 // Rows [r0, r0 + ROWS) of a (T, D) bf16 matrix whose rows lie row_stride

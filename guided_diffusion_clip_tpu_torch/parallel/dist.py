@@ -66,6 +66,37 @@ def process_group(device="cuda"):
             destroy()
 
 
+@contextmanager
+def one_rank_group(device="cuda"):
+    """A process group of one rank for the block, outside torchrun: torchrun's
+    variables for a world of 1 (``MASTER_PORT`` a free port on localhost),
+    ``setup_dist``, and at the end the group destroyed and the variables
+    restored. Under torchrun, or with a group already up, the block runs in
+    that group. Yields this process's device (``local_device``)."""
+    if dist.is_initialized() or under_torchrun():
+        with process_group(device) as dev:
+            yield dev
+        return
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        setup_dist(device)
+        yield local_device(device)
+    finally:
+        destroy()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def destroy() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -46,20 +46,20 @@ def with_deep_cache(unet, config, batch: int, interval: int, cut: int, dtype, de
     return fn, zero_state(config, batch, cut, dtype=dtype, device=device)
 
 
-def generators(batch: int, device) -> list:
+def generators(batch: int, device, seed: int = SEED) -> list:
     """The per-sample generators every chain draws from, built anew for each
-    chain: two chains of one batch draw the same noise."""
-    return sample_generators([SEED] * batch, range(batch), device)
+    chain: two chains of one batch and one ``seed`` draw the same noise."""
+    return sample_generators([seed] * batch, range(batch), device)
 
 
 def classifier_chain(loop, model, classifier, classes, *, deep_cache: int = 0, cache_cut: int = 0,
                      interval=None, guidance_cache: int = 0, scale: float = 1.0):
-    """``run(noise=None, step_noise=None) -> samples``: ``loop`` (a
+    """``run(noise=None, step_noise=None, seed=SEED) -> samples``: ``loop`` (a
     ``Diffusion`` sampling method) over ``model`` guided by ``classifier``'s
-    gradient at ``scale`` for the labels ``classes``, under ``torch.no_grad()``,
-    the noise from ``generators`` unless given. ``run.calls`` counts the
-    networks' calls over every run: ``unet_full``, ``unet_shallow``,
-    ``classifier``."""
+    gradient at ``scale`` for the labels ``classes`` (unguided with
+    ``classifier`` None), under ``torch.no_grad()``, the noise from
+    ``generators`` unless given. ``run.calls`` counts the networks' calls over
+    every run: ``unet_full``, ``unet_shallow``, ``classifier``."""
     device, batch = classes.device, classes.shape[0]
     size = model.config.image_size
     shape = (batch, 3, size, size)
@@ -69,7 +69,7 @@ def classifier_chain(loop, model, classifier, classes, *, deep_cache: int = 0, c
         calls["classifier"] += 1
         return classifier(x, t)
 
-    cond_fn = classifier_cond_fn(classifier_fn, scale)
+    cond_fn = classifier_cond_fn(classifier_fn, scale) if classifier is not None else None
     if interval is not None:
         cond_fn = interval_cond_fn(cond_fn, *interval)
     cond_state0 = None
@@ -86,18 +86,21 @@ def classifier_chain(loop, model, classifier, classes, *, deep_cache: int = 0, c
     return run
 
 
-def runner(loop, model_fn, classes, shape, *, cond_fn=None, model_state0=None, cond_state0=None):
-    """``run(noise=None, step_noise=None) -> samples``: ``loop`` over
-    ``model_fn`` with the labels ``classes`` under ``torch.no_grad()`` (not
-    ``inference_mode``: a cond_fn differentiates through its networks), the
-    noise from ``generators`` unless given."""
+def runner(loop, model_fn, classes, shape, *, cond_fn=None, model_state0=None, cond_state0=None,
+           model_kwargs=None):
+    """``run(noise=None, step_noise=None, seed=SEED) -> samples``: ``loop``
+    over ``model_fn`` with the labels ``classes`` (or ``model_kwargs`` in
+    their place) under ``torch.no_grad()`` (not ``inference_mode``: a cond_fn
+    differentiates through its networks), the noise from ``generators`` unless
+    given."""
     device, batch = classes.device, classes.shape[0]
+    kwargs = {"y": classes} if model_kwargs is None else model_kwargs
 
-    def run(noise=None, step_noise=None):
+    def run(noise=None, step_noise=None, seed=SEED):
         extra = {} if step_noise is None else {"step_noise": step_noise}
         with torch.no_grad():
-            return loop(model_fn, shape, None if noise is not None else generators(batch, device), noise=noise,
-                        clip_denoised=True, model_kwargs={"y": classes}, cond_fn=cond_fn,
+            return loop(model_fn, shape, None if noise is not None else generators(batch, device, seed), noise=noise,
+                        clip_denoised=True, model_kwargs=kwargs, cond_fn=cond_fn,
                         model_state0=model_state0, cond_state0=cond_state0, **extra)
 
     return run

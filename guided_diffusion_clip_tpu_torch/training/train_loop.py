@@ -587,11 +587,16 @@ class TrainLoop:
                 "loss_vec": vec[0], "mse_vec": vec[1], "vb_vec": vec[2], "t": vec[3].astype(np.int64)}
 
     def flush_metrics(self):
-        """Log the deferred previous step's metrics."""
+        """Log the deferred previous step's metrics; returns them as
+        ``_fetch`` reads them (``loss``, ``grad_norm``, ``param_norm``, the
+        vectors and ``t``), or None when no step was pending."""
         pending, self._pending_log = self._pending_log, None
-        if pending is not None:
-            step, _, fetch = pending
-            self._log_step_metrics(self._fetch(fetch), step=step)
+        if pending is None:
+            return None
+        step, _, fetch = pending
+        metrics = self._fetch(fetch)
+        self._log_step_metrics(metrics, step=step)
+        return metrics
 
     def _log_step_metrics(self, metrics, step=None):
         step = self.step + self.resume_step if step is None else step

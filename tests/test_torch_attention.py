@@ -351,6 +351,6 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 256), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):  # float32 goes to the FMA kernels at every d
         A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256)[1:].view(1, 8, 3 * 256), 1)
-    assert A.MMA_HEAD_DIMS == A.KERNEL_HEAD_DIMS == (32, 64, 128, 192, 256)
+    assert A.MMA_HEAD_DIMS == A.KERNEL_HEAD_DIMS == (32, 64, 96, 128, 192, 256)
     assert A.attention_fwd_cuda.launches == 0 and A.attention_bwd_cuda.launches == 0
     assert A.attention_fwd_cuda.launches_mma == 0 and A.attention_bwd_cuda.launches_mma == 0

@@ -26,8 +26,8 @@ def dev():
 
 
 def _on_tensor_cores(dtype, d) -> int:
-    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 128, 192, 256), else 0."""
-    return int(dtype == torch.bfloat16 and d in (32, 64, 128, 192, 256))
+    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 96, 128, 192, 256), else 0."""
+    return int(dtype == torch.bfloat16 and d in (32, 64, 96, 128, 192, 256))
 
 
 # T = 1, 17 and 129: one row, under one tile, one row over two tiles (bf16, both head orders); at the
@@ -46,7 +46,8 @@ def _attention_cases(shapes):
 @pytest.mark.parametrize(
     "B,T,H,d,new_order,dtype,tol",
     _attention_cases([(2, 1024, 8, 64, False), (2, 256, 16, 64, True), (3, 65, 2, 64, False),
-                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)]),
+                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False),
+                      (2, 256, 4, 96, False), (2, 129, 2, 96, True)]),
 )
 def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(T + d)
@@ -69,7 +70,8 @@ def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
 @pytest.mark.parametrize(
     "B,T,H,d,new_order,dtype,tol",
     _attention_cases([(2, 1024, 4, 64, False), (2, 256, 8, 64, False), (2, 64, 8, 64, False), (2, 65, 8, 64, True),
-                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False)]),
+                      (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False),
+                      (2, 256, 4, 96, False), (2, 129, 2, 96, True)]),
 )
 def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
     """K2 through ``attention``'s autograd Function against

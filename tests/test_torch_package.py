@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of guided_diffusion_clip_tpu_torch
-(nor chip_smoke.py) imports jax, flax, optax or the JAX package, found by an
-AST scan of the sources; and every module imports on a machine without a
-card, nvcc or triton."""
+(nor chip_smoke.py) imports jax, flax, optax, the JAX package, the repo's
+``tools`` or ``evaluations``, found by an AST scan of the sources; and every
+module imports on a machine without a card, nvcc or triton."""
 
 import ast
 import importlib
@@ -14,7 +14,7 @@ import guided_diffusion_clip_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "guided_diffusion_clip_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "guided_diffusion_clip_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "guided_diffusion_clip_tpu", "tools", "evaluations")
 
 
 def _sources():
