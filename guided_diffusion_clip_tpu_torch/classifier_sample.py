@@ -39,8 +39,12 @@ Under torchrun (JAX :171-203) each rank runs ``ceil(num_samples / (B *
 world))`` chains from its own two generators, seeded ``sample_seed(seed,
 2 * rank)`` and ``sample_seed(seed, 2 * rank + 1)`` (rank 0's as one
 process's); every batch is gathered in rank order and rank 0 writes the
-``.npz``, then a barrier. Not yet ported, and rejected at startup:
-``--spatial_shard`` and ``--tensor_shard``.
+``.npz``, then a barrier. ``--spatial_shard S`` (torchrun with a multiple of
+S ranks, ``parallel/sp.py``) splits every image's rows over the S ranks of
+each data group, which seed and gather as one rank of the unsharded run
+(``sample_seed(seed, 2 * d)``, d the data group); the classifier pools over
+the ranks, so each rank's guidance gradient is its rows of the unsharded
+one. Not yet ported, and rejected at startup: ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from .diffusion.guidance import (
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
+from .parallel import sp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.script_util import (
@@ -77,9 +82,6 @@ from .utils.script_util import (
     resolve_sampler,
 )
 
-# flag -> largest value that leaves the feature off; anything else is a
-# feature not yet ported
-_UNPORTED = {"spatial_shard": 1, "tensor_shard": 1}
 _UNET_KEYS = (
     "image_size", "num_channels", "num_res_blocks", "channel_mult", "learn_sigma",
     "class_cond", "use_checkpoint", "attention_resolutions", "num_heads",
@@ -89,9 +91,7 @@ _UNET_KEYS = (
 
 
 def _refuse_unported(args) -> None:
-    for name, off in _UNPORTED.items():
-        if int(getattr(args, name, 0)) > off:
-            raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
+    sp.check_flags(getattr(args, "spatial_shard", 0), getattr(args, "tensor_shard", 0))
     if getattr(args, "conv_impl", "auto") not in CONV_IMPLS:
         raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {CONV_IMPLS}")
 
@@ -106,7 +106,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path or not args.classifier_path:
         raise SystemExit("--model_path and --classifier_path: reference-format .pt state_dicts are required")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return sample(args, device)
 
 
@@ -171,7 +171,7 @@ def sample(args, device: torch.device) -> dict:
         model_state0 = zero_state(model.config, B, deep_cut, dtype=model.dtype, device=device)
 
     logger.log("sampling...")
-    rank, world = pdist.rank(), pdist.world_size()
+    rank, world = sp.data_rank(), sp.data_size()  # a data group's ranks draw alike under --spatial_shard
     noise_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 2 * rank))
     class_gen = torch.Generator(device=device).manual_seed(sample_seed(args.seed, 2 * rank + 1))
     n_batches = -(-args.num_samples // (B * world))
@@ -187,10 +187,11 @@ def sample(args, device: torch.device) -> dict:
                 clip_denoised=args.clip_denoised, model_kwargs={"y": classes}, cond_fn=cond_fn,
                 model_state0=model_state0, cond_state0=cond_state0,
             )
+            sample = sp.gather_rows(sample)
             sample = ((sample + 1) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
-            all_images.extend(pdist.all_gather_host(sample.cpu().numpy()))  # rank order
+            all_images.extend(sp.gather_data_groups(sample.cpu().numpy()))  # data-rank order
         chain_seconds.append(time.perf_counter() - t0)
-        all_labels.extend(pdist.all_gather_host(classes.cpu().numpy().astype(np.int32)))
+        all_labels.extend(sp.gather_data_groups(classes.cpu().numpy().astype(np.int32)))
         logger.log(f"created {len(all_images) * B} samples ({chain_seconds[-1]:.3f} s for the batch)")
 
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
@@ -222,8 +223,8 @@ def create_argparser():
         seed=0,
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
-        spatial_shard=0,  # not yet ported
-        tensor_shard=0,  # not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
+        tensor_shard=0,  # > 1: not yet ported
         deep_cache=0,  # N > 1: refresh the deep sub-UNet every N steps (DeepCache)
         deep_cache_cut=0,  # shallow input blocks; 0 = below the full-resolution level
         guidance_interval="",  # "lo,hi": guide only for t in [lo, hi] (original units)

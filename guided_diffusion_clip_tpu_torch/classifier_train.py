@@ -44,8 +44,13 @@ gradient the mean over the ranks, the first microbatches under
 ``no_sync()``), or FSDP2 under ``--param_sharding fsdp`` (which needs
 torchrun, at one process too; ``parallel/mesh.py``); rank 0 writes the
 checkpoints, full values under the same names in both modes, and the run ends
-with ``barrier("classifier_train")``. ``--spatial_shard`` and
-``--tensor_shard`` are not yet ported and are refused.
+with ``barrier("classifier_train")``. ``--spatial_shard S`` (torchrun
+with a multiple of S ranks, ``parallel/sp.py``) splits every image's rows
+over the S ranks of each data group, which reads, draws and logs as one
+rank of the unsharded run (its data rank); the classifier pools over the
+ranks, so every rank holds the data group's logits and loss, and DDP's mean
+over all ranks is the data-parallel gradient. ``--tensor_shard`` is not yet
+ported and is refused (JAX :97-108 builds its own mesh for both).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from .data.image_datasets import load_data
 from .diffusion.gaussian import q_sample
 from .parallel import dist as pdist
 from .parallel import mesh as pmesh
+from .parallel import sp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import get_blob_logdir
 from .utils import bf_io
@@ -90,12 +96,7 @@ def _refuse(args) -> None:
     if args.param_sharding == "fsdp" and not pdist.under_torchrun():
         raise SystemExit("--param_sharding fsdp: launch under torchrun (python -m torch.distributed.run "
                          "--nproc_per_node N -m ...); FSDP2 needs a process group")
-    for flag, unported in (
-        (f"spatial_shard {args.spatial_shard}", int(args.spatial_shard) > 1),
-        (f"tensor_shard {args.tensor_shard}", int(args.tensor_shard) > 1),
-    ):
-        if unported:
-            raise SystemExit(f"--{flag}: not yet ported to the PyTorch package")
+    sp.check_flags(args.spatial_shard, args.tensor_shard)
 
 
 class ClassifierTrainer:
@@ -108,6 +109,7 @@ class ClassifierTrainer:
         if fsdp and not pdist.is_initialized():
             raise ValueError("fsdp needs a process group: launch under torchrun")
         self.rank, self.fsdp = pdist.rank(), fsdp
+        self.data_rank = sp.data_rank()  # a data group's ranks draw alike under spatial partitioning
         self.model = model.float().train()
         self.device = next(model.parameters()).device
         self.sched = diffusion.sched.to(self.device)
@@ -117,9 +119,9 @@ class ClassifierTrainer:
             raise ValueError(f"batch_size {batch_size} is not a multiple of microbatch {self.microbatch}")
         self.lr, self.anneal_lr, self.iterations, self.noised = lr, anneal_lr, iterations, noised
         self.schedule_sampler = schedule_sampler or create_named_schedule_sampler("uniform", diffusion.num_timesteps)
-        self.np_rng = np.random.default_rng(seed + self.rank)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.rank)
-        torch.manual_seed(seed + self.rank)  # the model's dropout
+        self.np_rng = np.random.default_rng(seed + self.data_rank)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.data_rank)
+        torch.manual_seed(seed + self.data_rank)  # the model's dropout
         self.ddp = None
         if fsdp:
             pmesh.shard_model(self.model, pmesh.data_mesh(self.device))
@@ -148,7 +150,8 @@ class ClassifierTrainer:
             if noise is None:
                 noise = torch.randn(x.shape, generator=self.generator, device=self.device)
             x = q_sample(self.sched, x, t, noise)
-        logits = (self.ddp or self.model)(x, t)
+        # under SP the rank's rows; the logits (and the loss) are the data group's on every rank
+        logits = (self.ddp or self.model)(sp.shard_rows(x.contiguous(memory_format=torch.channels_last)), t)
         return F.cross_entropy(logits.float(), y.long(), reduction="none"), logits
 
     def step(self, batch, labels, t=None, noise=None):
@@ -199,6 +202,7 @@ class ClassifierTrainer:
         x = self._upload(batch, torch.float32)
         self.model.eval()
         try:
+            x = sp.shard_rows(x.contiguous(memory_format=torch.channels_last))
             return self.model(x, torch.zeros((x.shape[0],), dtype=torch.long, device=self.device)).float()
         finally:
             self.model.train()
@@ -225,7 +229,7 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return train(args, device)
 
 
@@ -275,8 +279,8 @@ def train(args, device: torch.device) -> dict:
         for event in (ev_ces, ev_logits):
             if event is not None:
                 event.synchronize()
-        # every rank's rows
-        ces, logits_np, labels_p = (pdist.all_gather_host(a) for a in (ces.numpy(), logits.float().numpy(), labels_p))
+        # every data group's rows
+        ces, logits_np, labels_p = (sp.gather_data_groups(a) for a in (ces.numpy(), logits.float().numpy(), labels_p))
         logits_np, labels_p = logits_np.reshape(-1, logits_np.shape[-1]), labels_p.reshape(-1)
         logger.logkv_mean("loss", float(ces.mean()))
         logger.logkv_mean("acc@1", compute_top_k(logits_np, labels_p, 1))
@@ -286,7 +290,7 @@ def train(args, device: torch.device) -> dict:
     for step in range(args.iterations - resume_step):
         cur = step + resume_step
         logger.logkv("step", cur)
-        logger.logkv("samples", (cur + 1) * args.batch_size * pdist.world_size())
+        logger.logkv("samples", (cur + 1) * args.batch_size * sp.data_size())
         batch, cond = next(data)
         labels = cond["y"]
         if cuda:
@@ -306,8 +310,8 @@ def train(args, device: torch.device) -> dict:
 
         if val_data is not None and not cur % args.eval_interval:
             vb, vcond = next(val_data)
-            vlogits = pdist.all_gather_host(trainer.eval_logits(vb).cpu().numpy())
-            vlogits, vy = vlogits.reshape(-1, vlogits.shape[-1]), pdist.all_gather_host(vcond["y"]).reshape(-1)
+            vlogits = sp.gather_data_groups(trainer.eval_logits(vb).cpu().numpy())
+            vlogits, vy = vlogits.reshape(-1, vlogits.shape[-1]), sp.gather_data_groups(vcond["y"]).reshape(-1)
             vce = F.cross_entropy(torch.from_numpy(vlogits), torch.as_tensor(vy).long(), reduction="none")
             logger.logkv_mean("val_loss", float(vce.mean()))
             logger.logkv_mean("val_acc@1", compute_top_k(vlogits, vy, 1))
@@ -350,7 +354,7 @@ def create_argparser():
         eval_interval=5,
         save_interval=10000,
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
-        spatial_shard=0,  # > 1: not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
         tensor_shard=0,  # > 1: not yet ported
         device="cuda",
     )

@@ -41,7 +41,11 @@ and the gradient is taken inside the cond_fn.
 Written to the logger's directory, per scale: ``clip_guided_scale{s:g}.png``
 (a grid) and ``clip_guided_scale{s:g}.npz`` (uint8 NHWC). Under torchrun
 (JAX :87, :169, :253) each rank runs its own chains and rank 0 writes its
-own. ``--spatial_shard`` and ``--tensor_shard`` above 1 are refused.
+own. ``--spatial_shard S`` (torchrun with a multiple of S ranks,
+``parallel/sp.py``) splits every image's rows over the S ranks of each data
+group, which seeds as one rank of the unsharded run (its data rank); the
+chain's rows are gathered before CLIP's encoder and before the write.
+``--tensor_shard`` above 1 is refused.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from .diffusion.sampling import sample_generators
 from .models.clip_vit import clip_config, clip_guidance_cond_fn, load_clip_params, preprocess_for_clip
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
+from .parallel import sp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.saving_imgs import save_img, tensor2img
@@ -80,9 +85,7 @@ from .utils.script_util import (
 
 
 def _refuse(args) -> None:
-    for name in ("spatial_shard", "tensor_shard"):
-        if int(getattr(args, name, 0)) > 1:
-            raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
+    sp.check_flags(getattr(args, "spatial_shard", 0), getattr(args, "tensor_shard", 0))
     if args.conv_impl not in CONV_IMPLS:
         raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {', '.join(CONV_IMPLS)}")
     if int(args.cfg_cache) > 1 and not args.cfg_scale:
@@ -119,7 +122,7 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return sample(args, device)
 
 
@@ -175,7 +178,7 @@ def sample(args, device: torch.device) -> dict:
     loop = resolve_sampler(diffusion, args)
     scales = [float(s) for s in str(args.clip_scale).split(",")]
     paths, chain_seconds = [], []
-    rank, world = pdist.rank(), pdist.world_size()
+    rank, world = sp.data_rank(), sp.data_size()  # a data group's ranks draw alike under --spatial_shard
     for j, scale in enumerate(scales):
         # classifier-free guidance over the embedding conditioning; the CLIP
         # gradient keeps the plain conditional model
@@ -213,7 +216,7 @@ def sample(args, device: torch.device) -> dict:
         with torch.no_grad():  # not inference_mode: cond_fn differentiates through the models
             sample = loop(loop_model_fn, shape, rng, clip_denoised=args.clip_denoised, cond_fn=cond_fn,
                           cond_state0=cond_state0, model_state0=model_state0)
-        sample = sample.permute(0, 2, 3, 1).float().cpu().numpy()
+        sample = sp.gather_rows(sample).permute(0, 2, 3, 1).float().cpu().numpy()
         if device.type == "cuda":
             end.record()
             end.synchronize()
@@ -222,7 +225,7 @@ def sample(args, device: torch.device) -> dict:
             chain_seconds.append(time.perf_counter() - t0)
         out = os.path.join(logger.get_dir(), f"clip_guided_scale{scale:g}.png")
         paths.append(os.path.join(logger.get_dir(), f"clip_guided_scale{scale:g}.npz"))
-        if rank == 0:
+        if pdist.rank() == 0:
             save_img(tensor2img(sample), out)
             np.savez(paths[-1], ((sample + 1) * 127.5).clip(0, 255).astype(np.uint8))
         logger.log(f"scale {scale} -> {out}")
@@ -250,8 +253,8 @@ def create_argparser():
         seed=0,
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
-        spatial_shard=0,  # not yet ported
-        tensor_shard=0,  # not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
+        tensor_shard=0,  # > 1: not yet ported
         cfg_scale=0.0,  # > 0: classifier-free guidance (a model trained with cond_dropout)
         cfg_cache=0,  # N > 1: recompute the CFG uncond branch 1 step in N
         guidance_interval="",  # "lo,hi": guide only for t in [lo, hi] (original units)

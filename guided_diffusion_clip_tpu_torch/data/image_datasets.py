@@ -3,7 +3,9 @@
 The port's copy of ``guided_diffusion_clip_tpu/data/image_datasets.py``: a
 host-side numpy pipeline with a background prefetch thread. Each rank reads
 its shard of the files, ``files[rank::world]`` (``shard``/``num_shards``
-override the process group's rank and world), its crops, flips and pairings
+override the process group's rank and world; under spatial partitioning the
+shard is the data group's, ``files[data_rank::D]``, which its space ranks
+read alike, ``parallel/sp.py``), its crops, flips and pairings
 drawn from ``random.Random(seed + shard)``. The same files, crops, flips,
 pairings and batch order as the JAX loader for the same folder and seed; images go out NCHW f32 in [-1, 1]
 (the JAX loader's are NHWC).
@@ -17,7 +19,8 @@ pairings and batch order as the JAX loader for the same folder and seed; images 
     partner 85 %; under ``deterministic``, idx pairs with idx - 1 for idx >= 4
     (:117-137);
   - batches from ``random.Random(1234 + rank)``'s shuffle of the shard's
-    indices, ``rank`` the process's (JAX :67-81, :156-173).
+    indices, ``rank`` the process's (its data group's under spatial
+    partitioning) (JAX :67-81, :156-173).
 
 The CLIP dict is ``.npz`` or a ``.pt`` of tensors (loaded with
 ``weights_only=True``). Folders, images and the dict may be URLs (gs://,
@@ -43,7 +46,7 @@ from typing import Iterator
 import numpy as np
 from PIL import Image
 
-from ..parallel import dist as pdist
+from ..parallel import sp
 from ..utils import bf_io
 
 
@@ -66,7 +69,9 @@ def load_data(
 ) -> Iterator:
     """Infinite generator of (images (B, 3, H, W) f32 in [-1, 1], cond dict)
     batches of this rank's shard. ``native`` None reads ``GDC_NATIVE_LOADER``;
-    ``shard``/``num_shards`` None take the process group's rank and world."""
+    ``shard``/``num_shards`` None take the process group's rank and world
+    (the data group's and the number of data groups under spatial
+    partitioning)."""
     if not data_dir:
         raise ValueError("unspecified data directory")
     all_files = list_image_files_recursively(data_dir)
@@ -79,8 +84,8 @@ def load_data(
         image_size,
         all_files,
         classes=classes,
-        shard=pdist.rank() if shard is None else shard,
-        num_shards=pdist.world_size() if num_shards is None else num_shards,
+        shard=sp.data_rank() if shard is None else shard,
+        num_shards=sp.data_size() if num_shards is None else num_shards,
         random_crop=random_crop,
         random_flip=random_flip,
         clip_file_path=clip_file_path,
@@ -93,7 +98,7 @@ def load_data(
 
 def _batched_iterator(dataset, batch_size, deterministic, prefetch):
     def gen():
-        order_rng = random.Random(1234 + pdist.rank())
+        order_rng = random.Random(1234 + sp.data_rank())
         while True:
             order = list(range(len(dataset)))
             if not deterministic:

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from ..parallel import sp
+
 
 def deep_cache_model_fn(apply_full: Callable, apply_shallow: Callable, interval: int) -> Callable:
     """Build a stateful model fn for the sampling loops' ``model_state0`` slot.
@@ -74,7 +76,7 @@ def zero_state(config, batch: int, cache_cut: int = 0, dtype=torch.float32, devi
     asks ``eval_shape`` of ``apply_full``; here the caller names the UNet's
     config, the batch (twice the sample batch under ``cfg_deep_cache_pair``)
     and the torso's dtype."""
-    shape = deep_feature_shape(config, batch, cache_cut)
+    shape = sp.local_shape(deep_feature_shape(config, batch, cache_cut))  # the rank's rows under SP
     return (0, torch.zeros(shape, dtype=dtype, device=device))
 
 

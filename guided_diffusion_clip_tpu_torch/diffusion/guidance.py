@@ -26,12 +26,17 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sp
+
 
 def classifier_cond_fn(classifier_fn: Callable, classifier_scale: float = 1.0) -> Callable:
     """Build ``cond_fn(x, t, y=..., **kw) -> d/dx [log p(y | x, t)] * scale``.
 
     ``classifier_fn(x, t) -> logits``. The sum of the selected log-softmax,
-    differentiated with respect to x (classifier_sample.py:54-61).
+    differentiated with respect to x (classifier_sample.py:54-61). Under
+    spatial partitioning x is this rank's rows and the logits are every
+    rank's (the classifier pools over the ranks), so the sum is weighted by
+    ``sp.owner_weight()``: the adjoints then count it once.
     """
 
     def cond_fn(x, t, y=None, **kwargs):
@@ -40,20 +45,28 @@ def classifier_cond_fn(classifier_fn: Callable, classifier_scale: float = 1.0) -
         with torch.enable_grad():
             x_in = x.detach().requires_grad_(True)
             log_probs = F.log_softmax(classifier_fn(x_in, t).float(), dim=-1)
-            selected = log_probs.gather(-1, y.reshape(-1, 1).long())
-            (grad,) = torch.autograd.grad(selected.sum(), x_in)
+            selected = log_probs.gather(-1, y.reshape(-1, 1).long()).sum()
+            if sp.sharded(x_in):
+                selected = selected * sp.owner_weight()
+            (grad,) = torch.autograd.grad(selected, x_in)
         return grad * classifier_scale
 
     return cond_fn
 
 
 def potential_cond_fn(potential: Callable, scale: float = 1.0) -> Callable:
-    """Generic guidance from any scalar potential U(x, t, **kw): grad_x U * scale."""
+    """Generic guidance from any scalar potential U(x, t, **kw): grad_x U * scale.
+    Under spatial partitioning x is this rank's rows and U must be the
+    data group's one value on every rank (computed from gathered rows); it
+    is weighted by ``sp.owner_weight()``, as ``classifier_cond_fn``'s sum."""
 
     def cond_fn(x, t, **kwargs):
         with torch.enable_grad():
             x_in = x.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(potential(x_in, t, **kwargs), x_in)
+            u = potential(x_in, t, **kwargs)
+            if sp.sharded(x_in):
+                u = u * sp.owner_weight()
+            (grad,) = torch.autograd.grad(u, x_in)
         return grad * scale
 
     return cond_fn
@@ -127,7 +140,7 @@ def cached_cond_fn(cond_fn: Callable, every: int, shape, dtype=torch.float32, de
         grad = cond_fn(x, t, **kwargs).to(dtype) if i % every == 0 else g_prev
         return grad, (i + 1, grad)
 
-    return fn, (0, torch.zeros(tuple(shape), dtype=dtype, device=device))
+    return fn, (0, torch.zeros(sp.local_shape(shape), dtype=dtype, device=device))  # the rank's rows under SP
 
 
 def cfg_model_fn(
@@ -203,7 +216,7 @@ def cfg_cached_state0(out_shape, dtype=torch.float32, device=None):
     ``cfg_cached_model_fn``. The JAX package infers the output's shape with
     ``eval_shape``; here the caller states it (for a UNet, x's shape with
     ``out_channels`` channels; the model's output is f32)."""
-    return (0, torch.zeros(tuple(out_shape), dtype=dtype, device=device))
+    return (0, torch.zeros(sp.local_shape(out_shape), dtype=dtype, device=device))  # the rank's rows under SP
 
 
 def _null_value(null, like: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,12 @@ mixes nothing across the batch axis (GroupNorm and attention are per image).
 For tests, ``noise=`` gives x_T and ``step_noise=`` the per-step noise, so
 the same numbers can be given to both frameworks.
 
+Spatial partitioning (``parallel/sp.py``): ``shape``, ``noise``,
+``step_noise`` and ``init_image`` are the full images', every noise is drawn
+at full size from the same generators and sliced to the rank's rows, and the
+chain's state and the loops' results are the rank's rows (gather them with
+``sp.gather_rows`` where a full image is needed).
+
 Guidance: ``cond_fn(x, t_model, **model_kwargs) -> gradient`` (see
 ``guidance.py``) shifts the ancestral step's mean by variance * gradient
 (``condition_mean``) and the DDIM step's eps by -sqrt(1 - ab) * gradient
@@ -44,6 +50,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..parallel import sp
 from . import gaussian as G
 from .schedules import DiffusionSchedule, ModelMeanType, ModelVarType
 
@@ -99,16 +106,25 @@ class SamplerConfig:
     denoise_start_point: int = -1
 
 
+def _noise_like(rng: Rng, x) -> torch.Tensor:
+    """A step's noise for the state x: drawn at the full image's size and
+    cut to the rank's rows under spatial partitioning."""
+    return sp.shard_rows(_normal(rng, sp.full_shape(x.shape)))
+
+
 def _start_state(sched, cfg, shape, rng, noise=None, init_image=None):
-    """Initial latent + first timestep index (reference :509-529)."""
+    """Initial latent + first timestep index (reference :509-529); the
+    rank's rows of it under spatial partitioning."""
+    if init_image is not None:
+        init_image = sp.shard_rows(init_image)
     if cfg.denoise_start_point == -1:
-        return (noise if noise is not None else _normal(rng, shape)), sched.num_timesteps
+        return sp.shard_rows(noise if noise is not None else _normal(rng, shape)), sched.num_timesteps
     t_start = int(cfg.denoise_start_point)
     if not 0 < t_start <= sched.num_timesteps:
         raise ValueError(f"denoise_start_point {t_start} outside (0, {sched.num_timesteps}]")
     if init_image is None:
         raise ValueError("denoise_start_point requires an init image")
-    start_noise = noise if noise is not None else _normal(rng, shape)
+    start_noise = sp.shard_rows(noise if noise is not None else _normal(rng, shape))
     t0 = torch.full((shape[0],), t_start - 1, dtype=torch.long, device=start_noise.device)
     return G.q_sample(sched.to(start_noise.device), init_image, t0, start_noise), t_start
 
@@ -139,7 +155,7 @@ def p_sample_step(
     if cond_fn is not None:
         out = G.condition_mean(sched, cond_fn, out, x, t, model_kwargs=model_kwargs)
     if noise is None:
-        noise = _normal(rng, x.shape)
+        noise = _noise_like(rng, x)
     nonzero_mask = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
     sample = out.mean + nonzero_mask * torch.exp(0.5 * out.log_variance) * noise
     return sample, out.pred_xstart
@@ -188,7 +204,7 @@ def ddim_step(
     if cfg.eta == 0:
         return mean_pred, out.pred_xstart
     if noise is None:
-        noise = _normal(rng, x.shape)
+        noise = _noise_like(rng, x)
     nonzero_mask = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (nd - 1))
     return mean_pred + nonzero_mask * sigma * noise, out.pred_xstart
 
@@ -273,7 +289,7 @@ def _loop(
         cf, c_captured = _threaded(cond_fn, cstate)
         img, pred_xstart = step_fn(
             sched, mf, img, t, rng,
-            cfg=cfg, noise=None if step_noise is None else step_noise[i],
+            cfg=cfg, noise=None if step_noise is None else sp.shard_rows(step_noise[i]),
             cond_fn=cf, denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )
         mstate = _next_state(m_captured, mstate, "model_fn")

@@ -43,8 +43,13 @@ shard of the test set, ``ceil(num_samples / (batch_size * world))`` batches;
 batch i of rank r seeds its generator ``sample_seed(seed, i * world + r)``,
 so one process draws what it always drew. Every batch is gathered in rank
 order; rank 0 writes the PNGs of its own rows and the ``.npz``, then a
-barrier. ``--spatial_shard`` and ``--tensor_shard`` above 1 are not yet
-ported and are refused.
+barrier. ``--spatial_shard S`` (torchrun with a multiple of S ranks,
+``parallel/sp.py``) splits every image's rows over the S ranks of each data
+group: the world is D = world / S data groups, batch i of data group d seeds
+``sample_seed(seed, i * D + d)``, the data group's ranks read its shard of
+the test set, and each chain's rows are gathered before they are written, so
+the samples are the unsharded run's. ``--tensor_shard`` above 1 is not yet
+ported and is refused.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from .diffusion.guidance import cfg_cached_model_fn, cfg_cached_state0, cfg_mode
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
+from .parallel import sp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.profiling import StepProfiler, annotate
@@ -79,9 +85,7 @@ from .utils.script_util import (
 
 
 def _refuse(args) -> None:
-    for name in ("spatial_shard", "tensor_shard"):
-        if int(getattr(args, name, 0)) > 1:
-            raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
+    sp.check_flags(getattr(args, "spatial_shard", 0), getattr(args, "tensor_shard", 0))
     if args.conv_impl not in CONV_IMPLS:
         raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {', '.join(CONV_IMPLS)}")
 
@@ -192,7 +196,7 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return sample(args, device)
 
 
@@ -234,7 +238,8 @@ def sample(args, device: torch.device) -> dict:
     # the first batch's chain builds the kernels' plans; the second is the steady state
     prof = StepProfiler(args.profile_dir, first_step=1, num_steps=1)
     cuda = device.type == "cuda"
-    rank, world = pdist.rank(), pdist.world_size()
+    # under --spatial_shard a data group's ranks draw and write alike
+    rank, world = sp.data_rank(), sp.data_size()
     n_batches = -(-args.num_samples // (args.batch_size * world))
     all_images, batch_seconds = [], []
     logger.log("sampling...")
@@ -252,7 +257,8 @@ def sample(args, device: torch.device) -> dict:
             else:
                 t0 = time.perf_counter()
             with prof.step_scope(counter), annotate("sample_chain"), torch.inference_mode():
-                sample = run_chain(len(imgs), model_kwargs, rng, init_image).permute(0, 2, 3, 1).contiguous()
+                sample = sp.gather_rows(run_chain(len(imgs), model_kwargs, rng, init_image))
+                sample = sample.permute(0, 2, 3, 1).contiguous()
             if cuda:
                 end.record()
                 timing = (start, end)
@@ -269,11 +275,11 @@ def sample(args, device: torch.device) -> dict:
         batch_seconds.append(timing)
         sample_np = host.numpy()
         sample_u8 = ((sample_np + 1) * 127.5).clip(0, 255).astype(np.uint8)
-        if rank == 0:
+        if pdist.rank() == 0:
             save_img(tensor2img(sample_np), os.path.join(logger.get_dir(), f"samples_test{counter}.png"))
             save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)),
                      os.path.join(logger.get_dir(), f"target_{counter}.png"))
-        all_images.extend(pdist.all_gather_host(sample_u8))  # rank order
+        all_images.extend(sp.gather_data_groups(sample_u8))  # data-rank order
         logger.log(f"created {len(all_images) * args.batch_size} samples ({timing:.3f} s for the batch)")
 
     try:
@@ -284,7 +290,7 @@ def sample(args, device: torch.device) -> dict:
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
     shape_str = "x".join(str(x) for x in arr.shape)
     out_path = os.path.join(logger.get_dir(), f"samples_{shape_str}.npz")
-    if rank == 0:
+    if pdist.rank() == 0:
         logger.log(f"saving to {out_path}")
         np.savez(out_path, arr)
     pdist.barrier("sampling")
@@ -316,8 +322,8 @@ def create_argparser():
         guidance_interval="",  # "lo,hi": CFG only for t in [lo, hi] (original units)
         deep_cache=0,  # N > 1: refresh the deep sub-UNet every N steps (DeepCache)
         deep_cache_cut=0,  # shallow input blocks; 0 = below the full-resolution level
-        spatial_shard=0,  # not yet ported
-        tensor_shard=0,  # not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
+        tensor_shard=0,  # > 1: not yet ported
         sampler="",  # "" (use_ddim decides), ancestral, ddim or dpm++2m
         profile_dir="",  # a torch.profiler trace of the second batch's chain here
     )

@@ -30,8 +30,10 @@ More than one process: launch under torchrun, one GPU a rank,
 each rank reads its shard of the folder. ``--param_sharding fsdp`` (FSDP2)
 and ``--opt_impl zero1`` (ZeRO-1) need torchrun, at one process too;
 ``--ckpt_backend orbax`` saves ``torch.distributed.checkpoint`` directories
-(``training/train_loop.py``). Not yet ported, and refused at startup:
-``--spatial_shard`` and ``--tensor_shard``.
+(``training/train_loop.py``). ``--spatial_shard S`` (torchrun with a
+multiple of S ranks, ``parallel/sp.py``) splits every image's rows over the
+S ranks of each data group, which reads the data group's shard of the
+folder. Not yet ported, and refused at startup: ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from .data.image_datasets import load_data
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
+from .parallel import sp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop, check_ported
 from .utils import logger
@@ -81,7 +84,7 @@ def main(argv=None) -> None:
     _refuse_unported(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         train(args, device)
 
 

@@ -42,6 +42,7 @@ from torch import nn
 
 from ..diffusion import gaussian as G
 from ..diffusion.guidance import potential_cond_fn
+from ..parallel import sp
 
 IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -231,7 +232,8 @@ def clip_guidance_cond_fn(
 
     x' is the noisy x (the classifier-guidance convention), or with
     ``use_pred_xstart`` the model's x0 prediction from ``p_mean_variance``
-    (unclipped), so that the gradient goes through the UNet; that needs
+    (unclipped), so that the gradient goes through the UNet (on this
+    rank's rows under spatial partitioning, x' gathered before the encoder); that needs
     ``sched``, ``mean_type``, ``var_type`` and ``model_fn``. The sampling
     loops hand a cond_fn the model's timesteps; the x0 prediction is taken at
     the schedule's own step whose model timestep that is
@@ -242,7 +244,11 @@ def clip_guidance_cond_fn(
     target = target_embed / target_embed.norm(dim=-1, keepdim=True)
 
     def similarity(x_img):
-        emb = image_embed_fn(preprocess_for_clip(x_img, clip_image_size))
+        # under spatial partitioning the encoder takes the gathered image on every rank; the
+        # gather's adjoint hands each rank its rows of the gradient
+        x_img = sp.gather_rows(x_img)
+        with sp.whole():
+            emb = image_embed_fn(preprocess_for_clip(x_img, clip_image_size))
         emb = emb / emb.norm(dim=-1, keepdim=True)
         return (emb * target.to(emb)).sum()
 

@@ -19,6 +19,13 @@ The int8 path (``--conv_impl int8``, the JAX package's ``_QuantConvCore``):
 ``bias`` -- runs ``ops.quant.conv_prequant`` on such a pair, or
 ``ops.quant.int8_conv`` on a float input when its ``int8`` flag is set,
 instead of cuDNN.
+
+Under spatial partitioning (``parallel/sp.py``) a 4-D activation is this
+rank's rows of the map: GroupNorm32's statistics cross the ranks in
+``ops.groupnorm``, and ``Conv2d`` takes its input with the neighbours' rows
+(``sp.halo``) and keeps the output rows whose windows lie in the shard.
+``avg_pool_2x`` and the nearest-x2 upsamplings stay local: they need an
+even number of rows a rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import group_norm, group_norm_quant
+from ..parallel import sp
 from ..ops.quant import _pack_weights, conv_prequant, int8_conv, quantize_per_out_channel
 
 
@@ -140,6 +148,26 @@ class Conv2d(nn.Conv2d):
         return self._wq
 
     def forward(self, x, prequant_scales=None, out_dtype=None):
+        """The conv of x, or of a quantizing GroupNorm's (q, s); on a row
+        shard (``sp.sharded``) a kh x kh conv takes the neighbours' rows
+        first: (kh - 1) // 2 from each at stride 1, two from above at stride
+        2 (whose symmetric padding reads one row above a shard and none
+        below), so that cuDNN and K5 keep their own padding; the output
+        rows whose windows lie in the shard are kept."""
+        k, stride = self.kernel_size[0], self.stride[0]
+        if k == 1 or not sp.sharded(x):
+            return self._conv(x, prequant_scales, out_dtype)
+        if stride == 1:
+            above = below = keep = (k - 1) // 2
+        elif stride == 2 and k == 3:
+            above, below, keep = 2, 0, 1
+        else:
+            raise ValueError(f"a {k}x{k} stride-{stride} conv has no row-sharded form")
+        rows = x.shape[2] // stride
+        y = self._conv(sp.halo(x, above, below), prequant_scales, out_dtype)
+        return y[:, :, keep:keep + rows].contiguous(memory_format=torch.channels_last)
+
+    def _conv(self, x, prequant_scales=None, out_dtype=None):
         if prequant_scales is None and not self.int8:
             w = self.weight
             if w.dtype != x.dtype or not w.is_contiguous(memory_format=torch.channels_last):

@@ -34,10 +34,23 @@ conv -- stem, skips, resampling convs, the output heads -- quantizes its
 input per tensor (``int8_conv``, K5). The conv weights then stay f32 (the
 JAX package quantizes the f32 parameter) while the attention projections
 take the torso's dtype.
+
+Spatial partitioning (``parallel/sp.py``): x is this rank's rows of each
+image and the output its rows of the model's output. Each block runs on
+the rank's rows where its input's H gives every rank an even number of rows
+(``sp.shardable``), else whole on every rank, the map gathered (JAX's
+partitioner pads there instead); a skip connection is laid out as the block
+that consumes it runs. Convs take halos and GroupNorms all-reduce their
+statistics (``models/nn.py``), attention blocks and the attention pool run
+on the gathered map (``sp.run_whole``), the classifier's pools average over
+the ranks (``sp.mean_hw``), and the inputs built at full size (the upsampled
+``low_res``, ``img2``, ``spat_feat``'s planes) are sliced. DeepCache's
+``full`` mode caches the rank's rows of the deep feature.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Optional
@@ -48,6 +61,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel import sp
 from .nn import (
     Conv1x1,
     Conv2d,
@@ -239,6 +253,10 @@ class AttentionBlock(nn.Module):
         self.proj_out = Conv1x1(channels, channels, zero=True)
 
     def forward(self, x):
+        # global attention needs every token: on a row shard, the gathered map on every rank
+        return sp.run_whole(self._forward, x)
+
+    def _forward(self, x):
         B, C, H, W = x.shape
         h = x.movedim(1, -1).reshape(B, H * W, C)  # a view of channels_last memory
         hn = self.norm(h.transpose(1, 2)).transpose(1, 2)
@@ -296,6 +314,9 @@ class AttentionPool2d(nn.Module):
         self.num_heads = embed_dim // num_head_channels
 
     def forward(self, x):
+        return sp.run_whole(self._forward, x)  # every rank the whole map's tokens, the same logits
+
+    def _forward(self, x):
         B, C, H, W = x.shape
         h = x.movedim(1, -1).reshape(B, H * W, C)
         h = torch.cat([h.mean(dim=1, keepdim=True), h], dim=1)  # (B, HW + 1, C)
@@ -322,7 +343,8 @@ class TimestepEmbedSequential(nn.ModuleList):
         for layer in self:
             args = (x, emb) if isinstance(layer, ResBlock) else (x,)
             if remat and isinstance(layer, (ResBlock, AttentionBlock)):
-                x = torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+                # recomputed in the backward as it ran here, whole or sharded
+                x = torch.utils.checkpoint.checkpoint(sp.bound(layer), *args, use_reentrant=False)
             else:
                 x = layer(*args)
         return x
@@ -379,6 +401,26 @@ def _set_conv_impl(model: nn.Module, conv_impl: str) -> bool:
         if isinstance(m, (Conv2d, ResBlock)):
             m.int8 = int8
     return int8
+
+
+def _run_block(block, h, emb, shard: bool):
+    """One block under spatial partitioning: on the rank's rows where its
+    input's H gives every rank an even number of rows, else whole on every
+    rank from the gathered map. ``shard``: whether h is the rank's rows.
+    Returns (output, whether it is the rank's rows)."""
+    if not sp.sharded():
+        return block(h, emb), shard
+    want = sp.shardable(sp.full_rows(h.shape[2]) if shard else h.shape[2])
+    h = sp.relayout(h, shard, want)
+    if want:
+        return block(h, emb), True
+    with sp.whole():
+        return block(h, emb), False
+
+
+def _mean_hw(h, shard: bool, keepdim: bool = False):
+    """The mean over (H, W) of a map: over the ranks when h is a shard."""
+    return sp.mean_hw(h, keepdim) if shard else h.mean(dim=(2, 3), keepdim=keepdim)
 
 
 class UNetModel(nn.Module):
@@ -473,6 +515,8 @@ class UNetModel(nn.Module):
         """
         cfg = self.config
         B = x.shape[0]
+        shard = sp.sharded(x)  # x is the rank's rows; the variants' full-size inputs are sliced (sp.shard_rows)
+        full_hw = ((sp.full_rows(x.shape[2]) if shard else x.shape[2]), x.shape[3])
         if cfg.variant == "clip_feat" and cfg.num_classes is not None:
             if clip_feat is None:
                 raise ValueError("clip_feat-conditional model requires clip_feat")
@@ -483,17 +527,19 @@ class UNetModel(nn.Module):
             if clip_feat is None or clip_feat2 is None or img2 is None:
                 raise ValueError("the sr_img_feat model requires clip_feat, clip_feat2 and img2")
             y = clip_feat.reshape(B, -1).float() - clip_feat2.reshape(B, -1).float() + self.bias_feat.float()
-            x = torch.cat([x, img2.to(x.dtype)], dim=1)
+            if tuple(img2.shape[2:]) != full_hw:
+                raise ValueError(f"img2 is {tuple(img2.shape[2:])}, the image {full_hw}")
+            x = torch.cat([x, sp.shard_rows(img2.to(x.dtype))], dim=1)
         elif cfg.variant == "super_res":
             if low_res is None:
                 raise ValueError("the super_res model requires low_res")
-            x = torch.cat([x, bilinear_resize(low_res.to(x.dtype), x.shape[2:])], dim=1)
+            x = torch.cat([x, sp.shard_rows(bilinear_resize(low_res.to(x.dtype), full_hw))], dim=1)
         elif cfg.variant == "spat_feat":
             if clip_feat is None:
                 raise ValueError("the spat_feat model requires clip_feat")
             # row-major over (H, W), as the JAX model's NHWC reshape (reference unet_other.py:19-22)
             plane = clip_feat.reshape(B, 512).to(x.dtype).tile(1, 32).reshape(B, 1, 128, 128)
-            x = torch.cat([x, plane, plane.transpose(2, 3)], dim=1)
+            x = torch.cat([x, sp.shard_rows(plane), sp.shard_rows(plane.transpose(2, 3))], dim=1)
         if x.shape[1] != cfg.in_channels:
             raise ValueError(f"input channels {x.shape[1]} != config {cfg.in_channels}")
 
@@ -520,22 +566,27 @@ class UNetModel(nn.Module):
         hs = []
         shallow = cache_mode == "shallow"
         for block in itertools.islice(self.input_blocks, cut if shallow else None):
-            h = block(h, emb)
-            hs.append(h)
+            h, shard = _run_block(block, h, emb, shard)
+            hs.append((h, shard))
         deep_out = None
         if shallow:
-            h = deep_cache.to(dtype=self.dtype, memory_format=torch.channels_last)
+            # cached as the rank's rows under SP
+            h, shard = deep_cache.to(dtype=self.dtype, memory_format=torch.channels_last), sp.sharded()
             out_start = n_in - cut
         else:
-            h = self.middle_block(h, emb)
+            h, shard = _run_block(self.middle_block, h, emb, shard)
             out_start = 0
         for i in range(out_start, n_in):
             if cache_mode == "full" and i == n_in - cut:
-                deep_out = h
-            h = self.output_blocks[i](torch.cat([h, hs.pop()], dim=1), emb)
+                deep_out = sp.relayout(h, shard, sp.sharded())
+            skip, skip_shard = hs.pop()
+            if sp.sharded():  # both halves of the concat laid out as the block runs
+                want = sp.shardable(sp.full_rows(h.shape[2]) if shard else h.shape[2])
+                h, skip, shard = sp.relayout(h, shard, want), sp.relayout(skip, skip_shard, want), want
+            h, shard = _run_block(self.output_blocks[i], torch.cat([h, skip], dim=1), emb, shard)
 
-        # output head, f32 (or x's dtype)
-        h = h.to(x.dtype)
+        # output head, f32 (or x's dtype), on the rank's rows
+        h = sp.relayout(h.to(x.dtype), shard, sp.sharded())
         h = self.out[0](h, activation="silu")
         out = self.out[2](h)
         if cache_mode == "off":
@@ -609,20 +660,25 @@ class EncoderUNetModel(nn.Module):
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels))
         h = x.to(dtype=self.dtype, memory_format=torch.channels_last)
         spatial = self.pool.startswith("spatial")
+        shard = sp.sharded(x)
         results = []
         for block in self.input_blocks:
-            h = block(h, emb)
+            h, shard = _run_block(block, h, emb, shard)
             if spatial:
-                results.append(h.to(x.dtype).mean(dim=(2, 3)))
-        h = self.middle_block(h, emb)
+                results.append(_mean_hw(h.to(x.dtype), shard))
+        h, shard = _run_block(self.middle_block, h, emb, shard)
+        # the head: over the ranks on a shard; a map gathered by the last levels runs whole
+        with (contextlib.nullcontext() if shard or not sp.sharded() else sp.whole()):
+            return self._head(h.to(x.dtype), shard, results)
 
+    def _head(self, h, shard: bool, results: list):
         if self.pool == "adaptive":
-            h = self.out[0](h.to(x.dtype), activation="silu")
-            h = self.out[3](h.mean(dim=(2, 3), keepdim=True))
+            h = self.out[0](h, activation="silu")
+            h = self.out[3](_mean_hw(h, shard, keepdim=True))
             return h.reshape(h.shape[0], -1)
         if self.pool == "attention":
-            return self.out[2](self.out[0](h.to(x.dtype), activation="silu"))
-        results.append(h.to(x.dtype).mean(dim=(2, 3)))
+            return self.out[2](self.out[0](h, activation="silu"))
+        results.append(_mean_hw(h, shard))
         h = self.out[0](torch.cat(results, dim=-1))
         if self.pool == "spatial_v2":
             h = self.out[1](h[:, :, None], activation="silu")[:, :, 0]

@@ -50,6 +50,12 @@ _SIGNATURES = {
     # x, slots, gamma, beta, ss, sb, stats, scales, q, B, HW, C, G, eps, silu, vec, dtype, s8, grid,
     # chunks, n_chunks, ng, stream
     "gdc_group_norm_quant": [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P, _I, _I, _P],
+    # the split entries (spatial partitioning): x, sums, ext, B, HW, C, G, dtype, stream
+    "gdc_group_norm_stats": [_P] * 3 + [_I] * 5 + [_P],
+    # x, a, b, y, B, HW, C, silu, dtype, stream
+    "gdc_group_norm_apply": [_P] * 4 + [_I] * 5 + [_P],
+    # x, a, b, inv, q, B, HW, C, silu, dtype, s8, stream
+    "gdc_group_norm_quant_apply": [_P] * 5 + [_I] * 6 + [_P],
     # quant, dtype, s8, vec, silu, C, G, ng, &blocks
     "gdc_group_norm_blocks": [_I] * 8 + [_P],
     # q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, stride, pad, Ho, Wo, KRp, out_dtype, stream
@@ -57,8 +63,10 @@ _SIGNATURES = {
     # the tensor-core kernel: q, w, s_img, s_w, bias, out, scratch, B, H, W, C, K, ksize, stride, pad, Ho,
     # Wo, KRp, out_dtype, bm, split, stream
     "gdc_conv_s8_mma": [_P] * 7 + [_I] * 14 + [_P],
-    # x, n, amax_bits, q, s_x, s_w, factors, K, dtype, stream
-    "gdc_quantize_per_tensor": [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 2 + [_P],
+    # the quantize kernels' two passes: x, n, amax_bits, dtype, stream; then x, n, amax_bits, q, s_x, s_w,
+    # factors, K, dtype, stream
+    "gdc_absmax": [_P, ctypes.c_longlong, _P, _I, _P],
+    "gdc_quantize_given": [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 2 + [_P],
     # x, w, scales, s_w, bias, out, B, H, W, C, K, bh, quantized, dtype, stream
     "gdc_conv_fused": [_P] * 6 + [_I] * 8 + [_P],
     # x, wt, partial, out, T, dtype, stream

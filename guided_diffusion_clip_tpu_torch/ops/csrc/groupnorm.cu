@@ -621,3 +621,195 @@ extern "C" int gdc_group_norm_quant(const void* x, void* slots, const void* gamm
                  n_chunks, ng, eps};
   return launch(1, dtype, s8, vec, silu, grid, p, static_cast<cudaStream_t>(stream));
 }
+
+// ---------------------------------------------------------------------------
+// K3 and K4 split at their statistics, for a map whose rows are spread over
+// ranks (spatial partitioning, parallel/sp.py): the sums have to cross the
+// ranks between the two phases, which a launch cannot wait for. So the two
+// phases of the TPU kernels (pallas_groupnorm.py's _stats_kernel and
+// _apply_kernel for K3, _stats_minmax_kernel and _apply_quant_kernel for K4)
+// are two entries here, with the all-reduce and the fold (ops/groupnorm.py)
+// between them:
+//   gn_stats_kernel       per (image, group) the f32 sum and sum of squares of
+//                         the rank's rows; with K4 also each channel's min and
+//                         max. One block an (image, group): thread t takes
+//                         channel t % (C/G) and the rows t / (C/G), + 256 /
+//                         (C/G), ...; the sums reduce in a fixed tree, so a
+//                         repeat gives the same bits;
+//   gn_apply_kernel       K3's apply, y = [SiLU](x a + b) with the folded
+//                         per-(image, channel) a, b, as gn_fused_kernel's;
+//   gn_quant_apply_kernel K4's, q = clip(rint([SiLU](x a + b) / s)), with the
+//                         unfused multiply-adds of the reference and the
+//                         per-image 1/s.
+// What bounds them: bytes, one read of x for the stats and one read of x and
+// write of y for the apply. They are simple passes: the stats kernel reads a
+// group's C/G channels of a row (16 to 64 bytes) at a time and has B * G
+// blocks; a grid-stride loop of scalar loads applies.
+
+namespace {
+
+constexpr int kSplitThreads = 256;
+
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_stats_kernel(const T* __restrict__ x, int HW, int C, int G, float* __restrict__ sums, float* __restrict__ ext) {
+  __shared__ float w1[kSplitThreads / 32], w2[kSplitThreads / 32];
+  __shared__ float lo[kSplitThreads], hi[kSplitThreads];
+  const int B = gridDim.x / G, b = blockIdx.x / G, g = blockIdx.x % G;
+  const int cg = C / G, rows = kSplitThreads / cg;
+  const int j = threadIdx.x % cg, r0 = threadIdx.x / cg;
+  float s1 = 0.f, s2 = 0.f, mn = INFINITY, mx = -INFINITY;
+  if (r0 < rows) {
+    const T* p = x + (long long)b * HW * C + g * cg + j;
+    for (int r = r0; r < HW; r += rows) {
+      const float v = to_f32(p[(long long)r * C]);
+      s1 += v;
+      s2 += v * v;
+      if (EXT) {
+        mn = fminf(mn, v);
+        mx = fmaxf(mx, v);
+      }
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    w1[warp] = s1;
+    w2[warp] = s2;
+  }
+  if (EXT) {
+    lo[threadIdx.x] = mn;
+    hi[threadIdx.x] = mx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int w = 0; w < kSplitThreads / 32; ++w) {
+      t1 += w1[w];
+      t2 += w2[w];
+    }
+    sums[b * G + g] = t1;
+    sums[(B + b) * G + g] = t2;
+  }
+  if (EXT && threadIdx.x < cg) {
+    float m0 = INFINITY, m1 = -INFINITY;
+    for (int r = 0; r < rows; ++r) {
+      m0 = fminf(m0, lo[r * cg + threadIdx.x]);
+      m1 = fmaxf(m1, hi[r * cg + threadIdx.x]);
+    }
+    ext[b * C + g * cg + threadIdx.x] = m0;
+    ext[(B + b) * C + g * cg + threadIdx.x] = m1;
+  }
+}
+
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_apply_kernel(const T* __restrict__ x, long long n, long long hwc, int C, const float* __restrict__ a,
+                const float* __restrict__ b, T* __restrict__ y) {
+  for (long long i = (long long)blockIdx.x * kSplitThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kSplitThreads) {
+    const long long k = i / hwc * C + i % C;
+    float v = to_f32(x[i]) * a[k] + b[k];
+    if (SILU) v = __fdividef(v, 1.f + __expf(-v));  // as gn_fused_kernel's K3 apply
+    y[i] = from_f32<T>(v);
+  }
+}
+
+template <typename T, typename Q, bool SILU>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_quant_apply_kernel(const T* __restrict__ x, long long n, long long hwc, int C, const float* __restrict__ a,
+                      const float* __restrict__ b, const float* __restrict__ inv, Q* __restrict__ q) {
+  for (long long i = (long long)blockIdx.x * kSplitThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kSplitThreads) {
+    const long long img = i / hwc, k = img * C + i % C;
+    float v = __fadd_rn(__fmul_rn(to_f32(x[i]), a[k]), b[k]);
+    if (SILU) v = v / (1.f + expf(-v));
+    q[i] = from_f32<Q>(fminf(fmaxf(rintf(__fmul_rn(v, inv[img])), -127.f), 127.f));
+  }
+}
+
+int split_grid(long long n) {
+  const long long want = (n + kSplitThreads - 1) / kSplitThreads;
+  return (int)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
+}
+
+template <typename T>
+int launch_stats(const void* x, void* sums, void* ext, int B, int HW, int C, int G, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  if (ext != nullptr)
+    gn_stats_kernel<T, true><<<B * G, kSplitThreads, 0, st>>>(xp, HW, C, G, static_cast<float*>(sums),
+                                                               static_cast<float*>(ext));
+  else
+    gn_stats_kernel<T, false><<<B * G, kSplitThreads, 0, st>>>(xp, HW, C, G, static_cast<float*>(sums), nullptr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_apply(const void* x, const void* a, const void* b, void* y, int B, int HW, int C, int silu,
+                 cudaStream_t st) {
+  const long long n = (long long)B * HW * C, hwc = (long long)HW * C;
+  const T* xp = static_cast<const T*>(x);
+  const float *ap = static_cast<const float*>(a), *bp = static_cast<const float*>(b);
+  if (silu)
+    gn_apply_kernel<T, true><<<split_grid(n), kSplitThreads, 0, st>>>(xp, n, hwc, C, ap, bp, static_cast<T*>(y));
+  else
+    gn_apply_kernel<T, false><<<split_grid(n), kSplitThreads, 0, st>>>(xp, n, hwc, C, ap, bp, static_cast<T*>(y));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename Q>
+int launch_quant_apply(const void* x, const void* a, const void* b, const void* inv, void* q, int B, int HW, int C,
+                       int silu, cudaStream_t st) {
+  const long long n = (long long)B * HW * C, hwc = (long long)HW * C;
+  const T* xp = static_cast<const T*>(x);
+  const float *ap = static_cast<const float*>(a), *bp = static_cast<const float*>(b);
+  const float* ip = static_cast<const float*>(inv);
+  if (silu)
+    gn_quant_apply_kernel<T, Q, true><<<split_grid(n), kSplitThreads, 0, st>>>(xp, n, hwc, C, ap, bp, ip,
+                                                                               static_cast<Q*>(q));
+  else
+    gn_quant_apply_kernel<T, Q, false><<<split_grid(n), kSplitThreads, 0, st>>>(xp, n, hwc, C, ap, bp, ip,
+                                                                                static_cast<Q*>(q));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The statistics of K3 (ext null) or K4 over x (B, HW, C) in dtype (0 =
+// float32, 1 = bfloat16), contiguous: sums (2, B, G) f32, each group's sum and
+// sum of squares; ext (2, B, C) f32, each channel's min and max. C / G <= 256.
+// Returns a cudaError_t code (0 = launched).
+extern "C" int gdc_group_norm_stats(const void* x, void* sums, void* ext, int B, int HW, int C, int G, int dtype,
+                                    void* stream) {
+  if (B < 1 || HW < 1 || G < 1 || C % G || C / G > kSplitThreads) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_stats<float>(x, sums, ext, B, HW, C, G, st);
+  if (dtype == 1) return launch_stats<__nv_bfloat16>(x, sums, ext, B, HW, C, G, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3's apply: y (B, HW, C) = [SiLU](x a + b) in x's dtype, a and b (B, C) f32.
+extern "C" int gdc_group_norm_apply(const void* x, const void* a, const void* b, void* y, int B, int HW, int C,
+                                    int silu, int dtype, void* stream) {
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_apply<float>(x, a, b, y, B, HW, C, silu, st);
+  if (dtype == 1) return launch_apply<__nv_bfloat16>(x, a, b, y, B, HW, C, silu, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4's apply: q (B, HW, C) = clip(rint([SiLU](x a + b) * inv[b]), -127, 127),
+// int8 when s8 != 0, else in x's dtype; inv (B,) f32, each image's 1/s.
+extern "C" int gdc_group_norm_quant_apply(const void* x, const void* a, const void* b, const void* inv, void* q,
+                                          int B, int HW, int C, int silu, int dtype, int s8, void* stream) {
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return s8 ? launch_quant_apply<float, int8_t>(x, a, b, inv, q, B, HW, C, silu, st)
+              : launch_quant_apply<float, float>(x, a, b, inv, q, B, HW, C, silu, st);
+  if (dtype == 1)
+    return s8 ? launch_quant_apply<__nv_bfloat16, int8_t>(x, a, b, inv, q, B, HW, C, silu, st)
+              : launch_quant_apply<__nv_bfloat16, __nv_bfloat16>(x, a, b, inv, q, B, HW, C, silu, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -20,6 +20,12 @@
 //                    rounding each, as the plain version's product), so no
 //                    further launch stands between it and the conv.
 //
+// Each pass is an entry of its own (gdc_absmax, gdc_quantize_given), one
+// launch each. Under spatial partitioning (parallel/sp.py) a rank holds some
+// of the tensor's rows and the scale is the whole tensor's: the caller
+// all-reduces the amax word (a MAX over the ranks, exact on the bits as on
+// the floats) between them.
+//
 // What bounds them on the H100: bytes. The first pass reads x, the second
 // reads it again (from the L2 where it fits) and writes a quarter or a half
 // of its size.
@@ -115,35 +121,53 @@ quantize_kernel(const T* __restrict__ x, long long n, const unsigned* __restrict
   }
 }
 
-template <typename T>
-int launch(const void* x, long long n, void* amax_bits, void* q, void* s_x, const void* s_w, void* factors, int K,
-           int blocks, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  unsigned* ab = static_cast<unsigned*>(amax_bits);
-  absmax_kernel<T><<<blocks, kThreads, 0, stream>>>(xp, n, ab);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  quantize_kernel<T><<<blocks, kThreads, 0, stream>>>(xp, n, ab, static_cast<int8_t*>(q), static_cast<float*>(s_x),
-                                                       static_cast<const float*>(s_w),
-                                                       static_cast<float*>(factors), K);
-  return (int)cudaGetLastError();
+// enough blocks to fill the card a few times over, each thread 16 values a turn
+int grid_for(long long n) {
+  const long long want = (n / kGroup + kThreads - 1) / kThreads;
+  return (int)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
 }
 
 }  // namespace
 
-// x: n values, f32 (dtype 0) or bf16 (dtype 1), 16-byte aligned; amax_bits: one
-// 32-bit word that the caller zeroed; q: n s8, 16-byte aligned; s_x: one f32.
-// s_w (K,) f32 or null; with it, factors (K,) f32 receives s_x * s_w. Returns
-// a cudaError_t code (0 = launched).
-extern "C" int gdc_quantize_per_tensor(const void* x, long long n, void* amax_bits, void* q, void* s_x,
-                                       const void* s_w, void* factors, int K, int dtype, void* stream) {
+// The first pass: *amax_bits = max(*amax_bits, bits of max |x|). x: n
+// values, f32 (dtype 0) or bf16 (dtype 1), 16-byte aligned; amax_bits: one
+// 32-bit word that the caller zeroed. Returns a cudaError_t code (0 =
+// launched).
+extern "C" int gdc_absmax(const void* x, long long n, void* amax_bits, int dtype, void* stream) {
+  if (n < 1 || amax_bits == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = grid_for(n);
+  unsigned* ab = static_cast<unsigned*>(amax_bits);
+  if (dtype == 0)
+    absmax_kernel<float><<<blocks, kThreads, 0, st>>>(static_cast<const float*>(x), n, ab);
+  else if (dtype == 1)
+    absmax_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x), n, ab);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The second pass, from the finished amax word (after gdc_absmax on the same
+// stream; under spatial partitioning the all-reduced word): q: n s8, 16-byte
+// aligned; s_x: one f32. s_w (K,) f32 or null; with it, factors (K,) f32
+// receives s_x * s_w.
+extern "C" int gdc_quantize_given(const void* x, long long n, const void* amax_bits, void* q, void* s_x,
+                                  const void* s_w, void* factors, int K, int dtype, void* stream) {
   if (n < 1 || amax_bits == nullptr || (s_w != nullptr && (factors == nullptr || K < 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // enough blocks to fill the card a few times over, each thread 16 values a turn
-  const long long want = (n / kGroup + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
-  if (dtype == 0) return launch<float>(x, n, amax_bits, q, s_x, s_w, factors, K, blocks, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, n, amax_bits, q, s_x, s_w, factors, K, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  const int blocks = grid_for(n);
+  const unsigned* ab = static_cast<const unsigned*>(amax_bits);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(s_x);
+  const float* wp = static_cast<const float*>(s_w);
+  float* fp = static_cast<float*>(factors);
+  if (dtype == 0)
+    quantize_kernel<float><<<blocks, kThreads, 0, st>>>(static_cast<const float*>(x), n, ab, qp, sp, wp, fp, K);
+  else if (dtype == 1)
+    quantize_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x), n, ab, qp,
+                                                                sp, wp, fp, K);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -24,6 +24,18 @@ small maps, launch-bound: each call is one cooperative launch of one block an
 SM that walks x in chunks the L2 can hold (``_schedule``), reading a chunk
 from device memory for its statistics, then, after a grid barrier and a fold
 in a fixed order (no float atomics), from the L2 for the apply.
+
+Under spatial partitioning (``parallel/sp.py``) a rank holds some rows of
+each image, and the statistics must cross the ranks between the two
+phases. A call on a row shard (``sp.sharded``) then runs K3 or K4 split at
+its statistics: the stats entry (``group_norm_stats``: each group's f32 sum
+and sum of squares, with K4 each channel's min and max), an all-reduce over
+the space group (SUM of the sums, MAX of max and of -min), the fold with the
+image's count ``H*W*C/G`` (``_fold``, and K4's ``_bound_scale``), then the
+apply entry (``group_norm_apply``, ``group_norm_quant_apply``): the one-pass
+E[x^2] - mean^2 in f32, eps 1e-5, as before. The backward all-reduces its
+per-group sums of the cotangent likewise. An unsharded call keeps its one
+launch.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..parallel import sp
 from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,7 +88,7 @@ def _group_norm_plain_stats(x, scale, bias, groups, eps, silu, scale_shift):
 
 
 def group_norm_bwd(x, dy, mean, rstd, scale, bias, groups: int, silu: bool, scale_shift,
-                   needs=(True, True, True, True, True)):
+                   needs=(True, True, True, True, True), split: bool = False):
     """Closed-form VJP of ``group_norm`` at x, from the cotangent dy and each
     group's f32 ``mean`` and ``rstd`` (B, G), computed in f32.
 
@@ -89,6 +102,10 @@ def group_norm_bwd(x, dy, mean, rstd, scale, bias, groups: int, silu: bool, scal
 
     ``needs`` flags (dx, dscale, dbias, dss, dsb); returns the five, None
     where not needed. dx has x's dtype and shape; dss and dsb are (B, C).
+    ``split``: x is a row shard (``sp.sharded``), so the groups' sums of g
+    and g * xhat are all-reduced over the space group before dx; dscale,
+    dbias, dss and dsb are this rank's part (the ranks' parts are summed
+    where the gradients of replicated values meet: DDP, or the adjoints).
     """
     B, C = x.shape[0], x.shape[-1]
     cg = C // groups
@@ -114,8 +131,13 @@ def group_norm_bwd(x, dy, mean, rstd, scale, bias, groups: int, silu: bool, scal
     if needs[0]:
         gx = (g * scale.float()).reshape(B, -1, groups, cg)
         xh = xhat.reshape(B, -1, groups, cg)
-        m1 = gx.mean(dim=(1, 3), keepdim=True)
-        m2 = (gx * xh).mean(dim=(1, 3), keepdim=True)
+        if split:
+            sums = sp.reduce_sum_(torch.stack([gx.sum(dim=(1, 3)), (gx * xh).sum(dim=(1, 3))]))
+            sums = sums / (gx.shape[1] * cg * sp.size())
+            m1, m2 = (m.reshape(B, 1, groups, 1) for m in sums)
+        else:
+            m1 = gx.mean(dim=(1, 3), keepdim=True)
+            m2 = (gx * xh).mean(dim=(1, 3), keepdim=True)
         dx = ((gx - m1 - xh * m2) * rstd.reshape(B, 1, groups, 1)).reshape(x.shape).to(x.dtype)
     return dx, dscale, dbias, dss, dsb
 
@@ -272,7 +294,11 @@ class GroupNormFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, ss, sb, groups, eps, silu):
         scale_shift = None if ss is None else (ss, sb)
-        y, stats = _group_norm_stats(x, scale, bias, groups, eps, silu, scale_shift)
+        ctx.split = sp.sharded(x)
+        if ctx.split:
+            y, stats = _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, False, None)
+        else:
+            y, stats = _group_norm_stats(x, scale, bias, groups, eps, silu, scale_shift)
         ctx.save_for_backward(x, scale, bias, ss, sb, stats)
         ctx.groups, ctx.silu = groups, silu
         return y
@@ -284,7 +310,7 @@ class GroupNormFunction(torch.autograd.Function):
         scale_shift = None if ss is None else (ss, sb)
         dx, dscale, dbias, dss, dsb = group_norm_bwd(
             x, dy, stats[0], stats[1], scale, bias, ctx.groups, ctx.silu, scale_shift,
-            needs=ctx.needs_input_grad[:5],
+            needs=ctx.needs_input_grad[:5], split=ctx.split,
         )
         cast = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
         return (dx, cast(dscale, scale), cast(dbias, bias), cast(dss, ss), cast(dsb, sb),
@@ -308,6 +334,8 @@ def group_norm(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, silu: boo
     ss, sb = scale_shift if scale_shift is not None else (None, None)
     if _needs_grad(x, scale, bias, ss, sb):
         return GroupNormFunction.apply(x, scale, bias, ss, sb, groups, eps, silu)
+    if sp.sharded(x):
+        return _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, False, None)[0]
     return _group_norm_stats(x, scale, bias, groups, eps, silu, scale_shift)[0]
 
 
@@ -333,27 +361,10 @@ def _bound_scale(a, b, xmin, xmax, silu: bool):
 def _group_norm_quant_plain_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
     """``group_norm_quant_plain``'s (q, s) and the (2, B, G) f32 mean and rstd."""
     B, C = x.shape[0], x.shape[-1]
-    xf = x.float()
-    spatial = xf.shape[1:-1]
-    xg = xf.reshape(B, -1, groups, C // groups)
-    n = xg.shape[1] * xg.shape[3]
-    mean = xg.sum(dim=(1, 3)) / n  # (B, G)
-    var = (xg * xg).sum(dim=(1, 3)) / n - mean * mean
-    rstd = torch.rsqrt(var + eps)
-    a = rstd.repeat_interleave(C // groups, dim=1) * scale.float()  # (B, C)
-    b = bias.float() - mean.repeat_interleave(C // groups, dim=1) * a
-    if scale_shift is not None:
-        k = 1.0 + scale_shift[0].float().reshape(B, C)
-        a = a * k
-        b = b * k + scale_shift[1].float().reshape(B, C)
-    bshape = (B,) + (1,) * len(spatial) + (C,)
-    y = xf * a.reshape(bshape) + b.reshape(bshape)
-    if silu:
-        y = torch.nn.functional.silu(y)
-    flat = xf.reshape(B, -1, C)
-    s, inv = _bound_scale(a, b, flat.amin(dim=1), flat.amax(dim=1), silu)
-    q = torch.round(y * inv.reshape((B,) + (1,) * (y.dim() - 1))).clamp(-127, 127)
-    return q.to(out_dtype), s, torch.stack([mean, rstd])
+    sums, ext = group_norm_stats_plain(x, groups, True)
+    mean, rstd, a, b = _fold(sums, x.numel() // (B * groups), scale, bias, groups, eps, scale_shift)
+    s, inv = _bound_scale(a, b, ext[0], ext[1], silu)
+    return group_norm_quant_apply_plain(x, a, b, inv, silu, out_dtype), s, torch.stack([mean, rstd])
 
 
 def group_norm_quant_plain(x, scale, bias, groups: int, eps: float, silu: bool, scale_shift,
@@ -430,7 +441,11 @@ class GroupNormQuantFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, ss, sb, groups, eps, silu):
         scale_shift = None if ss is None else (ss, sb)
-        q, s, stats = _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, x.dtype)
+        ctx.split = sp.sharded(x)
+        if ctx.split:
+            q, s, stats = _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, True, x.dtype)
+        else:
+            q, s, stats = _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, x.dtype)
         ctx.mark_non_differentiable(s)
         ctx.save_for_backward(x, scale, bias, ss, sb, stats, s)
         ctx.groups, ctx.silu = groups, silu
@@ -444,7 +459,7 @@ class GroupNormQuantFunction(torch.autograd.Function):
         scale_shift = None if ss is None else (ss, sb)
         dx, dscale, dbias, dss, dsb = group_norm_bwd(
             x, dy, stats[0], stats[1], scale, bias, ctx.groups, ctx.silu, scale_shift,
-            needs=ctx.needs_input_grad[:5],
+            needs=ctx.needs_input_grad[:5], split=ctx.split,
         )
         cast = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
         return (dx, cast(dscale, scale), cast(dbias, bias), cast(dss, ss), cast(dsb, sb),
@@ -467,4 +482,182 @@ def group_norm_quant(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, sil
     ss, sb = scale_shift if scale_shift is not None else (None, None)
     if _needs_grad(x, scale, bias, ss, sb):
         return GroupNormQuantFunction.apply(x, scale, bias, ss, sb, groups, eps, silu)
+    if sp.sharded(x):
+        return _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, True, torch.int8)[:2]
     return _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, torch.int8)[:2]
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 split at their statistics (spatial partitioning): the stats
+# entry, the fold, and the apply entries, each plain on the CPU and its
+# kernel in csrc/groupnorm.cu on CUDA (``gdc_group_norm_stats``,
+# ``gdc_group_norm_apply``, ``gdc_group_norm_quant_apply``).
+# ---------------------------------------------------------------------------
+
+
+def group_norm_stats_plain(x, groups: int, minmax: bool):
+    """Plain version of the stats entry: (sums, ext) of x (B, *spatial, C):
+    sums (2, B, G) f32, each group's sum and sum of squares; ext (2, B, C)
+    f32, each channel's min and max (``minmax``), else None."""
+    B, C = x.shape[0], x.shape[-1]
+    xf = x.float()
+    xg = xf.reshape(B, -1, groups, C // groups)
+    sums = torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))])
+    ext = None
+    if minmax:
+        flat = xf.reshape(B, -1, C)
+        ext = torch.stack([flat.amin(dim=1), flat.amax(dim=1)])
+    return sums, ext
+
+
+def _check_split(x, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got one on {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} kernel needs x contiguous in (B, *spatial, C) order")
+
+
+def group_norm_stats_cuda(x, groups: int, minmax: bool):
+    """The stats entry on a CUDA tensor x (B, *spatial, C), contiguous:
+    ``group_norm_stats_plain``'s (sums, ext) from one launch."""
+    _check_split(x, "group_norm_stats")
+    B, C = x.shape[0], x.shape[-1]
+    if C % groups or C // groups > 256:
+        raise ValueError(f"group_norm_stats kernel takes at most 256 channels a group, got {C} in {groups}")
+    sums = torch.empty((2, B, groups), dtype=torch.float32, device=x.device)
+    ext = torch.empty((2, B, C), dtype=torch.float32, device=x.device) if minmax else None
+    rc = build.load().gdc_group_norm_stats(
+        x.data_ptr(), sums.data_ptr(), None if ext is None else ext.data_ptr(), B, x.numel() // (B * C), C, groups,
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gdc_group_norm_stats")
+    group_norm_stats_cuda.launches += 1
+    return sums, ext
+
+
+group_norm_stats_cuda.launches = 0
+
+
+def group_norm_stats(x, groups: int, minmax: bool = False):
+    """The stats entry: plain on the CPU, its kernel on CUDA."""
+    if x.device.type == "cpu":
+        return group_norm_stats_plain(x, groups, minmax)
+    if x.device.type == "cuda":
+        return group_norm_stats_cuda(x, groups, minmax)
+    raise ValueError(f"group_norm_stats: no implementation for device {x.device}")
+
+
+def _fold(sums, n: int, scale, bias, groups: int, eps: float, scale_shift):
+    """The fold between the two phases, from the (2, B, G) sums over ``n``
+    values a group: each group's mean and rstd (B, G) and the folded affine
+    a, b (B, C) of ``y = x * a + b``, all f32."""
+    B, C = sums.shape[1], scale.shape[0]
+    mean = sums[0] / n
+    var = sums[1] / n - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    a = rstd.repeat_interleave(C // groups, dim=1) * scale.float()  # (B, C)
+    b = bias.float() - mean.repeat_interleave(C // groups, dim=1) * a
+    if scale_shift is not None:
+        k = 1.0 + scale_shift[0].float().reshape(B, C)
+        a = a * k
+        b = b * k + scale_shift[1].float().reshape(B, C)
+    return mean, rstd, a, b
+
+
+def _bshape(x):
+    return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+
+
+def group_norm_apply_plain(x, a, b, silu: bool):
+    """Plain version of K3's apply entry: [SiLU](x * a + b) in x's dtype."""
+    y = x.float() * a.reshape(_bshape(x)) + b.reshape(_bshape(x))
+    if silu:
+        y = torch.nn.functional.silu(y)
+    return y.to(x.dtype)
+
+
+def group_norm_apply_cuda(x, a, b, silu: bool):
+    """K3's apply entry on a CUDA tensor x (B, *spatial, C), contiguous;
+    a, b (B, C) f32."""
+    _check_split(x, "group_norm_apply")
+    B, C = x.shape[0], x.shape[-1]
+    a, b = (t.to(device=x.device, dtype=torch.float32).reshape(B, C).contiguous() for t in (a, b))
+    y = torch.empty_like(x)
+    rc = build.load().gdc_group_norm_apply(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, x.numel() // (B * C), C, int(silu),
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gdc_group_norm_apply")
+    group_norm_apply_cuda.launches += 1
+    return y
+
+
+group_norm_apply_cuda.launches = 0
+
+
+def group_norm_apply(x, a, b, silu: bool):
+    """K3's apply entry: plain on the CPU, its kernel on CUDA."""
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, a, b, silu)
+    if x.device.type == "cuda":
+        return group_norm_apply_cuda(x, a, b, silu)
+    raise ValueError(f"group_norm_apply: no implementation for device {x.device}")
+
+
+def group_norm_quant_apply_plain(x, a, b, inv, silu: bool, out_dtype=torch.int8):
+    """Plain version of K4's apply entry: q = clip(round([SiLU](x * a + b) *
+    inv[b]), -127, 127) in ``out_dtype``, inv (B,) the images' 1/s."""
+    y = x.float() * a.reshape(_bshape(x)) + b.reshape(_bshape(x))
+    if silu:
+        y = torch.nn.functional.silu(y)
+    q = torch.round(y * inv.reshape((x.shape[0],) + (1,) * (y.dim() - 1))).clamp(-127, 127)
+    return q.to(out_dtype)
+
+
+def group_norm_quant_apply_cuda(x, a, b, inv, silu: bool, out_dtype=torch.int8):
+    """K4's apply entry on a CUDA tensor x (B, *spatial, C), contiguous."""
+    _check_split(x, "group_norm_quant_apply")
+    if out_dtype not in (torch.int8, x.dtype):
+        raise TypeError(f"group_norm_quant_apply kernel emits int8 or x's dtype, not {out_dtype}")
+    B, C = x.shape[0], x.shape[-1]
+    a, b = (t.to(device=x.device, dtype=torch.float32).reshape(B, C).contiguous() for t in (a, b))
+    inv = inv.to(device=x.device, dtype=torch.float32).reshape(B).contiguous()
+    q = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rc = build.load().gdc_group_norm_quant_apply(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), inv.data_ptr(), q.data_ptr(), B, x.numel() // (B * C), C,
+        int(silu), _DTYPE_CODE[x.dtype], int(out_dtype == torch.int8),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gdc_group_norm_quant_apply")
+    group_norm_quant_apply_cuda.launches += 1
+    return q
+
+
+group_norm_quant_apply_cuda.launches = 0
+
+
+def group_norm_quant_apply(x, a, b, inv, silu: bool, out_dtype=torch.int8):
+    """K4's apply entry: plain on the CPU, its kernel on CUDA."""
+    if x.device.type == "cpu":
+        return group_norm_quant_apply_plain(x, a, b, inv, silu, out_dtype)
+    if x.device.type == "cuda":
+        return group_norm_quant_apply_cuda(x, a, b, inv, silu, out_dtype)
+    raise ValueError(f"group_norm_quant_apply: no implementation for device {x.device}")
+
+
+def _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, quant: bool, out_dtype):
+    """K3 (or K4 with ``quant``) on a row shard x: the stats entry, the sums
+    all-reduced over the space group (and K4's extremes: MAX of max and of
+    -min), the fold over the whole image's count, the apply entry. Returns
+    (y, stats) or (q, s, stats), as the unsharded calls do."""
+    B, C = x.shape[0], x.shape[-1]
+    sums, ext = group_norm_stats(x, groups, quant)
+    sp.reduce_sum_(sums)
+    n = x.numel() // (B * groups) * sp.size()
+    mean, rstd, a, b = _fold(sums, n, scale, bias, groups, eps, scale_shift)
+    stats = torch.stack([mean, rstd])
+    if not quant:
+        return group_norm_apply(x, a, b, silu), stats
+    ext[0].neg_()
+    sp.reduce_max_(ext)
+    s, inv = _bound_scale(a, b, -ext[0], ext[1], silu)
+    return group_norm_quant_apply(x, a, b, inv, silu, out_dtype), s, stats

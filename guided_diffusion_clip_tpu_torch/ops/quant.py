@@ -29,7 +29,10 @@ the TPU, XLA's s8 conv, which the JAX package's ``conv_prequant`` and
 two hand-written passes on CUDA (``csrc/quantize.cu``: an absmax reduction,
 then one pass that reads x once and writes s8, the scale and the conv's
 dequantizing factors ``s_x * s_w``). It has no TPU kernel behind it: XLA
-fuses that pass on the TPU.
+fuses that pass on the TPU. Under spatial partitioning (``parallel/sp.py``)
+the scale is that of the tensor the data group holds: the two passes run
+apart (``absmax``, ``quantize_given``) with an all-reduce MAX of the amax
+over the space group between them.
 
 ``int8_conv`` and ``conv_prequant`` are autograd Functions with the JAX
 package's straight-through backwards: ``int8_conv`` differentiates the f32
@@ -44,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..parallel import sp
 from . import build
 
 _EPS = 1e-8
@@ -66,37 +70,95 @@ def quantize_per_tensor(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def quantize_per_tensor_cuda(x: torch.Tensor, s_w: torch.Tensor | None = None):
-    """``quantize_per_tensor`` on a CUDA tensor by the two kernels of
-    ``csrc/quantize.cu``: (values s8, scale f32 scalar tensor, factors). With
-    ``s_w`` (K,) f32, ``factors`` is ``scale * s_w``, written by the same
-    launch; else None. x float32 or bfloat16, contiguous, 16-byte aligned;
-    raises on anything else."""
+def _check_quantize(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the quantize kernels need a CUDA tensor, got one on {x.device}")
     if x.dtype not in _OUT_CODE:
         raise TypeError(f"the quantize kernels take float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16 or x.numel() == 0:
         raise ValueError("the quantize kernels need a non-empty contiguous, 16-byte aligned tensor")
+
+
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """``gdc_absmax`` on a checked tensor: the amax word, (1,) int32."""
+    bits = torch.zeros(1, dtype=torch.int32, device=x.device)
+    rc = build.load().gdc_absmax(x.data_ptr(), x.numel(), bits.data_ptr(), _OUT_CODE[x.dtype],
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gdc_absmax")
+    return bits
+
+
+def _quantize_given(x: torch.Tensor, amax_bits: torch.Tensor, s_w: torch.Tensor | None):
+    """``gdc_quantize_given`` on a checked tensor: (q, s_x, factors)."""
     dev = x.device
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
-    amax_bits = torch.zeros(1, dtype=torch.int32, device=dev)
     s_x = torch.empty((), dtype=torch.float32, device=dev)
     factors = None
     if s_w is not None:
         s_w = s_w.to(device=dev, dtype=torch.float32).contiguous()
         factors = torch.empty_like(s_w)
-    rc = build.load().gdc_quantize_per_tensor(
+    rc = build.load().gdc_quantize_given(
         x.data_ptr(), x.numel(), amax_bits.data_ptr(), q.data_ptr(), s_x.data_ptr(),
         None if s_w is None else s_w.data_ptr(), None if s_w is None else factors.data_ptr(),
         0 if s_w is None else s_w.numel(), _OUT_CODE[x.dtype], torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(rc, "gdc_quantize_per_tensor")
-    quantize_per_tensor_cuda.launches += 1
+    build.check(rc, "gdc_quantize_given")
     return q, s_x, factors
 
 
+def quantize_per_tensor_cuda(x: torch.Tensor, s_w: torch.Tensor | None = None):
+    """``quantize_per_tensor`` on a CUDA tensor by the two kernels of
+    ``csrc/quantize.cu`` back to back: (values s8, scale f32 scalar tensor,
+    factors). With ``s_w`` (K,) f32, ``factors`` is ``scale * s_w``, written
+    by the second kernel; else None. x float32 or bfloat16, contiguous,
+    16-byte aligned; raises on anything else. Counted here, not in the
+    split passes' counts."""
+    _check_quantize(x)
+    out = _quantize_given(x, _absmax(x), s_w)
+    quantize_per_tensor_cuda.launches += 1
+    return out
+
+
 quantize_per_tensor_cuda.launches = 0
+
+
+def absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the first quantize pass: max |x| (f32 scalar tensor)."""
+    return x.float().abs().amax()
+
+
+def absmax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The first quantize kernel alone on a CUDA tensor: max |x| as the bits
+    of the f32 value in a (1,) int32 tensor (non-negative floats order as
+    their bits, so a MAX over ranks takes it as it is)."""
+    _check_quantize(x)
+    bits = _absmax(x)
+    absmax_cuda.launches += 1
+    return bits
+
+
+absmax_cuda.launches = 0
+
+
+def quantize_given_plain(x: torch.Tensor, amax: torch.Tensor):
+    """Plain version of the second pass: ``quantize_per_tensor`` with the
+    amax given: (values s8, scale f32 scalar tensor)."""
+    scale = amax.float().reshape(()).clamp(min=_EPS) / 127.0
+    q = torch.round(x.float() / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_given_cuda(x: torch.Tensor, amax_bits: torch.Tensor, s_w: torch.Tensor | None = None):
+    """The second quantize kernel alone on a CUDA tensor, from an amax word
+    (``absmax_cuda``'s, all-reduced): (values s8, scale, factors) as
+    ``quantize_per_tensor_cuda``'s."""
+    _check_quantize(x)
+    out = _quantize_given(x, amax_bits, s_w)
+    quantize_given_cuda.launches += 1
+    return out
+
+
+quantize_given_cuda.launches = 0
 
 
 def quantize_per_out_channel(w: torch.Tensor):
@@ -258,7 +320,14 @@ def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_conv_fwd(x, w_q, s_w, bias, stride, rows=None):
-    if x.device.type == "cuda":  # the quantize kernels, which also write s_x * s_w
+    if sp.sharded():  # the data group's scale: the amax all-reduced between the two passes
+        if x.device.type == "cuda":
+            bits = sp.reduce_max_(absmax_cuda(x))
+            x_q, _, factors = quantize_given_cuda(x, bits, s_w)
+        else:
+            x_q, s_x = quantize_given_plain(x, sp.reduce_max_(absmax_plain(x)))
+            factors = s_x * s_w
+    elif x.device.type == "cuda":  # the quantize kernels, which also write s_x * s_w
         x_q, _, factors = quantize_per_tensor_cuda(x, s_w)
     else:
         x_q, s_x = quantize_per_tensor(x)

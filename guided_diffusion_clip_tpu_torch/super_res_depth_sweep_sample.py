@@ -21,7 +21,11 @@ Written to the run directory: ``depth_{depth}.png`` for each depth (a grid of
 the batch's samples), ``target.png`` (the test images) and ``start.png``
 (img2). The flags are the JAX script's, plus ``--device`` (default ``cuda``;
 a missing card is an error); ``--conv_impl int8`` runs the int8 convs.
-``--spatial_shard`` and ``--tensor_shard`` above 1 are refused.
+``--spatial_shard S`` (torchrun with a multiple of S ranks,
+``parallel/sp.py``) splits every image's rows over the S ranks of each data
+group, which reads and seeds as one rank of the unsharded run (its data
+rank); each chain's rows are gathered before the write. ``--tensor_shard``
+above 1 is refused.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .data.image_datasets import load_data
 from .diffusion.sampling import sample_seed
 from .image_sample import _refuse, respaced_start
 from .parallel import dist as pdist
+from .parallel import sp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import process1, to_device
@@ -61,7 +66,7 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return sweep(args, device)
 
 
@@ -97,7 +102,7 @@ def sweep(args, device: torch.device) -> dict:
     start = model_kwargs.get("img2", to_device(imgs, device))
     shape = (len(imgs), 3, args.image_size, args.image_size)
     out, cuda = {}, device.type == "cuda"
-    rank, world = pdist.rank(), pdist.world_size()
+    rank, world = sp.data_rank(), sp.data_size()  # a data group's ranks draw alike under --spatial_shard
     for i, depth in enumerate(DEPTHS):
         st = respaced_start(diffusion, depth)
         rng = torch.Generator(device=device).manual_seed(sample_seed(args.seed, i * world + rank))
@@ -110,14 +115,14 @@ def sweep(args, device: torch.device) -> dict:
                                              model_kwargs=model_kwargs, denoise_start_point=st, init_image=start)
         if cuda:
             ev[1].record()
-        sample = sample.permute(0, 2, 3, 1).float().cpu().numpy()  # waits for the chain
+        sample = sp.gather_rows(sample).permute(0, 2, 3, 1).float().cpu().numpy()  # waits for the chain
         secs = ev[0].elapsed_time(ev[1]) / 1e3 if cuda else time.perf_counter() - t0
         path = os.path.join(logger.get_dir(), f"depth_{depth}.png")
-        if rank == 0:
+        if pdist.rank() == 0:
             save_img(tensor2img(sample), path)
         out[depth] = (st, secs)
         logger.log(f"depth {depth} (respaced {st}) -> {path} ({secs:.3f} s)")
-    if rank == 0:
+    if pdist.rank() == 0:
         save_img(tensor2img(np.asarray(imgs).transpose(0, 2, 3, 1)), os.path.join(logger.get_dir(), "target.png"))
         save_img(tensor2img(start.permute(0, 2, 3, 1).float().cpu().numpy()),
                  os.path.join(logger.get_dir(), "start.png"))
@@ -142,8 +147,8 @@ def create_argparser() -> argparse.ArgumentParser:
         seed=0,
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
-        spatial_shard=0,  # not yet ported
-        tensor_shard=0,  # not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
+        tensor_shard=0,  # > 1: not yet ported
         denoise_start_point=-1,
     )
     defaults.update(model_and_diffusion_defaults())

@@ -23,8 +23,13 @@ uint8 conversion run while the card works on batch i + 1's chain
 
 Under torchrun (JAX :45-46, :126-152) each rank runs ``ceil(num_samples /
 (batch_size * world))`` batches of its rows; every batch is gathered in rank
-order and rank 0 writes the ``.npz``, then a barrier. ``--spatial_shard`` and
-``--tensor_shard`` above 1 are not yet ported and are refused.
+order and rank 0 writes the ``.npz``, then a barrier. ``--spatial_shard S``
+(torchrun with a multiple of S ranks, ``parallel/sp.py``) splits every
+image's rows over the S ranks of each data group, which reads, seeds and
+gathers as one rank of the unsharded run (its data rank); the model
+upsamples the full ``low_res`` and slices it, and each chain's rows are
+gathered before the write. ``--tensor_shard`` above 1 is not yet ported and
+is refused.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
+from .parallel import sp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import overlap_device_host, to_device, to_host
@@ -54,9 +60,7 @@ from .utils.script_util import (
 
 
 def _refuse(args) -> None:
-    for name in ("spatial_shard", "tensor_shard"):
-        if int(getattr(args, name, 0)) > 1:
-            raise SystemExit(f"--{name}: not yet ported to the PyTorch package")
+    sp.check_flags(getattr(args, "spatial_shard", 0), getattr(args, "tensor_shard", 0))
     if args.conv_impl not in CONV_IMPLS:
         raise SystemExit(f"--conv_impl {args.conv_impl!r}: choose from {', '.join(CONV_IMPLS)}")
 
@@ -69,7 +73,7 @@ def load_data_for_worker(base_samples, batch_size, class_cond):
         obj = np.load(f)
         image_arr = obj["arr_0"]
         label_arr = obj["arr_1"] if class_cond and "arr_1" in obj else None
-    rank, world = pdist.rank(), pdist.world_size()
+    rank, world = sp.data_rank(), sp.data_size()
     buffer, label_buffer = [], []
     while True:
         for i in range(rank, len(image_arr), world):
@@ -118,7 +122,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path:
         raise SystemExit("--model_path: a reference-format .pt is required")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         return sample(args, device)
 
 
@@ -140,7 +144,7 @@ def sample(args, device: torch.device) -> dict:
     logger.log("loading data...")
     data = load_data_for_worker(args.base_samples, args.batch_size, args.class_cond)
     cuda = device.type == "cuda"
-    rank, world = pdist.rank(), pdist.world_size()
+    rank, world = sp.data_rank(), sp.data_size()  # a data group's ranks draw alike under --spatial_shard
     n_batches = -(-args.num_samples // (args.batch_size * world))
     all_images, batch_seconds = [], []
     logger.log("creating samples...")
@@ -155,7 +159,7 @@ def sample(args, device: torch.device) -> dict:
             else:
                 t0 = time.perf_counter()
             with torch.inference_mode():
-                sample = run_chain(model_kwargs, rng).permute(0, 2, 3, 1).contiguous()
+                sample = sp.gather_rows(run_chain(model_kwargs, rng)).permute(0, 2, 3, 1).contiguous()
             if cuda:
                 end.record()
                 timing = (start, end)
@@ -169,8 +173,8 @@ def sample(args, device: torch.device) -> dict:
             event.synchronize()
             timing = timing[0].elapsed_time(timing[1]) / 1e3
         batch_seconds.append(timing)
-        # rank order
-        all_images.extend(pdist.all_gather_host(((host.float().numpy() + 1) * 127.5).clip(0, 255).astype(np.uint8)))
+        # data-rank order
+        all_images.extend(sp.gather_data_groups(((host.float().numpy() + 1) * 127.5).clip(0, 255).astype(np.uint8)))
         logger.log(f"created {len(all_images) * args.batch_size} samples ({timing:.3f} s for the batch)")
 
     overlap_device_host(dispatched(), gather_batch)
@@ -178,7 +182,7 @@ def sample(args, device: torch.device) -> dict:
     arr = np.concatenate(all_images, axis=0)[: args.num_samples]
     shape_str = "x".join(str(x) for x in arr.shape)
     out_path = os.path.join(logger.get_dir(), f"samples_{shape_str}.npz")
-    if rank == 0:
+    if pdist.rank() == 0:
         logger.log(f"saving to {out_path}")
         np.savez(out_path, arr)
     pdist.barrier("sr_sampling")
@@ -200,8 +204,8 @@ def create_argparser() -> argparse.ArgumentParser:
         seed=0,
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
-        spatial_shard=0,  # not yet ported
-        tensor_shard=0,  # not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
+        tensor_shard=0,  # > 1: not yet ported
     )
     defaults.update(sr_model_and_diffusion_defaults())
     parser = argparse.ArgumentParser()

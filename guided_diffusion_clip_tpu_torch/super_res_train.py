@@ -26,6 +26,7 @@ import torch
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
 from .parallel import dist as pdist
+from .parallel import sp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -63,7 +64,7 @@ def main(argv=None) -> None:
     _refuse_unported(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         train(args, device)
 
 
@@ -122,7 +123,7 @@ def create_argparser() -> argparse.ArgumentParser:
         fp16_scale_growth=1e-3,
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
-        spatial_shard=0,  # > 1: not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
         tensor_shard=0,  # > 1: not yet ported
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward

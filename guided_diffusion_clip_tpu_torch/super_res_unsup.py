@@ -18,8 +18,9 @@ convs, as ``image_train``. The run directory and its checkpoints are
 
 Under torchrun each rank trains on its shard of the folder, and
 ``--param_sharding fsdp``, ``--opt_impl zero1`` and ``--ckpt_backend orbax``
-run as under ``image_train``. Not yet ported, and refused at startup with
-``image_train``'s messages: ``--spatial_shard`` and ``--tensor_shard``.
+run as under ``image_train``, and ``--spatial_shard S`` too (each image's
+rows over the S ranks of a data group, ``parallel/sp.py``). Not yet ported,
+and refused at startup with ``image_train``'s messages: ``--tensor_shard``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
 from .parallel import dist as pdist
+from .parallel import sp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -53,7 +55,7 @@ def main(argv=None) -> None:
         args.f = args.load
         load_folder_path_parse(args)
         args.resume_checkpoint = args.model_path
-    with pdist.process_group(args.device) as device:
+    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
         train(args, device)
 
 
@@ -123,7 +125,7 @@ def create_argparser() -> argparse.ArgumentParser:
         fp16_scale_growth=1e-3,
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
-        spatial_shard=0,  # > 1: not yet ported
+        spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
         tensor_shard=0,  # > 1: not yet ported
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward

@@ -85,8 +85,21 @@ GroupNorms emit integer-valued floats under autograd, and the backwards are
 straight-through convs on cuDNN; the EMA copies and ``val_sample`` run the
 same convs under ``no_grad``, which emits real s8.
 
-Not yet ported, and refused by ``check_ported``: ``spatial_shard`` and
-``tensor_shard`` above 1.
+Spatial partitioning (``spatial_shard`` S > 1, ``parallel/sp.py``): the
+world of W ranks is D data groups of S space ranks. A data group's ranks
+take the same host batch, timesteps and noise (the timesteps, the noise and
+the dropout masks come from generators seeded ``seed + data_rank``, the
+noise drawn at the batch's full size), and each runs the model on its rows
+of every image: its loss is the mean over its rows, and DDP's (or FSDP2's,
+or ZeRO-1's) mean over all W ranks is then the data-parallel gradient, the
+collectives' adjoints summing what crossed the ranks. The logged losses are
+the data groups' (each per-sample term the mean of its ranks' means), which
+the loss-aware sampler takes too; ``global_batch`` is ``batch_size * D``.
+``val_sample`` gathers each chain's rows before it writes.
+
+Not yet ported, and refused by ``check_ported``: ``tensor_shard`` above 1
+(tensor parallelism is the next slice), and it with ``spatial_shard``
+above 1 (as in the JAX loop, the two do not compose).
 """
 
 from __future__ import annotations
@@ -105,6 +118,7 @@ from ..diffusion.api import Diffusion
 from ..models.nn import Conv2d
 from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
+from ..parallel import sp
 from ..training.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..utils import bf_io
 from ..utils import checkpoint as ckpt
@@ -126,12 +140,14 @@ def check_ported(*, param_sharding="replicated", opt_impl="tree", spatial_shard=
         raise ValueError(f"ckpt_backend {ckpt_backend!r}")
     if opt_impl != "tree" and param_sharding == "fsdp":
         raise ValueError(f"opt_impl={opt_impl!r} does not compose with FSDP sharding")
-    for flag, unported in (
-        (f"spatial_shard {spatial_shard}", int(spatial_shard) > 1),
-        (f"tensor_shard {tensor_shard}", int(tensor_shard) > 1),
-    ):
-        if unported:
-            raise NotImplementedError(f"--{flag}: not yet ported to the PyTorch package")
+    if int(spatial_shard or 0) > 1 and int(tensor_shard or 0) > 1:
+        raise ValueError("spatial_shard and tensor_shard are mutually exclusive")
+    if int(tensor_shard or 0) > 1:
+        raise NotImplementedError(f"--tensor_shard {tensor_shard}: not yet ported to the PyTorch package "
+                                  "(tensor parallelism is the next slice)")
+    if int(spatial_shard or 0) > 1 and not (pdist.is_initialized() or pdist.under_torchrun()):
+        raise ValueError(f"spatial_shard {spatial_shard} needs a process group: launch under torchrun "
+                         f"(python -m torch.distributed.run --nproc_per_node {spatial_shard} ...)")
 
 
 def drop_conditioning(generator: torch.Generator, cond: dict, p: float, null_y: int = -1) -> dict:
@@ -213,6 +229,10 @@ class TrainLoop:
             raise ValueError(f"param_sharding {param_sharding!r} / opt_impl {opt_impl!r} need a process group: "
                              "launch under torchrun (python -m torch.distributed.run --nproc_per_node N ...)")
         self.rank, self.world = pdist.rank(), pdist.world_size()
+        if int(spatial_shard) > 1 and sp.size() != int(spatial_shard):
+            sp.setup_from_flag(int(spatial_shard), batch_size)
+        # the ranks that share a data group's rows draw alike
+        self.data_rank, self.data_world = sp.data_rank(), sp.data_size()
         self.ckpt_backend = ckpt_backend
         self.model = model.float().train()
         self.device = next(model.parameters()).device
@@ -240,7 +260,7 @@ class TrainLoop:
         self.profile_dir = profile_dir
         self.step = 0
         self.resume_step = 0
-        self.global_batch = batch_size * self.world
+        self.global_batch = batch_size * self.data_world
 
         self._loss_weight_table = None
         if loss_weighting:
@@ -261,9 +281,9 @@ class TrainLoop:
                     f"cfg_null_y {self.cond_null_y} is outside the Embed table (num_classes="
                     f"{mcfg.num_classes}); train with num_classes+1 rows to reserve a null class"
                 )
-        self.np_rng = np.random.default_rng(seed + self.rank)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.rank)
-        torch.manual_seed(seed + self.rank)  # the model's dropout
+        self.np_rng = np.random.default_rng(seed + self.data_rank)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.data_rank)
+        torch.manual_seed(seed + self.data_rank)  # the model's dropout
 
         self.ddp = None
         self._proto = None  # under FSDP2: the unsharded model on the meta device, for ema_model
@@ -433,6 +453,8 @@ class TrainLoop:
             cond = drop_conditioning(self.generator, cond, self.cond_dropout, self.cond_null_y)
         if noise is None:
             noise = torch.randn(x.shape, generator=self.generator, device=self.device)
+        # under SP: the rank's rows of the batch and of its noise, each loss term a mean over them
+        x, noise = sp.shard_rows(x.contiguous(memory_format=torch.channels_last)), sp.shard_rows(noise)
         terms = self.diffusion.training_losses(self.ddp or self.model, x, t, noise, model_kwargs=cond)
         return (terms["loss"] * weights).mean(), terms
 
@@ -558,14 +580,18 @@ class TrainLoop:
 
     def _start_fetch(self, metrics: dict, t: torch.Tensor):
         """Queue the copy of a step's metrics and timesteps, gathered over the
-        ranks, to the host: (host tensor, the event that marks the copy's end
-        or None, the vector length of one rank)."""
+        data groups, to the host: (host tensor, the event that marks the
+        copy's end or None, the vector length of one rank)."""
+        if sp.size() > 1:  # the data group's terms: the mean of its ranks' means over their rows
+            metrics = dict(metrics)
+            for k in ("loss", "loss_vec", "mse_vec", "vb_vec"):
+                metrics[k] = sp.reduce_sum_(metrics[k].float().clone()) / sp.size()
         flat = torch.cat([metrics[k].reshape(-1).float() for k in _METRIC_KEYS] + [t.float()])
         n = metrics["loss_vec"].numel()
         if self.world > 1:
             parts = [torch.empty_like(flat) for _ in range(self.world)]
             torch.distributed.all_gather(parts, flat)
-            flat = torch.cat(parts)
+            flat = torch.cat(parts[::sp.size()])  # one rank a data group
         if flat.device.type != "cuda":
             return flat, None, n
         host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -697,9 +723,9 @@ class TrainLoop:
             x = self._upload(batch[:n]).float()
             cond = {k: self._upload(v[:n]) for k, v in cond.items()}
             with torch.no_grad():
-                sample = loop(model, tuple(x.shape), self.generator, model_kwargs=cond)
-            sample = pdist.all_gather_host(sample.permute(0, 2, 3, 1).float().cpu().numpy())
-            targets = pdist.all_gather_host(x.permute(0, 2, 3, 1).cpu().numpy())
+                sample = sp.gather_rows(loop(model, tuple(x.shape), self.generator, model_kwargs=cond))
+            sample = sp.gather_data_groups(sample.permute(0, 2, 3, 1).float().cpu().numpy())
+            targets = sp.gather_data_groups(x.permute(0, 2, 3, 1).cpu().numpy())
             sample, targets = (a.reshape((-1,) + a.shape[2:]) for a in (sample, targets))
             if self.rank == 0:
                 np.savez(os.path.join(out_dir, f"val_samples_{di}_{step:06d}.npz"), sample)

@@ -399,6 +399,134 @@ def test_quantize_kernels(dev, shape, case, dtype):
     assert none is None and torch.equal(q2, q) and torch.equal(s2, s)
 
 
+# the split entries at ADM-256's half-H shapes (one of two ranks' rows of a 256 px map), small and ragged maps
+_SPLIT_SHAPES = [(2, 128, 256, 256), (2, 8, 16, 1024), (3, 5, 7, 96), (1, 3, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("minmax", [False, True])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_stats_kernel(dev, shape, minmax, dtype):
+    """The split GroupNorm's stats entry against ``group_norm_stats_plain``:
+    the sums within 1e-5 of the sum of |x| (f32 sums in another order), the
+    extremes equal; one launch; a repeat gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(len(shape) + shape[-1])
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    n0 = G.group_norm_stats_cuda.launches
+    sums, ext = G.group_norm_stats_cuda(x, 32, minmax)
+    torch.cuda.synchronize()
+    assert G.group_norm_stats_cuda.launches == n0 + 1
+    rs, rext = G.group_norm_stats_plain(x, 32, minmax)
+    B, C = shape[0], shape[-1]
+    scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, B, -1, 32, C // 32).sum((2, 4))
+    assert sums.shape == (2, B, 32) and ((sums - rs).abs() <= 1e-5 * scale + 1e-6).all()
+    if minmax:
+        assert torch.equal(ext, rext)
+    else:
+        assert ext is None
+    sums2, ext2 = G.group_norm_stats_cuda(x, 32, minmax)
+    assert torch.equal(sums2, sums) and (ext2 is None or torch.equal(ext2, ext))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_apply_kernel(dev, shape, silu, dtype, tol):
+    """K3's apply entry against ``group_norm_apply_plain`` (K3's tolerances:
+    the kernel's fused multiply-add and fast exponential, bf16 roundings)."""
+    g = torch.Generator(device=dev).manual_seed(len(shape) + 7)
+    B, C = shape[0], shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    a, b = torch.randn(B, C, generator=g, device=dev), torch.randn(B, C, generator=g, device=dev)
+    n0 = G.group_norm_apply_cuda.launches
+    y = G.group_norm_apply_cuda(x, a, b, silu)
+    torch.cuda.synchronize()
+    assert G.group_norm_apply_cuda.launches == n0 + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), G.group_norm_apply_plain(x, a, b, silu).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("emit", ["s8", "x"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_quant_apply_kernel(dev, shape, silu, dtype, emit):
+    """K4's apply entry against ``group_norm_quant_apply_plain``: q within one
+    level on at most 1e-4 of the elements (the kernel's exponential against
+    torch's SiLU), in the dtype asked for."""
+    g = torch.Generator(device=dev).manual_seed(len(shape) + 11)
+    B, C = shape[0], shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    a, b = torch.randn(B, C, generator=g, device=dev), torch.randn(B, C, generator=g, device=dev) * 0.1
+    inv = torch.rand(B, generator=g, device=dev) * 20 + 10
+    out_dtype = torch.int8 if emit == "s8" else dtype
+    n0 = G.group_norm_quant_apply_cuda.launches
+    q = G.group_norm_quant_apply_cuda(x, a, b, inv, silu, out_dtype)
+    torch.cuda.synchronize()
+    assert G.group_norm_quant_apply_cuda.launches == n0 + 1
+    assert q.dtype == out_dtype and q.shape == x.shape
+    _q_flips_ok(q, G.group_norm_quant_apply_plain(x, a, b, inv, silu, out_dtype))
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_split_on_row_shards_equals_one_launch(dev, dtype, kernel):
+    """The split path as two ranks run it, on one card: each half of the
+    rows' stats, summed (and K4's extremes combined), folded and applied,
+    against the one-launch K3 or K4 on the whole map, at ADM-256's 256 px
+    width with scale-shift and SiLU (K3's and K4's tolerances)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, W, C = 2, 64, 256, 256
+    x = (torch.randn((B, H, W, C), generator=g, device=dev) + 0.3).to(dtype)
+    w, b = torch.randn(C, generator=g, device=dev) * 0.1 + 1, torch.randn(C, generator=g, device=dev) * 0.1
+    ss = (torch.randn(B, C, generator=g, device=dev) * 0.2, torch.randn(B, C, generator=g, device=dev) * 0.2)
+    halves = [x[:, :H // 2].contiguous(), x[:, H // 2:].contiguous()]
+    parts = [G.group_norm_stats_cuda(h, 32, kernel == "K4") for h in halves]
+    sums = parts[0][0] + parts[1][0]
+    mean, rstd, a, bb = G._fold(sums, H * W * C // 32, w, b, 32, 1e-5, ss)
+    with torch.inference_mode():
+        if kernel == "K3":
+            y = torch.cat([G.group_norm_apply_cuda(h, a, bb, True) for h in halves], dim=1)
+            ref = G.fused_group_norm(x, w, b, 32, 1e-5, True, ss)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+            return
+        lo = torch.minimum(parts[0][1][0], parts[1][1][0])
+        hi = torch.maximum(parts[0][1][1], parts[1][1][1])
+        s, inv = G._bound_scale(a, bb, lo, hi, True)
+        q = torch.cat([G.group_norm_quant_apply_cuda(h, a, bb, inv, True) for h in halves], dim=1)
+        rq, rs = G.fused_group_norm_quant(x, w, b, 32, 1e-5, True, ss)
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+    _q_flips_ok(q, rq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 128, 256, 256), (2, 32, 32, 512), (1, 7, 5, 3), (37,)])
+def test_quantize_split_kernels(dev, shape, dtype):
+    """The quantize kernels' two passes apart: the amax word equals the bits
+    of ``absmax_plain``, a MAX of two halves' words is the whole tensor's,
+    and ``quantize_given_cuda`` from it gives ``quantize_per_tensor_cuda``'s
+    q, s and factors bit for bit."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(len(shape) + 1)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    s_w = torch.rand(24, generator=g, device=dev) * 0.01 + 1e-4
+    n0, m0 = Q.absmax_cuda.launches, Q.quantize_given_cuda.launches
+    bits = Q.absmax_cuda(x)
+    assert bits.dtype == torch.int32 and bits.view(torch.float32).item() == Q.absmax_plain(x).item()
+    if x.numel() >= 32:
+        flat = x.reshape(-1)
+        half = flat.numel() // 32 * 16
+        both = torch.maximum(Q.absmax_cuda(flat[:half]), Q.absmax_cuda(flat[half:].clone()))
+        assert torch.equal(both, bits)
+    q, s, factors = Q.quantize_given_cuda(x, bits, s_w)
+    torch.cuda.synchronize()
+    assert Q.quantize_given_cuda.launches == m0 + 1 and Q.absmax_cuda.launches >= n0 + 1
+    rq, rs, rf = Q.quantize_per_tensor_cuda(x, s_w)
+    assert torch.equal(q, rq) and torch.equal(s, rs) and torch.equal(factors, rf)
+
+
 def test_int8_conv_on_the_card_runs_the_quantize_kernels(dev):
     """``int8_conv`` on CUDA: one launch of the quantize kernels and one of
     K5, the output as the plain versions' on the same tensors."""

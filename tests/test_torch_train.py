@@ -328,12 +328,14 @@ def test_opt_impl_values_run_one_optimizer(weights):
     dict(ckpt_backend="tensorstore"),
 ])
 def test_unported_options_are_refused(weights, option):
-    """``spatial_shard``/``tensor_shard`` are not yet ported; ``fsdp`` and
-    ``zero1`` need a process group (``tests/test_torch_train_dist.py`` runs
-    them on two ranks); ``ckpt_backend`` takes flax or orbax only."""
+    """``tensor_shard`` is not yet ported; ``fsdp``, ``zero1`` and
+    ``spatial_shard`` need a process group (``tests/test_torch_train_dist.py``
+    and ``tests/test_torch_sp.py`` run them on two ranks); ``ckpt_backend``
+    takes flax or orbax only."""
     _, params = weights
     error, match = {"param_sharding": (ValueError, "need a process group"),
                     "opt_impl": (ValueError, "need a process group"),
+                    "spatial_shard": (ValueError, "needs a process group"),
                     "ckpt_backend": (ValueError, "ckpt_backend 'tensorstore'")}.get(
         next(iter(option)), (NotImplementedError, "not yet ported"))
     with pytest.raises(error, match=match):

@@ -10,6 +10,7 @@ port and with the JAX package.
 
 from __future__ import annotations
 
+import importlib
 import os
 import subprocess
 import sys
@@ -256,6 +257,254 @@ def classifier_step(d: str, r: int) -> dict:
             "grad": {n: pmesh.full_tensor(p.grad, p).clone() for n, p in ps.items()},
             "params": {n: pmesh.full_tensor(p.detach(), p).clone() for n, p in ps.items()}}
     return out
+
+
+# ---------------------------------------------------------------- spatial partitioning
+SP_CFG = dict(image_size=16, in_channels=3, model_channels=32, out_channels=6, num_res_blocks=1,
+              attention_resolutions=(2,), channel_mult=(1, 2), num_heads=2, use_scale_shift_norm=True)
+# a level that gives each of two ranks one row (the 2 px level of channel_mult (1, 1, 2, 2)): run whole
+SP_DEEP = dict(SP_CFG, channel_mult=(1, 1, 2, 2), attention_resolutions=(4,))
+
+
+def sp_models(d: str, **kw) -> dict:
+    """The models of ``sp_inputs.pt`` (the parent's weights), eval mode."""
+    from guided_diffusion_clip_tpu_torch.models.unet import EncoderUNetModel, UNetModel
+
+    inp = torch.load(os.path.join(d, "sp_inputs.pt"), weights_only=False)
+    out = {}
+    for name, (cfg, extra, sd) in inp["models"].items():
+        cls = EncoderUNetModel if "pool" in extra else UNetModel
+        m = cls(UNetConfig(**{**cfg, **kw.get(name, {})}), **extra).eval()
+        m.load_state_dict(sd, strict=True)
+        out[name] = m
+    return inp, out
+
+
+def rows_of(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a full NCHW tensor (``sp.shard_rows``)."""
+    from guided_diffusion_clip_tpu_torch.parallel import sp
+
+    return sp.shard_rows(x.contiguous(memory_format=torch.channels_last))
+
+
+class Int8Forcing:
+    """Teacher forcing of the sharded int8 forward to the unsharded one's
+    roundings: ``record`` keeps each quantizing GroupNorm's (q, s) and each
+    per-tensor int8 conv's output of an unsharded forward and every
+    per-tensor scale; ``force`` checks each against the sharded forward's
+    (on the rank's rows), keeps the readings, and passes the unsharded value
+    on, so that no rounding the other way compounds. The output head is left
+    alone. ``by_name``: the values to hold and force by module name (the JAX
+    package's int8 forward's captured intermediates, full size), in place of
+    a recorded forward; no scales are compared then."""
+
+    def __init__(self, by_name: dict | None = None):
+        self.rec, self.scales, self.readings, self.handles = [], [], [], []
+        self.pos = 0
+        self.by_name = by_name
+
+    def _scale_hooks(self, store):
+        from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+        fns = {"quantize_per_tensor": Q.quantize_per_tensor, "quantize_given_plain": Q.quantize_given_plain}
+
+        def wrap(fn):
+            def call(*a, **k):
+                q, s = fn(*a, **k)
+                store.append(s.clone())
+                return q, s
+            return call
+
+        for name, fn in fns.items():
+            setattr(Q, name, wrap(fn))
+        return lambda: [setattr(Q, n, f) for n, f in fns.items()]
+
+    def _hook(self, forcing, name):
+        from guided_diffusion_clip_tpu_torch.parallel import sp
+
+        def hook(mod, args, kwargs, out):
+            quant_gn = kwargs.get("quantize", False)
+            if not quant_gn and (kwargs.get("prequant_scales") is not None or not getattr(mod, "int8", False)):
+                return None
+            if not forcing:
+                self.rec.append(tuple(t.detach().clone() for t in (out if quant_gn else (out,))))
+                return None
+            ref = self.rec[self.pos] if self.by_name is None else self.by_name[name]
+            self.pos += 1
+            if quant_gn:
+                (q, sc), (rq, rsc) = out, ref
+                rq = rq if rq.shape == q.shape else rows_of(rq)
+                # the groups' offsets over the whole image: the one-pass variance loses (mean / std)^2 ulps
+                x = args[0].detach()
+                xf = sp.gather_rows(x) if x.shape[2] != ref[0].shape[2] else x
+                xg = xf.movedim(1, -1).double().reshape(xf.shape[0], -1, 32, xf.shape[1] // 32)
+                ratio = (xg.mean((1, 3)).abs() / xg.std((1, 3))).max().item()
+                d_q = (q.float() - rq.float()).abs()
+                self.readings.append({"kind": "gn", "s_err": ((sc - rsc).abs() / rsc).max().item(),
+                                      "s_tol": 1e-6 + ratio ** 2 * 2.0 ** -20, "q_max": d_q.max().item(),
+                                      "flips": int((d_q > 0).sum()), "n": d_q.numel()})
+                return rq.to(q.dtype), rsc
+            (r,) = ref
+            r = r if r.shape == out.shape else rows_of(r)
+            dd = (out - r).abs()
+            self.readings.append({"kind": "conv", "max": dd.max().item(), "ref_max": r.abs().max().item(),
+                                  "l2": (dd.norm() / r.norm()).item()})
+            return r
+
+        return hook
+
+    def run(self, model, x, t, forcing, **kw):
+        from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
+
+        store = [] if forcing else self.scales
+        restore = self._scale_hooks(store)
+        self.pos = 0
+        for name, m in model.named_modules():
+            if isinstance(m, (GroupNorm32, Conv2d)) and not name.startswith("out."):
+                self.handles.append(m.register_forward_hook(self._hook(forcing, name), with_kwargs=True))
+        try:
+            with torch.no_grad():
+                out = model(x, t, **kw)
+        finally:
+            restore()
+            for h in self.handles:
+                h.remove()
+            self.handles = []
+        if forcing and self.by_name is None:
+            assert self.pos == len(self.rec), (self.pos, len(self.rec))
+            self.scale_pairs = [(a.item(), b.item()) for a, b in zip(store, self.scales)]
+            assert len(store) == len(self.scales), (len(store), len(self.scales))
+        return out
+
+
+def scenario_sp(d: str) -> None:
+    """Two ranks, one data group of two space ranks (``--spatial_shard 2``):
+    the forwards, int8 teacher-forced, the classifiers and their guidance
+    gradient, DeepCache, the chains, the train steps, the CLIs, the
+    refusals. Each rank writes its rows; the parent holds them to the
+    unsharded port and to the JAX package."""
+    from guided_diffusion_clip_tpu_torch import classifier_sample, image_sample
+    from guided_diffusion_clip_tpu_torch.diffusion.deep_cache import zero_state
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import cfg_model_fn, classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.parallel import sp
+    from guided_diffusion_clip_tpu_torch.training.train_loop import check_ported
+
+    pdist.setup_dist("cpu")
+    r = pdist.rank()
+    out = {}
+    # the refusals first, before SP is set
+    for what, fn in (("S4_at_world2", lambda: sp.set_spatial_sharding(4)),
+                     ("both_flags", lambda: check_ported(spatial_shard=2, tensor_shard=2)),
+                     ("cli_both", lambda: sp.check_flags(2, 2)), ("cli_tp", lambda: sp.check_flags(0, 2))):
+        try:
+            fn()
+            out[f"refuse_{what}"] = None
+        except (ValueError, NotImplementedError, SystemExit) as e:
+            out[f"refuse_{what}"] = f"{type(e).__name__}: {e}"
+    out["identity"] = not sp.active() and all(
+        f(t) is t for t in (torch.ones(2, 3, 4, 4),) for f in (sp.shard_rows, sp.gather_rows, lambda u: sp.halo(u, 1, 1)))
+    sp.set_spatial_sharding(2)
+    out["groups"] = (sp.size(), sp.space_rank(), sp.data_rank(), sp.data_size())
+    inp, models = sp_models(d)
+    x, t, feat = inp["x"], inp["t"], inp["feat"]
+    xs = rows_of(x)
+    with torch.no_grad():
+        out["fwd_clip"] = models["clip"](xs, t, clip_feat=feat)
+        out["fwd_plain"] = models["plain"](xs, t)
+        out["fwd_deep"] = models["deep"](xs, t)
+        out["fwd_super_res"] = models["super_res"](xs, t, low_res=inp["low_res"])
+        out["fwd_sr_img_feat"] = models["sr_img_feat"](xs, t, clip_feat=feat, clip_feat2=inp["feat2"], img2=inp["img2"])
+        out["clf_attention"] = models["clf_attention"](xs, t)
+        out["clf_spatial"] = models["clf_spatial"](xs, t)
+        full, deep = models["clip"](xs, t, clip_feat=feat, cache_mode="full")
+        out["cache_full"], out["cache_deep"] = full, deep
+        out["cache_shallow"] = models["clip"](xs, t, clip_feat=feat, cache_mode="shallow", deep_cache=deep)[0]
+        out["cache_zero_state"] = tuple(zero_state(models["clip"].config, x.shape[0])[1].shape)
+    # the classifier's guidance gradient, and the backward through a remat UNet and the whole-run level
+    cond = classifier_cond_fn(lambda u, tt: models["clf_attention"](u, tt), 3.0)
+    out["guidance"] = cond(xs, t, y=inp["y"])
+    for name, m, kw in (("remat", sp_models(d, clip={"use_checkpoint": True})[1]["clip"], {"clip_feat": feat}),
+                        ("deep_grad", models["deep"], {})):
+        m.train()
+        xg = xs.clone().requires_grad_(True)
+        (m(xg, t, **kw).square().sum()).backward()
+        out[name] = {"x": xg.grad, "params": {n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None}}
+        m.eval()
+    # int8, teacher-forced to the unsharded int8 forward's roundings
+    _, m8 = sp_models(d)
+    m8 = m8["clip8"]
+    forcing = Int8Forcing()
+    with sp.whole():
+        ref8 = forcing.run(m8, x, t, False, clip_feat=feat)
+    got8 = forcing.run(m8, xs, t, True, clip_feat=feat)
+    out["int8"] = {"readings": forcing.readings, "scales": forcing.scale_pairs, "out": got8, "ref_rows": rows_of(ref8)}
+    # and teacher-forced to the JAX package's int8 forward of the same weights and inputs
+    forcing = Int8Forcing(by_name=inp["jax_int8"])
+    out["int8_jax"] = {"readings": forcing.readings, "out": forcing.run(m8, xs, t, True, clip_feat=feat)}
+    # chains: DDIM from a generator, and CFG over clip_feat
+    diff = create_gaussian_diffusion(steps=20, noise_schedule="cosine", learn_sigma=True,
+                                     rescale_learned_sigmas=True, timestep_respacing="ddim5")
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(3)
+        out["ddim"] = diff.ddim_sample_loop(models["plain"], tuple(x.shape), g)
+        g = torch.Generator().manual_seed(7)
+        out["cfg"] = diff.ddim_sample_loop(cfg_model_fn(models["clip"], 2.5, {"clip_feat": 0.0}), tuple(x.shape), g,
+                                           model_kwargs={"clip_feat": feat})
+    # the train steps: DDP, ZeRO-1 and FSDP2 with SP, and DDP with use_checkpoint
+    b1 = batches(B, 1)
+    for mode, kw in (("tree", {}), ("zero1", MODES["zero1"]), ("fsdp", MODES["fsdp"]), ("remat_tree", {"remat": True})):
+        loop = make_loop(os.path.join(d, f"sp_{mode}"), spatial_shard=2, **kw)
+        step(loop, b1, slice(None))
+        out[f"train_{mode}"] = state(loop)
+    torch.save(out, os.path.join(d, f"sp_rank{r}.pt"))
+    # the CLIs, each a run of its own
+    cli = {}
+    for name, main in (("image", image_sample.main), ("classifier", classifier_sample.main)):
+        with open(os.path.join(d, f"sp_{name}.argv")) as f:
+            cli[name] = main(f.read().split("\n"))["path"]
+    sp.clear_spatial_sharding()
+    with open(os.path.join(d, "sp_image.argv")) as f:  # at world 2 without SP: two data groups of one rank
+        argv = f.read().split("\n")
+    i = argv.index("--spatial_shard")
+    cli["image_dp"] = image_sample.main(argv[:i] + argv[i + 2:] + ["--main_path", os.path.join(d, "dp2")])["path"]
+    torch.save(cli, os.path.join(d, f"sp_cli_rank{r}.pt"))
+    # the other CLIs that take --spatial_shard, each as the parent wrote its flags and environment
+    for name, (module, argv, env) in torch.load(os.path.join(d, "sp_clis.pt"), weights_only=False).items():
+        old_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        torch.manual_seed(0)  # the trainers' initial weights, as the parent's one-process run draws them
+        try:
+            importlib.import_module(f"guided_diffusion_clip_tpu_torch.{module}").main(argv)
+        finally:
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            logger.reset()
+    pdist.destroy()
+
+
+def scenario_sp4(d: str) -> None:
+    """Four ranks, two data groups of two space ranks: a DDP train step, each
+    data group on its half of a batch of 2B, and ``image_sample``."""
+    from guided_diffusion_clip_tpu_torch import image_sample
+    from guided_diffusion_clip_tpu_torch.parallel import sp
+
+    pdist.setup_dist("cpu")
+    r = pdist.rank()
+    sp.set_spatial_sharding(2)
+    out = {"groups": (sp.size(), sp.space_rank(), sp.data_rank(), sp.data_size())}
+    rows = slice(sp.data_rank() * B, (sp.data_rank() + 1) * B)
+    loop = make_loop(os.path.join(d, "sp4_tree"), spatial_shard=2)
+    step(loop, batches(2 * B, 1), rows)
+    out["train_tree"] = state(loop)
+    torch.save(out, os.path.join(d, f"sp4_rank{r}.pt"))
+    with open(os.path.join(d, "sp_image.argv")) as f:
+        argv = f.read().split("\n")
+    out = {"image": image_sample.main(argv + ["--main_path", os.path.join(d, "sp4_image")])["path"]}
+    torch.save(out, os.path.join(d, f"sp4_cli_rank{r}.pt"))
+    pdist.destroy()
 
 
 if __name__ == "__main__":
