@@ -123,7 +123,7 @@ UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
   8c. ``python -m guided_diffusion_clip_tpu_torch.image_train --config-file``
       on 64 generated PNGs and a ``.pt`` CLIP dict (the recipe's file with
       save_interval 10, log_interval 5, the paths pointed at them and,
-      respaced to 100 steps for its validation chains), with
+      respaced to ``VAL_STEPS`` steps for its validation chains), with
       ``DIFFUSION_TRAINING_TEST=1``: the three checkpoints, finite losses in
       progress.csv, the model loading strict=True into the sampler, and the
       entry point's ms a step and samples/s over steps 6-10, loader
@@ -132,7 +132,7 @@ UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
       the resume runs with ``--profile_dir``, whose trace must hold the
       ``train_step`` scope (``GDC_NATIVE_LOADER=1`` is not run: the native
       decoder needs libjpeg's and libpng's headers to build);
-  8d. 10 timed ``run_step`` calls at batch 48 after 5 of warm-up, without
+  8d. ``TIMED_STEPS`` timed ``run_step`` calls at batch 48 after 5 of warm-up, without
       and with ``use_checkpoint``: no host sync (``set_sync_debug_mode``),
       K1/K2/K3 launches against the counts from the modules (every K1/K2
       launch on the tensor-core kernels), ms a step and its split by part,
@@ -147,13 +147,13 @@ run directory, ``configs/image_sample_config.yaml`` pointed at 16 generated
 256 px test images):
   9.  ``image_sample.main`` from a checkpoint of N(0, 0.02) weights written
       into 8c's run directory (8c's EMA is still the initialization, whose
-      output is 0), two batches of 8, 100 respaced ancestral steps, in
+      output is 0), two batches of 8, ``SAMPLE_STEPS`` respaced ancestral steps, in
       bf16, with ``--conv_impl int8``, with ``--cfg_scale 3 --cfg_cache 2``
       and with ``denoise_start_point 800``: the UNet's forwards against the
       schedule, the launches against the modules' counts, seconds a batch,
       each mode's samples other than bf16's; then 5-step DDIM chains of
       ``image_sample.make_chain`` card against CPU (``SAMPLE_CHAINS``): f32
-      at batch 2, bf16 and int8 (teacher-forced) at batch 8;
+      at batch 2, bf16 and int8 (teacher-forced) at batch 4;
   9b. ``image_sample_repeat.main --repeats 2`` from 8c's EMA checkpoint: two
       run directories;
   9c. ``image_nll.main`` on 8 images from 8c's EMA checkpoint over a
@@ -182,8 +182,8 @@ use phase 5's ADM-256 CLIP UNet weights) add:
       ``compute_clip_embeddings.main`` over 16 generated 256 px images card vs
       CPU (1e-3), ms an image, and its ``.pt`` fed to ``image_train`` (the
       recipe at batch 8) for 2 steps; the CLIP guidance gradient in pred-x0
-      mode through the ADM-256 CLIP UNet (f32, batch 2, model timestep 500 of
-      a 100-step schedule) card vs CPU (1e-3);
+      mode through the ADM-256 CLIP UNet (f32, batch ``CLIP_GRAD_BATCH``,
+      model timestep 500 of a 100-step schedule) card vs CPU (1e-3);
   11b. ``clip_guided_sample.main`` on the ADM-256 CLIP UNet and ViT-B/32,
       ``--target_image``, batch 8, 5 ancestral steps (cut from 100 to 40 to
       pay for phase 12, to 20 for phase 13, to 10 for phase 14 and to 5 for
@@ -211,16 +211,16 @@ add:
       ``TRAIN_BF16_TOL``; one ``--train_conv_impl int8`` step teacher-forced
       in f32 within ``INT8_TRAIN_TOL``;
   12b. ``super_res_unsup.main`` on 8c's folder and dict with ``--data_dir_test``
-      (the recipe's file, respaced to 100 steps so that the save's two
-      validation chains are 100 steps each), 11 steps at batch 48 and the
+      (the recipe's file, respaced to ``VAL_STEPS`` steps so that the save's
+      two validation chains are that long), 11 steps at batch 48 and the
       save at step 10; then ``--load`` of that run with ``--train_conv_impl
       int8`` for 5 steps: the launches against the modules' counts, the files,
-      the resume; then 10 timed steps at batch 48 each way, as 8d;
+      the resume; then ``TIMED_STEPS`` timed steps at batch 48 each way, as 8d;
   12c. ``super_res_train.main`` (the upstream model, ``low_res`` from the
       loader) 3 steps at batch 48, its checkpoint loading strict=True into
       ``super_res_sample``'s model; ``super_res_sample.main`` from N(0, 0.02)
-      weights on phase 9's samples area-downsampled to 64 px, batch 16, 100
-      ancestral steps, bf16 and ``--conv_impl int8``: (16, 128, 128, 3) uint8
+      weights on phase 9's samples area-downsampled to 64 px, batch 16,
+      ``SR_SAMPLE_STEPS`` ancestral steps, bf16 and ``--conv_impl int8``: (16, 128, 128, 3) uint8
       samples, launches against the modules' counts, int8's samples other than
       bf16's and their spread within 0.5 of it;
   12d. ``super_res_depth_sweep_sample.main`` from phase 9's checkpoint on its
@@ -362,6 +362,19 @@ Spatial partitioning (``--spatial_shard``, ``parallel/sp.py``):
       fault crosses fails the phase. The times are logged and claim nothing:
       two processes share one card and gloo stages through the host.
 
+Tensor parallelism (``--tensor_shard``, ``parallel/tp.py``):
+  18. in phase 17's two processes after their SP cases, SP cleared and TP 2
+      set: the same forwards (int8 forced on the rank's channels), gradients
+      and train step (``TrainLoop(tensor_shard=2)``), each whole output
+      against the same call unsharded (``tp.whole()``, ``TP_BOUNDS``; the
+      train step against phase 17's world-1 step, ``SP_TRAIN_TOL``) with its
+      launches derived from the modules (``tp_counts``: K1 on the rank's
+      heads, K3 on its 16 groups, K4 split with its bound reduced, K5 on the
+      rank's output channels, the quantize kernels on gathered inputs), and
+      again under a fault on rank 1 (``TP_FAULTS``: K3's statistics x 1.01,
+      one ResBlock's scale and shift swapped, K4's per-image bound left
+      unreduced), which must cross its bound.
+
     python3 chip_smoke.py --faults
 
 builds the kernels and runs no path: it takes the two card-vs-CPU steps
@@ -379,7 +392,7 @@ shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
-the timed steps of 12b-12d, each mode's step of 13a, each tool of 14, 15 and 16, each of 17's sharded runs in
+the timed steps of 12b-12d, each mode's step of 13a, each tool of 14, 15 and 16, each of 17's and 18's sharded runs in
 its process) and read just after it; every bf16
 K1 and K2 launch of a main path
 (the sampling torsos at d = 64 and 96, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
@@ -531,7 +544,7 @@ POOL_SHAPE = (8, 65, 8, 64, True)
 CLF_TRAIN_ATTN_SHAPES = [(16, 1024, 4, 64, False), (16, 256, 8, 64, False), (16, 64, 8, 64, False),
                          (16, 65, 8, 64, True)]
 # the ADM-256 UNet's attention at 32, 16 and 8 px at batch 8, whose K2 clip_guided_sample's
-# pred-x0 guidance runs in bf16 (its f32 K2 runs at batch 2 in phase 11)
+# pred-x0 guidance runs in bf16 (its f32 K2 runs at batch 1 in phase 11)
 UNET_ATTN_SHAPES = [(8, 1024, 8, 64, False), (8, 256, 16, 64, False), (8, 64, 16, 64, False)]
 # the 64 px quality proxies (tools/_proxies.py) at the tools' batch 16: the generator's attention at 16 and
 # 8 px (384 and 512 channels in 4 heads), the classifier's at 16 px (192 channels in 2)
@@ -1508,13 +1521,15 @@ class Int8Forcing:
     recorded forward ran unsharded on the card (kept there) and the forced
     one on the rank's rows, so a recorded map whose shape is not the
     shard's is cut to them, and a group's offset is read on the gathered
-    input. ``worst`` is the largest ratio of a reading to its bound over
-    the forced layers; not ``strict``, a ratio above 1 raises nothing (a
-    fault's reading is logged beside the clean one).
+    input (``whole_of(x, ref)``, ``sp.gather_rows`` by default). Under
+    tensor parallelism (phase 18) ``rows`` cuts the rank's channels and
+    ``whole_of`` gathers them. ``worst`` is the largest ratio of a reading
+    to its bound over the forced layers; not ``strict``, a ratio above 1
+    raises nothing (a fault's reading is logged beside the clean one).
     """
 
-    def __init__(self, share: float = 1e-4, rows=None, strict: bool = True):
-        self.share, self.rows, self.strict = share, rows, strict
+    def __init__(self, share: float = 1e-4, rows=None, strict: bool = True, whole_of=None):
+        self.share, self.rows, self.strict, self.whole_of = share, rows, strict, whole_of
         self.rec = []
         self.pos = 0
         self.flips = self.elems = 0
@@ -1545,7 +1560,7 @@ class Int8Forcing:
                 (q, sc), (rq, rsc) = out, ref
                 x = args[0].detach()
                 if rq.shape != q.shape:
-                    rq, x = self.rows(rq), sp.gather_rows(x)
+                    rq, x = self.rows(rq), (self.whole_of or (lambda u, _: sp.gather_rows(u)))(x, rq)
                 rq, rsc = rq.to(q.device), rsc.to(sc.device)
                 d = (q.detach().float() - rq.float()).abs()
                 flips = int((d > 0).sum())
@@ -2231,7 +2246,7 @@ def recipe_loop(dev, sd, batch_size, tmp, **over):
     logger.configure_dir(tmp, format_strs=[])
     return TrainLoop(model=model.to(dev), diffusion=diffusion, data=None, batch_size=batch_size, microbatch=-1,
                      lr=args.lr, ema_rate=args.ema_rate, log_interval=10**9, save_interval=10**9,
-                     weight_decay=args.weight_decay)
+                     weight_decay=args.weight_decay, tensor_shard=args.tensor_shard)
 
 
 def recipe_batch(n, seed=0):
@@ -2517,8 +2532,8 @@ def phase8c_cli(dev, tmp):
     root = os.path.dirname(os.path.abspath(__file__))
     data, clip_path = train_folder(tmp)
     runs = os.path.join(tmp, "runs")
-    # respaced to 100 steps so that the save's two validation chains are 100 steps each, not 1000
-    cfg_path = train_config(tmp, "config", data, clip_path, runs, timestep_respacing="100")
+    # respaced so that the save's two validation chains are VAL_STEPS steps each, not 1000
+    cfg_path = train_config(tmp, "config", data, clip_path, runs, timestep_respacing=str(VAL_STEPS))
 
     def run(argv, env):
         """Run image_train: (seconds, {step: seconds from the start to its log row})."""
@@ -2565,7 +2580,8 @@ def phase8c_cli(dev, tmp):
         raise AssertionError(f"progress.csv: steps {[r['step'] for r in rows]}, losses {losses}")
     sampler = recipe_model()[1]
     load_model_weights(sampler, os.path.join(run_dir, "model000010.pt"))
-    log(f"  image_train --config-file (batch 48, 128 px, save at step 10 with two 100-step validation chains of 8): "
+    log(f"  image_train --config-file (batch 48, 128 px, save at step 10 with two {VAL_STEPS}-step validation chains "
+        f"of 8): "
         f"{secs:.1f} s; {run_dir}: {', '.join(sorted(files))}; progress.csv losses {losses}; model000010.pt "
         f"loads strict=True into the sampler model (bf16 torso)")
     if sorted(row_at) != [0, 5, 10]:
@@ -2609,7 +2625,12 @@ def phase8c_cli(dev, tmp):
     return run_dir
 
 
-def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=10, **over) -> dict:
+TIMED_STEPS = 5  # the timed steps of 8d, 8e and 12b (10 until PR 20)
+# the respaced steps of 8c's and 12b's validation chains at their save (100 until PR 20, 1000 before PR 15)
+VAL_STEPS = 50
+
+
+def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=TIMED_STEPS, **over) -> dict:
     """``n_steps`` ``run_step`` calls of the recipe (``over`` on top) at batch 48 after 5
     of warm-up (and 2 under ``torch.cuda.set_sync_debug_mode("error")``: no
     step waits for the card), the kernels' launches of those ``n_steps`` against
@@ -2753,7 +2774,7 @@ def phase8e_int8_train(dev, tmp) -> dict:
     0, batch 4) on the CPU and on the card, teacher-forced, twice: in f32
     (TF32 off, the straight-through convs in f32) within 1e-3 relative L2, as
     8b's f32 step; with the recipe's bf16 torso and the bf16 straight-through
-    convs as shipped within ``INT8_TRAIN_TOL``. Then 10 timed int8 steps at
+    convs as shipped within ``INT8_TRAIN_TOL``. Then ``TIMED_STEPS`` timed int8 steps at
     batch 48 (``time_train_steps``). Returns the timed steps' record."""
     import torch
 
@@ -2804,6 +2825,8 @@ def phase8e_int8_train(dev, tmp) -> dict:
 # (configs/image_sample_config.yaml: batch 8, 100 respaced steps)
 # ---------------------------------------------------------------------------
 
+# the respaced steps of phase 9's and 9b's chains (the config's 100 until PR 20)
+SAMPLE_STEPS = 50
 SAMPLE_MODES = [  # (name, flags, the config's keys changed)
     ("bf16", [], {}),
     ("int8", ["--conv_impl", "int8"], {}),
@@ -2886,10 +2909,10 @@ RANDOM_CKPT = "ema_random.pt"
 # outputs 2.6e-3; K1's x 1.01, 1.2e-3 (the attention blocks' share of the output is below the bf16 torso's
 # roundings with N(0, 0.02) weights: phase 3 holds K1 at these shapes); int8, K5's x 1.002 and K1's x 1.01 fail
 # the forcing's own check (an int8_conv output 8.4e-3 and 6.4e-3 off).
-SAMPLE_CHAINS = [
+SAMPLE_CHAINS = [  # the bf16 and int8 chains at batch 4 since PR 20 (8 before; the CPU's 28 s of phase 9)
     ("f32", [], {"use_fp16": False}, 2, 1e-3),
-    ("bf16", [], {}, 8, 2e-3),
-    ("int8", ["--conv_impl", "int8"], {}, 8, 1e-3),
+    ("bf16", [], {}, 4, 2e-3),
+    ("int8", ["--conv_impl", "int8"], {}, 4, 1e-3),
 ]
 
 
@@ -2944,7 +2967,7 @@ def chain_card_vs_cpu(dev, tmp, run_dir, data, clip, sd, name, flags, over, batc
 
 def phase9_image_sample(dev, tmp, run_dir) -> list:
     """``image_sample.main`` on 16 generated test images (two batches of 8,
-    100 respaced ancestral steps) from ``RANDOM_CKPT``, written into 8c's run
+    ``SAMPLE_STEPS`` respaced ancestral steps) from ``RANDOM_CKPT``, written into 8c's run
     directory, in each of ``SAMPLE_MODES``: the UNet's forwards against the
     schedule, the kernels' launches against the modules' counts times those
     forwards (every K1 on the tensor cores; under int8 every K5 but the stem's
@@ -2964,7 +2987,8 @@ def phase9_image_sample(dev, tmp, run_dir) -> list:
     torch.save(sd, os.path.join(run_dir, RANDOM_CKPT))
     runs, images = [], {}
     for name, flags, over in SAMPLE_MODES:
-        cfg = sample_config(tmp, name.replace(" ", "_"), run_dir, data, clip, load_file=RANDOM_CKPT, **over)
+        cfg = sample_config(tmp, name.replace(" ", "_"), run_dir, data, clip, load_file=RANDOM_CKPT,
+                            timestep_respacing=SAMPLE_STEPS, **over)
         args, model, diffusion = sampling_model(cfg, *flags)
         int8 = args.conv_impl == "int8"
         steps = diffusion.num_timesteps if args.denoise_start_point == -1 else round(
@@ -3024,13 +3048,14 @@ def phase9_image_sample(dev, tmp, run_dir) -> list:
 def phase9b_repeat(dev, tmp, run_dir) -> dict:
     """``image_sample_repeat.main --repeats 2`` (8 samples each, seeds 0 and
     1): two run directories with ``_rep0`` and ``_rep1``, different samples,
-    and the launches of 200 forwards. Returns the launch counts."""
+    and the launches of 2 x ``SAMPLE_STEPS`` forwards. Returns the launch counts."""
     import numpy as np
 
     from guided_diffusion_clip_tpu_torch import image_sample_repeat
 
     data, clip = os.path.join(tmp, "test_images"), os.path.join(tmp, "test_clip_dict.pt")
-    cfg = sample_config(tmp, "repeat", run_dir, data, clip, num_samples=8, sub_dir_tstsave="repeats")
+    cfg = sample_config(tmp, "repeat", run_dir, data, clip, num_samples=8, sub_dir_tstsave="repeats",
+                        timestep_respacing=SAMPLE_STEPS)
     _, model, diffusion = sampling_model(cfg)
     reset_counters()
     t0 = time.perf_counter()
@@ -3108,7 +3133,7 @@ SR_FLAGS = ["--large_size", "128", "--small_size", "64", "--num_channels", "64",
             "--num_heads", "1", "--learn_sigma", "True", "--use_fp16", "True", "--noise_schedule", "cosine",
             "--diffusion_steps", "1000"]
 SR_SAMPLE_BATCH = 16  # super_res_sample's default batch
-SR_SAMPLE_STEPS = 100
+SR_SAMPLE_STEPS = 50  # 100 until PR 20
 
 
 def run_counted(main, argv, env=None) -> tuple:
@@ -3216,7 +3241,7 @@ def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
     ``--data_dir_test``, 8 samples each) over 100 steps and not 1000; 11
     steps, the save, launches against the modules' counts. Then ``--load``
     of that run with ``--train_conv_impl int8`` for 5 steps (resume_step 10).
-    Then 10 timed steps at batch 48 each way (``time_train_steps``). Returns
+    Then ``TIMED_STEPS`` timed steps at batch 48 each way (``time_train_steps``). Returns
     the launch counts of the four."""
     import csv
 
@@ -3228,7 +3253,7 @@ def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     runs_dir = os.path.join(tmp, "sr_runs")
-    cfg = train_config(tmp, "sr_unsup", data, clip_path, runs_dir, timestep_respacing="100")
+    cfg = train_config(tmp, "sr_unsup", data, clip_path, runs_dir, timestep_respacing=str(VAL_STEPS))
     with torch.device("meta"):  # the modules alone, for their counts
         bf16_model, int8_model = (recipe_model(sr=True, train_conv_impl=impl)[1] for impl in ("xla", "int8"))
     per_step, per_fwd = train_counts(bf16_model, False), unet_counts(bf16_model, False)
@@ -3250,11 +3275,12 @@ def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
             or sd["bias_feat"].shape != (512,) or sd["input_blocks.0.0.weight"].shape[1] != 6):
         raise AssertionError(f"super_res_unsup: {run_dir} holds {sorted(files)}, progress.csv steps "
                              f"{[r['step'] for r in rows]}, losses {losses}")
-    # 11 steps (step 0 is an update), then 2 validation chains of 100 forwards at batch 8
-    want = expected(launches, (11, per_step), (200, per_fwd))
-    log(f"  super_res_unsup (batch 48, 128 px, 100 respaced steps; the save at step 10 with two 100-step validation "
-        f"chains of 8): {secs:.1f} s in all; {first}: {', '.join(sorted(files))}; losses {losses}; launches "
-        f"{launches} (expected {want}: 11 steps of {per_step}, 200 forwards of {per_fwd})")
+    # 11 steps (step 0 is an update), then 2 validation chains of VAL_STEPS forwards at batch 8
+    want = expected(launches, (11, per_step), (2 * VAL_STEPS, per_fwd))
+    log(f"  super_res_unsup (batch 48, 128 px, {VAL_STEPS} respaced steps; the save at step 10 with two "
+        f"{VAL_STEPS}-step validation chains of 8): {secs:.1f} s in all; {first}: {', '.join(sorted(files))}; losses "
+        f"{losses}; launches {launches} (expected {want}: 11 steps of {per_step}, {2 * VAL_STEPS} forwards of "
+        f"{per_fwd})")
     if launches != want:
         raise AssertionError(f"super_res_unsup: launch counts {launches} != {want}")
     log(f"  super_res_unsup steps 6-10 (progress.csv): the loop waited {1e3 * float(rows[2]['wait_data']) / 5:.2f} ms "
@@ -3279,7 +3305,7 @@ def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
 
     sd = random_state_dict(bf16_model)
     x, cond = recipe_batch(TRAIN_BATCH, seed=2)
-    timed = {impl: time_train_steps(dev, tmp, sd, x, cond, f"SR-delta {label}", n_steps=10, sr=True, train_conv_impl=impl)
+    timed = {impl: time_train_steps(dev, tmp, sd, x, cond, f"SR-delta {label}", sr=True, train_conv_impl=impl)
              for impl, label in (("xla", "bf16"), ("int8", "int8"))}
     log(f"  SR-delta train step at batch {TRAIN_BATCH}: bf16 {timed['xla']['step_ms']:.2f} ms (busy "
         f"{timed['xla']['busy_ms']:.2f}, peak {timed['xla']['peak_gib']:.2f} GiB), int8 {timed['int8']['step_ms']:.2f} "
@@ -3679,7 +3705,7 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     (``clip_fwd_bwd_ms``); ``compute_clip_embeddings.main`` over 16 generated 256 px images, card
     against CPU, and its .pt fed to ``image_train`` for 2 steps; the CLIP
     guidance gradient in pred-x0 mode through the ADM-256 CLIP UNet (f32,
-    batch 2, model timestep 500 of a 100-step schedule), card against CPU.
+    batch ``CLIP_GRAD_BATCH``, model timestep 500 of a 100-step schedule), card against CPU.
     Returns the CLIP .pt's path."""
     import numpy as np
     import torch
@@ -3769,8 +3795,8 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     model = clip_unet(load_state_dict(unet_path))
     diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
     target = embs["cpu"][sorted(embs["cpu"])[0]][0]
-    x = torch.randn(2, 3, 256, 256, generator=g)
-    t = torch.full((2,), 500, dtype=torch.long)
+    x = torch.randn(CLIP_GRAD_BATCH, 3, 256, 256, generator=g)
+    t = torch.full((CLIP_GRAD_BATCH,), 500, dtype=torch.long)
     grads = []
     for d in ("cpu", dev):
         model.to(d), vision.to(d)
@@ -3784,7 +3810,7 @@ def phase11_clip(dev, tmp, unet_path) -> str:
         secs[d] = time.perf_counter() - t0
     (ref, ref_u), (out, out_u) = grads
     rel, rel_u = (((o - r).norm() / r.norm()).item() for o, r in ((out, ref), (out_u, ref_u)))
-    log(f"  CLIP guidance gradient, pred-x0 mode, (2, 3, 256, 256) f32 at model timestep 500 of 100 steps: "
+    log(f"  CLIP guidance gradient, pred-x0 mode, {tuple(x.shape)} f32 at model timestep 500 of 100 steps: "
         f"|ref| {ref.norm().item():.4g}, rel L2 err card vs CPU {rel:.3g}; its part through the UNet's backward "
         f"|ref| {ref_u.norm().item():.4g}, rel L2 err {rel_u:.3g} (bounds 1e-3); CPU {secs['cpu']:.2f} s")
     if not torch.isfinite(out).all() or not ref_u.norm() > 0 or not max(rel, rel_u) <= 1e-3:
@@ -3795,6 +3821,8 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     return clip_path
 
 
+# phase 11's pred-x0 guidance gradient, card against CPU (2 until PR 20; the CPU took 40 s of it at batch 2)
+CLIP_GRAD_BATCH = 1
 # ADM-256's CLIP UNet as phase 5 serves it, guided by ViT-B/32: 5 respaced ancestral steps at batch 8
 # (cut from 100 to 40, 20, 10 and 5 to pay for phases 12, 13, 14 and 17 within the smoke's time limit)
 CLIP_GUIDED_FLAGS = [
@@ -4308,7 +4336,7 @@ TOOL_AGREEMENT = (0.8, 1.25)  # a tool's device ms over the phase's that measure
 
 # one window of the tool's default length, ended by the metrics' flush and a sync (a second window repeated
 # the first's measurement)
-TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "1", "TSB_WINDOW": "10"}
+TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "1", "TSB_WINDOW": "5"}  # a window of 10 until PR 20
 BD_BATCH, BD_REPS = 8, 8  # perf_breakdown at phase 6's batch, its default repeats
 SB_ENV = {"SB_REQUESTS": "3"}
 # the parts of perf_breakdown against profile_guided_step's
@@ -4338,7 +4366,7 @@ def agreement(tool: str, ours: float, phase: str, theirs: float) -> float:
 def phase14a_train_step_bench(timed: dict) -> list:
     """``train_step_bench.main`` on the recipe (``TSB_CONFIG fork128``, batch
     48, its whole batch a microbatch) in bf16 and with ``TSB_CONV_IMPL int8``,
-    right after 8e: the row, the launches of its 1 + 10 timed steps and
+    right after 8e: the row, the launches of its 1 + TSB_WINDOW timed steps and
     3 profiled against ``train_counts``, its device ms a step against 8d's
     (bf16; 8e's, int8, logged), its window's ms a step against 8d's and 8e's
     medians and its own device ms logged, the FLOP count equal both ways. ``timed`` holds 8d's and 8e's records by
@@ -4987,18 +5015,309 @@ def phase17_child(rank: int, port: int, tmp: str) -> None:
             step["met"] = {k: np.asarray(v) for k, v in step["met"].items()}
             torch.save(step, os.path.join(tmp, f"sp_step_{fault}.pt"))
     torch.save(out, os.path.join(tmp, f"sp_rank{rank}.pt"))
+    sp.clear_spatial_sharding()
+    phase18_child(rank, dev, tmp, x, t, feat, y)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase17_spatial(dev, tmp) -> dict:
+# ---------------------------------------------------------------------------
+# Phase 18: tensor parallelism (--tensor_shard 2, parallel/tp.py), inside phase
+# 17's two processes on cuda:0 (gloo), after their SP cases: the same test
+# arrangement, no second start-up or kernel load. Each rank holds half of every
+# activation's channels; each output is held to the same model unsharded on
+# the card (``tp.whole()``). The times are recorded, not claimed.
+# ---------------------------------------------------------------------------
+
+# bounds on each comparison's reading (rel L2 of the rank's output against the unsharded run's), SP_BOUNDS's
+# values, which the readings and the faults below bear out (on an NVIDIA H100 80GB HBM3 at 700 W: f32 1.7e-7
+# against 1.1e-3 under K3's statistics x 1.01; bf16 6.5e-4 against 7.4e-2 with one ResBlock's scale and shift
+# swapped; the bf16 classifier's gradient 5.7e-3 against 5.3e-2; in f32 5.1e-7 against 5.1e-3; PERF.md). The
+# train step is held to SP_TRAIN_TOL: its readings are SP's (gradient 2.0e-3, under the stats fault 7.6e-3).
+TP_BOUNDS = {"f32": 1e-5, "bf16": 2e-3, "guidance": 2e-2, "guidance f32": 1e-5}
+# the fault each comparison is run under on rank 1: K3's statistics x 1.01 (``stats``), the scale and shift
+# slices of one ResBlock's emb projection swapped (``scale_shift``), K4's per-image bound left unreduced
+# (``bound``: the all-reduce runs, its result is dropped)
+TP_FAULTS = {"f32": "stats", "bf16": "scale_shift", "int8": "bound", "guidance": "scale_shift",
+             "guidance f32": "stats", "train step": "stats"}
+TP_FAULT_NAMES = {"stats": "K3's statistics x 1.01", "scale_shift": "one ResBlock's scale and shift swapped",
+                  "bound": "K4's per-image bound unreduced"}
+
+
+def tp_counts(model, int8: bool, backward: bool = False) -> dict:
+    """The launches of one forward of ``model`` under TP 2 (and with
+    ``backward`` its K2s), from its modules: K1 once for every attention
+    block (on the rank's heads where two divide them, else whole) and the
+    attention pool (whole); K3 once for every GroupNorm (on the rank's 16
+    whole groups, or whole on a gathered head); under int8 every ResBlock's
+    quantizing GroupNorm runs K4 split at its statistics (the stats entry,
+    then the quant-apply entry, no unsplit K4), every conv runs K5 once (on
+    the rank's output channels, or whole: the head), and every conv that no
+    K4 feeds quantizes its gathered input with the quantize kernels."""
+    from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d, ResBlock
+
+    mods = list(model.modules())
+    attn = sum(isinstance(m, (AttentionBlock, AttentionPool2d)) for m in mods)
+    gn = sum(isinstance(m, GroupNorm32) for m in mods)
+    out = {"attention": attn, "group_norm": gn, "group_norm_quant": 0, "group_norm_stats": 0, "group_norm_apply": 0,
+           "group_norm_quant_apply": 0, "quantize_amax": 0, "quantize_apply": 0}
+    if backward:
+        out["attention_bwd"] = attn
+    if int8:
+        k4 = sum(1 if m.down else 2 for m in mods if isinstance(m, ResBlock))
+        convs = sum(isinstance(m, Conv2d) for m in mods)
+        out.update(group_norm=gn - k4, group_norm_stats=k4, group_norm_quant_apply=k4, conv_s8=convs,
+                   quantize=convs - k4)
+    return out
+
+
+def tp_heads(model) -> list:
+    """(heads of the block, heads a rank) of every attention block of
+    ``model`` under TP 2, in order."""
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock
+
+    return [(m.num_heads, m.num_heads // 2 if m.num_heads % 2 == 0 else m.num_heads)
+            for m in model.modules() if isinstance(m, AttentionBlock)]
+
+
+@contextlib.contextmanager
+def tp_fault(kind, rank: int, model=None):
+    """A fault on rank 1 for phase 18's comparisons to catch (``TP_FAULTS``):
+    ``stats`` runs K3 as its split entries with the sums x 1.01, ``bound``
+    drops the all-reduced per-image bound of K4 for the local one, and
+    ``scale_shift`` swaps the scale and shift slices of ``model``'s last
+    scale-shift ResBlock."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.unet import ResBlock
+    from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    if kind is None or rank != 1:
+        yield
+        return
+    if kind == "scale_shift":
+        block = [m for m in model.modules() if isinstance(m, ResBlock) and m.use_scale_shift_norm][-1]
+        clean = block._emb_out
+
+        def swapped(emb, channels):
+            scale, shift = clean(emb, channels).chunk(2, dim=1)
+            return torch.cat([shift, scale], dim=1)
+
+        block._emb_out = swapped
+        try:
+            yield
+        finally:
+            del block._emb_out
+        return
+    if kind == "stats":
+        mod, name = G, "_fused_group_norm_stats"
+
+        def faulty(x, scale, bias, groups, eps, silu, scale_shift):
+            sums, _ = G.group_norm_stats(x, groups)
+            mean, rstd, a, b = G._fold(sums * 1.01, x.numel() // (x.shape[0] * groups), scale, bias, groups, eps,
+                                       scale_shift)
+            return G.group_norm_apply(x, a, b, silu), torch.stack([mean, rstd])
+    else:
+        mod, name = tp, "reduce_max_"
+
+        def faulty(t):
+            local = t.clone()
+            clean(t)
+            return t.copy_(local)
+    clean = getattr(mod, name)
+    setattr(mod, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, name, clean)
+
+
+@contextlib.contextmanager
+def k1_heads(seen: list):
+    """Append to ``seen`` the number of heads of each attention call in the
+    block (the dispatcher that K1's wrapper sits under)."""
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    clean = A._attention_fwd
+
+    def spy(qkv, num_heads, new_order):
+        seen.append(num_heads)
+        return clean(qkv, num_heads, new_order)
+
+    A._attention_fwd = spy
+    try:
+        yield
+    finally:
+        A._attention_fwd = clean
+
+
+def phase18_child(rank: int, dev, tmp: str, x, t, feat, y) -> None:
+    """Phase 18 on one of phase 17's two ranks: TP 2 over both (one data
+    group), SP cleared. The forwards (f32 with TF32 off, bf16, int8
+    teacher-forced on the rank's channels) of ADM-256's CLIP UNet at batch 2,
+    the classifier's guidance gradient (bf16 and f32), one bf16 train step of
+    the recipe at batch 48 under DDP; each against the same call unsharded
+    (the train step against phase 17's world-1 step) and under its fault."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    t0 = time.perf_counter()
+    tp.set_tensor_sharding(2)
+    out = {"readings": {}, "ms": {}, "launches": [], "heads": None, "k1_heads": []}
+
+    def counted(fn, want):
+        reset_counters()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        got = tensor_core_split(counters())
+        out["launches"].append(got)
+        bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+        if bad:
+            raise AssertionError(f"rank {rank} TP: launches (got, planned) {bad}")
+        return res, start.elapsed_time(end)
+
+    with torch.no_grad():
+        for case, dtype, impl in (("f32", "f32", "xla"), ("bf16", "bf16", "xla"), ("int8", "bf16", "int8")):
+            model = sp_unet(dev, dtype, impl)
+            out["heads"] = tp_heads(model)
+            forcing = Int8Forcing(1e-3, rows=tp.shard_channels, strict=False,
+                                  whole_of=lambda u, ref: tp.gather_channels(u, ref.shape[1]))
+            with tp.whole():  # the same model unsharded: every TP hook the identity
+                if impl == "int8":
+                    with forcing.record(model):
+                        ref = model(x, t, clip_feat=feat)
+                else:
+                    ref = model(x, t, clip_feat=feat)
+                whole_ms = cuda_ms(lambda: model(x, t, clip_feat=feat), runs=1, warmup=0)
+            reading = {}
+            for fault in (None, TP_FAULTS[case]):
+                with tp_fault(fault, rank, model), contextlib.ExitStack() as stack:
+                    if impl == "int8":
+                        stack.enter_context(forcing.force(model))
+                    elif fault is None and case == "bf16":  # the heads each K1 call takes
+                        stack.enter_context(k1_heads(out["k1_heads"]))
+                    run = lambda: model(x, t, clip_feat=feat)  # noqa: E731
+                    got, ms = counted(run, tp_counts(model, impl == "int8")) if fault is None else (run(), None)
+                reading[fault or "clean"] = forcing.worst if impl == "int8" else rel_l2(got, ref)
+                if fault is None:
+                    out["ms"][case] = (ms, whole_ms)
+                    if not torch.isfinite(got).all() or tuple(got.shape) != (SP_BATCH, 6, 256, 256):
+                        raise AssertionError(f"rank {rank} TP {case}: output {tuple(got.shape)} not finite")
+                    if impl == "int8":
+                        reading["head rel L2"] = rel_l2(got, ref)
+            out["readings"][case] = reading
+            del model, ref, got
+            torch.cuda.empty_cache()
+
+        for case, use_fp16 in (("guidance", True), ("guidance f32", False)):
+            clf = sp_classifier(dev, use_fp16)
+            cond = classifier_cond_fn(lambda u, tt: clf(u, tt), 1.0)
+            with tp.whole():
+                ref = cond(x, t, y=y)
+                whole_ms = cuda_ms(lambda: cond(x, t, y=y), runs=1, warmup=0)
+            reading = {}
+            for fault in (None, TP_FAULTS[case]):
+                with tp_fault(fault, rank, clf):
+                    if fault is None:
+                        got, ms = counted(lambda: cond(x, t, y=y), tp_counts(clf, False, backward=True))
+                        out["ms"][case] = (ms, whole_ms)
+                    else:
+                        got = cond(x, t, y=y)
+                reading[fault or "clean"] = rel_l2(got, ref)
+            out["readings"][case] = reading
+            del clf, cond
+
+    sd = torch.load(os.path.join(tmp, "recipe_sd.pt"), weights_only=True)
+    xb, cb = recipe_batch(TRAIN_BATCH, seed=1)
+    noise = torch.randn(TRAIN_BATCH, 3, 128, 128, generator=torch.Generator().manual_seed(3))
+    for fault in (None, TP_FAULTS["train step"]):
+        with tp_fault(fault, rank):
+            reset_counters()
+            step = train_step_on(dev, sd, xb, cb, noise, os.path.join(tmp, f"tp_step_{fault}_{rank}"), use_fp16=True,
+                                 tensor_shard=2)
+            launches = tensor_core_split(counters())
+        if fault is None:
+            if not (launches["group_norm"] and launches["attention"] and launches["attention_bwd"]) or \
+                    launches["group_norm_stats"]:
+                raise AssertionError(f"rank {rank}: the TP train step launched {launches}")
+            out["launches"].append(launches)
+            out["ms"]["train step"] = (1e3 * step["secs"], None)
+        if rank == 0:
+            step["met"] = {k: np.asarray(v) for k, v in step["met"].items()}
+            torch.save(step, os.path.join(tmp, f"tp_step_{fault}.pt"))
+    tp.clear_tensor_sharding()
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+
+
+def phase18_check(tmp: str, ref) -> dict:
+    """Phase 18's readings from both ranks against ``TP_BOUNDS`` and
+    ``SP_TRAIN_TOL`` (``ref``: phase 17's world-1 train step); every fault
+    must cross its bound on rank 1. Returns the run's launches (both
+    ranks')."""
+    import torch
+
+    ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False) for r in range(2)]
+    log(f"  phase 18 took {ranks[0]['seconds']:.1f} s on rank 0; attention blocks (heads, heads a rank): "
+        f"{ranks[0]['heads']}; K1's heads a call in the bf16 forward: {ranks[0]['k1_heads']}")
+    problems = []
+    for r, res in enumerate(ranks):
+        if res["k1_heads"] != [local for _, local in res["heads"]]:
+            problems.append(f"rank {r}: K1 ran on {res['k1_heads']} heads, the modules give {res['heads']}")
+    for case, bound in (*TP_BOUNDS.items(), ("int8", 1.0)):
+        fault = TP_FAULTS[case]
+        for r, res in enumerate(ranks):
+            rd = res["readings"][case]
+            ms, whole = res["ms"][case]
+            unit = "worst ratio to its bound over the forced layers" if case == "int8" else "rel L2 vs unsharded"
+            log(f"  TP rank {r} {case}: {unit} {rd['clean']:.3g} (bound {bound:g}); with {TP_FAULT_NAMES[fault]} on "
+                f"rank 1 {rd[fault]:.3g}" + (f"; the unforced head's output rel L2 {rd['head rel L2']:.3g}"
+                                             if case == "int8" else "")
+                + f"; sharded {ms:.2f} ms, unsharded {whole:.2f} ms")
+            if not rd["clean"] <= bound:
+                problems.append(f"{case} on rank {r}: {rd['clean']:.3g} over its bound {bound:g}")
+        if not ranks[1]["readings"][case][fault] > bound:
+            problems.append(f"{case}: {TP_FAULT_NAMES[fault]} on rank 1 stays within the bound")
+    fault = TP_FAULTS["train step"]
+    steps = {f: torch.load(os.path.join(tmp, f"tp_step_{f}.pt"), weights_only=False) for f in (None, fault)}
+    errs = {f: step_errors(st, ref) for f, st in steps.items()}
+    log("  TP train step bf16 (48, 3, 128, 128), world 2 x TP 2 vs world 1 on the card: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs[None].items()) + f"; bound {SP_TRAIN_TOL}")
+    log(f"  with {TP_FAULT_NAMES[fault]} on rank 1: " + ", ".join(f"{k} {v:.3g}" for k, v in errs[fault].items()))
+    log(f"  step seconds (first, with set-up): TP rank 0 {ranks[0]['ms']['train step'][0] / 1e3:.2f}")
+    bad = {k: errs[None][k] for k, tol in SP_TRAIN_TOL.items() if not errs[None][k] <= tol}
+    if bad or not math.isfinite(float(steps[None]["met"]["loss"])):
+        problems.append(f"the TP train step differs from the world-1 step: {bad}")
+    if all(errs[fault][k] <= tol for k, tol in SP_TRAIN_TOL.items()):
+        problems.append(f"the TP train step's bounds do not catch {TP_FAULT_NAMES[fault]} on one rank")
+    if problems:
+        raise AssertionError("phase 18: " + "; ".join(problems))
+    run = {}
+    for res in ranks:
+        for launches in res["launches"]:
+            for k, v in launches.items():
+                run[k] = run.get(k, 0) + v
+    log(f"  launches of phase 18's main paths, both ranks: {run}")
+    return run
+
+
+def phase17_spatial(dev, tmp) -> list:
     """Phase 17: the sharded forwards (f32 with TF32 off, bf16, int8
     teacher-forced) of ADM-256's CLIP UNet at batch 2, the guidance gradient
     of ADM-G 256's classifier (bf16, and f32 with TF32 off), and one bf16 train step of the recipe under
     DDP at world 2 with SP 2 against the world-1 step taken here first; each
     comparison beside its bound and the reading under a fault on rank 1
-    (``SP_FAULTS``; K3's stats for the train step). Returns the run's
-    launches (both ranks')."""
+    (``SP_FAULTS``; K3's stats for the train step). Then phase 18, which ran
+    the same under TP 2 in the same two processes (``phase18_check``).
+    Returns both phases' launches (both ranks')."""
     import socket
 
     import torch
@@ -5051,7 +5370,9 @@ def phase17_spatial(dev, tmp) -> dict:
             for k, v in launches.items():
                 run[k] = run.get(k, 0) + v
     log(f"  launches of the phase's main paths, both ranks: {run}")
-    return run
+    log("phase 18: --tensor_shard 2 in the same two processes: ADM-256's CLIP UNet in f32, bf16 and int8, ADM-G "
+        "256's classifier gradient in bf16 and f32, a recipe train step under DDP")
+    return [run, phase18_check(tmp, ref)]
 
 
 def _scaled_rstd(stats, k: float):
@@ -5397,12 +5718,13 @@ def main(argv=None) -> int:
     log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
     t17 = time.perf_counter()
     log("phase 17: --spatial_shard 2 on two processes (gloo) on the one card: ADM-256's CLIP UNet in f32, bf16 and "
-        "int8, ADM-G 256's classifier gradient in bf16 and f32, a recipe train step under DDP")
+        "int8, ADM-G 256's classifier gradient in bf16 and f32, a recipe train step under DDP; then phase 18, "
+        "--tensor_shard 2, in the same processes")
     with tempfile.TemporaryDirectory() as tmp:
-        runs.append(phase17_spatial(dev, tmp))
+        runs.extend(phase17_spatial(dev, tmp))
     log(f"  K3 one launch against split at {SP_HALF_SHAPE} bf16 (phase 3h): {split_vs_one['K3'][0]:.4f} ms, "
         f"{split_vs_one['K3'][1]:.4f} ms; K4 {split_vs_one['K4'][0]:.4f} ms, {split_vs_one['K4'][1]:.4f} ms")
-    log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+    log(f"  phases 17 and 18 took {time.perf_counter() - t17:.1f} s")
 
     # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
     # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)
@@ -5432,7 +5754,8 @@ def main(argv=None) -> int:
          "guided_diffusion_clip_tpu/ops/pallas_conv.py:71"),
         ("mma_probe", "guided_diffusion_clip_tpu_torch/ops/csrc/mma_probe.cu",
          "tools/pallas_mxu_ceiling.py:39"),
-        # K3 and K4 split at their statistics on a row shard (phase 17): the stats entry (both), the applies
+        # K3 and K4 split at their statistics on a row shard (phase 17), K4 on a channel shard (phase 18): the
+        # stats entry (both), the applies
         ("group_norm_stats", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),
         ("group_norm_apply", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",

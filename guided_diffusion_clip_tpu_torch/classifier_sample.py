@@ -44,7 +44,12 @@ S ranks, ``parallel/sp.py``) splits every image's rows over the S ranks of
 each data group, which seed and gather as one rank of the unsharded run
 (``sample_seed(seed, 2 * d)``, d the data group); the classifier pools over
 the ranks, so each rank's guidance gradient is its rows of the unsharded
-one. Not yet ported, and rejected at startup: ``--tensor_shard``.
+one. ``--tensor_shard T`` (torchrun with a multiple of T ranks,
+``parallel/tp.py``) splits every activation's channels over the T ranks of each
+data group, which seed and gather as one rank of the unsharded run (its data
+rank); the model's output is whole on every rank, and each rank's guidance
+gradient, summed over the model group, is the unsharded one. Both flags above 1
+are refused, as is either outside torchrun.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ from .diffusion.guidance import (
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.script_util import (
@@ -106,7 +111,8 @@ def main(argv=None) -> dict:
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path or not args.classifier_path:
         raise SystemExit("--model_path and --classifier_path: reference-format .pt state_dicts are required")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return sample(args, device)
 
 
@@ -224,7 +230,7 @@ def create_argparser():
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         deep_cache=0,  # N > 1: refresh the deep sub-UNet every N steps (DeepCache)
         deep_cache_cut=0,  # shallow input blocks; 0 = below the full-resolution level
         guidance_interval="",  # "lo,hi": guide only for t in [lo, hi] (original units)

@@ -49,8 +49,12 @@ with a multiple of S ranks, ``parallel/sp.py``) splits every image's rows
 over the S ranks of each data group, which reads, draws and logs as one
 rank of the unsharded run (its data rank); the classifier pools over the
 ranks, so every rank holds the data group's logits and loss, and DDP's mean
-over all ranks is the data-parallel gradient. ``--tensor_shard`` is not yet
-ported and is refused (JAX :97-108 builds its own mesh for both).
+over all ranks is the data-parallel gradient. ``--tensor_shard T`` (torchrun
+with a multiple of T ranks, ``parallel/tp.py``) splits every activation's
+channels over the T ranks of each data group, which reads, draws and logs as
+one rank of the unsharded run; every rank holds the data group's logits and
+loss, and DDP's mean over all ranks is again the data-parallel gradient. The
+two flags do not compose (JAX :97-108 builds its own mesh for both).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from .data.image_datasets import load_data
 from .diffusion.gaussian import q_sample
 from .parallel import dist as pdist
 from .parallel import mesh as pmesh
-from .parallel import sp
+from .parallel import sp, tp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import get_blob_logdir
 from .utils import bf_io
@@ -229,7 +233,8 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return train(args, device)
 
 
@@ -355,7 +360,7 @@ def create_argparser():
         save_interval=10000,
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         device="cuda",
     )
     defaults.update(classifier_and_diffusion_defaults())

@@ -45,7 +45,11 @@ own. ``--spatial_shard S`` (torchrun with a multiple of S ranks,
 ``parallel/sp.py``) splits every image's rows over the S ranks of each data
 group, which seeds as one rank of the unsharded run (its data rank); the
 chain's rows are gathered before CLIP's encoder and before the write.
-``--tensor_shard`` above 1 is refused.
+``--tensor_shard T`` (torchrun with a multiple of T ranks, ``parallel/tp.py``)
+splits every activation's channels over the T ranks of each data group, which
+seeds as one rank of the unsharded run (its data rank); the model's output is
+whole on every rank; CLIP runs whole on it. Both flags above 1 are refused, as
+is either outside torchrun.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from .diffusion.sampling import sample_generators
 from .models.clip_vit import clip_config, clip_guidance_cond_fn, load_clip_params, preprocess_for_clip
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.saving_imgs import save_img, tensor2img
@@ -122,7 +126,8 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return sample(args, device)
 
 
@@ -254,7 +259,7 @@ def create_argparser():
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         cfg_scale=0.0,  # > 0: classifier-free guidance (a model trained with cond_dropout)
         cfg_cache=0,  # N > 1: recompute the CFG uncond branch 1 step in N
         guidance_interval="",  # "lo,hi": guide only for t in [lo, hi] (original units)

@@ -23,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from ..parallel import sp
+from ..parallel import sp, tp
 
 
 def deep_cache_model_fn(apply_full: Callable, apply_shallow: Callable, interval: int) -> Callable:
@@ -76,7 +76,8 @@ def zero_state(config, batch: int, cache_cut: int = 0, dtype=torch.float32, devi
     asks ``eval_shape`` of ``apply_full``; here the caller names the UNet's
     config, the batch (twice the sample batch under ``cfg_deep_cache_pair``)
     and the torso's dtype."""
-    shape = sp.local_shape(deep_feature_shape(config, batch, cache_cut))  # the rank's rows under SP
+    # the rank's rows under SP, its channels under TP
+    shape = tp.local_shape(sp.local_shape(deep_feature_shape(config, batch, cache_cut)))
     return (0, torch.zeros(shape, dtype=dtype, device=device))
 
 

@@ -26,7 +26,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ..parallel import sp
+from ..parallel import sp, tp
 
 
 def classifier_cond_fn(classifier_fn: Callable, classifier_scale: float = 1.0) -> Callable:
@@ -36,7 +36,9 @@ def classifier_cond_fn(classifier_fn: Callable, classifier_scale: float = 1.0) -
     differentiated with respect to x (classifier_sample.py:54-61). Under
     spatial partitioning x is this rank's rows and the logits are every
     rank's (the classifier pools over the ranks), so the sum is weighted by
-    ``sp.owner_weight()``: the adjoints then count it once.
+    ``sp.owner_weight()``: the adjoints then count it once. Under tensor
+    parallelism x is whole on every rank: the sum is weighted by
+    ``tp.owner_weight()`` and the ranks' gradients are summed.
     """
 
     def cond_fn(x, t, y=None, **kwargs):
@@ -48,10 +50,23 @@ def classifier_cond_fn(classifier_fn: Callable, classifier_scale: float = 1.0) -
             selected = log_probs.gather(-1, y.reshape(-1, 1).long()).sum()
             if sp.sharded(x_in):
                 selected = selected * sp.owner_weight()
-            (grad,) = torch.autograd.grad(selected, x_in)
-        return grad * classifier_scale
+            (grad,) = torch.autograd.grad(_owned(selected), x_in)
+        return _summed(grad) * classifier_scale
 
     return cond_fn
+
+
+def _owned(value):
+    """Under tensor parallelism a replicated scalar, weighted by
+    ``tp.owner_weight()``: the ranks' gradients with respect to the whole x
+    then sum to its gradient (``_summed``)."""
+    return value * tp.owner_weight() if tp.active() else value
+
+
+def _summed(grad):
+    """The gradient with respect to the whole x, summed over the model group
+    under tensor parallelism: each rank's is its share."""
+    return tp.reduce_sum_(grad) if tp.active() else grad
 
 
 def potential_cond_fn(potential: Callable, scale: float = 1.0) -> Callable:
@@ -66,8 +81,8 @@ def potential_cond_fn(potential: Callable, scale: float = 1.0) -> Callable:
             u = potential(x_in, t, **kwargs)
             if sp.sharded(x_in):
                 u = u * sp.owner_weight()
-            (grad,) = torch.autograd.grad(u, x_in)
-        return grad * scale
+            (grad,) = torch.autograd.grad(_owned(u), x_in)
+        return _summed(grad) * scale
 
     return cond_fn
 

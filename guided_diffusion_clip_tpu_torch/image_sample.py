@@ -48,8 +48,11 @@ barrier. ``--spatial_shard S`` (torchrun with a multiple of S ranks,
 group: the world is D = world / S data groups, batch i of data group d seeds
 ``sample_seed(seed, i * D + d)``, the data group's ranks read its shard of
 the test set, and each chain's rows are gathered before they are written, so
-the samples are the unsharded run's. ``--tensor_shard`` above 1 is not yet
-ported and is refused.
+the samples are the unsharded run's. ``--tensor_shard T`` (torchrun with a
+multiple of T ranks, ``parallel/tp.py``) splits every activation's channels
+over the T ranks of each data group, which reads, seeds and gathers as one rank
+of the unsharded run (its data rank); the model's output is whole on every
+rank. Both flags above 1 are refused, as is either outside torchrun.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from .diffusion.guidance import cfg_cached_model_fn, cfg_cached_state0, cfg_mode
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.profiling import StepProfiler, annotate
@@ -196,7 +199,8 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return sample(args, device)
 
 
@@ -323,7 +327,7 @@ def create_argparser():
         deep_cache=0,  # N > 1: refresh the deep sub-UNet every N steps (DeepCache)
         deep_cache_cut=0,  # shallow input blocks; 0 = below the full-resolution level
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         sampler="",  # "" (use_ddim decides), ancestral, ddim or dpm++2m
         profile_dir="",  # a torch.profiler trace of the second batch's chain here
     )

@@ -33,7 +33,10 @@ and ``--opt_impl zero1`` (ZeRO-1) need torchrun, at one process too;
 (``training/train_loop.py``). ``--spatial_shard S`` (torchrun with a
 multiple of S ranks, ``parallel/sp.py``) splits every image's rows over the
 S ranks of each data group, which reads the data group's shard of the
-folder. Not yet ported, and refused at startup: ``--tensor_shard``.
+folder. ``--tensor_shard T`` (torchrun with a multiple of T ranks,
+``parallel/tp.py``) splits every activation's channels over the T ranks of
+each data group, which reads the data group's shard too. Both flags above 1
+are refused, as is either outside torchrun.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 from .data.image_datasets import load_data
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop, check_ported
 from .utils import logger
@@ -84,7 +87,8 @@ def main(argv=None) -> None:
     _refuse_unported(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         train(args, device)
 
 
@@ -143,6 +147,7 @@ def train(args, device: torch.device) -> None:
         param_sharding=args.param_sharding,
         opt_impl=args.opt_impl,
         ckpt_backend=args.ckpt_backend,
+        tensor_shard=args.tensor_shard,  # the CLI's TP, pinned to the loop's own groups
     ).run_loop()
 
 

@@ -26,6 +26,17 @@ rank's rows of the map: GroupNorm32's statistics cross the ranks in
 (``sp.halo``) and keeps the output rows whose windows lie in the shard.
 ``avg_pool_2x`` and the nearest-x2 upsamplings stay local: they need an
 even number of rows a rank.
+
+Under tensor parallelism (``parallel/tp.py``) an activation whose C divides
+by T is this rank's C/T channels; a module tells a shard from a whole input
+by its channel count. ``Conv2d`` is column-parallel (the input's channels
+gathered, the rank's output channels of the weight and of its int8
+quantization); ``GroupNorm32`` normalizes the rank's channels with the slice
+of its scale and bias, on 32/T whole groups where T divides 32 (K3 with no
+collective; the quantizing K4 split at its statistics, the per-image scale
+reduced over the model group), else on the gathered channels, keeping the
+rank's: values as the unsharded norm's, at the cost of the gather.
+``Conv1x1`` takes a list of row slices (the rank's heads of qkv).
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import group_norm, group_norm_quant
-from ..parallel import sp
+from ..parallel import sp, tp
 from ..ops.quant import _pack_weights, conv_prequant, int8_conv, quantize_per_out_channel
 
 
@@ -80,19 +91,28 @@ class GroupNorm32(nn.Module):
                 quantize: bool = False):
         """The normalized x, or with ``quantize`` the int8 pair (q, s): q in
         x's shape (s8, or integer values in x's dtype when gradients flow),
-        s the (B,) f32 per-image scales (``ops.groupnorm.group_norm_quant``)."""
-        B, C = x.shape[0], x.shape[1]
+        s the (B,) f32 per-image scales (``ops.groupnorm.group_norm_quant``).
+        Under TP x (and scale_shift, (B, C/T) each) may be the rank's
+        channels; so is the output."""
+        B, c = x.shape[0], x.shape[1]
+        scale, bias, groups = self.weight, self.bias, self.num_groups
+        shard = c != scale.shape[0]
+        if shard:  # the rank's channels under tensor parallelism
+            if not tp.whole_groups(groups):  # groups cross the ranks: the norm of the gathered channels
+                C = scale.shape[0]
+                ss = None if scale_shift is None else tuple(
+                    tp.gather_channels(t.reshape(B, c), C) for t in scale_shift)
+                y = self.forward(tp.gather_channels(x, C), activation, ss, quantize)
+                return (tp.shard_channels(y[0]), y[1]) if quantize else tp.shard_channels(y)
+            (sl,) = tp.channel_slices(scale.shape[0])
+            scale, bias, groups = scale[sl], bias[sl], groups // tp.size()
         if scale_shift is not None:
-            scale_shift = tuple(t.reshape(B, C).float() for t in scale_shift)
-        fn = group_norm_quant if quantize else group_norm
-        y = fn(
-            x.movedim(1, -1), self.weight, self.bias,
-            groups=self.num_groups, eps=self.eps,
-            silu=(activation == "silu"), scale_shift=scale_shift,
-        )
+            scale_shift = tuple(t.reshape(B, c).float() for t in scale_shift)
+        kw = dict(groups=groups, eps=self.eps, silu=(activation == "silu"), scale_shift=scale_shift)
         if quantize:
-            return y[0].movedim(-1, 1), y[1]
-        return y.movedim(-1, 1)
+            q, s = group_norm_quant(x.movedim(1, -1), scale, bias, channel_shard=shard, **kw)
+            return q.movedim(-1, 1), s
+        return group_norm(x.movedim(1, -1), scale, bias, **kw).movedim(-1, 1)
 
 
 def normalization(channels: int) -> GroupNorm32:
@@ -153,7 +173,13 @@ class Conv2d(nn.Conv2d):
         first: (kh - 1) // 2 from each at stride 1, two from above at stride
         2 (whose symmetric padding reads one row above a shard and none
         below), so that cuDNN and K5 keep their own padding; the output
-        rows whose windows lie in the shard are kept."""
+        rows whose windows lie in the shard are kept. Under TP
+        (``tp.sharded``) column-parallel: x's channels gathered, the rank's
+        output channels where they split, else all of them."""
+        if tp.sharded():
+            x = tp.gather_channels(x, self.in_channels)
+            split = tp.splits(self.out_channels)
+            return self._conv(x, prequant_scales, out_dtype, tp.channel_slices(self.out_channels)[0] if split else None)
         k, stride = self.kernel_size[0], self.stride[0]
         if k == 1 or not sp.sharded(x):
             return self._conv(x, prequant_scales, out_dtype)
@@ -167,9 +193,12 @@ class Conv2d(nn.Conv2d):
         y = self._conv(sp.halo(x, above, below), prequant_scales, out_dtype)
         return y[:, :, keep:keep + rows].contiguous(memory_format=torch.channels_last)
 
-    def _conv(self, x, prequant_scales=None, out_dtype=None):
+    def _conv(self, x, prequant_scales=None, out_dtype=None, out_slice=None):
+        """The conv, on the output channels ``out_slice`` (all with None)."""
+        w, b = self.weight, self.bias
+        if out_slice is not None:
+            w, b = w[out_slice], b[out_slice]
         if prequant_scales is None and not self.int8:
-            w = self.weight
             if w.dtype != x.dtype or not w.is_contiguous(memory_format=torch.channels_last):
                 # f32 parameters under a bf16 torso (training), as flax's
                 # Conv(dtype=...) with f32 params: cast at the call, so
@@ -177,20 +206,22 @@ class Conv2d(nn.Conv2d):
                 # copy where FSDP2 holds the weight NCHW (parallel/mesh.py), so
                 # that cuDNN runs the convs it runs on the model's own weights
                 w = w.to(x.dtype, memory_format=torch.channels_last)
-                return self._conv_forward(x, w, self.bias.to(x.dtype))
-            return super().forward(x)
+            return self._conv_forward(x, w, b.to(x.dtype))
+        # per output channel, so a slice's quantization is the slice of the whole weight's
         w_q, s_w = self.quantized_weight()
-        w = self.weight
+        rows = self._rows
+        if out_slice is not None:
+            w_q, s_w, rows = w_q[..., out_slice], s_w[out_slice], rows[out_slice]
         if not w.is_contiguous(memory_format=torch.channels_last):
             w = w.contiguous(memory_format=torch.channels_last)  # FSDP2's NCHW weight, laid out as the model's
         w = w.permute(2, 3, 1, 0)  # HWIO view
         if prequant_scales is not None:
             y = conv_prequant(
-                x.movedim(1, -1), prequant_scales, w, self.bias, self.stride[0],
-                out_dtype or torch.float32, w_q=w_q, s_w=s_w, rows=self._rows,
+                x.movedim(1, -1), prequant_scales, w, b, self.stride[0],
+                out_dtype or torch.float32, w_q=w_q, s_w=s_w, rows=rows,
             )
         else:
-            y = int8_conv(x.movedim(1, -1), w, self.bias, self.stride[0], w_q=w_q, s_w=s_w, rows=self._rows)
+            y = int8_conv(x.movedim(1, -1), w, b, self.stride[0], w_q=w_q, s_w=s_w, rows=rows)
         return y.movedim(-1, 1)
 
 
@@ -225,9 +256,19 @@ class Conv1x1(nn.Module):
             bound = 1.0 / math.sqrt(in_ch)
             nn.init.uniform_(self.bias, -bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: a list of slices of the output channels, in order (the
+        rank's under TP), else all of them."""
+        w, b = self.weight[:, :, 0], self.bias
+        if rows is not None:
+            w, b = take_rows(w, rows), take_rows(b, rows)
         # cast at the call where the parameters are f32 and the torso is not (as Conv2d)
-        return F.linear(x, self.weight[:, :, 0].to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, w.to(x.dtype), b.to(x.dtype))
+
+
+def take_rows(t: torch.Tensor, rows: list) -> torch.Tensor:
+    """The rows of ``t`` that a list of slices names, in order."""
+    return t[rows[0]] if len(rows) == 1 else torch.cat([t[r] for r in rows])
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

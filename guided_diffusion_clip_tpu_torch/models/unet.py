@@ -46,6 +46,16 @@ on the gathered map (``sp.run_whole``), the classifier's pools average over
 the ranks (``sp.mean_hw``), and the inputs built at full size (the upsampled
 ``low_res``, ``img2``, ``spat_feat``'s planes) are sliced. DeepCache's
 ``full`` mode caches the rank's rows of the deep feature.
+
+Tensor parallelism (``parallel/tp.py``): the input x and the output are
+whole on every rank, and every activation between blocks whose C divides by
+T is the rank's C/T channels (``models/nn.py``: convs column-parallel,
+GroupNorms on whole groups). A ResBlock's emb projection gives the rank's
+rows (its scale's and its shift's under ``use_scale_shift_norm``); an
+attention block runs K1 on the rank's heads where T divides them, else whole
+on the gathered channels, as do the output heads and the classifier's pools;
+a skip concat gathers both halves and keeps the rank's channels of the
+concat. DeepCache's deep feature is the rank's channels.
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention
-from ..parallel import sp
+from ..parallel import sp, tp
 from .nn import (
     Conv1x1,
     Conv2d,
@@ -70,6 +80,7 @@ from .nn import (
     conv2d,
     linear,
     normalization,
+    take_rows,
     timestep_embedding,
     upsample_nearest_2x,
     upsample_nearest_2x_cl,
@@ -226,7 +237,7 @@ class ResBlock(nn.Module):
                 h, x = avg_pool_2x(h), avg_pool_2x(x)
             h = self.in_layers[2](h)
         # emb MLP stays f32, cast at the join like the reference's .type(h.dtype)
-        emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)[:, :, None, None]
+        emb_out = self._emb_out(emb, h.shape[1]).to(h.dtype)[:, :, None, None]
         # dropping q entries would break the q * s pairing
         quant_out = self.int8 and (self.out_layers[2].p == 0.0 or not self.training)
         if self.use_scale_shift_norm:
@@ -239,6 +250,17 @@ class ResBlock(nn.Module):
         else:
             h = self.out_layers[3](self.out_layers[2](h))
         return self.skip_connection(x) + h
+
+    def _emb_out(self, emb, channels: int):
+        """The emb projection: all its rows, or where h holds the rank's
+        ``channels`` under TP the rows of those channels (of the scale and of
+        the shift under ``use_scale_shift_norm``, which ``chunk`` then cuts)."""
+        lin = self.emb_layers[1]
+        C = self.out_layers[0].weight.shape[0]
+        if channels == C:
+            return lin(F.silu(emb))
+        rows = tp.channel_slices(C, 2 if self.use_scale_shift_norm else 1)
+        return F.linear(F.silu(emb), take_rows(lin.weight, rows), take_rows(lin.bias, rows))
 
 
 class AttentionBlock(nn.Module):
@@ -253,16 +275,28 @@ class AttentionBlock(nn.Module):
         self.proj_out = Conv1x1(channels, channels, zero=True)
 
     def forward(self, x):
+        C = self.norm.weight.shape[0]
+        if x.shape[1] != C:  # the rank's channels under TP: its heads, or whole where they do not split
+            if self.num_heads % tp.size() == 0:
+                return self._forward(x)
+            return tp.shard_channels(tp.run_whole(self._forward, x, C))
         # global attention needs every token: on a row shard, the gathered map on every rank
         return sp.run_whole(self._forward, x)
 
     def _forward(self, x):
-        B, C, H, W = x.shape
-        h = x.movedim(1, -1).reshape(B, H * W, C)  # a view of channels_last memory
-        hn = self.norm(h.transpose(1, 2)).transpose(1, 2)
-        a = attention(self.qkv(hn), self.num_heads, new_order=self.new_order)
-        a = self.proj_out(a)
-        return (h + a).reshape(B, H, W, C).movedim(-1, 1)
+        B, c, H, W = x.shape
+        C = self.norm.weight.shape[0]
+        h = x.movedim(1, -1).reshape(B, H * W, c)  # a view of channels_last memory
+        hn = self.norm(h.transpose(1, 2))
+        if c == C:
+            a = attention(self.qkv(hn.transpose(1, 2)), self.num_heads, new_order=self.new_order)
+            a = self.proj_out(a)
+        else:  # TP: qkv of the rank's heads from the gathered norm, proj_out's rows of its channels
+            heads = tp.channel_slices(C, 3) if self.new_order else tp.channel_slices(3 * C)
+            qkv = self.qkv(tp.gather_channels(hn, C).transpose(1, 2), rows=heads)
+            a = attention(qkv, self.num_heads // tp.size(), new_order=self.new_order)
+            a = self.proj_out(tp.gather_channels(a.transpose(1, 2), C).transpose(1, 2), rows=tp.channel_slices(C))
+        return (h + a).reshape(B, H, W, c).movedim(-1, 1)
 
 
 class Downsample(nn.Module):
@@ -314,7 +348,8 @@ class AttentionPool2d(nn.Module):
         self.num_heads = embed_dim // num_head_channels
 
     def forward(self, x):
-        return sp.run_whole(self._forward, x)  # every rank the whole map's tokens, the same logits
+        # every rank the whole map's tokens and channels, the same logits
+        return sp.run_whole(lambda u: tp.run_whole(self._forward, u, self.qkv_proj.weight.shape[1]), x)
 
     def _forward(self, x):
         B, C, H, W = x.shape
@@ -344,7 +379,7 @@ class TimestepEmbedSequential(nn.ModuleList):
             args = (x, emb) if isinstance(layer, ResBlock) else (x,)
             if remat and isinstance(layer, (ResBlock, AttentionBlock)):
                 # recomputed in the backward as it ran here, whole or sharded
-                x = torch.utils.checkpoint.checkpoint(sp.bound(layer), *args, use_reentrant=False)
+                x = torch.utils.checkpoint.checkpoint(tp.bound(sp.bound(layer)), *args, use_reentrant=False)
             else:
                 x = layer(*args)
         return x
@@ -479,6 +514,7 @@ class UNetModel(nn.Module):
             chans.append(ch)
         self.middle_block, ch = _make_block(cfg, middle_plan, ch)
         self.output_blocks = nn.ModuleList()
+        self.skip_channels = list(chans)  # each input block's output channels: the skips
         for block in output_plan:
             layers, ch = _make_block(cfg, block, ch + chans.pop())
             self.output_blocks.append(layers)
@@ -583,12 +619,18 @@ class UNetModel(nn.Module):
             if sp.sharded():  # both halves of the concat laid out as the block runs
                 want = sp.shardable(sp.full_rows(h.shape[2]) if shard else h.shape[2])
                 h, skip, shard = sp.relayout(h, shard, want), sp.relayout(skip, skip_shard, want), want
-            h, shard = _run_block(self.output_blocks[i], torch.cat([h, skip], dim=1), emb, shard)
+            if tp.sharded():  # both halves gathered, then the rank's channels of the concat
+                c_skip = self.skip_channels[len(hs)]
+                c_h = self.output_blocks[i][0].in_layers[0].weight.shape[0] - c_skip
+                h, skip = tp.gather_channels(h, c_h), tp.gather_channels(skip, c_skip)
+            h = tp.shard_channels(torch.cat([h, skip], dim=1))
+            h, shard = _run_block(self.output_blocks[i], h, emb, shard)
 
-        # output head, f32 (or x's dtype), on the rank's rows
+        # output head, f32 (or x's dtype), on the rank's rows; under TP its norm on the rank's channels,
+        # its conv whole on the gathered ones
         h = sp.relayout(h.to(x.dtype), shard, sp.sharded())
         h = self.out[0](h, activation="silu")
-        out = self.out[2](h)
+        out = tp.run_whole(self.out[2], h, self.out[2].in_channels)
         if cache_mode == "off":
             return out
         return out, (deep_out if cache_mode == "full" else deep_cache)
@@ -622,9 +664,11 @@ class EncoderUNetModel(nn.Module):
         input_plan, middle_plan, _, feature_size = build_plan(cfg)
         ch = cfg.in_channels
         self.input_blocks = nn.ModuleList()
+        self.block_channels = []  # each input block's output channels (the spatial pools' means)
         for block in input_plan:
             layers, ch = _make_block(cfg, block, ch)
             self.input_blocks.append(layers)
+            self.block_channels.append(ch)
         self.middle_block, ch = _make_block(cfg, middle_plan, ch)
 
         out = cfg.out_channels
@@ -662,23 +706,24 @@ class EncoderUNetModel(nn.Module):
         spatial = self.pool.startswith("spatial")
         shard = sp.sharded(x)
         results = []
-        for block in self.input_blocks:
+        for block, ch in zip(self.input_blocks, self.block_channels):
             h, shard = _run_block(block, h, emb, shard)
-            if spatial:
-                results.append(_mean_hw(h.to(x.dtype), shard))
+            if spatial:  # under TP the means of all the channels
+                results.append(tp.gather_channels(_mean_hw(h.to(x.dtype), shard), ch))
         h, shard = _run_block(self.middle_block, h, emb, shard)
-        # the head: over the ranks on a shard; a map gathered by the last levels runs whole
+        # the head: over the ranks on a shard; a map gathered by the last levels runs whole; under TP the norm
+        # on the rank's channels, the rest whole on the gathered channels
         with (contextlib.nullcontext() if shard or not sp.sharded() else sp.whole()):
             return self._head(h.to(x.dtype), shard, results)
 
     def _head(self, h, shard: bool, results: list):
         if self.pool == "adaptive":
             h = self.out[0](h, activation="silu")
-            h = self.out[3](_mean_hw(h, shard, keepdim=True))
+            h = tp.run_whole(self.out[3], _mean_hw(h, shard, keepdim=True), self.out[3].in_channels)
             return h.reshape(h.shape[0], -1)
         if self.pool == "attention":
             return self.out[2](self.out[0](h, activation="silu"))
-        results.append(_mean_hw(h, shard))
+        results.append(tp.gather_channels(_mean_hw(h, shard), self.block_channels[-1]))
         h = self.out[0](torch.cat(results, dim=-1))
         if self.pool == "spatial_v2":
             h = self.out[1](h[:, :, None], activation="silu")[:, :, 0]

@@ -8,11 +8,11 @@ def kernel_wrappers() -> dict:
     ``group_norm``, K4 ``group_norm_quant``, K5 ``conv_s8``, the quantize
     kernels ``quantize``, K6 ``conv_fused``, K7 ``mma_probe``; and the entries
     that K3, K4 and the quantize kernels are split into on a row shard
-    (spatial partitioning), each counted apart: ``group_norm_stats`` (K3's
-    and K4's statistics), ``group_norm_apply`` (K3's apply),
-    ``group_norm_quant_apply`` (K4's), ``quantize_amax`` and
-    ``quantize_apply``. A wrapper counts where it launches its kernel and
-    nowhere else."""
+    (spatial partitioning; K4 also on a channel shard, tensor parallelism),
+    each counted apart: ``group_norm_stats`` (K3's and K4's statistics),
+    ``group_norm_apply`` (K3's apply), ``group_norm_quant_apply`` (K4's),
+    ``quantize_amax`` and ``quantize_apply``. A wrapper counts where it
+    launches its kernel and nowhere else."""
     from . import attention as A
     from . import fused_conv as FC
     from . import groupnorm as G

@@ -36,6 +36,15 @@ apply entry (``group_norm_apply``, ``group_norm_quant_apply``): the one-pass
 E[x^2] - mean^2 in f32, eps 1e-5, as before. The backward all-reduces its
 per-group sums of the cotangent likewise. An unsharded call keeps its one
 launch.
+
+Under tensor parallelism (``parallel/tp.py``) a rank holds whole groups of
+some channels (``models/nn.py::GroupNorm32`` passes their scale, bias and
+group count), so K3 and its backward need no collective. K4's per-image
+scale is a max over all the channels, so ``group_norm_quant(...,
+channel_shard=True)`` runs K4 split at its statistics: the stats entry with
+the channels' extremes, the fold, each image's bound over the rank's
+channels (``_bound``) reduced MAX over the model group, the quant-apply
+entry.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..parallel import sp
+from ..parallel import sp, tp
 from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -346,16 +355,26 @@ def group_norm(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, silu: boo
 # ---------------------------------------------------------------------------
 
 
-def _bound_scale(a, b, xmin, xmax, silu: bool):
-    """Exact per-image int8 scale (s, 1/s), both (B,), from the folded
-    affine a, b and the channels' extremes of x, all (B, C) f32: y is affine
-    in raw x, so max|y_c| = max(|a_c xmax_c + b_c|, |a_c xmin_c + b_c|); SiLU
-    only shrinks magnitudes except for its -0.2785 floor."""
-    bound = torch.maximum((a * xmax + b).abs(), (a * xmin + b).abs()).amax(dim=-1)
+def _bound(a, b, xmin, xmax):
+    """Each image's max |y| (B,) over the channels of the folded affine a, b
+    and x's extremes, all (B, C) f32: y is affine in raw x, so max|y_c| =
+    max(|a_c xmax_c + b_c|, |a_c xmin_c + b_c|)."""
+    return torch.maximum((a * xmax + b).abs(), (a * xmin + b).abs()).amax(dim=-1)
+
+
+def _scale(bound, silu: bool):
+    """The per-image int8 scale (s, 1/s), both (B,), of each image's bound;
+    SiLU only shrinks magnitudes except for its -0.2785 floor."""
     if silu:
         bound = bound.clamp(min=0.2785)
     s = bound.clamp(min=1e-6) * (1.0 / 127.0)
     return s, 1.0 / s
+
+
+def _bound_scale(a, b, xmin, xmax, silu: bool):
+    """Exact per-image int8 scale (s, 1/s), both (B,), from the folded
+    affine a, b and the channels' extremes of x, all (B, C) f32."""
+    return _scale(_bound(a, b, xmin, xmax), silu)
 
 
 def _group_norm_quant_plain_stats(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
@@ -439,11 +458,13 @@ class GroupNormQuantFunction(torch.autograd.Function):
     forward wrote."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, ss, sb, groups, eps, silu):
+    def forward(ctx, x, scale, bias, ss, sb, groups, eps, silu, channel_shard=False):
         scale_shift = None if ss is None else (ss, sb)
         ctx.split = sp.sharded(x)
         if ctx.split:
             q, s, stats = _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, True, x.dtype)
+        elif channel_shard:
+            q, s, stats = _group_norm_channels(x, scale, bias, groups, eps, silu, scale_shift, x.dtype)
         else:
             q, s, stats = _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, x.dtype)
         ctx.mark_non_differentiable(s)
@@ -463,11 +484,11 @@ class GroupNormQuantFunction(torch.autograd.Function):
         )
         cast = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
         return (dx, cast(dscale, scale), cast(dbias, bias), cast(dss, ss), cast(dsb, sb),
-                None, None, None)
+                None, None, None, None)
 
 
 def group_norm_quant(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, silu: bool = False,
-                     scale_shift=None):
+                     scale_shift=None, channel_shard: bool = False):
     """The quantizing GroupNorm: (q, s) with ``y ~= q * s[b]``, q of x's
     shape in [-127, 127], s (B,) f32. Plain on the CPU, K4 on CUDA.
 
@@ -476,14 +497,21 @@ def group_norm_quant(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, sil
     generator's sampling path); when an input requires grad, q holds the
     same integers in x's dtype and goes through ``GroupNormQuantFunction``
     (the guided classifier).
+
+    ``channel_shard``: x is the rank's channels (whole groups) under tensor
+    parallelism, and s is the whole activation's: K4 split at its
+    statistics, the bound reduced over the model group
+    (``_group_norm_channels``).
     """
     if x.shape[-1] % groups:
         raise ValueError(f"channels {x.shape[-1]} not divisible by {groups} groups")
     ss, sb = scale_shift if scale_shift is not None else (None, None)
     if _needs_grad(x, scale, bias, ss, sb):
-        return GroupNormQuantFunction.apply(x, scale, bias, ss, sb, groups, eps, silu)
+        return GroupNormQuantFunction.apply(x, scale, bias, ss, sb, groups, eps, silu, channel_shard)
     if sp.sharded(x):
         return _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, True, torch.int8)[:2]
+    if channel_shard:
+        return _group_norm_channels(x, scale, bias, groups, eps, silu, scale_shift, torch.int8)[:2]
     return _group_norm_quant_stats(x, scale, bias, groups, eps, silu, scale_shift, torch.int8)[:2]
 
 
@@ -661,3 +689,15 @@ def _group_norm_split(x, scale, bias, groups, eps, silu, scale_shift, quant: boo
     sp.reduce_max_(ext)
     s, inv = _bound_scale(a, b, -ext[0], ext[1], silu)
     return group_norm_quant_apply(x, a, b, inv, silu, out_dtype), s, stats
+
+
+def _group_norm_channels(x, scale, bias, groups, eps, silu, scale_shift, out_dtype):
+    """K4 on the rank's channels under tensor parallelism, whole groups of
+    them: the stats entry with each channel's extremes, the fold (local),
+    each image's bound over these channels all-reduced MAX over the model
+    group, the quant-apply entry. Returns (q, s, stats) as K4 does."""
+    B = x.shape[0]
+    sums, ext = group_norm_stats(x, groups, True)
+    mean, rstd, a, b = _fold(sums, x.numel() // (B * groups), scale, bias, groups, eps, scale_shift)
+    s, inv = _scale(tp.reduce_max_(_bound(a, b, ext[0], ext[1])), silu)
+    return group_norm_quant_apply(x, a, b, inv, silu, out_dtype), s, torch.stack([mean, rstd])

@@ -7,7 +7,8 @@ process drives one GPU, so the world of W ranks (torchrun, ``parallel/dist.py``)
 factors as ``W = D x S``: D data groups of S space ranks each, rank
 ``r = d * S + s``. A data group plays the part of one JAX process: its S ranks
 hold the same batch rows (the CLIs' sample counter and the loader's file shard
-go by data group: ``data_rank``, ``data_size``), the same timesteps and the
+go by data group: ``data_rank``, ``data_size``, shared with tensor
+parallelism in ``parallel/groups.py``), the same timesteps and the
 same generators, and space rank s holds rows ``[s H/S, (s + 1) H/S)`` of every
 NCHW activation. Noise is drawn at full size from the sample's generator and
 sliced (``shard_rows``), so a sharded chain draws what the unsharded chain
@@ -42,43 +43,27 @@ returns its input itself.
 
 from __future__ import annotations
 
-import dataclasses
 from contextlib import contextmanager
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
+from .groups import Groups, data_rank, data_size, factor, gather_data_groups  # noqa: F401 (the data groups' queries)
 
-@dataclasses.dataclass(frozen=True)
-class _State:
-    size: int  # S: ranks a data group
-    data_size: int  # D: data groups
-    space_rank: int
-    data_rank: int
-    space_group: object  # this rank's data group: the S ranks that share its images
-    data_group: object  # the D ranks that hold this rank's rows of other images
-
-
-_STATE: _State | None = None
+_STATE: Groups | None = None
 _WHOLE = 0  # depth of ``whole()`` blocks: the model runs unsharded there
 
 
 def set_spatial_sharding(spatial_shard: int) -> None:
     """Split the world into D data groups of ``spatial_shard`` space ranks;
-    every rank calls it (``new_group`` is a collective)."""
+    every rank calls it (``new_group`` is a collective). Refused while
+    tensor parallelism is set."""
+    from . import tp
+
     global _STATE
-    s = int(spatial_shard)
-    if not dist.is_initialized():
-        raise ValueError(f"--spatial_shard {s} needs a process group of a multiple of {s} ranks: launch under "
-                         f"torchrun (python -m torch.distributed.run --nproc_per_node {s} ...)")
-    w, r = dist.get_world_size(), dist.get_rank()
-    if s < 1 or w % s:
-        raise ValueError(f"--spatial_shard {s} does not divide the world of {w} ranks")
-    d = w // s
-    space_groups = [dist.new_group([g * s + k for k in range(s)]) for g in range(d)]
-    data_groups = [dist.new_group([g * s + k for g in range(d)]) for k in range(s)]
-    _STATE = _State(s, d, r % s, r // s, space_groups[r // s], data_groups[r % s])
+    if tp.active():
+        raise ValueError("--spatial_shard and --tensor_shard are mutually exclusive")
+    _STATE = factor(int(spatial_shard), "--spatial_shard")
 
 
 def clear_spatial_sharding() -> None:
@@ -102,7 +87,7 @@ def spatial_sharding(spatial_shard: int):
         _STATE = prev
 
 
-def setup_from_flag(spatial_shard: int, batch_size: int) -> _State | None:
+def setup_from_flag(spatial_shard: int, batch_size: int) -> Groups | None:
     """Activate SP for a CLI's ``--spatial_shard`` (after the process group
     is up): ``spatial_shard <= 1`` clears it and returns None. Every rank of
     a data group samples or trains on the same ``batch_size`` rows."""
@@ -118,20 +103,17 @@ def setup_from_flag(spatial_shard: int, batch_size: int) -> _State | None:
 
 
 def check_flags(spatial_shard, tensor_shard) -> None:
-    """A CLI's refusals, before it makes anything: ``--tensor_shard`` above
-    1 (not yet ported), both flags above 1 (as in the JAX package), and
-    ``--spatial_shard`` above 1 outside torchrun."""
+    """A CLI's refusals, before it makes anything: both flags above 1 (as in
+    the JAX package), and either above 1 outside torchrun."""
     from . import dist as pdist
 
     s, t = int(spatial_shard or 0), int(tensor_shard or 0)
     if s > 1 and t > 1:
         raise SystemExit("--spatial_shard and --tensor_shard are mutually exclusive")
-    if t > 1:
-        raise SystemExit("--tensor_shard: not yet ported to the PyTorch package (tensor parallelism is the next "
-                         "slice)")
-    if s > 1 and not (dist.is_initialized() or pdist.under_torchrun()):
-        raise SystemExit(f"--spatial_shard {s}: launch under torchrun with a multiple of {s} ranks (python -m "
-                         f"torch.distributed.run --nproc_per_node {s} -m ...)")
+    for flag, k in (("--spatial_shard", s), ("--tensor_shard", t)):
+        if k > 1 and not (dist.is_initialized() or pdist.under_torchrun()):
+            raise SystemExit(f"{flag} {k}: launch under torchrun with a multiple of {k} ranks (python -m "
+                             f"torch.distributed.run --nproc_per_node {k} -m ...)")
 
 
 @contextmanager
@@ -145,42 +127,13 @@ def from_flag(spatial_shard, batch_size: int):
             clear_spatial_sharding()
 
 
-def gather_data_groups(a):
-    """A host array of every data group, in data-rank order (``[D, ...]``),
-    gathered over this rank's data group (the ranks of its space rank in
-    every data group; a data group's ranks hold the same array); the
-    process group's ``all_gather_host`` without SP."""
-    from . import dist as pdist
-
-    if _STATE is None:
-        return pdist.all_gather_host(a)
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    parts = [torch.empty_like(t) for _ in range(_STATE.data_size)]
-    dist.all_gather(parts, t, group=_STATE.data_group)
-    return torch.stack(parts).numpy()
-
-
 def size() -> int:
     """S, the ranks that share an image (1 without SP)."""
     return _STATE.size if _STATE is not None else 1
 
 
 def space_rank() -> int:
-    return _STATE.space_rank if _STATE is not None else 0
-
-
-def data_rank() -> int:
-    """This rank's data group (the process's rank without SP)."""
-    if _STATE is not None:
-        return _STATE.data_rank
-    return dist.get_rank() if dist.is_initialized() else 0
-
-
-def data_size() -> int:
-    """D, the data groups (the world without SP)."""
-    if _STATE is not None:
-        return _STATE.data_size
-    return dist.get_world_size() if dist.is_initialized() else 1
+    return _STATE.rank if _STATE is not None else 0
 
 
 def sharded(x: torch.Tensor | None = None) -> bool:
@@ -258,7 +211,7 @@ def full_rows(h: int) -> int:
 
 # ---------------------------------------------------------------- collectives
 def _group():
-    return _STATE.space_group
+    return _STATE.group
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -302,7 +255,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = _all_reduce(_nhwc(g).clone())
-        s, h = _STATE.space_rank, ctx.h
+        s, h = _STATE.rank, ctx.h
         return _nchw(g[:, s * h:(s + 1) * h].contiguous())
 
 
@@ -332,7 +285,7 @@ class _Halo(torch.autograd.Function):
         B, _, W, C = xh.shape
         row = W * C
         edges = _all_gather(torch.cat([xh[:, :below].reshape(B, -1), xh[:, h - above:].reshape(B, -1)], dim=1))
-        s, S = _STATE.space_rank, _STATE.size
+        s, S = _STATE.rank, _STATE.size
         zeros = xh.new_zeros
         top = edges[s - 1][:, below * row:].reshape(B, above, W, C) if s > 0 else zeros(B, above, W, C)
         bottom = edges[s + 1][:, :below * row].reshape(B, below, W, C) if s < S - 1 else zeros(B, below, W, C)
@@ -342,7 +295,7 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         B, h, W, C, above, below = ctx.shape
-        s, S = _STATE.space_rank, _STATE.size
+        s, S = _STATE.rank, _STATE.size
         gh = _nhwc(g)
         dx = gh[:, above:above + h].clone()
         lent = gh.new_zeros(S, B, (below + above) * W * C)
@@ -369,7 +322,7 @@ def shard_rows(x: torch.Tensor) -> torch.Tensor:
     is its own adjoint's transpose, so gradients flow as autograd's."""
     if not sharded(x):
         return x
-    S, s = _STATE.size, _STATE.space_rank
+    S, s = _STATE.size, _STATE.rank
     H = x.shape[2]
     if H % S:
         raise ValueError(f"{H} rows do not split over {S} space ranks")

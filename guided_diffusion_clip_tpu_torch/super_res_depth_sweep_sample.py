@@ -24,8 +24,12 @@ a missing card is an error); ``--conv_impl int8`` runs the int8 convs.
 ``--spatial_shard S`` (torchrun with a multiple of S ranks,
 ``parallel/sp.py``) splits every image's rows over the S ranks of each data
 group, which reads and seeds as one rank of the unsharded run (its data
-rank); each chain's rows are gathered before the write. ``--tensor_shard``
-above 1 is refused.
+rank); each chain's rows are gathered before the write. ``--tensor_shard T``
+(torchrun with a multiple of T ranks, ``parallel/tp.py``) splits every
+activation's channels over the T ranks of each data group, which reads and
+seeds as one rank of the unsharded run (its data rank); the model's output is
+whole on every rank. Both flags above 1 are refused, as is either outside
+torchrun.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from .data.image_datasets import load_data
 from .diffusion.sampling import sample_seed
 from .image_sample import _refuse, respaced_start
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import process1, to_device
@@ -66,7 +70,8 @@ def main(argv=None) -> dict:
     _refuse(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return sweep(args, device)
 
 
@@ -148,7 +153,7 @@ def create_argparser() -> argparse.ArgumentParser:
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         denoise_start_point=-1,
     )
     defaults.update(model_and_diffusion_defaults())

@@ -28,8 +28,11 @@ order and rank 0 writes the ``.npz``, then a barrier. ``--spatial_shard S``
 image's rows over the S ranks of each data group, which reads, seeds and
 gathers as one rank of the unsharded run (its data rank); the model
 upsamples the full ``low_res`` and slices it, and each chain's rows are
-gathered before the write. ``--tensor_shard`` above 1 is not yet ported and
-is refused.
+gathered before the write. ``--tensor_shard T`` (torchrun with a multiple of T
+ranks, ``parallel/tp.py``) splits every activation's channels over the T ranks
+of each data group, which reads, seeds and gathers as one rank of the unsharded
+run (its data rank); the model's output is whole on every rank. Both flags
+above 1 are refused, as is either outside torchrun.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import torch
 from .diffusion.sampling import sample_seed
 from .models.unet import CONV_IMPLS
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .utils import logger
 from .utils.checkpoint import load_model_weights
 from .utils.sample_util import overlap_device_host, to_device, to_host
@@ -122,7 +125,8 @@ def main(argv=None) -> dict:
         raise SystemExit("--device cuda: no CUDA device is available")
     if not args.model_path:
         raise SystemExit("--model_path: a reference-format .pt is required")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         return sample(args, device)
 
 
@@ -205,7 +209,7 @@ def create_argparser() -> argparse.ArgumentParser:
         device="cuda",
         conv_impl="auto",  # auto or xla: cuDNN; int8: kernels K4 and K5
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
     )
     defaults.update(sr_model_and_diffusion_defaults())
     parser = argparse.ArgumentParser()

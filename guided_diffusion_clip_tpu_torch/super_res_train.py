@@ -26,7 +26,7 @@ import torch
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -64,7 +64,8 @@ def main(argv=None) -> None:
     _refuse_unported(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         train(args, device)
 
 
@@ -101,6 +102,7 @@ def train(args, device: torch.device) -> None:
         param_sharding=args.param_sharding,
         opt_impl=args.opt_impl,
         ckpt_backend=args.ckpt_backend,
+        tensor_shard=args.tensor_shard,  # the CLI's TP, pinned to the loop's own groups
     ).run_loop()
 
 
@@ -124,7 +126,7 @@ def create_argparser() -> argparse.ArgumentParser:
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting

@@ -19,8 +19,9 @@ convs, as ``image_train``. The run directory and its checkpoints are
 Under torchrun each rank trains on its shard of the folder, and
 ``--param_sharding fsdp``, ``--opt_impl zero1`` and ``--ckpt_backend orbax``
 run as under ``image_train``, and ``--spatial_shard S`` too (each image's
-rows over the S ranks of a data group, ``parallel/sp.py``). Not yet ported,
-and refused at startup with ``image_train``'s messages: ``--tensor_shard``.
+rows over the S ranks of a data group, ``parallel/sp.py``) and
+``--tensor_shard T`` (each activation's channels over the T ranks of a data
+group, ``parallel/tp.py``), with ``image_train``'s refusals.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from .data.image_datasets import load_data
 from .image_train import _refuse_unported
 from .parallel import dist as pdist
-from .parallel import sp
+from .parallel import sp, tp
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainLoop
 from .utils import logger
@@ -55,7 +56,8 @@ def main(argv=None) -> None:
         args.f = args.load
         load_folder_path_parse(args)
         args.resume_checkpoint = args.model_path
-    with pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size):
+    with (pdist.process_group(args.device) as device, sp.from_flag(args.spatial_shard, args.batch_size),
+          tp.from_flag(args.tensor_shard, args.batch_size)):
         train(args, device)
 
 
@@ -101,6 +103,7 @@ def train(args, device: torch.device) -> None:
         param_sharding=args.param_sharding,
         opt_impl=args.opt_impl,
         ckpt_backend=args.ckpt_backend,
+        tensor_shard=args.tensor_shard,  # the CLI's TP, pinned to the loop's own groups
     ).run_loop()
 
 
@@ -126,7 +129,7 @@ def create_argparser() -> argparse.ArgumentParser:
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting

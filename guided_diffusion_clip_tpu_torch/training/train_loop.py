@@ -97,9 +97,16 @@ the data groups' (each per-sample term the mean of its ranks' means), which
 the loss-aware sampler takes too; ``global_batch`` is ``batch_size * D``.
 ``val_sample`` gathers each chain's rows before it writes.
 
-Not yet ported, and refused by ``check_ported``: ``tensor_shard`` above 1
-(tensor parallelism is the next slice), and it with ``spatial_shard``
-above 1 (as in the JAX loop, the two do not compose).
+Tensor parallelism (``tensor_shard`` T > 1, ``parallel/tp.py``): the world
+is D data groups of T model ranks, which draw alike as SP's data groups do;
+each rank holds its channels of every activation, and the model's output,
+the loss and the logged metrics are the data group's on every rank. Each
+rank backpropagates its copy of the loss, and the ranks' gradients sum to T
+times its gradient, so DDP's (FSDP2's, ZeRO-1's) mean over all W ranks is
+the data-parallel gradient. As in the JAX loop, a loop with ``tensor_shard``
+T > 1 sets TP on groups of its own (stale SP or TP left on by a CLI is
+cleared first), and a loop without it clears TP left on. Both
+``tensor_shard`` and ``spatial_shard`` above 1 are refused, as there.
 """
 
 from __future__ import annotations
@@ -118,7 +125,7 @@ from ..diffusion.api import Diffusion
 from ..models.nn import Conv2d
 from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
-from ..parallel import sp
+from ..parallel import groups, sp, tp
 from ..training.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..utils import bf_io
 from ..utils import checkpoint as ckpt
@@ -142,12 +149,10 @@ def check_ported(*, param_sharding="replicated", opt_impl="tree", spatial_shard=
         raise ValueError(f"opt_impl={opt_impl!r} does not compose with FSDP sharding")
     if int(spatial_shard or 0) > 1 and int(tensor_shard or 0) > 1:
         raise ValueError("spatial_shard and tensor_shard are mutually exclusive")
-    if int(tensor_shard or 0) > 1:
-        raise NotImplementedError(f"--tensor_shard {tensor_shard}: not yet ported to the PyTorch package "
-                                  "(tensor parallelism is the next slice)")
-    if int(spatial_shard or 0) > 1 and not (pdist.is_initialized() or pdist.under_torchrun()):
-        raise ValueError(f"spatial_shard {spatial_shard} needs a process group: launch under torchrun "
-                         f"(python -m torch.distributed.run --nproc_per_node {spatial_shard} ...)")
+    for flag, k in (("spatial_shard", spatial_shard), ("tensor_shard", tensor_shard)):
+        if int(k or 0) > 1 and not (pdist.is_initialized() or pdist.under_torchrun()):
+            raise ValueError(f"{flag} {k} needs a process group: launch under torchrun "
+                             f"(python -m torch.distributed.run --nproc_per_node {k} ...)")
 
 
 def drop_conditioning(generator: torch.Generator, cond: dict, p: float, null_y: int = -1) -> dict:
@@ -229,10 +234,16 @@ class TrainLoop:
             raise ValueError(f"param_sharding {param_sharding!r} / opt_impl {opt_impl!r} need a process group: "
                              "launch under torchrun (python -m torch.distributed.run --nproc_per_node N ...)")
         self.rank, self.world = pdist.rank(), pdist.world_size()
-        if int(spatial_shard) > 1 and sp.size() != int(spatial_shard):
-            sp.setup_from_flag(int(spatial_shard), batch_size)
+        if int(tensor_shard or 0) > 1:  # requested TP supersedes stale SP, and is pinned to this loop's groups
+            sp.clear_spatial_sharding()
+            tp.clear_tensor_sharding()
+            tp.setup_from_flag(int(tensor_shard), batch_size)
+        else:
+            tp.clear_tensor_sharding()  # TP left on by a CLI in this process
+            if int(spatial_shard) > 1 and sp.size() != int(spatial_shard):
+                sp.setup_from_flag(int(spatial_shard), batch_size)
         # the ranks that share a data group's rows draw alike
-        self.data_rank, self.data_world = sp.data_rank(), sp.data_size()
+        self.data_rank, self.data_world = groups.data_rank(), groups.data_size()
         self.ckpt_backend = ckpt_backend
         self.model = model.float().train()
         self.device = next(model.parameters()).device
@@ -591,7 +602,7 @@ class TrainLoop:
         if self.world > 1:
             parts = [torch.empty_like(flat) for _ in range(self.world)]
             torch.distributed.all_gather(parts, flat)
-            flat = torch.cat(parts[::sp.size()])  # one rank a data group
+            flat = torch.cat(parts[::groups.size()])  # one rank a data group
         if flat.device.type != "cuda":
             return flat, None, n
         host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)

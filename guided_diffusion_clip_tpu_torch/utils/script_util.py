@@ -91,7 +91,7 @@ def image_train_defaults():
         param_sharding="replicated",  # "fsdp": FSDP2 (under torchrun)
         opt_impl="tree",  # "flat": the same fused AdamW; "zero1": ZeRO-1 (under torchrun)
         spatial_shard=0,  # S > 1: each image's rows over S ranks (torchrun, a multiple of S ranks)
-        tensor_shard=0,  # > 1: not yet ported
+        tensor_shard=0,  # T > 1: each activation's channels over T ranks (torchrun, a multiple of T ranks)
         ckpt_backend="flax",  # the per-kind checkpoint files (.pt here); "orbax": DCP directories
         train_conv_impl="xla",  # "int8": the int8 convs (K4, K5) in the forward, straight-through backward
         loss_weighting="",  # "min_snr_5": SNR-clipped loss re-weighting

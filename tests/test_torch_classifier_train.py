@@ -251,11 +251,12 @@ def test_training_test_env_stops_after_the_first_save(folders, tmp_path, monkeyp
     # the id from when the flag was not yet ported: outside torchrun it is now refused for want of a process group
     pytest.param(["--param_sharding", "fsdp"], "param_sharding fsdp: launch under torchrun",
                  id="flags0-param_sharding fsdp: not yet ported"),
-    # the ids from when --spatial_shard was not yet ported: outside torchrun it is now refused for want of a
-    # process group, and --tensor_shard's message names the next slice
+    # the ids from when --spatial_shard and --tensor_shard were not yet ported: outside torchrun each is now
+    # refused for want of a process group
     pytest.param(["--spatial_shard", "2"], "spatial_shard 2: launch under torchrun",
                  id="flags1-spatial_shard 2: not yet ported"),
-    pytest.param(["--tensor_shard", "2"], "tensor_shard: not yet ported", id="flags2-tensor_shard 2: not yet ported"),
+    pytest.param(["--tensor_shard", "2"], "tensor_shard 2: launch under torchrun",
+                 id="flags2-tensor_shard 2: not yet ported"),
     (["--resume_checkpoint", "model000005.flax"], "convert a .flax checkpoint"),
 ])
 def test_refusals(folders, tmp_path, monkeypatch, flags, match):

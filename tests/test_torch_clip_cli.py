@@ -170,10 +170,12 @@ def test_int8_convs_and_the_guidance_cache(assets, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the id from when the flag was not yet ported: outside torchrun it is now refused for want of a process group
+    # the ids from when the flags were not yet ported: outside torchrun each is now refused for want of a
+    # process group
     pytest.param(["--spatial_shard", "2"], "spatial_shard 2: launch under torchrun",
                  id="flags0-spatial_shard: not yet ported"),
-    (["--tensor_shard", "2"], "tensor_shard: not yet ported"),
+    pytest.param(["--tensor_shard", "2"], "tensor_shard 2: launch under torchrun",
+                 id="flags1-tensor_shard: not yet ported"),
     (["--conv_impl", "fp8"], "--conv_impl 'fp8'"),
     (["--cfg_cache", "2"], "needs --cfg_scale"),
     (["--cfg_scale", "2"], "needs an embedding-conditioned model"),

@@ -222,15 +222,15 @@ def test_classifier_sample_refuses_unknown_conv_impl(tmp_path):
     ("sampler", "dpm++2m"), ("spatial_shard", "2"), ("tensor_shard", "2"),
 ])
 def test_classifier_sample_refuses_what_is_not_ported(flag, value, tmp_path):
-    """The two sharding flags are refused before any run directory is made
-    (``--tensor_shard`` is not yet ported; ``--spatial_shard`` needs
-    torchrun, ``tests/test_torch_sp.py`` runs it).
+    """The two sharding flags are refused outside torchrun before any run
+    directory is made (``tests/test_torch_sp.py`` and
+    ``tests/test_torch_tp.py`` run them under torchrun).
     The sampling knobs once refused as not yet ported now run: 3 steps (model
     timesteps 999, 500, 0), with each network called as often as the flag says."""
     if flag in ("spatial_shard", "tensor_shard"):
         argv = ["--device", "cpu", "--model_path", "m.pt", "--classifier_path", "c.pt",
                 "--main_path", str(tmp_path), f"--{flag}", value]
-        with pytest.raises(SystemExit, match="not yet ported" if flag == "tensor_shard" else "launch under torchrun"):
+        with pytest.raises(SystemExit, match=f"{flag} {value}: launch under torchrun"):
             CS.main(argv)
         assert not os.listdir(tmp_path)
         return

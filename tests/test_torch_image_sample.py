@@ -290,10 +290,12 @@ def test_image_sample_repeat_makes_a_run_directory_each(trained, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    # the id from when the flag was not yet ported: outside torchrun it is now refused for want of a process group
+    # the ids from when the flags were not yet ported: outside torchrun each is now refused for want of a
+    # process group
     pytest.param(["--spatial_shard", "2"], "--spatial_shard 2: launch under torchrun",
                  id="flags0---spatial_shard: not yet ported"),
-    (["--tensor_shard", "2"], "--tensor_shard: not yet ported"),
+    pytest.param(["--tensor_shard", "2"], "--tensor_shard 2: launch under torchrun",
+                 id="flags1---tensor_shard: not yet ported"),
     (["--conv_impl", "fp8"], "--conv_impl 'fp8'"),
     (["--model_path", "ema_0.9999_505000.flax", "--f", ""], "save_pt_copy"),
 ])

@@ -169,15 +169,14 @@ def test_unknown_train_conv_impl_is_refused(tmp_path):
     (["--spatial_shard", "2"], {}), (["--tensor_shard", "2"], {}), (["--ckpt_backend", "tensorstore"], {}),
 ])
 def test_unported_flags_are_refused(argv, env, tmp_path, monkeypatch):
-    """Before the run directory is made: the flag not yet ported, ``fsdp``,
-    ``zero1`` and ``spatial_shard`` outside torchrun (they need a process
-    group), and a
-    ``--ckpt_backend`` other than flax or orbax."""
+    """Before the run directory is made: ``fsdp``, ``zero1``,
+    ``spatial_shard`` and ``tensor_shard`` outside torchrun (they need a
+    process group), and a ``--ckpt_backend`` other than flax or orbax."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     match = {"--param_sharding": "launch under torchrun", "--opt_impl": "launch under torchrun",
-             "--spatial_shard": "launch under torchrun",
-             "--ckpt_backend": "ckpt_backend 'tensorstore'"}.get(argv[0], "not yet ported")
+             "--spatial_shard": "launch under torchrun", "--tensor_shard": "tensor_shard 2 needs a process group: "
+             "launch under torchrun", "--ckpt_backend": "ckpt_backend 'tensorstore'"}[argv[0]]
     with pytest.raises(SystemExit, match=match):
         image_train.main([*TINY, "--device", "cpu", "--data_dir", "x", "--main_path", str(tmp_path), *argv])
     assert not os.listdir(tmp_path)

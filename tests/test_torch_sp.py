@@ -564,13 +564,14 @@ def test_world4_image_sample_splits_by_data_group(world):
 @pytest.mark.timeout(600)
 def test_ranks_groups_refusals_and_identity(world):
     """The world's factoring, the refusals the ranks met (S not dividing the
-    world, both sharding flags, ``--tensor_shard``), the hooks as the
+    world, both sharding flags; ``--tensor_shard`` alone, refused until it
+    was ported, now passes the CLI's check under torchrun), the hooks as the
     identity before SP was set, and ``zero_state`` on the rank's rows."""
     for s, r in enumerate(world["ranks"]):
         assert r["groups"] == (2, s, 0, 1)
         assert "does not divide the world of 2" in r["refuse_S4_at_world2"]
         assert "mutually exclusive" in r["refuse_both_flags"] and "mutually exclusive" in r["refuse_cli_both"]
-        assert "not yet ported" in r["refuse_cli_tp"] and "next slice" in r["refuse_cli_tp"]
+        assert r["refuse_cli_tp"] is None
         assert r["identity"] is True
         assert r["cache_zero_state"] == tuple(r["cache_deep"].shape) == (4, 64, 8, 16)
 
@@ -677,6 +678,12 @@ def test_other_clis_match_one_process(world, name):
     within 1e-4 (an element whose gradient is rounding noise moves by
     +-lr under Adam: read 2.1e-5 for the classifier); the samplers' images
     as ``_samples_close``."""
+    _check_cli_against_one_process(world, name, "sp_clis")
+
+
+def _check_cli_against_one_process(world, name, ranks_dir):
+    """Run the CLI ``name`` of ``world["clis"]`` in this process and hold
+    what the ranks wrote under ``ranks_dir`` to it."""
     module, flags, env = world["clis"][name]
     main = importlib.import_module(f"guided_diffusion_clip_tpu_torch.{module}").main
     old = {k: os.environ.get(k) for k in env}
@@ -691,7 +698,7 @@ def test_other_clis_match_one_process(world, name):
             else:
                 os.environ[k] = v
         logger.reset()
-    got, want = (_outputs(world["dir"] / where / name) for where in ("sp_clis", "one_clis"))
+    got, want = (_outputs(world["dir"] / where / name) for where in (ranks_dir, "one_clis"))
     assert got.keys() == want.keys() and want, (sorted(got), sorted(want))
     for f in want:
         if f.endswith(".pt"):

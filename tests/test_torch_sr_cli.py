@@ -401,9 +401,11 @@ def test_depth_sweep_cli(folder, tmp_path):
     # refused for want of a process group, and orbax runs, so its case is an unknown backend
     pytest.param(["--param_sharding", "fsdp"], "launch under torchrun", id="flags0-not yet ported"),
     pytest.param(["--opt_impl", "zero1"], "launch under torchrun", id="flags1-not yet ported"),
-    # and --spatial_shard's from when it was not yet ported: outside torchrun it is refused for want of a process group
+    # and --spatial_shard's and --tensor_shard's from when they were not yet ported: outside torchrun each is
+    # refused for want of a process group
     pytest.param(["--spatial_shard", "2"], "launch under torchrun", id="flags2-not yet ported"),
-    (["--tensor_shard", "2"], "not yet ported"),
+    pytest.param(["--tensor_shard", "2"], "tensor_shard 2 needs a process group: launch under torchrun",
+                 id="flags3-not yet ported"),
     pytest.param(["--ckpt_backend", "tensorstore"], "ckpt_backend 'tensorstore'", id="flags4-not yet ported"),
     (["--train_conv_impl", "fp8"], "choose from auto, xla, int8"),
 ])
@@ -416,10 +418,12 @@ def test_trainers_refuse_unported_flags(cli, flags, message, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    # the id from when the flag was not yet ported: outside torchrun it is now refused for want of a process group
+    # the ids from when the flags were not yet ported: outside torchrun each is now refused for want of a
+    # process group
     pytest.param(["--spatial_shard", "2"], "--spatial_shard 2: launch under torchrun",
                  id="flags0---spatial_shard: not yet ported"),
-    (["--tensor_shard", "2"], "--tensor_shard: not yet ported"),
+    pytest.param(["--tensor_shard", "2"], "--tensor_shard 2: launch under torchrun",
+                 id="flags1---tensor_shard: not yet ported"),
     (["--conv_impl", "fp8"], "--conv_impl 'fp8'"),
     (["--model_path", ""], "--model_path"),
 ])

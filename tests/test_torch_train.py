@@ -328,16 +328,16 @@ def test_opt_impl_values_run_one_optimizer(weights):
     dict(ckpt_backend="tensorstore"),
 ])
 def test_unported_options_are_refused(weights, option):
-    """``tensor_shard`` is not yet ported; ``fsdp``, ``zero1`` and
-    ``spatial_shard`` need a process group (``tests/test_torch_train_dist.py``
-    and ``tests/test_torch_sp.py`` run them on two ranks); ``ckpt_backend``
-    takes flax or orbax only."""
+    """``fsdp``, ``zero1``, ``spatial_shard`` and ``tensor_shard`` need a
+    process group (``tests/test_torch_train_dist.py``,
+    ``tests/test_torch_sp.py`` and ``tests/test_torch_tp.py`` run them on
+    more than one rank); ``ckpt_backend`` takes flax or orbax only."""
     _, params = weights
     error, match = {"param_sharding": (ValueError, "need a process group"),
                     "opt_impl": (ValueError, "need a process group"),
                     "spatial_shard": (ValueError, "needs a process group"),
-                    "ckpt_backend": (ValueError, "ckpt_backend 'tensorstore'")}.get(
-        next(iter(option)), (NotImplementedError, "not yet ported"))
+                    "tensor_shard": (ValueError, "tensor_shard 2 needs a process group"),
+                    "ckpt_backend": (ValueError, "ckpt_backend 'tensorstore'")}[next(iter(option))]
     with pytest.raises(error, match=match):
         _port_loop(params, **option)
 

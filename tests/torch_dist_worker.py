@@ -266,11 +266,11 @@ SP_CFG = dict(image_size=16, in_channels=3, model_channels=32, out_channels=6, n
 SP_DEEP = dict(SP_CFG, channel_mult=(1, 1, 2, 2), attention_resolutions=(4,))
 
 
-def sp_models(d: str, **kw) -> dict:
-    """The models of ``sp_inputs.pt`` (the parent's weights), eval mode."""
+def sp_models(d: str, inputs: str = "sp_inputs.pt", **kw) -> dict:
+    """The models of ``inputs`` (the parent's weights), eval mode."""
     from guided_diffusion_clip_tpu_torch.models.unet import EncoderUNetModel, UNetModel
 
-    inp = torch.load(os.path.join(d, "sp_inputs.pt"), weights_only=False)
+    inp = torch.load(os.path.join(d, inputs), weights_only=False)
     out = {}
     for name, (cfg, extra, sd) in inp["models"].items():
         cls = EncoderUNetModel if "pool" in extra else UNetModel
@@ -287,6 +287,27 @@ def rows_of(x: torch.Tensor) -> torch.Tensor:
     return sp.shard_rows(x.contiguous(memory_format=torch.channels_last))
 
 
+def part_of(ref: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a full NCHW tensor as ``like`` holds it: its rows
+    under SP, its channels under TP, else ``ref``."""
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    if ref.shape == like.shape:
+        return ref
+    if ref.shape[2] != like.shape[2]:
+        return rows_of(ref)
+    return tp.shard_channels(ref.contiguous(memory_format=torch.channels_last))
+
+
+def whole_of(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A rank's part of an NCHW map, gathered to the full shape ``like``'s."""
+    from guided_diffusion_clip_tpu_torch.parallel import sp, tp
+
+    if x.shape[2] != like.shape[2]:
+        return sp.gather_rows(x)
+    return tp.gather_channels(x, like.shape[1])
+
+
 class Int8Forcing:
     """Teacher forcing of the sharded int8 forward to the unsharded one's
     roundings: ``record`` keeps each quantizing GroupNorm's (q, s) and each
@@ -296,7 +317,8 @@ class Int8Forcing:
     on, so that no rounding the other way compounds. The output head is left
     alone. ``by_name``: the values to hold and force by module name (the JAX
     package's int8 forward's captured intermediates, full size), in place of
-    a recorded forward; no scales are compared then."""
+    a recorded forward; no scales are compared then. Under SP the rank's
+    rows are compared, under TP its channels (``part_of``)."""
 
     def __init__(self, by_name: dict | None = None):
         self.rec, self.scales, self.readings, self.handles = [], [], [], []
@@ -320,8 +342,6 @@ class Int8Forcing:
         return lambda: [setattr(Q, n, f) for n, f in fns.items()]
 
     def _hook(self, forcing, name):
-        from guided_diffusion_clip_tpu_torch.parallel import sp
-
         def hook(mod, args, kwargs, out):
             quant_gn = kwargs.get("quantize", False)
             if not quant_gn and (kwargs.get("prequant_scales") is not None or not getattr(mod, "int8", False)):
@@ -333,10 +353,10 @@ class Int8Forcing:
             self.pos += 1
             if quant_gn:
                 (q, sc), (rq, rsc) = out, ref
-                rq = rq if rq.shape == q.shape else rows_of(rq)
+                rq = part_of(rq, q)
                 # the groups' offsets over the whole image: the one-pass variance loses (mean / std)^2 ulps
                 x = args[0].detach()
-                xf = sp.gather_rows(x) if x.shape[2] != ref[0].shape[2] else x
+                xf = x if x.shape == ref[0].shape else whole_of(x, ref[0])
                 xg = xf.movedim(1, -1).double().reshape(xf.shape[0], -1, 32, xf.shape[1] // 32)
                 ratio = (xg.mean((1, 3)).abs() / xg.std((1, 3))).max().item()
                 d_q = (q.float() - rq.float()).abs()
@@ -345,7 +365,7 @@ class Int8Forcing:
                                       "flips": int((d_q > 0).sum()), "n": d_q.numel()})
                 return rq.to(q.dtype), rsc
             (r,) = ref
-            r = r if r.shape == out.shape else rows_of(r)
+            r = part_of(r, out)
             dd = (out - r).abs()
             self.readings.append({"kind": "conv", "max": dd.max().item(), "ref_max": r.abs().max().item(),
                                   "l2": (dd.norm() / r.norm()).item()})
@@ -377,6 +397,15 @@ class Int8Forcing:
         return out
 
 
+def _tried(fn):
+    """``fn()``'s refusal as text, or None where it ran."""
+    try:
+        fn()
+        return None
+    except (ValueError, NotImplementedError, SystemExit) as e:
+        return f"{type(e).__name__}: {e}"
+
+
 def scenario_sp(d: str) -> None:
     """Two ranks, one data group of two space ranks (``--spatial_shard 2``):
     the forwards, int8 teacher-forced, the classifiers and their guidance
@@ -396,11 +425,7 @@ def scenario_sp(d: str) -> None:
     for what, fn in (("S4_at_world2", lambda: sp.set_spatial_sharding(4)),
                      ("both_flags", lambda: check_ported(spatial_shard=2, tensor_shard=2)),
                      ("cli_both", lambda: sp.check_flags(2, 2)), ("cli_tp", lambda: sp.check_flags(0, 2))):
-        try:
-            fn()
-            out[f"refuse_{what}"] = None
-        except (ValueError, NotImplementedError, SystemExit) as e:
-            out[f"refuse_{what}"] = f"{type(e).__name__}: {e}"
+        out[f"refuse_{what}"] = _tried(fn)
     out["identity"] = not sp.active() and all(
         f(t) is t for t in (torch.ones(2, 3, 4, 4),) for f in (sp.shard_rows, sp.gather_rows, lambda u: sp.halo(u, 1, 1)))
     sp.set_spatial_sharding(2)
@@ -469,7 +494,14 @@ def scenario_sp(d: str) -> None:
     cli["image_dp"] = image_sample.main(argv[:i] + argv[i + 2:] + ["--main_path", os.path.join(d, "dp2")])["path"]
     torch.save(cli, os.path.join(d, f"sp_cli_rank{r}.pt"))
     # the other CLIs that take --spatial_shard, each as the parent wrote its flags and environment
-    for name, (module, argv, env) in torch.load(os.path.join(d, "sp_clis.pt"), weights_only=False).items():
+    run_clis(os.path.join(d, "sp_clis.pt"))
+    pdist.destroy()
+
+
+def run_clis(path: str) -> None:
+    """Each CLI of ``path`` (the parent's {name: (module, flags,
+    environment)}) through its ``main``, in the environment given."""
+    for name, (module, argv, env) in torch.load(path, weights_only=False).items():
         old_env = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         torch.manual_seed(0)  # the trainers' initial weights, as the parent's one-process run draws them
@@ -482,7 +514,6 @@ def scenario_sp(d: str) -> None:
                 else:
                     os.environ[k] = v
             logger.reset()
-    pdist.destroy()
 
 
 def scenario_sp4(d: str) -> None:
@@ -504,6 +535,225 @@ def scenario_sp4(d: str) -> None:
         argv = f.read().split("\n")
     out = {"image": image_sample.main(argv + ["--main_path", os.path.join(d, "sp4_image")])["path"]}
     torch.save(out, os.path.join(d, f"sp4_cli_rank{r}.pt"))
+    pdist.destroy()
+
+
+# ---------------------------------------------------------------- tensor parallelism
+TP_INPUTS = "tp_inputs.pt"
+# T = 3 on a model 96 channels wide: each rank 32 channels, 10 2/3 of the 32 groups of 3 (the groups split)
+TP3_CFG = dict(SP_CFG, model_channels=96, num_heads=3)
+
+
+def _sharded_and_whole(fn):
+    """(``fn()`` under TP, ``fn()`` unsharded inside ``tp.whole()``), no grad."""
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    with torch.no_grad():
+        got = fn()
+        with tp.whole():
+            ref = fn()
+    return got, ref
+
+
+def _backward(model, x, t, **kw) -> dict:
+    """The gradients of the sum of squares of ``model``'s output, train mode."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    xg = x.clone().requires_grad_(True)
+    model(xg, t, **kw).square().sum().backward()
+    model.eval()
+    return {"x": xg.grad.clone(), "params": {n: p.grad.clone() for n, p in model.named_parameters()
+                                             if p.grad is not None}}
+
+
+def _tp_backward(model, x, t, **kw) -> dict:
+    """``_backward`` under TP and unsharded (each rank its own loss copy)."""
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    got = _backward(model, x, t, **kw)
+    with tp.whole():
+        ref = _backward(model, x, t, **kw)
+    return {"got": got, "ref": ref}
+
+
+def _int8_forced(m8, x, t, jax_values=None, **kw) -> dict:
+    """The int8 model under TP teacher-forced to its unsharded forward (and,
+    with ``jax_values``, to the JAX package's): the readings, the scales and
+    the unforced head's output beside the unsharded one."""
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    forcing = Int8Forcing()
+    with tp.whole():
+        ref = forcing.run(m8, x, t, False, **kw)
+    got = forcing.run(m8, x, t, True, **kw)
+    out = {"readings": forcing.readings, "scales": forcing.scale_pairs, "out": got, "ref": ref}
+    if jax_values is not None:
+        forcing = Int8Forcing(by_name=jax_values)
+        out["jax"] = {"readings": forcing.readings, "out": forcing.run(m8, x, t, True, **kw)}
+    return out
+
+
+def _guidance(clf, x, t, y):
+    """``classifier_cond_fn`` at scale 3 under TP and unsharded."""
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    cond = classifier_cond_fn(lambda u, tt: clf(u, tt), 3.0)
+    got = cond(x, t, y=y)
+    with tp.whole():
+        ref = cond(x, t, y=y)
+    return got, ref
+
+
+def scenario_tp(d: str) -> None:
+    """Two ranks, one data group of two model ranks (``--tensor_shard 2``):
+    the refusals and the stale state first, then the forwards of every
+    variant, DeepCache, the classifiers, int8 teacher-forced, the guidance
+    gradient, the backward with ``use_checkpoint``, the chains, each beside
+    the same call unsharded (``tp.whole()``); the train steps under DDP,
+    ZeRO-1, FSDP2 and with ``use_checkpoint``; the CLIs."""
+    from guided_diffusion_clip_tpu_torch import classifier_sample, image_sample
+    from guided_diffusion_clip_tpu_torch.diffusion.deep_cache import zero_state
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import cfg_model_fn
+    from guided_diffusion_clip_tpu_torch.parallel import groups, sp, tp
+    from guided_diffusion_clip_tpu_torch.training.train_loop import check_ported
+
+    pdist.setup_dist("cpu")
+    r = pdist.rank()
+    out = {"identity": not tp.active() and all(
+        f(u) is u for u in (torch.ones(2, 32, 4, 4),) for f in (tp.shard_channels, lambda v: tp.gather_channels(v, 64)))}
+    out["refuse_T4_at_world2"] = _tried(lambda: tp.set_tensor_sharding(4))
+    out["refuse_both_flags"] = _tried(lambda: check_ported(spatial_shard=2, tensor_shard=2))
+    out["refuse_cli_both"] = _tried(lambda: sp.check_flags(2, 2))
+    with sp.spatial_sharding(2):
+        out["refuse_tp_under_sp"] = _tried(lambda: tp.set_tensor_sharding(2))
+    with tp.tensor_sharding(2):
+        out["refuse_sp_under_tp"] = _tried(lambda: sp.set_spatial_sharding(2))
+    # a loop without tensor_shard clears TP left on; one with it pins TP to groups of its own
+    tp.set_tensor_sharding(2)
+    make_loop(os.path.join(d, "stale"))
+    out["stale_cleared"] = not tp.active()
+    tp.set_tensor_sharding(2)
+    ambient = tp._STATE
+    make_loop(os.path.join(d, "repin"), tensor_shard=2)
+    out["repinned"] = tp.active() and tp._STATE is not ambient and tp.size() == 2
+
+    tp.set_tensor_sharding(2)
+    out["groups"] = (tp.size(), tp.model_rank(), groups.data_rank(), groups.data_size())
+    rgb, wide = torch.ones(2, 3, 4, 4), torch.ones(2, 32, 4, 4)
+    out["indivisible"] = (tp.shard_channels(rgb) is rgb, tuple(tp.shard_channels(wide).shape),
+                          tp.local_shape((2, 3, 4, 4)), tp.local_shape((2, 32, 4, 4)))
+    inp, models = sp_models(d, TP_INPUTS)
+    x, t, feat = inp["x"], inp["t"], inp["feat"]
+    clip = models["clip"]
+    for name, fn in (
+            ("fwd_clip", lambda: clip(x, t, clip_feat=feat)),
+            ("fwd_plain", lambda: models["plain"](x, t)),
+            ("fwd_new_order", lambda: models["new_order"](x, t)),
+            ("fwd_heads1", lambda: models["heads1"](x, t)),
+            ("fwd_no_scale_shift", lambda: models["no_scale_shift"](x, t)),
+            ("fwd_super_res", lambda: models["super_res"](x, t, low_res=inp["low_res"])),
+            ("fwd_sr_img_feat", lambda: models["sr_img_feat"](x, t, clip_feat=feat, clip_feat2=inp["feat2"],
+                                                              img2=inp["img2"])),
+            ("cache_full", lambda: clip(x, t, clip_feat=feat, cache_mode="full")[0]),
+            ("cache_deep", lambda: clip(x, t, clip_feat=feat, cache_mode="full")[1]),
+            ("clf_attention", lambda: models["clf_attention"](x, t)),
+            ("clf_spatial", lambda: models["clf_spatial"](x, t)),
+            ("clf_adaptive", lambda: models["clf_adaptive"](x, t))):
+        out[name] = _sharded_and_whole(fn)
+    deep = out["cache_deep"]
+    out["cache_shallow"] = _sharded_and_whole(lambda: clip(x, t, clip_feat=feat, cache_mode="shallow", deep_cache=(
+        deep[0] if tp.sharded() else deep[1]))[0])
+    out["cache_zero_state"] = tuple(zero_state(clip.config, x.shape[0])[1].shape)
+    # the emb projection's rows: the rank's scale and shift, each the slice of the whole projection's half
+    block = clip.input_blocks[1][0]  # 32 channels, the rank's 16
+    emb = torch.randn(4, 128, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        rows = block._emb_out(emb, 16)
+        full = block.emb_layers[1](torch.nn.functional.silu(emb))
+    out["emb_rows"] = (rows, full)
+    out["guidance"] = _guidance(models["clf_attention"], x, t, inp["y"])
+    out["remat"] = _tp_backward(sp_models(d, TP_INPUTS, clip={"use_checkpoint": True})[1]["clip"], x, t,
+                                clip_feat=feat)
+    out["int8"] = _int8_forced(models["clip8"], x, t, inp["jax_int8"], clip_feat=feat)
+    diff = create_gaussian_diffusion(steps=20, noise_schedule="cosine", learn_sigma=True,
+                                     rescale_learned_sigmas=True, timestep_respacing="ddim5")
+    out["ddim"] = _sharded_and_whole(lambda: diff.ddim_sample_loop(models["plain"], tuple(x.shape),
+                                                                   torch.Generator().manual_seed(3)))
+    out["cfg"] = _sharded_and_whole(lambda: diff.ddim_sample_loop(
+        cfg_model_fn(clip, 2.5, {"clip_feat": 0.0}), tuple(x.shape), torch.Generator().manual_seed(7),
+        model_kwargs={"clip_feat": feat}))
+    # the train steps: DDP, ZeRO-1 and FSDP2 with TP, and DDP with use_checkpoint, both ranks on the same rows
+    b1 = batches(B, 1)
+    for mode, kw in (("tree", {}), ("zero1", MODES["zero1"]), ("fsdp", MODES["fsdp"]), ("remat_tree", {"remat": True})):
+        loop = make_loop(os.path.join(d, f"tp_{mode}"), tensor_shard=2, **kw)
+        step(loop, b1, slice(None))
+        out[f"train_{mode}"] = state(loop)
+    tp.clear_tensor_sharding()
+    torch.save(out, os.path.join(d, f"tp_rank{r}.pt"))
+    cli = {}
+    for name, main in (("image", image_sample.main), ("classifier", classifier_sample.main)):
+        with open(os.path.join(d, f"tp_{name}.argv")) as f:
+            cli[name] = main(f.read().split("\n"))["path"]
+        cli[f"{name}_after"] = tp.active()
+    torch.save(cli, os.path.join(d, f"tp_cli_rank{r}.pt"))
+    run_clis(os.path.join(d, "tp_clis.pt"))  # the other CLIs that take --tensor_shard
+    pdist.destroy()
+
+
+def scenario_tp3(d: str) -> None:
+    """Three ranks, T = 3 on a model 96 channels wide: the groups split
+    across the ranks (each GroupNorm on the gathered channels), the heads
+    (3 at 192 channels) do not; the forward, int8 teacher-forced, the
+    backward and the classifier's guidance gradient beside the unsharded
+    calls."""
+    import warnings
+
+    from guided_diffusion_clip_tpu_torch.parallel import tp
+
+    pdist.setup_dist("cpu")
+    r = pdist.rank()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tp.set_tensor_sharding(3)
+    out = {"warned": [str(w.message) for w in caught]}
+    inp, models = sp_models(d, TP_INPUTS)
+    x, t, feat = inp["x"], inp["t"], inp["feat"]
+    wide = models["wide"]
+    out["fwd_wide"] = _sharded_and_whole(lambda: wide(x, t, clip_feat=feat))
+    out["int8"] = _int8_forced(models["wide8"], x, t, clip_feat=feat)
+    out["backward"] = _tp_backward(wide, x, t, clip_feat=feat)
+    out["guidance"] = _guidance(models["clf_wide"], x, t, inp["y"])
+    tp.clear_tensor_sharding()
+    torch.save(out, os.path.join(d, f"tp3_rank{r}.pt"))
+    pdist.destroy()
+
+
+def scenario_tp4(d: str) -> None:
+    """Four ranks: two data groups of two model ranks (DDP, ZeRO-1 and FSDP2
+    train steps, each data group on its half of a batch of 2B), then one
+    data group of four (T = 4, the pure-model layout: the forward and the
+    guidance gradient beside the unsharded calls)."""
+    from guided_diffusion_clip_tpu_torch.parallel import groups, tp
+
+    pdist.setup_dist("cpu")
+    r = pdist.rank()
+    tp.set_tensor_sharding(2)
+    out = {"groups": (tp.size(), tp.model_rank(), groups.data_rank(), groups.data_size())}
+    rows = slice(groups.data_rank() * B, (groups.data_rank() + 1) * B)
+    for mode in ("tree", "zero1", "fsdp"):
+        loop = make_loop(os.path.join(d, f"tp4_{mode}"), tensor_shard=2, **MODES[mode])
+        step(loop, batches(2 * B, 1), rows)
+        out[f"train_{mode}"] = state(loop)
+    tp.clear_tensor_sharding()
+    tp.set_tensor_sharding(4)
+    out["groups_t4"] = (tp.size(), tp.model_rank(), groups.data_rank(), groups.data_size())
+    inp, models = sp_models(d, TP_INPUTS)
+    x, t, feat = inp["x"], inp["t"], inp["feat"]
+    out["fwd_clip"] = _sharded_and_whole(lambda: models["clip"](x, t, clip_feat=feat))
+    out["guidance"] = _guidance(models["clf_attention"], x, t, inp["y"])
+    tp.clear_tensor_sharding()
+    torch.save(out, os.path.join(d, f"tp4_rank{r}.pt"))
     pdist.destroy()
 
 
