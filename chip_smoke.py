@@ -21,24 +21,30 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      attention at batch 8 and 16 (image_sample, and under CFG), at the
      classifier's blocks and pool at batch 16 (classifier_train's
      microbatches) and at the 64 px quality proxies' (phase 16: d = 96 and
-     128 in the generator, d = 96 in the classifier, batch 16). K3 (one launch a call) at six maps of the UNet and the
+     128 in the generator, d = 96 in the classifier, batch 16), and in f32
+     at every other attention shape of the quality tools' float32 networks
+     (``proxy_f32_attn_shapes``: the 16 px ones, d = 64 and 32, and batch
+     36 as phase 16 runs them; the blocks are picked by the shape). K3 (one launch a call) at six maps of the UNet and the
      classifier, at the recipe's four and at the classifier's 256 px map at
      batch 16 must also give each group's mean and rstd
      within 1e-5 relative of the plain version's, and the same bits again.
-     K1 in bf16 (every d) must go to
-     the tensor-core kernel (``launches_mma``); beside it each bf16 case
-     logs ``F.scaled_dot_product_attention``, the f32-FMA kernel on the same
-     bf16 input (through its C entry point, for the log only) and the bound;
-     in f32 at the classifier pool's shape (T = 65, 8 heads, d = 64) and at
-     d = 96 the library call (TF32 off) and the bound at the f32 rate;
+     K1 in bf16 and f32 (every d) must go to
+     the tensor-core kernels (``launches_mma``; the f32 ones also count in
+     ``launches_f32``); beside each bf16 case and the f32 ones of
+     ``F32_TIMED_SHAPES`` (the classifier pool, the quality proxies', an f32
+     torso's T = 1024) the log has ``F.scaled_dot_product_attention`` (in
+     f32 with TF32 off), the FMA-pipe kernel on the same input (through its
+     C entry point, for the log only) and the bound, f32's at the split-TF32
+     rate;
   3b. the same for K2 (attention backward) at the classifier's shapes at
      batch 8 (guidance) and 16 (classifier_train), and in bf16 at the
      ADM-256 UNet's at batch 8 (clip_guided_sample's pred-x0 guidance), and
-     at the quality proxies' d = 96 in f32 and bf16; in
+     at the quality proxies' d = 96 in f32 and bf16 and d = 128 in f32, and
+     in f32 at (8, 1024, 8, 64) and at 3's other proxy shapes; in
      bf16 it is also held to the float64 result of the same values, where
      it may not be further off than the FMA kernel by more than f32's own
-     rounding; the f32 pool shape and d = 96 are timed against the library
-     as in 3;
+     rounding; the f32 timed shapes are timed against the library and the
+     FMA kernel as in 3;
   4b. the full-width classifier's logits and guidance gradient (batch 1,
      f32, TF32 off), card (K1, K2, K3) against the CPU (plain versions);
   5. the HTTP server (``guided_diffusion_clip_tpu_torch.serve``) built from
@@ -107,8 +113,8 @@ The deploy preset's sampling knobs and the last two kernels add:
 Training, the fork's recipe (``configs/config.yaml``: the CLIP-conditioned
 UNet at 128 px, one head at 16 and 8 px, bf16 torso, batch 48), adds:
   8a. K1 and K2 at its attention shapes (batch 48, d = 192 at T = 256 and
-      d = 256 at T = 64), f32 (the FMA-pipe kernels) and bf16 (the
-      tensor-core kernels: ``launches_mma`` rises by one each), against
+      d = 256 at T = 64), f32 and bf16 (the tensor-core kernels:
+      ``launches_mma`` rises by one each, ``launches_f32`` in f32), against
       their plain versions, the same bits again, with the library call (f32
       with TF32 off) and the bound beside them; in bf16 also the FMA kernels'
       time on the same input, K1 with 32 and with 64 query rows a block, and
@@ -393,20 +399,20 @@ Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
 the timed steps of 12b-12d, each mode's step of 13a, each tool of 14, 15 and 16, each of 17's and 18's sharded runs in
-its process) and read just after it; every bf16
+its process) and read just after it; every
 K1 and K2 launch of a main path
-(the sampling torsos at d = 64 and 96, the recipe's at d = 192 and 256) must have been a tensor-core launch, and
-the FMA-pipe kernels must have taken only the float32 calls: the classifier's attention pool,
-float32 by the reference's design (one K1 and one K2 a classifier call), and in phase 16 the
+(the sampling torsos at d = 64 and 96, the recipe's at d = 192 and 256) must have been a tensor-core launch, none
+on the FMA-pipe kernels, and the float32 launches must be the modules' float32 calls: the classifier's attention
+pool, float32 by the reference's design (one K1 and one K2 a classifier call), and in phase 16 the
 quality tools' float32 training and classifiers.
 Likewise every K5 launch of an int8 main path must have been a tensor-core
 launch but for the stems (3 channels in, 6 in the SR models) and the 6-channel
 heads (3-channel in the quality tools' proxies and their classifier), counted from the modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
-kernels, the GroupNorm kernel (K3, K4), K1/K2 at d = 64, 192 or 256 or K1 at d = 96
-fails the run (the other kernels' are printed).
+kernels, the GroupNorm kernel (K3, K4), the bf16 K1/K2 at d = 64, 192 or 256 or K1 at d = 96, or the
+float32 K1/K2 at any d fails the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
-split between their tensor-core kernels, timed at d = 64 in phases 3 and 3b,
-and their FMA-pipe kernels, timed in f32 at the classifier pool's shape there; ``bound_ms`` the least time the card
+split between their bf16 tensor-core kernels, timed at d = 64 in phases 3 and 3b,
+and their float32 ones, timed at the classifier pool's shape there; ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
 that computes the same function, timed here and used nowhere in the port),
@@ -506,9 +512,11 @@ def tf32_off() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-# the H100's data-sheet rates (SXM, dense): device memory, and operations by operand type
+# the H100's data-sheet rates (SXM, dense): device memory, and operations by operand type; "f32x3" is float32
+# work on the tensor cores as three TF32 products (the split of the float32 attention kernels) at the
+# 494.7 T/s of dense TF32: 164.9 T/s, above the FMA pipes' 67 T/s, which such a kernel can run under
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12, "f32x3": 494.7e12 / 3}
 
 
 def record(err, ms, plain_ms, nbytes, ops, op_type, library_ms=None) -> dict:
@@ -529,15 +537,16 @@ def rate(ops, ms) -> str:
 def attention_bound(B, T, H, d, backward: bool, f32: bool = False) -> dict:
     """``record``'s bound of K1 (q, k, v read, out written; the two products)
     or K2 (qkv and dO read, dqkv written; five T x T x d products: S again,
-    dP, dV, dQ, dK) in bf16, or with ``f32`` in float32 at the FMA pipes' rate."""
-    size, op_type = (4, "f32") if f32 else (2, "bf16")
+    dP, dV, dQ, dK) in bf16, or with ``f32`` in float32 at the split-TF32
+    rate ("f32x3"), for every float32 row, the FMA kernels' included."""
+    size, op_type = (4, "f32x3") if f32 else (2, "bf16")
     if backward:
         return dict(nbytes=(3 + 1 + 3) * B * T * H * d * size, ops=10 * B * H * T * T * d, op_type=op_type)
     return dict(nbytes=4 * B * T * H * d * size, ops=4 * B * H * T * T * d, op_type=op_type)
 
 
 # the classifier's attention pool at batch 8 (8 x 8 tokens and their mean; 512 channels in heads of
-# 64, new head order): float32 by the reference's design, the FMA-pipe kernels' one main-path user
+# 64, new head order): float32 by the reference's design, on the float32 tensor-core kernels
 POOL_SHAPE = (8, 65, 8, 64, True)
 # (B, T, heads, d, new_order) of the classifier's attention at 32, 16 and 8 px and of its pool, in
 # classifier_train's microbatches of 16 (CLF_TRAIN_FLAGS)
@@ -551,14 +560,51 @@ UNET_ATTN_SHAPES = [(8, 1024, 8, 64, False), (8, 256, 16, 64, False), (8, 64, 16
 PROXY_ATTN_SHAPES = [(16, 256, 4, 96, False), (16, 64, 4, 128, False), (16, 256, 2, 96, False)]
 
 
+def proxy_f32_attn_shapes() -> list:
+    """(B, T, heads, d, new_order) of every attention layer of the quality
+    tools' float32 networks (tools/_proxies.py: the 16 and 64 px generators,
+    trained in float32, and their classifiers), read off the models' plans
+    (``build_plan``), at the tools' batch 16 and phase 16's ``PHASE16_BATCH``.
+    K1 and K2 pick their blocks by (T, B * heads, d), so each shape may run a
+    block that no other case does."""
+    from guided_diffusion_clip_tpu_torch.models.unet import build_plan
+    from guided_diffusion_clip_tpu_torch.tools import _proxies as P
+
+    shapes = set()
+    for size in (16, 64):
+        for cfg, encoder in ((P.generator_config(size), False), (P.classifier_config(size), True)):
+            inp, mid, out, _ = build_plan(cfg)
+            px, ch = size, cfg.model_channels
+            for layer in (l for block in [*inp, mid, *([] if encoder else out)] for l in block):
+                if layer["kind"] == "attn":
+                    H = layer["heads"]
+                    shapes.update((B, px * px, H, ch // H, cfg.use_new_attention_order) for B in (16, PHASE16_BATCH))
+                    continue
+                ch = layer["out"]
+                if layer["kind"] == "down" or layer.get("down"):
+                    px //= 2
+                elif layer["kind"] == "up" or layer.get("up"):
+                    px *= 2
+    if not set(PROXY_ATTN_SHAPES) <= shapes:
+        raise AssertionError(f"the proxies' attention {sorted(shapes)} lacks one of {PROXY_ATTN_SHAPES}")
+    return sorted(shapes)
+
+
+# the float32 shapes whose K1 and K2 are timed against the plain version, the library call (TF32 off), the
+# FMA-pipe kernels and the bound: the pool, the quality proxies', and an f32 torso's 32 px attention
+F32_TIMED_SHAPES = [POOL_SHAPE, *PROXY_ATTN_SHAPES, (8, 1024, 8, 64, False)]
+
+
 def fma_attention(qkv, H, new, do=None):
-    """K1 (or, given ``do``, K2) on the f32 FMA pipes for a bf16 input, through
-    the C entry points: the port sends bf16 at these head widths to the
-    tensor-core kernels, so this call is for the log only."""
+    """K1 (or, given ``do``, K2) on the f32 FMA pipes (``attention_fwd.cu``,
+    ``attention_bwd.cu``, the first versions), for a float32 or bf16 input,
+    through the C entry points: the port sends every call to the tensor-core
+    kernels, so this call is a yardstick for the log and ``held_to_f64``."""
     import math
 
     import torch
 
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
     from guided_diffusion_clip_tpu_torch.ops import build
 
     B, T, W = qkv.shape
@@ -567,12 +613,13 @@ def fma_attention(qkv, H, new, do=None):
     lib, stream = build.load(), torch.cuda.current_stream(qkv.device).cuda_stream
     if do is None:
         out = torch.empty((B, T, H * d), dtype=qkv.dtype, device=qkv.device)
-        rc = lib.gdc_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, T, H, d, int(new), 1, scale, stream)
+        rc = lib.gdc_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, T, H, d, int(new), A._DTYPE_CODE[qkv.dtype],
+                                   scale, stream)
     else:
         out = torch.empty_like(qkv)
         stats = torch.empty((3, B * H, T), dtype=torch.float32, device=qkv.device)
         rc = lib.gdc_attention_bwd(qkv.data_ptr(), do.data_ptr(), out.data_ptr(), stats.data_ptr(), B, T, H, d,
-                                   int(new), 1, scale, scale * scale, stream)
+                                   int(new), A._DTYPE_CODE[qkv.dtype], scale, scale * scale, stream)
     build.check(rc, "the FMA attention kernel")
     return out
 
@@ -634,6 +681,18 @@ def attention_bwd_f64(qkv, do, H, new):
     return torch.stack(grads, dim=2 if new else 3).reshape(qkv.shape)
 
 
+def check_attention_launch(name, fn, dtype, n_mma, n_f32) -> None:
+    """One K1 or K2 call (``fn`` its wrapper, ``n_mma`` and ``n_f32`` its
+    counts before it): on the tensor cores (bf16 and float32 at every d) and
+    counted as float32 for a float32 input."""
+    import torch
+
+    want = (1, int(dtype == torch.float32))
+    got = (fn.launches_mma - n_mma, fn.launches_f32 - n_f32)
+    if got != want:
+        raise AssertionError(f"{name}: {got[0]} launches on the tensor cores and {got[1]} counted float32, want {want}")
+
+
 def phase3_kernels(dev):
     """Each kernel against its plain version; returns the headline records."""
     import torch
@@ -674,36 +733,40 @@ def phase3_kernels(dev):
         # (d = 96 and 128, bf16 sampling, f32 training) and the classifier's 2 at 16 px (d = 96, f32)
         *PROXY_ATTN_SHAPES,
     ]
+    # then, in float32, the rest of the quality proxies' float32 shapes (the 16 px networks', phase 16's batch)
+    attn_cases = [(c, (torch.float32, torch.bfloat16)) for c in attn_cases] + [
+        (c, (torch.float32,)) for c in proxy_f32_attn_shapes() if c not in PROXY_ATTN_SHAPES]
     with torch.inference_mode():
-        for B, T, H, d, new in attn_cases:
-            for dtype in (torch.float32, torch.bfloat16):
+        for (B, T, H, d, new), dtypes in attn_cases:
+            for dtype in dtypes:
                 qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
-                n_mma = A.attention_fwd_cuda.launches_mma
+                n_mma, n_f32 = A.attention_fwd_cuda.launches_mma, A.attention_fwd_cuda.launches_f32
                 out = A.attention_fwd_cuda(qkv, H, new_order=new)
                 ref = A.qkv_attention_plain(qkv, H, new_order=new)
                 torch.cuda.synchronize()
                 name = f"K1 attention B={B} T={T} heads={H} d={d} {'new' if new else 'legacy'} {str(dtype)[6:]}"
-                mma = dtype == torch.bfloat16 and d in A.MMA_HEAD_DIMS
-                if A.attention_fwd_cuda.launches_mma - n_mma != int(mma):
-                    raise AssertionError(f"{name}: {'not ' if mma else ''}launched on the tensor cores")
+                check_attention_launch(name, A.attention_fwd_cuda, dtype, n_mma, n_f32)
                 err, bound = check(name, out, ref, dtype, "attn")
                 if not torch.equal(A.attention_fwd_cuda(qkv, H, new_order=new), out):
                     raise AssertionError(f"{name}: a repeat run gave other bits")
                 ms = cuda_ms(lambda: A.attention_fwd_cuda(qkv, H, new_order=new))
                 pms = cuda_ms(lambda: A.qkv_attention_plain(qkv, H, new_order=new))
                 log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
-                    f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-                if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE or d == 96:
+                    f"(mma.sync{' TF32 x3' if dtype == torch.float32 else ''}), plain {pms:.4f} ms")
+                if dtype == torch.bfloat16 or (B, T, H, d, new) in F32_TIMED_SHAPES:
                     q, k, v = (t.permute(0, 2, 1, 3) for t in A.split_qkv(qkv, H, new))
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                    rec = record(err, ms, pms, **attention_bound(B, T, H, d, False, not mma), library_ms=lib)
-                    fma = f", the FMA kernel {cuda_ms(lambda: fma_attention(qkv, H, new)):.4f} ms" if mma else ""
-                    log(f"    F.scaled_dot_product_attention on the same q, k, v: {lib:.4f} ms{fma}; bound "
-                        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                    if (B, T, H, d, new) == (8, 1024, 8, 64, False):
+                    rec = record(err, ms, pms, **attention_bound(B, T, H, d, False, dtype == torch.float32),
+                                 library_ms=lib)
+                    fma = cuda_ms(lambda: fma_attention(qkv, H, new))
+                    off = " (TF32 off)" if dtype == torch.float32 else ""
+                    log(f"    F.scaled_dot_product_attention on the same q, k, v{off}: {lib:.4f} ms, the FMA kernel "
+                        f"{fma:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), the kernel "
+                        f"{ms / rec['bound_ms']:.1f}x the bound")
+                    if (B, T, H, d, new, dtype) == (8, 1024, 8, 64, False, torch.bfloat16):
                         records["attention"] = rec
-                    elif not mma and (B, T, H, d, new) == POOL_SHAPE:
-                        records["attention_fma"] = rec
+                    elif (B, T, H, d, new, dtype) == (*POOL_SHAPE, torch.float32):
+                        records["attention_f32"] = rec
 
         # the UNet's 256 px maps (256, 512 channels), 128 px, 32 px, 8 px, the classifier's 256 px, and the
         # training recipe's maps (64 channels is 2 a group)
@@ -756,8 +819,8 @@ def phase3b_attention_bwd(dev):
     """K2 against attention_bwd_plain at the classifier's shapes (batch 8 as
     guidance runs it, 16 as classifier_train does) and, in bf16, the ADM-256
     UNet's at batch 8 (clip_guided_sample); returns the headline records: the
-    tensor-core kernel's (batch 8, T = 1024, 4 heads, bf16) and the FMA
-    kernel's (the pool at batch 8, f32)."""
+    bf16 kernel's (batch 8, T = 1024, 4 heads) and the float32 kernel's (the
+    pool at batch 8)."""
     import torch
     import torch.nn.functional as F
 
@@ -765,26 +828,28 @@ def phase3b_attention_bwd(dev):
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(5)
-    both, bf16 = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)), ((torch.bfloat16, 2e-2),)
+    f32, bf16 = ((torch.float32, 1e-4),), ((torch.bfloat16, 2e-2),)
+    both = f32 + bf16
     cases = [  # (B, T, heads, d, new_order), dtypes: the classifier's blocks at batch 8, then its pool
         *((c, both) for c in [(8, 1024, 4, 64, False), (8, 256, 8, 64, False), (8, 64, 8, 64, False), POOL_SHAPE]),
         *((c, both) for c in CLF_TRAIN_ATTN_SHAPES), *((c, bf16) for c in UNET_ATTN_SHAPES),
-        # the 64 px quality proxies' d = 96 (float32 on their paths: the classifier's gradient, training)
-        *((c, both) for c in PROXY_ATTN_SHAPES if c[3] == 96),
+        # the 64 px quality proxies' (float32 on their paths: the classifier's gradient at d = 96, training at
+        # d = 96 and 128), and an f32 torso's 32 px attention
+        *((c, both if c[3] == 96 else f32) for c in PROXY_ATTN_SHAPES), ((8, 1024, 8, 64, False), f32),
+        # the rest of the quality proxies' float32 shapes (the 16 px networks', phase 16's batch)
+        *((c, f32) for c in proxy_f32_attn_shapes() if c not in PROXY_ATTN_SHAPES),
     ]
     records = {}
     for (B, T, H, d, new), dtypes in cases:
         for dtype, tol in dtypes:
             qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
             do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
-            n_mma = A.attention_bwd_cuda.launches_mma
+            n_mma, n_f32 = A.attention_bwd_cuda.launches_mma, A.attention_bwd_cuda.launches_f32
             out = A.attention_bwd_cuda(qkv, do, H, new_order=new)
             ref = A.qkv_attention_bwd_plain(qkv, do, H, new)
             torch.cuda.synchronize()
             name = f"K2 attention_bwd B={B} T={T} heads={H} d={d} {'new' if new else 'legacy'} {str(dtype)[6:]}"
-            mma = dtype == torch.bfloat16 and d in A.MMA_HEAD_DIMS
-            if A.attention_bwd_cuda.launches_mma - n_mma != int(mma):
-                raise AssertionError(f"{name}: {'not ' if mma else ''}launched on the tensor cores")
+            check_attention_launch(name, A.attention_bwd_cuda, dtype, n_mma, n_f32)
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
             bound = f"|d| <= {tol:g}*max(1,|ref|)"
@@ -795,19 +860,21 @@ def phase3b_attention_bwd(dev):
             ms = cuda_ms(lambda: A.attention_bwd_cuda(qkv, do, H, new_order=new))
             pms = cuda_ms(lambda: A.qkv_attention_bwd_plain(qkv, do, H, new))
             log(f"  {name}: max|d| {err:.3g} ({bound}), repeat bit-identical; kernel {ms:.4f} ms "
-                f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms")
-            if dtype == torch.bfloat16 or (B, T, H, d, new) == POOL_SHAPE or d == 96:
+                f"(mma.sync{' TF32 x3' if dtype == torch.float32 else ''}), plain {pms:.4f} ms")
+            if dtype == torch.bfloat16 or (B, T, H, d, new) in F32_TIMED_SHAPES:
                 q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in A.split_qkv(qkv, H, new))
                 with torch.enable_grad():
                     o = F.scaled_dot_product_attention(q, k, v)
                 dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
                 lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True))
-                rec = record(err, ms, pms, **attention_bound(B, T, H, d, True, not mma), library_ms=lib)
-            if not mma and ((B, T, H, d, new) == POOL_SHAPE or d == 96):
-                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do: {lib:.4f} ms; bound "
-                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, at the f32 rate)")
+                rec = record(err, ms, pms, **attention_bound(B, T, H, d, True, dtype == torch.float32), library_ms=lib)
+            if dtype == torch.float32 and (B, T, H, d, new) in F32_TIMED_SHAPES:
+                fma_ms = cuda_ms(lambda: fma_attention(qkv, H, new, do))
+                log(f"    backward of F.scaled_dot_product_attention on the same q, k, v, do (TF32 off): {lib:.4f} ms, "
+                    f"the FMA kernel {fma_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, at the "
+                    f"split-TF32 rate), the kernel {ms / rec['bound_ms']:.1f}x the bound")
                 if (B, T, H, d, new) == POOL_SHAPE:
-                    records["attention_bwd_fma"] = rec
+                    records["attention_bwd_f32"] = rec
             if dtype == torch.bfloat16:
                 fma = fma_attention(qkv, H, new, do)
                 fma_err = (fma.float() - ref.float()).abs().max().item()
@@ -1271,44 +1338,50 @@ def reset_counters() -> None:
 
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_mma"):
-            fn.launches_mma = 0
+        for part in ("launches_mma", "launches_f32"):
+            if hasattr(fn, part):
+                setattr(fn, part, 0)
 
 
 def tensor_core_split(launches: dict) -> dict:
     """A path's ``counters()``, read just before with no launch since, plus the
-    K1 and K2 launches that ran on the FMA-pipe kernels (``attention_fwd.cu``,
-    ``attention_bwd.cu``: float32 calls, every bf16 one runs the tensor-core
-    kernels) as ``attention_fma`` and ``attention_bwd_fma``; ``attention``
-    and ``attention_bwd`` keep counting both kernels."""
+    K1 and K2 launches on float32 input, which run the float32 tensor-core
+    kernels (``attention_fwd_f32mma.cu``, ``attention_bwd_f32mma.cuh``), as
+    ``attention_f32`` and ``attention_bwd_f32``; ``attention`` and
+    ``attention_bwd`` keep counting both dtypes. Raises if a K1 or K2 launch of
+    the path ran on the FMA-pipe kernels, which no call should reach."""
     from guided_diffusion_clip_tpu_torch.ops import attention as A
 
-    return {**launches, "attention_fma": launches["attention"] - A.attention_fwd_cuda.launches_mma,
-            "attention_bwd_fma": launches["attention_bwd"] - A.attention_bwd_cuda.launches_mma}
+    for name, fn in (("K1", A.attention_fwd_cuda), ("K2", A.attention_bwd_cuda)):
+        if fn.launches != fn.launches_mma:
+            raise AssertionError(f"{fn.launches - fn.launches_mma} of {name}'s {fn.launches} launches ran on the FMA "
+                                 f"pipes")
+    return {**launches, "attention_f32": A.attention_fwd_cuda.launches_f32,
+            "attention_bwd_f32": A.attention_bwd_cuda.launches_f32}
 
 
 def f32_attention_calls(clf) -> int:
     """Attention calls of one classifier forward that are float32 by the
     reference's design: the attention pool keeps f32 in a bf16 classifier, so
-    its K1 (and K2) stays on the FMA-pipe kernels, which are exact to 1e-4."""
+    its K1 (and K2) runs the float32 tensor-core kernels, exact to 1e-4."""
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionPool2d
 
     return sum(isinstance(m, AttentionPool2d) for m in clf.modules())
 
 
 def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> None:
-    """After a main path (bf16 torsos): every bf16 K1 and K2 launch since the
-    counts were reset ran on the tensor cores; the FMA-pipe kernels took the
-    ``k1_f32`` and ``k2_f32`` float32 calls and nothing else."""
+    """After a main path (bf16 torsos): every K1 and K2 launch since the
+    counts were reset ran on the tensor cores, none on the FMA-pipe kernels,
+    and the float32 ones (the split-TF32 kernels) were the ``k1_f32`` and
+    ``k2_f32`` float32 calls of the path's modules, no more and no fewer."""
     from guided_diffusion_clip_tpu_torch.ops import attention as A
 
     for name, fn, f32 in (("K1", A.attention_fwd_cuda, k1_f32), ("K2", A.attention_bwd_cuda, k2_f32)):
-        if fn.launches - fn.launches_mma != f32:
+        if fn.launches != fn.launches_mma or fn.launches_f32 != f32:
             raise AssertionError(f"{path}: {fn.launches_mma} of {name}'s {fn.launches} launches ran on the tensor "
-                                 f"cores, with {f32} float32 calls")
-    log(f"  {path}: {A.attention_fwd_cuda.launches_mma} of {A.attention_fwd_cuda.launches} K1 and "
-        f"{A.attention_bwd_cuda.launches_mma} of {A.attention_bwd_cuda.launches} K2 launches ran on the tensor cores: "
-        f"every bf16 one (float32 calls: {k1_f32} and {k2_f32})")
+                                 f"cores, {fn.launches_f32} on float32 input, with {f32} float32 calls")
+    log(f"  {path}: all {A.attention_fwd_cuda.launches} K1 and {A.attention_bwd_cuda.launches} K2 launches ran on the "
+        f"tensor cores, float32 (split TF32) {k1_f32} and {k2_f32}: the modules' float32 calls")
 
 
 def dp4a_convs(model) -> int:
@@ -2284,10 +2357,10 @@ def train_counts(model, remat: bool) -> dict:
 
 def phase8a_attention(dev) -> None:
     """K1 and K2 at the recipe's shapes (batch 48, one head, d = 192 at T = 256
-    and d = 256 at T = 64) against their plain versions, f32 (TF32 off; the
-    FMA-pipe kernels) and bf16 (the tensor-core kernels, as the training path
-    runs them), the same bits on a repeat, with the library call and the bound
-    beside each. In bf16 also: the FMA kernels' time on the same input, K1
+    and d = 256 at T = 64) against their plain versions, f32 (TF32 off) and
+    bf16 (as the training path runs them), all on the tensor-core kernels, the
+    same bits on a repeat, with the library call and the bound beside each,
+    and the FMA kernels' time on the same input. In bf16 also: K1
     with 32 and with 64 query rows a block through its C entry point, and both
     kernels held to the float64 result beside the FMA kernels (``held_to_f64``)."""
     import torch
@@ -2306,23 +2379,21 @@ def phase8a_attention(dev) -> None:
             with torch.enable_grad():
                 o = F.scaled_dot_product_attention(q, k, v)
             dob = do.reshape(B, T, H, d).permute(0, 2, 1, 3)
-            mma = dtype == torch.bfloat16
             for name, fn, kernel, plain, library, fma, bound in (
                 ("K1 attention", A.attention_fwd_cuda, lambda: A.attention_fwd_cuda(qkv, H),
                  lambda: A.qkv_attention_plain(qkv, H),
                  lambda: F.scaled_dot_product_attention(q.detach(), k.detach(), v.detach()),
-                 lambda: fma_attention(qkv, H, False), attention_bound(B, T, H, d, False, not mma)),
+                 lambda: fma_attention(qkv, H, False), attention_bound(B, T, H, d, False, dtype == torch.float32)),
                 ("K2 attention_bwd", A.attention_bwd_cuda, lambda: A.attention_bwd_cuda(qkv, do, H),
                  lambda: A.qkv_attention_bwd_plain(qkv, do, H, False),
                  lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True),
-                 lambda: fma_attention(qkv, H, False, do), attention_bound(B, T, H, d, True, not mma)),
+                 lambda: fma_attention(qkv, H, False, do), attention_bound(B, T, H, d, True, dtype == torch.float32)),
             ):
                 label = f"{name} B={B} T={T} heads={H} d={d} {str(dtype)[6:]}"
-                n_mma = fn.launches_mma
+                n_mma, n_f32 = fn.launches_mma, fn.launches_f32
                 out, ref = kernel(), plain()
                 torch.cuda.synchronize()
-                if fn.launches_mma - n_mma != int(mma):
-                    raise AssertionError(f"{label}: {'not ' if mma else ''}launched on the tensor cores")
+                check_attention_launch(label, fn, dtype, n_mma, n_f32)
                 diff = (out.float() - ref.float()).abs()
                 if dtype == torch.float32 and name.startswith("K1"):
                     tol, ok = "max|d| <= 1e-4", bool(diff.max() <= 1e-4)
@@ -2336,12 +2407,14 @@ def phase8a_attention(dev) -> None:
                 ms, pms, lib = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
                 rec = record(diff.max().item(), ms, pms, **bound, library_ms=lib)
                 log(f"  {label}: max|d| {rec['max_abs_err']:.3g} ({tol}), repeat bit-identical; kernel {ms:.4f} ms "
-                    f"({'mma.sync' if mma else 'FMA pipes'}), plain {pms:.4f} ms, library {lib:.4f} ms, bound "
-                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {ms / rec['bound_ms']:.1f}x the bound")
-                if not mma:
-                    continue
+                    f"(mma.sync{' TF32 x3' if dtype == torch.float32 else ''}), plain {pms:.4f} ms, library "
+                    f"{lib:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), {ms / rec['bound_ms']:.1f}x "
+                    f"the bound")
                 fma_out, fma_ms = fma(), cuda_ms(fma)
                 line = f"    the FMA kernel on the same input {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the tensor-core kernel)"
+                if dtype == torch.float32:
+                    log(line)
+                    continue
                 if name.startswith("K1"):
                     lib_c, stream, scale = build.load(), torch.cuda.current_stream(dev).cuda_stream, 1 / math.sqrt(math.sqrt(d))
 
@@ -2627,7 +2700,7 @@ def phase8c_cli(dev, tmp):
 
 TIMED_STEPS = 5  # the timed steps of 8d, 8e and 12b (10 until PR 20)
 # the respaced steps of 8c's and 12b's validation chains at their save (100 until PR 20, 1000 before PR 15)
-VAL_STEPS = 50
+VAL_STEPS = 25
 
 
 def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=TIMED_STEPS, **over) -> dict:
@@ -2674,8 +2747,8 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=TIMED_STEPS, **over) ->
     got = {k: counts[k] for k in want}
     if got != want or any(v for k, v in counts.items() if k not in want):
         raise AssertionError(f"{tag}: launches {counts} over {n_steps} steps, want {want} and no other kernel")
-    if split["attention_fma"] or split["attention_bwd_fma"]:
-        raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on the FMA pipes: {split}")
+    if split["attention_f32"] or split["attention_bwd_f32"]:
+        raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on float32 input: {split}")
     if loop.model.int8:
         check_conv_tensor_core_launches(tag, n_steps * dp4a_convs(loop.model))
     loop.flush_metrics()
@@ -2826,7 +2899,7 @@ def phase8e_int8_train(dev, tmp) -> dict:
 # ---------------------------------------------------------------------------
 
 # the respaced steps of phase 9's and 9b's chains (the config's 100 until PR 20)
-SAMPLE_STEPS = 50
+SAMPLE_STEPS = 25
 SAMPLE_MODES = [  # (name, flags, the config's keys changed)
     ("bf16", [], {}),
     ("int8", ["--conv_impl", "int8"], {}),
@@ -3076,7 +3149,7 @@ def phase9b_repeat(dev, tmp, run_dir) -> dict:
     return tensor_core_split(launches)
 
 
-NLL_STEPS = 100  # 9c's schedule; 1000 once, whose other 900 forwards repeated phase 9's bf16 forward at batch 8
+NLL_STEPS = 50  # 9c's schedule
 
 
 def phase9c_nll(dev, tmp, run_dir) -> dict:
@@ -3133,7 +3206,7 @@ SR_FLAGS = ["--large_size", "128", "--small_size", "64", "--num_channels", "64",
             "--num_heads", "1", "--learn_sigma", "True", "--use_fp16", "True", "--noise_schedule", "cosine",
             "--diffusion_steps", "1000"]
 SR_SAMPLE_BATCH = 16  # super_res_sample's default batch
-SR_SAMPLE_STEPS = 50  # 100 until PR 20
+SR_SAMPLE_STEPS = 25
 
 
 def run_counted(main, argv, env=None) -> tuple:
@@ -3474,7 +3547,7 @@ def clf_train_counts(clf) -> dict:
     """K1, K2 and K3 launches of one classifier microbatch's forward and
     backward, from its modules: every attention block and the attention pool
     run K1 forward and K2 backward, every GroupNorm K3 (its backward is
-    PyTorch ops); the pool is float32, on the FMA-pipe kernels."""
+    PyTorch ops); the pool is float32, on the float32 tensor-core kernels."""
     from guided_diffusion_clip_tpu_torch.models.nn import GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d
 
@@ -4102,10 +4175,10 @@ def check_dist_launches(tag, loop, launches) -> dict:
     the tensor cores; under int8 every K5 but the stems' and the head's)."""
     want = train_counts(loop.model, False)
     got = {k: launches[k] for k in want}
-    if got != want or any(v for k, v in launches.items() if k not in want and not k.endswith("_fma")):
+    if got != want or any(v for k, v in launches.items() if k not in want and not k.endswith("_f32")):
         raise AssertionError(f"13a {tag}: launches {launches}, want {want} and no other kernel")
-    if launches["attention_fma"] or launches["attention_bwd_fma"]:
-        raise AssertionError(f"13a {tag}: K1/K2 at d = 192 and 256 ran on the FMA pipes: {launches}")
+    if launches["attention_f32"] or launches["attention_bwd_f32"]:
+        raise AssertionError(f"13a {tag}: K1/K2 at d = 192 and 256 ran on float32 input: {launches}")
     if loop.model.int8:
         check_conv_tensor_core_launches(f"13a {tag}", dp4a_convs(loop.model))
     return launches
@@ -4337,7 +4410,7 @@ TOOL_AGREEMENT = (0.8, 1.25)  # a tool's device ms over the phase's that measure
 # one window of the tool's default length, ended by the metrics' flush and a sync (a second window repeated
 # the first's measurement)
 TSB_ENV = {"TSB_CONFIG": "fork128", "TSB_REPEATS": "1", "TSB_WINDOW": "5"}  # a window of 10 until PR 20
-BD_BATCH, BD_REPS = 8, 8  # perf_breakdown at phase 6's batch, its default repeats
+BD_BATCH, BD_REPS = 8, 4  # perf_breakdown at phase 6's batch, half its default repeats
 SB_ENV = {"SB_REQUESTS": "3"}
 # the parts of perf_breakdown against profile_guided_step's
 BD_PARTS = {"unet_fwd_ms": "UNet forward", "cls_fwd_ms": "classifier forward",
@@ -4387,7 +4460,7 @@ def phase14a_train_step_bench(timed: dict) -> list:
                                                      "window_steps", "flops_per_step", "model_tflops_per_s",
                                                      "device_ms_per_step"))
         want = expected(launches, (steps, per_step))
-        want.update(attention_fma=0, attention_bwd_fma=0)
+        want.update(attention_f32=0, attention_bwd_f32=0)
         log(f"  train_step_bench {impl}: {row} ({secs:.1f} s in all); launches {launches} (expected {want}: "
             f"{steps} steps of {per_step})")
         if launches != want or row["card"] != smi() or row["window_steps"] != window:
@@ -4444,7 +4517,7 @@ def phase14b_perf_breakdown(guided_parts: dict, guided_device: dict) -> dict:
                                       "per_sample_step_ms", "proj_samples_per_min_250"])
     # the parts: a UNet forward; a classifier forward; its forward and backward; the whole step (all of them)
     want = expected(launches, (calls, unet), (calls, clf_fwd), (calls, clf_grad), (calls, unet), (calls, clf_grad))
-    want.update(attention_fma=3 * calls * pools, attention_bwd_fma=2 * calls * pools)
+    want.update(attention_f32=3 * calls * pools, attention_bwd_f32=2 * calls * pools)
     log(f"  perf_breakdown {BD_BATCH}: {row} ({secs:.1f} s in all); launches {launches} (expected {want}: "
         f"{calls} calls a part)")
     if launches != want or row["card"] != smi() or row["batch"] != BD_BATCH:
@@ -4482,17 +4555,18 @@ def phase14c_serve_bench(tmp) -> dict:
                                    "warm_latency_median_s", "sustained_sec_per_request", "requests_per_min",
                                    "samples_per_min"))
     got = server["kernel_launches"]
-    launches = {k: v for k, v in got.items() if not k.endswith("_mma")}
+    launches = {k: v for k, v in got.items() if not k.endswith(("_mma", "_f32"))}
     forwards = server["forwards"]
     want = expected(launches, (forwards, per))
     log(f"  serve_bench: {out} ({secs:.1f} s in all); the server's /healthz: {server['dispatches']} chains, "
         f"{forwards} forwards, launches {got} (expected {want}: a forward {per})")
     # two warm-up chains, the first request, and n_req timed and n_req back-to-back ones, 25 steps each
     if (server["dispatches"] != 3 + 2 * n_req or forwards != 25 * server["dispatches"] or launches != want
-            or got["attention_mma"] != got["attention"] or got["conv_s8"] - got["conv_s8_mma"] != forwards * dp4a
+            or got["attention_mma"] != got["attention"] or got["attention_f32"]
+            or got["conv_s8"] - got["conv_s8_mma"] != forwards * dp4a
             or out["card"] != smi()):
         raise AssertionError(f"serve_bench: the server ran {server}, want {want}")
-    return {**launches, "attention_fma": 0, "attention_bwd_fma": 0}
+    return {**launches, "attention_f32": 0, "attention_bwd_f32": 0}
 
 
 def phase14d_block_microbench() -> dict:
@@ -4506,7 +4580,7 @@ def phase14d_block_microbench() -> dict:
         check_row("block_microbench", row, [k for k in row if k not in ("shape", "card")])
     n = len(block_microbench.SHAPES) * 61
     want = expected(launches, (n, {"group_norm": 2, "group_norm_quant": 2, "conv_s8": 1}))
-    want.update(attention_fma=0, attention_bwd_fma=0)
+    want.update(attention_f32=0, attention_bwd_f32=0)
     log(f"  block_microbench ({secs:.1f} s): launches {launches} (expected {want})")
     if len(rows) != 4 or launches != want or any(r["card"] != smi() for r in rows):
         raise AssertionError(f"block_microbench: launches {launches} != {want}, or rows {rows}")
@@ -4571,7 +4645,7 @@ def check_bench(tool: str, launches: dict, calls: list, counts: dict) -> dict:
         pools += c["pools"] * n.get("clf", 0)
         dp4a += sum(c["dp4a"][k] * n.get(k, 0) for k in ("full", "shallow", "clf"))
     want = expected(launches, *terms)
-    want.update(attention_fma=pools, attention_bwd_fma=pools)
+    want.update(attention_f32=pools, attention_bwd_f32=pools)
     log(f"  {tool}: launches {launches} (expected {want}: network calls {calls})")
     if launches != want:
         raise AssertionError(f"{tool}: launch counts {launches} != {want}")
@@ -4694,7 +4768,7 @@ def proxy_counts(size: int) -> dict:
     and ``shallow`` bf16 or int8 generator forwards (the default DeepCache
     cut), ``clf`` a guidance call of the float32 classifier (forward and
     backward; xla or int8), ``clf_fwd`` its forward alone; ``attn`` the
-    classifier's attention blocks (float32: the FMA-pipe kernels), ``dp4a``
+    classifier's attention blocks (float32: the float32 tensor-core kernels), ``dp4a``
     each int8 call's convs on ``__dp4a``."""
     import torch
 
@@ -4777,7 +4851,7 @@ def phase16_quality_tools() -> list:
         finite_numbers(tool, row)
         terms, k1_f32, dp4a = plans[tool]
         want = expected(launches, *terms)
-        want.update(attention_fma=k1_f32, attention_bwd_fma=want["attention_bwd"])
+        want.update(attention_f32=k1_f32, attention_bwd_f32=want["attention_bwd"])
         log(f"  {tool}: launches {launches} (expected {want})")
         if launches != want:
             raise AssertionError(f"{tool}: launch counts {launches} != {want}")
@@ -5481,16 +5555,17 @@ def check_ptxas(build_log: str) -> None:
     # the kernel ptxas is reporting on: a tensor-core attention kernel as name<d> (K1's as name<d, warps>),
     # any other by its (mangled) name; a spill fails the run in the former at d = 64 (the sampling paths),
     # 192 and 256 (training), in K1's at d = 96 (the 64 px quality proxies' bf16 sampling; their K2 runs in
-    # float32, and K2's tensor-core dK/dV kernel spills at d = 96 as at 128) and in a kernel of the convs',
+    # float32, and K2's bf16 dK/dV kernel spills at d = 96 as at 128), in the float32 ones at every d, and in
+    # a kernel of the convs',
     # the quantizer's and the GroupNorms' sources, which were built without any
     entry, on_path = "", False
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"(attention_[a-z_]+_kernel)I((?:Li\d+E)+)E", line)
+            found = re.search(r"\d(attention_[a-z0-9_]+_kernel)I((?:Li\d+E)+)E", line)
             mangled = re.search(r"Compiling entry function '(\w+)'", line)
             args = re.findall(r"\d+", found.group(2)) if found else []
             entry = f"{found.group(1)}<{', '.join(args)}>" if found else mangled.group(1) if mangled else ""
-            on_path = bool(args) and (args[0] in ("64", "192", "256")
+            on_path = bool(args) and (args[0] in ("64", "192", "256") or "f32mma" in found.group(1)
                                       or (args[0] == "96" and found.group(1) == "attention_fwd_mma_kernel"))
             found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
                               r"quantize_kernel|gn_fused_kernel)(\w*)'", line)
@@ -5726,20 +5801,20 @@ def main(argv=None) -> int:
         f"{split_vs_one['K3'][1]:.4f} ms; K4 {split_vs_one['K4'][0]:.4f} ms, {split_vs_one['K4'][1]:.4f} ms")
     log(f"  phases 17 and 18 took {time.perf_counter() - t17:.1f} s")
 
-    # K1 and K2 run on two kernels each: the tensor-core ones (bf16: the sampling paths at d = 64, training at
-    # d = 192 and 256) and the FMA-pipe ones (f32: the classifier's attention pool)
+    # K1 and K2 run on two tensor-core kernels each: bf16 (the sampling paths at d = 64, training at d = 192 and
+    # 256) and float32 (split TF32: the classifier's attention pool, the quality tools' f32 training)
     for run in runs:
-        run["attention"] -= run["attention_fma"]
-        run["attention_bwd"] -= run["attention_bwd_fma"]
+        run["attention"] -= run["attention_f32"]
+        run["attention_bwd"] -= run["attention_bwd_f32"]
     kernels = []
     for name, src, replaces in (
         ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
-        ("attention_fma", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd.cu",
+        ("attention_f32", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd_f32mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:27"),
         ("attention_bwd", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd_mma.cu",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
-        ("attention_bwd_fma", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd.cu",
+        ("attention_bwd_f32", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_bwd_f32mma.cuh",
          "guided_diffusion_clip_tpu/ops/pallas_attention.py:46"),
         ("group_norm", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),

@@ -4,7 +4,8 @@
 def kernel_wrappers() -> dict:
     """Kernel name -> the wrapper that launches it and counts its launches
     (``.launches``; K1's, K2's and K5's also ``.launches_mma``, those that ran
-    on the tensor-core kernels): K1 ``attention``, K2 ``attention_bwd``, K3
+    on the tensor-core kernels, and K1's and K2's ``.launches_f32``, those on
+    float32 input): K1 ``attention``, K2 ``attention_bwd``, K3
     ``group_norm``, K4 ``group_norm_quant``, K5 ``conv_s8``, the quantize
     kernels ``quantize``, K6 ``conv_fused``, K7 ``mma_probe``; and the entries
     that K3, K4 and the quantize kernels are split into on a row shard
@@ -30,8 +31,11 @@ def kernel_wrappers() -> dict:
 
 def launch_counts() -> dict:
     """Every kernel's launches in this process, by ``kernel_wrappers``' names,
-    and as ``<name>_mma`` the tensor-core share of K1's, K2's and K5's."""
+    as ``<name>_mma`` the tensor-core share of K1's, K2's and K5's, and as
+    ``<name>_f32`` the float32 share of K1's and K2's."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
-    out.update({f"{name}_mma": fn.launches_mma for name, fn in wrappers.items() if hasattr(fn, "launches_mma")})
+    for part in ("mma", "f32"):
+        out.update({f"{name}_{part}": getattr(fn, f"launches_{part}") for name, fn in wrappers.items()
+                    if hasattr(fn, f"launches_{part}")})
     return out

@@ -20,21 +20,32 @@ card and ``attention_bwd_plain`` on the CPU; the gradient comes back as
 Kernel K1 replaces ``guided_diffusion_clip_tpu/ops/pallas_attention.py::
 _attn_kernel``, kernel K2 ``_attn_bwd_kernel``. On the H100 both are
 compute-bound at the UNet's T = 1024 (4*T*T*d FLOPs per head against 4*T*d
-elements moved, the backward a few times that). Each exists twice, and the
-wrappers pick by the tensor's dtype, with no setting:
+elements moved, the backward a few times that). Each runs on the tensor
+cores, on a kernel picked by the tensor's dtype, with no setting:
 
   - bfloat16 (every d of ``MMA_HEAD_DIMS``, which is ``KERNEL_HEAD_DIMS``):
     ``csrc/attention_fwd_mma.cu`` and ``csrc/attention_bwd_mma.cu``, every
-    product on the tensor cores (``mma.sync`` bf16 with f32 sums, operands
-    brought by ``cp.async`` and ``ldmatrix``); K2 feeds its f32 P and dS as
-    three bf16 terms that hold all 24 mantissa bits. At d = 192 and 256 (the
-    128 px training recipe's one-head attention) K1 reloads Q's fragments at
-    each k-step and streams 32-key tiles, with 64 or 32 query rows a block
-    (``fwd_q_rows``), and K2's dK/dV kernel gives dV and dK to separate warps.
-    They count in ``launches_mma`` as well as in ``launches``;
-  - float32 (any d of ``KERNEL_HEAD_DIMS``): ``csrc/attention_fwd.cu`` and
-    ``csrc/attention_bwd.cu`` on the f32 FMA pipes, exact to 1e-4. The
-    classifier's attention pool is their one user on a main path.
+    product ``mma.sync`` bf16 with f32 sums, operands brought by ``cp.async``
+    and ``ldmatrix``; K2 feeds its f32 P and dS as three bf16 terms that hold
+    all 24 mantissa bits. At d = 192 and 256 (the 128 px training recipe's
+    one-head attention) K1 reloads Q's fragments at each k-step and streams
+    32-key tiles, with 64 or 32 query rows a block (``fwd_q_rows``), and K2's
+    dK/dV kernel gives dV and dK to separate warps;
+  - float32 (every d of ``MMA_HEAD_DIMS`` too):
+    ``csrc/attention_fwd_f32mma.cu`` and ``csrc/attention_bwd_f32mma.cuh``
+    (launched from ``attention_bwd_f32mma.cu`` and ``_dkv.cu``), every product
+    ``mma.sync`` m16n8k8 on TF32 with each f32 operand split into two TF32
+    terms (three mma a product: 2^-22 relative, within 1e-4 where one TF32
+    rounding is not), blocks of 4 warps over 64, 32 or 16 query (K2:
+    stationary) rows, the smaller two splitting each K/V tile between warps
+    (``f32_rows``; K2's ``f32_bwd_rows``). The classifier's attention pool
+    (T = 65, float32 by the reference's design) and every f32 torso run them.
+
+``launches`` counts every launch, ``launches_mma`` those on the tensor cores
+(bf16 and f32: every one), ``launches_f32`` the float32 ones. The first f32
+versions on the FMA pipes (``csrc/attention_fwd.cu``, ``attention_bwd.cu``)
+take no call of the port: they stay built as a yardstick, reached through
+their C entry points.
 
 All run an online softmax over K/V tiles, so shared memory stays O(tile*d)
 where the TPU kernel held a whole head's K/V in VMEM; K2 is a Q-stationary
@@ -58,7 +69,7 @@ from . import build
 # tools/_proxies.py); 192 and 256 are the fork's 128 px recipe (num_heads 1 at
 # C = 192 and 256); 32 is the tests' narrow models'.
 KERNEL_HEAD_DIMS = (32, 64, 96, 128, 192, 256)
-# d values the tensor-core kernels (bfloat16 only) are instantiated for: all of them
+# d values the tensor-core kernels are instantiated for, bfloat16 and float32: all of them
 MMA_HEAD_DIMS = KERNEL_HEAD_DIMS
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,11 +143,6 @@ def qkv_attention_bwd_plain(qkv, do, num_heads: int, new_order: bool) -> torch.T
     return torch.stack(grads, dim=2 if new_order else 3).reshape(qkv.shape)
 
 
-def _use_mma(dtype: torch.dtype, d: int) -> bool:
-    """Whether K1 and K2 run on the tensor cores for this dtype and head dim."""
-    return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
-
-
 def fwd_q_rows(T: int, bh: int, d: int, sms: int) -> int:
     """Query rows of a block of K1's tensor-core kernel: 64, or at d = 192 and
     256 (the only widths built with two-warp blocks) 32 where blocks of 64
@@ -145,6 +151,41 @@ def fwd_q_rows(T: int, bh: int, d: int, sms: int) -> int:
     if d <= 128 or -(-T // 64) * bh >= sms:
         return 64
     return 32
+
+
+def f32_rows(T: int, bh: int, d: int, sms: int) -> int:
+    """Query rows of a block of K1's float32 tensor-core kernel, and stationary
+    rows of both of K2's. A block is 4 warps: 64 rows (4 x 16), 32 rows with
+    each K/V (K2: streamed) tile split between 2 warps, or up to d = 64 16 rows
+    split between 4. The most rows whose blocks, ceil(T / rows) for each of the
+    ``bh`` (batch, head) pairs, still give each of the card's ``sms`` SMs one;
+    the fewest offered where none does. Two blocks an SM measured slower than
+    one at every timed shape but the smallest grids (H100: at 256 blocks of 64
+    rows a split that made 512 was 1.25x slower). Above d = 128 32 rows of 2
+    warps, the tiles whole."""
+    if d > 128:
+        return 32
+    offered = (64, 32, 16) if d <= 64 else (64, 32)
+    return next((r for r in offered if -(-T // r) * bh >= sms), offered[-1])
+
+
+def f32_bwd_rows(T: int, bh: int, d: int, sms: int) -> int:
+    """Stationary rows of a block of both of K2's float32 kernels, offered as
+    ``f32_rows`` offers them. A block of K2 does ~2.5x the work of K1's, and
+    the rule follows the float32 sweep of ``tools/attention_tune.py`` (device
+    time, H100) where K1's does not: from T = 129 on, 64 rows wherever their
+    blocks give at least half the SMs one (at 128 blocks on 132 SMs the split
+    measured 8 % slower); up to T = 128, where a 64-row block holds a head's
+    rows whole or a 1-row tail, the most of 32 and (up to d = 64) 16 whose
+    blocks give each SM one, the fewest where none does (up to 53 % faster
+    than 64 rows, also where 64-row blocks gave every SM one; 3 % slower at
+    one of nine shapes). Above d = 128, 32."""
+    if d > 128:
+        return 32
+    if T > 128 and 2 * -(-T // 64) * bh >= sms:
+        return 64
+    offered = (32, 16) if d <= 64 else (32,)
+    return next((r for r in offered if -(-T // r) * bh >= sms), offered[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,8 +211,7 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
     d = W // (3 * num_heads)
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel has no instantiation for head dim {d} (has {KERNEL_HEAD_DIMS})")
-    if _use_mma(qkv.dtype, d):
-        _check_aligned(qkv, "qkv")
+    _check_aligned(qkv, "qkv")
     if qkv.device.type != "cuda":
         raise ValueError(f"attention kernel needs a CUDA tensor, got one on {qkv.device}")
     return d
@@ -191,24 +231,20 @@ def attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, *, new_order: bool = F
     out = torch.empty((B, T, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     scale = 1.0 / math.sqrt(math.sqrt(d))
-    if _use_mma(qkv.dtype, d):
-        rows = fwd_q_rows(T, B * num_heads, d, _sm_count(qkv.device.index))
-        rc = lib.gdc_attention_fwd_mma(
-            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order), rows, scale, stream)
-        build.check(rc, "gdc_attention_fwd_mma")
-        attention_fwd_cuda.launches_mma += 1
-    else:
-        rc = lib.gdc_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order),
-            _DTYPE_CODE[qkv.dtype], scale, stream,
-        )
-        build.check(rc, "gdc_attention_fwd")
+    f32 = qkv.dtype == torch.float32
+    pick, entry = (f32_rows, "gdc_attention_fwd_f32mma") if f32 else (fwd_q_rows, "gdc_attention_fwd_mma")
+    rows = pick(T, B * num_heads, d, _sm_count(qkv.device.index))
+    rc = getattr(lib, entry)(qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d, int(new_order), rows, scale, stream)
+    build.check(rc, entry)
     attention_fwd_cuda.launches += 1
+    attention_fwd_cuda.launches_mma += 1
+    attention_fwd_cuda.launches_f32 += f32
     return out
 
 
 attention_fwd_cuda.launches = 0
 attention_fwd_cuda.launches_mma = 0  # those of ``launches`` that ran on the tensor cores
+attention_fwd_cuda.launches_f32 = 0  # those of ``launches`` on float32 input
 
 
 def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, *, new_order: bool = False) -> torch.Tensor:
@@ -223,33 +259,31 @@ def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, *, n
             f"the output ({B}, {T}, {num_heads * d}) {qkv.dtype} on {qkv.device}"
         )
     do = do.contiguous()
-    mma = _use_mma(qkv.dtype, d)
-    if mma:
-        _check_aligned(do, "the cotangent")
+    _check_aligned(do, "the cotangent")
     lib = build.load()
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, B * num_heads, T), dtype=torch.float32, device=qkv.device)
     scale = 1.0 / math.sqrt(math.sqrt(d))
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    if mma:
-        rc = lib.gdc_attention_bwd_mma(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, T, num_heads, d, int(new_order), scale, scale * scale, stream,
-        )
-        build.check(rc, "gdc_attention_bwd_mma")
-        attention_bwd_cuda.launches_mma += 1
+    args = (qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, T, num_heads, d, int(new_order))
+    f32 = qkv.dtype == torch.float32
+    if f32:  # the float32 kernels take the stationary rows a block (the bf16 ones have one shape)
+        entry = "gdc_attention_bwd_f32mma"
+        rc = lib.gdc_attention_bwd_f32mma(
+            *args, f32_bwd_rows(T, B * num_heads, d, _sm_count(qkv.device.index)), scale, scale * scale, stream)
     else:
-        rc = lib.gdc_attention_bwd(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, T, num_heads, d, int(new_order), _DTYPE_CODE[qkv.dtype], scale, scale * scale, stream,
-        )
-        build.check(rc, "gdc_attention_bwd")
+        entry = "gdc_attention_bwd_mma"
+        rc = lib.gdc_attention_bwd_mma(*args, scale, scale * scale, stream)
+    build.check(rc, entry)
     attention_bwd_cuda.launches += 1
+    attention_bwd_cuda.launches_mma += 1
+    attention_bwd_cuda.launches_f32 += f32
     return dqkv
 
 
 attention_bwd_cuda.launches = 0
 attention_bwd_cuda.launches_mma = 0  # those of ``launches`` that ran on the tensor cores
+attention_bwd_cuda.launches_f32 = 0  # those of ``launches`` on float32 input
 
 
 def _attention_fwd(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # query rows of a block (q_rows) before the scale
     "gdc_attention_fwd_mma": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "gdc_attention_bwd_mma": [_P] * 4 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+    # the float32 tensor-core kernels: the forward as the bf16 one (q_rows from f32_rows); the backward with
+    # the stationary rows of a block (rows, from f32_bwd_rows) after new_order
+    "gdc_attention_fwd_f32mma": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "gdc_attention_bwd_f32mma": [_P] * 4 + [_I] * 6 + [ctypes.c_float] * 2 + [_P],
     # x, slots, gamma, beta, ss, sb, stats, y, B, HW, C, G, eps, silu, vec, dtype, grid, chunks,
     # n_chunks, ng, stream
     "gdc_group_norm": [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P, _I, _I, _P],

@@ -27,6 +27,32 @@
 //   B (16 x 8):  b0 = (k 2t..2t+1, column g), b1 = (k 2t+8..2t+9, column g)
 //   C (16 x 8):  c0, c1 = (row g, columns 2t, 2t+1), c2, c3 = (row g+8, same)
 // so C of the n-tiles 2i and 2i+1, packed to bf16 pairs, is A of k-step i.
+//
+// The float32 attention kernels (attention_fwd_f32mma.cu, attention_bwd_f32mma.cuh) run m16n8k8 on TF32:
+//   * mma_tf32: mma.sync.aligned m16n8k8 (tf32, f32 sums);
+//   * split_tf32: x = big + small, two TF32 values, big = tf32(x), small =
+//     tf32(x - big), each rounded to nearest with ties away from zero (cvt.rna)
+//     and the 13 low bits cleared; x - big is exact in f32 and what small
+//     drops is 2^-22 |x|. A product of two f32 operands is then
+//     small*big + big*small + big*big (small*small, 2^-22 of it, is left out):
+//     three mma for one, the last issued last;
+//   * tf32_abt / tf32_xb: the two shapes of product that attention takes, with
+//     f32 tiles in shared memory (rows of f32_pitch<D>() bytes) and the split
+//     done in registers at the fragment load;
+//   * copy_rows_f32_async / scale_rows_f32: copy_rows_async and scale_rows for
+//     f32 rows.
+// Fragment layouts of m16n8k8 on TF32 (g = lane / 4, t = lane % 4):
+//   A (16 x 8):  a0 = (row g, k t), a1 = (row g+8, k t), a2 = (row g, k t+4), a3 = (row g+8, k t+4)
+//   B (8 x 8):   b0 = (k t, column g), b1 = (k t+4, column g)
+//   C (16 x 8):  c0, c1 = (row g, columns 2t, 2t+1), c2, c3 = (row g+8, same), as m16n8k16's
+// An ldmatrix.x4 of 32-bit elements hands lane l the word l % 4 of row l / 4 of
+// each 8 x 16-byte matrix, (row g, column t) of an 8 x 4 f32 block: A from
+// four blocks, and B from a tile whose rows are B's columns (a key's d values
+// in Q K^T), with the bf16 kernels' lane offsets. C's columns 2t and 2t+1 do
+// not lie where A's k t and t+4 do, so C feeds the next product as A with the
+// reduction index permuted: a0 = c0, a1 = c2, a2 = c1, a3 = c3 takes k t as
+// column 2t and k t+4 as column 2t+1, and B's b0, b1 are then read from rows 2t
+// and 2t+1 (ldmatrix cannot transpose 32-bit elements: two 4-byte loads).
 
 #pragma once
 
@@ -217,6 +243,210 @@ __device__ __forceinline__ void scale_rows(uint8_t* dst, const uint8_t* src, flo
       scale_chunk(dst + off, src + off, s);
     }
   }
+}
+
+// ---- float32 on the tensor cores: m16n8k8 TF32 with split operands ----
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cvt.rna.tf32.f32's rounding on the bits (ties away from zero: the sign is
+// apart), with the low 13 bits zero: an f32 value that TF32 holds exactly
+__device__ __forceinline__ unsigned tf32_bits(unsigned x) { return (x + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_bits(__float_as_uint(x));
+  small = tf32_bits(__float_as_uint(x - __uint_as_float(big)));
+}
+
+// c[j0 + j] += a b[j] for one A fragment (split: big ab, small as) and N B
+// fragments (split: bb, bs), term by term over the n-tiles: small*big for all
+// N, then big*small, then big*big, so that consecutive mma write different
+// accumulators (no mma waits on the one before it) and the big product, issued
+// last, meets sums of the size it makes. j0 is a constant once the caller's
+// loop is unrolled.
+template <int N, int NC>
+__device__ __forceinline__ void mma_split(float (&c)[NC][4], int j0, const unsigned (&ab)[4],
+                                          const unsigned (&as)[4], const unsigned (&bb)[N][2],
+                                          const unsigned (&bs)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j0 + j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j0 + j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j0 + j], ab, bb[j][0], bb[j][1]);
+}
+
+// bytes of one shared row of D floats: 16 bytes of padding make the pitch
+// 4 (mod 32) words at every D here, so the 8 rows of an ldmatrix matrix start
+// on distinct 4-bank groups, and the 4-byte loads of tf32_xb (rows 2t, 2t + 1,
+// column g) on 32 distinct banks (8t + g)
+template <int D> __host__ __device__ constexpr int f32_pitch() { return D * 4 + 16; }
+
+// copy_rows_async for f32: rows [r0, r0 + ROWS) of a (T, D) f32 matrix whose
+// rows lie row_stride elements apart (src = row 0, 16-byte aligned, row_stride
+// a multiple of 4) into shared rows of f32_pitch<D>() bytes; rows past Tn
+// become zeros. Thread t copies the chunks t + n * THREADS of the tile in row
+// order, the chunks scale_rows_f32 hands it. The source address advances by a
+// pointer step (by whole rows where THREADS is a multiple of the D / 4 chunks
+// of a row), so that no offsets are kept in registers across the calls.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows_f32_async(unsigned dst, const float* src, long long row_stride, int r0,
+                                                    int Tn) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CPR % THREADS == 0, "the block's passes cover the tile");
+  if constexpr (THREADS % CPR == 0) {
+    constexpr int RPP = THREADS / CPR;  // rows a pass of the block
+    int row = threadIdx.x / CPR;
+    const int c = threadIdx.x % CPR;
+    const float* p = src + (r0 + row) * row_stride + c * 4;
+    unsigned d = dst + row * f32_pitch<D>() + c * 16;
+#pragma unroll 4
+    for (int n = 0; n < ROWS / RPP; ++n) {
+      const bool in = r0 + row < Tn;
+      cp_async_16(d, in ? p : src, in);
+      row += RPP;
+      p += RPP * row_stride;
+      d += RPP * f32_pitch<D>();
+    }
+  } else {
+#pragma unroll 4
+    for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
+      const int i = threadIdx.x + n * THREADS, row = i / CPR, c = i % CPR;
+      const bool in = r0 + row < Tn;
+      cp_async_16(dst + row * f32_pitch<D>() + c * 16, src + (in ? r0 + row : 0) * row_stride + c * 4, in);
+    }
+  }
+}
+
+// x *= s over a landed f32 tile, one f32 rounding ("(x * s).astype(f32)"); a
+// thread touches the chunks it copied itself, so its own cp_async_wait is
+// enough before it and a __syncthreads() after it publishes both
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void scale_rows_f32(uint8_t* tile, float s) {
+  constexpr int CPR = D / 4;
+#pragma unroll 4
+  for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
+    float4* p = reinterpret_cast<float4*>(tile + (i / CPR) * f32_pitch<D>() + (i % CPR) * 16);
+    float4 v = *p;
+    v.x *= s;
+    v.y *= s;
+    v.z *= s;
+    v.w *= s;
+    *p = v;
+  }
+}
+
+// acc = A B^T for the warp's 16 rows of A (D wide) against NT n-tiles of 8
+// rows of B (D wide), both f32 tiles of f32_pitch<D>() rows in shared memory:
+// `a` and `b` are shared addresses with ldmatrix's lane offsets (a_off, b_off
+// of the bf16 kernels) included. B's values are multiplied by `sb` first when
+// SCALE_B (an operand needed both scaled and not). A group of four n-tiles
+// whose rows all lie at or past `live` (rows past T only) is left at zero.
+template <int D, int NT, bool SCALE_B>
+__device__ __forceinline__ void tf32_abt(unsigned a, unsigned b, float sb, int live, float (&acc)[NT][4]) {
+  constexpr int PITCH = f32_pitch<D>();
+  constexpr int G = NT < 4 ? NT : 4;  // n-tiles a group: one A fragment against G B fragments, term by term
+  static_assert(NT % 2 == 0 && NT % G == 0, "ldmatrix.x4 brings B for two n-tiles");
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    unsigned fa[4], ab[4], as[4];
+    ldmatrix_x4(fa, a + kk * 32);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(fa[e]), ab[e], as[e]);
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += G) {
+      if (8 * j0 >= live) break;
+      unsigned bb[G][2], bs[G][2];
+#pragma unroll
+      for (int jp = 0; jp < G / 2; ++jp) {
+        unsigned r[4];
+        ldmatrix_x4(r, b + (j0 / 2 + jp) * 16 * PITCH + kk * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float f = SCALE_B ? __uint_as_float(r[e]) * sb : __uint_as_float(r[e]);
+          split_tf32(f, bb[2 * jp + e / 2][e % 2], bs[2 * jp + e / 2][e % 2]);
+        }
+      }
+      mma_split<G>(acc, j0, ab, as, bb, bs);
+    }
+  }
+}
+
+// acc += x B for the warp's 16 rows: x holds f32 sums as C fragments of NT
+// n-tiles, the reduction running over their 8 * NT columns; B is an
+// (8 * NT) x D f32 tile in shared memory whose rows run along the reduction,
+// `b` the lane's element (row 2t, column g) of it. k-step kk takes x's n-tile
+// kk as A in the permuted order (a0 = c0, a1 = c2, a2 = c1, a3 = c3), so B's
+// b0 and b1 come from rows 2t and 2t + 1. Each tile's product is summed on its
+// own, 32 columns at a time (16 above D = 128), and added to acc on the FMA pipes (rounded to
+// nearest): the tensor cores truncate as they add to their accumulator, and
+// over a whole row of tiles that bias would grow. k-steps from `live8` on
+// (x's columns past T only, all zero) are skipped.
+template <int D, int NT>
+__device__ __forceinline__ void tf32_xb(const float (&x)[NT][4], const float* b, int live8, float (&acc)[D / 8][4]) {
+  constexpr int P = D + 4;  // floats a shared row
+  // columns of acc a pass: four n-tiles, one A fragment against four B; above D = 128 two (32 spilled in K2's
+  // dQ kernel at D = 192)
+  constexpr int CW = D > 128 ? 16 : 32;
+  static_assert(D % CW == 0, "the passes cover acc's columns");
+  unsigned xb[NT][4], xs[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    split_tf32(x[kk][0], xb[kk][0], xs[kk][0]);
+    split_tf32(x[kk][2], xb[kk][1], xs[kk][1]);
+    split_tf32(x[kk][1], xb[kk][2], xs[kk][2]);
+    split_tf32(x[kk][3], xb[kk][3], xs[kk][3]);
+  }
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += CW) {
+    float part[CW / 8][4];
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      if (kk >= live8) break;
+      unsigned bb[CW / 8][2], bs[CW / 8][2];
+#pragma unroll
+      for (int j = 0; j < CW / 8; ++j) {
+        const float* p = b + kk * 8 * P + c0 + 8 * j;
+        split_tf32(p[0], bb[j][0], bs[j][0]);
+        split_tf32(p[P], bb[j][1], bs[j][1]);
+      }
+      mma_split<CW / 8>(part, 0, xb[kk], xs[kk], bb, bs);
+    }
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 / 8 + j][e] += part[j][e];
+  }
+}
+
+// cudaFuncSetAttribute(kern, MaxDynamicSharedMemorySize, bytes) once a device:
+// `done` is the caller's, one array a kernel, so the attribute's host cost
+// stays out of every launch after the first on a device
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+__host__ int smem_attribute_once(bool (&done)[kMaxDevices], Kernel kern, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return (int)err;
 }
 
 }  // namespace gdc

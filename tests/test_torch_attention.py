@@ -209,6 +209,175 @@ def test_bf16_split_keeps_the_f32_products(product, terms):
     assert (once - ref).abs().max() > 5e-4 * top
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the bits, as the float32 kernels' split_tf32 does
+    it: round to nearest, ties away from zero, and clear the 13 low bits."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b as the float32 kernels issue it on TF32: each operand split into
+    big = tf32(x) and small = tf32(x - big), and small*big + big*small +
+    big*big summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _split_mm_tiled(a, b, tile):
+    """``_split_mm`` a tile of the reduction at a time, each tile's product
+    added to the running f32 sum (the kernels' tf32_xb)."""
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], tile):
+        out += _split_mm(a[:, k0:k0 + tile], b[k0:k0 + tile])
+    return out
+
+
+def _p_ds_f32(q, k, v, do):
+    """f32 P and dS of ``attention_bwd_plain`` for f32 (T, d) inputs."""
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    p = torch.softmax((q * scale) @ (k * scale).T, dim=-1)
+    dp = do @ v.T
+    return p, p * (dp - (dp * p).sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("T,d", [(65, 64), (256, 96), (64, 128)])
+@pytest.mark.parametrize("product", ["Q_Kt", "P_V", "dS_K", "dSt_Q", "Pt_dO"])
+def test_tf32_split_keeps_the_f32_products(product, T, d):
+    """The float32 kernels' products on a TF32 tensor core: both f32 operands
+    split into big + small, three products summed in f32 (the reductions over
+    T a tile of 32 at a time), against the f64 product of the f32 operands, at
+    the pool's (65, 64) and the quality proxies' (256, 96) and (64, 128), N(0, 1)
+    inputs. Measured here, relative to max|ref|: the split 1.5e-7 to 3.9e-7 (an
+    f32 matmul of the same operands 2.2e-7 to 6.4e-7); one TF32 rounding of
+    each operand 2.7e-4 to 4.5e-4. Bounds: the split within 2e-6, one rounding
+    above 1e-4 (so a kernel without the split cannot pass)."""
+    rs = np.random.RandomState(T + d)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((T, d)).astype(np.float32)) for _ in range(4))
+    p, ds = _p_ds_f32(q, k, v, do)
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    left, right = {"Q_Kt": (q * scale, (k * scale).T), "P_V": (p, v), "dS_K": (ds, k), "dSt_Q": (ds.T, q),
+                   "Pt_dO": (p.T, do)}[product]
+    ref = left.double() @ right.double()
+    split = (_split_mm(left, right) if product == "Q_Kt" else _split_mm_tiled(left, right, 32)).double()
+    once = (_tf32(left) @ _tf32(right)).double()
+    top = ref.abs().max()
+    assert (split - ref).abs().max() <= 2e-6 * top
+    assert (once - ref).abs().max() > 1e-4 * top
+
+
+def _f32_shares(T, tile, ks):
+    """The key (or query) ranges that each of ``ks`` groups takes, tile by
+    tile: group k the k-th of ``ks`` equal parts of every tile, cut at T."""
+    share = tile // ks
+    return [[(t0 + k * share, min(t0 + (k + 1) * share, T)) for t0 in range(0, T, tile) if t0 + k * share < T]
+            for k in range(ks)]
+
+
+def _f32_k1_model(q, k, v, ks=1):
+    """The float32 K1 kernel in plain PyTorch, one (T, d) head, its keys split
+    between ``ks`` warps of a block: q*s and k*s rounded once in f32, S and
+    P V as split-TF32 products, each group's online softmax over its share of
+    every K/V tile (each share's P V added to the rescaled O), then the groups'
+    (m, l, O) added in order."""
+    T, d = q.shape
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    qs, ks_ = q * scale, k * scale
+    tile = max(64 if d == 64 else 32 if d <= 128 else 16, 16 * ks)
+    parts = []
+    for shares in _f32_shares(T, tile, ks):
+        m, l, o = torch.full((T, 1), -math.inf), torch.zeros(T, 1), torch.zeros(T, d)
+        for a, b in shares:
+            s = _split_mm(qs, ks_[a:b].T)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l, o, m = l * alpha + p.sum(-1, keepdim=True), o * alpha + _split_mm(p, v[a:b]), m_new
+        parts.append((m, l, o))
+    mt = torch.stack([m for m, _, _ in parts]).amax(0)
+    l, o = 0, 0
+    for m, lk, ok in parts:
+        f = torch.exp(m - mt)
+        l, o = l + lk * f, o + ok * f
+    return o / l
+
+
+def _f32_k2_model(q, k, v, do, ks=1):
+    """The float32 K2 kernels in plain PyTorch, one (T, d) head, each streamed
+    tile split between ``ks`` warps: kernel A's two sweeps over key tiles (each
+    group's statistics, added in order; then each group's dS and dQ, the dQs
+    added in order), kernel B's loop over q-tiles rebuilding P^T and dS^T from
+    the statistics (each group's dK and dV, added in order); every product a
+    split-TF32 one and each share's product into dQ, dK, dV added on its own."""
+    T, d = q.shape
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    qs, ks_ = q * scale, k * scale
+    tile = 16 * ks if ks > 1 else 64 if d <= 64 else 32 if d <= 96 else 16
+    stats = []
+    for shares in _f32_shares(T, tile, ks):
+        m, l, acc = torch.full((T, 1), -math.inf), torch.zeros(T, 1), torch.zeros(T, 1)
+        for a, b in shares:
+            s, dp = _split_mm(qs, ks_[a:b].T), _split_mm(do, v[a:b].T)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l, acc, m = l * alpha + p.sum(-1, keepdim=True), acc * alpha + (p * dp).sum(-1, keepdim=True), m_new
+        stats.append((m, l, acc))
+    m = torch.stack([x[0] for x in stats]).amax(0)
+    l = sum(lk * torch.exp(mk - m) for mk, lk, _ in stats)
+    acc = sum(ak * torch.exp(mk - m) for mk, _, ak in stats)
+    rinv, rowsum = 1 / l, acc / l
+    dq = torch.zeros(T, d)
+    for shares in _f32_shares(T, tile, ks):
+        part = torch.zeros(T, d)
+        for a, b in shares:
+            p = torch.exp(_split_mm(qs, ks_[a:b].T) - m) * rinv
+            part += _split_mm(p * (_split_mm(do, v[a:b].T) - rowsum), k[a:b])
+        dq += part
+    dk, dv = torch.zeros(T, d), torch.zeros(T, d)
+    for shares in _f32_shares(T, tile, ks):
+        pk, pv = torch.zeros(T, d), torch.zeros(T, d)
+        for a, b in shares:
+            pt = torch.exp(_split_mm(ks_, qs[a:b].T) - m[a:b].T) * rinv[a:b].T
+            pv += _split_mm(pt, do[a:b])
+            pk += _split_mm(pt * (_split_mm(v, do[a:b].T) - rowsum[a:b].T), q[a:b])
+        dk, dv = dk + pk, dv + pv
+    return dq * scale * scale, dk * scale * scale, dv
+
+
+@pytest.mark.parametrize("T,d,ks", [(65, 64, 4), (65, 64, 1), (100, 32, 2), (256, 96, 2), (256, 96, 1)])
+def test_f32_tensor_core_tiling_matches_plain(T, d, ks):
+    """The float32 K1 and K2 kernels' tiling and split-TF32 products, modelled
+    in plain PyTorch, against ``qkv_attention_plain`` and
+    ``attention_bwd_plain`` in f32 within 1e-5 * max(1, |ref|): at the pool's
+    T = 65 (a ragged second tile of one key) with the keys whole and split in
+    four, T = 100 in two, and the proxies' d = 96 whole and in two."""
+    rs = np.random.RandomState(T + d)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((T, d)).astype(np.float32)) for _ in range(4))
+    qkv = torch.cat([q, k, v], dim=-1)[None]  # one head, legacy order
+    ref = A.qkv_attention_plain(qkv, 1)[0]
+    out = _f32_k1_model(q, k, v, ks)
+    assert ((out - ref).abs() <= 1e-5 * ref.abs().clamp(min=1)).all()
+    for g, r in zip(_f32_k2_model(q, k, v, do, ks), A.attention_bwd_plain(q, k, v, do)):
+        assert ((g - r).abs() <= 1e-5 * r.abs().clamp(min=1)).all()
+
+
+def test_f32_tensor_core_tiling_matches_jax_pallas():
+    """The same model, the keys split in four as ``f32_rows`` splits them for
+    one head, against the JAX package's Pallas kernel in interpret mode at
+    T = 256, d = 64: the forward within 2e-5 as
+    ``test_plain_matches_jax``, the gradient (jax.vjp through its custom VJP,
+    ``_attn_bwd_kernel``) within 1e-4 as ``test_backward_matches_jax_pallas``."""
+    T, d = 256, 64
+    rs = np.random.RandomState(21)
+    q, k, v, do = (rs.standard_normal((T, d)).astype(np.float32) for _ in range(4))
+    qkv = np.concatenate([q, k, v], axis=-1)[None]
+    pallas = np.asarray(qkv_attention_pallas(jnp.asarray(qkv), 1, interpret=True))[0]
+    grad = _vjp(lambda a: qkv_attention_pallas(a, 1, interpret=True), qkv, do[None])[0]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    np.testing.assert_allclose(_f32_k1_model(tq, tk, tv, 4).numpy(), pallas, rtol=2e-5, atol=2e-5)
+    grads = torch.cat(_f32_k2_model(tq, tk, tv, tdo, 4), dim=-1).numpy()
+    np.testing.assert_allclose(grads, grad, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("T", [65, 100, 256])
 def test_two_sweep_backward_matches_plain(T):
     """K2's structure in plain PyTorch against ``attention_bwd_plain``, f32
@@ -308,6 +477,40 @@ def test_fwd_q_rows():
     assert A.fwd_q_rows(64, 1, 64, 132) == A.fwd_q_rows(17, 1, 128, 132) == 64
 
 
+def test_f32_rows():
+    """The float32 kernels' rows a block (4 warps): the most of 64, 32 and (up
+    to d = 64) 16 whose blocks give each of 132 SMs one, the fewest offered
+    where none does; 32 above d = 128. The pool (64 heads, T = 65) 32: 192
+    blocks, where 64 rows gave 128; the proxies' d = 96 at 4 heads 64 (256
+    blocks), at 2 heads 32; d = 128 (T = 64, 64 heads) 32; an f32 torso's
+    T = 1024 at 64 heads 64; one head of T = 65 16; the recipe's d = 192 and
+    256 32."""
+    assert A.f32_rows(65, 64, 64, 132) == A.f32_rows(256, 32, 96, 132) == A.f32_rows(64, 64, 128, 132) == 32
+    assert A.f32_rows(256, 64, 96, 132) == A.f32_rows(1024, 64, 64, 132) == A.f32_rows(65, 64, 64, 64) == 64
+    assert A.f32_rows(65, 4, 64, 132) == A.f32_rows(1, 1, 32, 132) == 16
+    assert A.f32_rows(1024, 64, 192, 132) == A.f32_rows(64, 48, 256, 132) == A.f32_rows(1, 1, 256, 132) == 32
+    assert A.f32_rows(1, 1, 96, 132) == 32
+
+
+def test_f32_bwd_rows():
+    """K2's float32 rows a block: from T = 129 on 64 where 64-row blocks give
+    at least half of 132 SMs one (the proxies' d = 96 at 2 heads: 128 blocks,
+    where K1 splits), else 32 (one head of d = 96 at batch 16: 64 blocks);
+    up to T = 128 the most of 32 and (up to d = 64) 16 whose blocks give
+    each SM one, the fewest where none does: the pool 32 (192 blocks) at
+    batch 8 and 16 (where K1 takes 64), the 16 px proxies' T = 64 at batch
+    16 16, at 36 32; d = 128 at T = 64 32 whatever the batch; above d = 128
+    32."""
+    assert A.f32_bwd_rows(256, 32, 96, 132) == A.f32_bwd_rows(256, 64, 96, 132) == 64
+    assert A.f32_bwd_rows(1024, 64, 64, 132) == A.f32_bwd_rows(256, 72, 96, 132) == 64
+    assert A.f32_bwd_rows(256, 16, 96, 132) == A.f32_bwd_rows(65, 64, 64, 132) == A.f32_bwd_rows(65, 128, 64, 132) == 32
+    assert A.f32_rows(65, 128, 64, 132) == 64 and A.f32_rows(256, 32, 96, 132) == 32  # where K1 differs
+    assert A.f32_bwd_rows(64, 32, 64, 132) == A.f32_bwd_rows(64, 32, 32, 132) == A.f32_bwd_rows(1, 1, 32, 132) == 16
+    assert A.f32_bwd_rows(64, 72, 64, 132) == A.f32_bwd_rows(64, 72, 32, 132) == 32
+    assert A.f32_bwd_rows(64, 64, 128, 132) == A.f32_bwd_rows(64, 144, 128, 132) == A.f32_bwd_rows(1, 1, 96, 132) == 32
+    assert A.f32_bwd_rows(1024, 64, 192, 132) == A.f32_bwd_rows(64, 48, 256, 132) == 32
+
+
 def test_attention_tune_tool_is_card_only(monkeypatch):
     """The sweep behind ``fwd_q_rows`` has no CPU mode (a tile has no plain
     version): it refuses a missing card by name, and its shapes are the
@@ -323,7 +526,7 @@ def test_attention_tune_tool_is_card_only(monkeypatch):
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """Checks that run before any launch (no card needed): unsupported head
-    dims and dtypes, a CPU tensor, a bf16 tensor whose pointer is not 16-byte
+    dims and dtypes, a CPU tensor, a bf16 or f32 tensor whose pointer is not 16-byte
     aligned (the tensor-core kernels copy 16 bytes a ``cp.async``), and a
     direct K1 call on an input that needs grad (that goes through
     ``attention``, which records K2)."""
@@ -340,7 +543,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         A.attention_fwd_cuda(torch.zeros(1, 8, 3 * 64), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         A.attention_bwd_cuda(torch.zeros(1, 8, 3 * 64), torch.zeros(1, 8, 64), 1)
-    # one bf16 element past an aligned start; float32 goes to the FMA kernels, which take any pointer
+    # one element past an aligned start: both dtypes run on the tensor-core kernels, which copy 16 bytes a cp.async
     odd = torch.zeros(1 + 8 * 3 * 64, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 64)
     assert odd.is_contiguous() and odd.data_ptr() % 16 == 2
     with pytest.raises(ValueError, match="qkv 16-byte aligned"):
@@ -349,8 +552,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         A.attention_bwd_cuda(odd, torch.zeros(1, 8, 64, dtype=torch.bfloat16), 1)
     with pytest.raises(ValueError, match="qkv 16-byte aligned"):  # d = 256 in bf16 runs on the tensor cores too
         A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256, dtype=torch.bfloat16)[1:].view(1, 8, 3 * 256), 1)
-    with pytest.raises(ValueError, match="CUDA tensor"):  # float32 goes to the FMA kernels at every d
+    with pytest.raises(ValueError, match="qkv 16-byte aligned"):  # float32 runs on the tensor cores at every d
         A.attention_fwd_cuda(torch.zeros(1 + 8 * 3 * 256)[1:].view(1, 8, 3 * 256), 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # an aligned float32 CPU tensor gets past the alignment
+        A.attention_fwd_cuda(torch.zeros(1, 8, 3 * 256), 1)
     assert A.MMA_HEAD_DIMS == A.KERNEL_HEAD_DIMS == (32, 64, 96, 128, 192, 256)
     assert A.attention_fwd_cuda.launches == 0 and A.attention_bwd_cuda.launches == 0
     assert A.attention_fwd_cuda.launches_mma == 0 and A.attention_bwd_cuda.launches_mma == 0
+    assert A.attention_fwd_cuda.launches_f32 == 0 and A.attention_bwd_cuda.launches_f32 == 0

@@ -26,8 +26,8 @@ def dev():
 
 
 def _on_tensor_cores(dtype, d) -> int:
-    """1 where K1 and K2 run their mma.sync kernels (bf16, d = 32, 64, 96, 128, 192, 256), else 0."""
-    return int(dtype == torch.bfloat16 and d in (32, 64, 96, 128, 192, 256))
+    """1 where K1 and K2 run their mma.sync kernels (bf16 and f32, d = 32, 64, 96, 128, 192, 256), else 0."""
+    return int(dtype in (torch.bfloat16, torch.float32) and d in (32, 64, 96, 128, 192, 256))
 
 
 # T = 1, 17 and 129: one row, under one tile, one row over two tiles (bf16, both head orders); at the
@@ -47,18 +47,19 @@ def _attention_cases(shapes):
     "B,T,H,d,new_order,dtype,tol",
     _attention_cases([(2, 1024, 8, 64, False), (2, 256, 16, 64, True), (3, 65, 2, 64, False),
                       (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False),
-                      (2, 256, 4, 96, False), (2, 129, 2, 96, True)]),
+                      (2, 256, 4, 96, False), (2, 129, 2, 96, True), (2, 65, 8, 64, True), (2, 64, 4, 128, False)]),
 )
 def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(T + d)
     qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
     with torch.inference_mode():
-        n0, m0 = A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_mma
+        n0, m0, f0 = A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_mma, A.attention_fwd_cuda.launches_f32
         out = A.attention(qkv, H, new_order=new_order)
         ref = A.qkv_attention_plain(qkv, H, new_order=new_order)
         torch.cuda.synchronize()
     assert A.attention_fwd_cuda.launches == n0 + 1
     assert A.attention_fwd_cuda.launches_mma == m0 + _on_tensor_cores(dtype, d)
+    assert A.attention_fwd_cuda.launches_f32 == f0 + (dtype == torch.float32)
     assert out.dtype == dtype and out.shape == (B, T, H * d)
     diff = (out.float() - ref.float()).abs()
     assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
@@ -71,13 +72,13 @@ def test_attention_kernel(dev, B, T, H, d, new_order, dtype, tol):
     "B,T,H,d,new_order,dtype,tol",
     _attention_cases([(2, 1024, 4, 64, False), (2, 256, 8, 64, False), (2, 64, 8, 64, False), (2, 65, 8, 64, True),
                       (1, 100, 2, 32, True), (2, 77, 3, 128, False), (2, 256, 1, 192, False), (2, 64, 1, 256, False),
-                      (2, 256, 4, 96, False), (2, 129, 2, 96, True)]),
+                      (2, 256, 4, 96, False), (2, 129, 2, 96, True), (2, 64, 4, 128, False)]),
 )
 def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
     """K2 through ``attention``'s autograd Function against
     ``attention_bwd_plain``: |d| <= tol * max(1, |ref|); one K1 and one K2
-    launch, on the tensor cores in bf16 and on the FMA pipes in float32;
-    repeat runs bit-identical."""
+    launch, on the tensor cores in bf16 and in float32 (split TF32), the f32
+    ones counted in ``launches_f32``; repeat runs bit-identical."""
     g = torch.Generator(device=dev).manual_seed(T + d)
     qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev).to(dtype)
     do = torch.randn(B, T, H * d, generator=g, device=dev).to(dtype)
@@ -89,11 +90,13 @@ def test_attention_backward_kernel(dev, B, T, H, d, new_order, dtype, tol):
 
     n1, n2 = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
     m1, m2 = A.attention_fwd_cuda.launches_mma, A.attention_bwd_cuda.launches_mma
+    f1, f2 = A.attention_fwd_cuda.launches_f32, A.attention_bwd_cuda.launches_f32
     out = grad()
     torch.cuda.synchronize()
     assert (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches) == (n1 + 1, n2 + 1)
-    mma = _on_tensor_cores(dtype, d)
+    mma, f32 = _on_tensor_cores(dtype, d), int(dtype == torch.float32)
     assert (A.attention_fwd_cuda.launches_mma, A.attention_bwd_cuda.launches_mma) == (m1 + mma, m2 + mma)
+    assert (A.attention_fwd_cuda.launches_f32, A.attention_bwd_cuda.launches_f32) == (f1 + f32, f2 + f32)
     ref = A.qkv_attention_bwd_plain(qkv, do, H, new_order)
     assert out.dtype == dtype and out.shape == qkv.shape
     diff = (out.float() - ref.float()).abs()
@@ -130,6 +133,45 @@ def test_attention_q_rows_same_bits(dev, T, d):
         assert torch.equal(outs[0], outs[1])
         ref = A.qkv_attention_plain(qkv, H, new_order=new).float()
         assert ((outs[0].float() - ref).abs() <= 2e-2 * ref.abs().clamp(min=1)).all()
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256])
+def test_attention_f32_rows_choices(dev, d):
+    """The float32 tensor-core K1 and K2 at each block shape ``f32_rows`` and
+    ``f32_bwd_rows`` can pick (64 rows, 32 with the tiles split between 2 warps, up to d = 64 16
+    split between 4; 32 above d = 128), at the pool's ragged T = 65 in both
+    head orders: each holds the plain version's 1e-4 (K1) and
+    1e-4 * max(1, |ref|) (K2) and gives the same bits on a repeat."""
+    import math
+
+    from guided_diffusion_clip_tpu_torch.ops import build
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    B, T, H = 2, 65, 2
+    qkv = torch.randn(B, T, 3 * H * d, generator=g, device=dev)
+    do = torch.randn(B, T, H * d, generator=g, device=dev)
+    lib, stream = build.load(), torch.cuda.current_stream(dev).cuda_stream
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+
+    def run(rows, new):
+        out, dqkv = torch.empty(B, T, H * d, device=dev), torch.empty_like(qkv)
+        stats = torch.empty(3, B * H, T, device=dev)
+        build.check(lib.gdc_attention_fwd_f32mma(qkv.data_ptr(), out.data_ptr(), B, T, H, d, int(new), rows,
+                                                 scale, stream), "gdc_attention_fwd_f32mma")
+        build.check(lib.gdc_attention_bwd_f32mma(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+                                                 B, T, H, d, int(new), rows, scale, scale * scale, stream),
+                    "gdc_attention_bwd_f32mma")
+        torch.cuda.synchronize()
+        return out, dqkv
+
+    for new in (False, True):
+        ref, ref_grad = A.qkv_attention_plain(qkv, H, new_order=new), A.qkv_attention_bwd_plain(qkv, do, H, new)
+        for rows in (32,) if d > 128 else (64, 32, 16) if d <= 64 else (64, 32):
+            out, dqkv = run(rows, new)
+            assert (out - ref).abs().max() <= 1e-4, (rows, new)
+            assert ((dqkv - ref_grad).abs() <= 1e-4 * ref_grad.abs().clamp(min=1)).all(), (rows, new)
+            again = run(rows, new)
+            assert torch.equal(again[0], out) and torch.equal(again[1], dqkv)
 
 
 @pytest.mark.parametrize("fused", [False, True])
