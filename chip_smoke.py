@@ -64,12 +64,14 @@ The int8 path (``--conv_impl int8``, kernels K4 and K5) adds:
       shapes, with and without scale-shift, f32 and bf16, both emissions,
       with the same stats and repeat checks as K3;
   3d. K5 (the s8 conv) against its plain version, and cuDNN's bf16 conv
-      timed at the same shapes: 3x3 at 256/32/16/8 px, the stem, the head,
+      timed at the same shapes: 3x3 at 256/32/16/8 px, the stems, the head,
       1x1 and stride-2 convs, an odd M and batch 1. Every shape with
-      C % 16 == 0 and K > 16 must go to the tensor-core kernel
-      (``launches_mma``) and equal the ``__dp4a`` kernel's output bit for
-      bit (exact sums, the same epilogue, split launches included); the
-      ``__dp4a`` kernel's time is logged beside it;
+      C % 16 == 0 and K > 16 must go to ``conv_s8_mma.cu``
+      (``launches_mma``), every stem and head to ``conv_s8_thin.cu``
+      (``launches_thin``), and each must equal the ``__dp4a`` kernel's
+      output bit for bit (exact sums, the same epilogue, split launches
+      included) and a repeat run; the ``__dp4a`` kernel's time is logged
+      beside it;
   3g. the two quantize kernels of ``int8_conv`` against
       ``quantize_per_tensor`` on the card (all zeros, one huge value, exact
       ties, f32 and bf16, a size that is no multiple of 16);
@@ -393,7 +395,8 @@ distances beside the bounds they break.
 Phases 3c, 3d and 3g hold K4, K5 and the quantize kernels at the recipe's
 shapes too (64 channels at 128 px is 2 channels a GroupNorm group; the
 3-channel stem, the SR models' 6-channel stem and the 6-channel head on
-``__dp4a``; batch 8, 16 and 48).
+``conv_s8_thin.cu``; batch 8, 16 and 48), and 3d the quality proxies'
+stem, 3-channel heads and 1x1 classifier heads.
 
 Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
@@ -406,13 +409,18 @@ on the FMA-pipe kernels, and the float32 launches must be the modules' float32 c
 pool, float32 by the reference's design (one K1 and one K2 a classifier call), and in phase 16 the
 quality tools' float32 training and classifiers.
 Likewise every K5 launch of an int8 main path must have been a tensor-core
-launch but for the stems (3 channels in, 6 in the SR models) and the 6-channel
-heads (3-channel in the quality tools' proxies and their classifier), counted from the modules; a ptxas spill in one of the tensor-core conv kernels, the quantize
+launch, none on ``__dp4a``: on ``conv_s8_thin.cu`` for the stems (3 channels
+in, 6 in the SR models) and the 6-channel heads (3-channel in the quality
+tools' proxies and their classifier), as many as the modules hold, and on
+``conv_s8_mma.cu`` for every other conv; a ptxas spill in one of the tensor-core conv kernels
+(the thin ones too), the quantize
 kernels, the GroupNorm kernel (K3, K4), the bf16 K1/K2 at d = 64, 192 or 256 or K1 at d = 96, or the
 float32 K1/K2 at any d fails the run (the other kernels' are printed).
 The last lines are the kernels' JSON record (``launches`` summed over the main paths, K1's and K2's
 split between their bf16 tensor-core kernels, timed at d = 64 in phases 3 and 3b,
-and their float32 ones, timed at the classifier pool's shape there; ``bound_ms`` the least time the card
+and their float32 ones, timed at the classifier pool's shape there, K5's between
+``conv_s8_mma.cu`` (``conv_s8``, timed at 3x3 256 -> 256 at 256 px) and ``conv_s8_thin.cu``
+(``conv_s8_thin``, the stems and heads, timed at ADM-256's stem); ``bound_ms`` the least time the card
 could take, from the bytes moved at 3.35 TB/s and the operations at the
 data-sheet peak of their type; ``library_ms`` the time of the one PyTorch call
 that computes the same function, timed here and used nowhere in the port),
@@ -890,10 +898,11 @@ def phase3b_attention_bwd(dev):
 
 # The training recipe's int8 shapes (configs/config.yaml: 64/128/192/256 channels at 128/32/16/8 px;
 # sampling at batch 8, training at batch 48): K4's maps, K5's convs (3x3, the 1x1 skips, the
-# stride-2 downsamples, the 3-channel stem and the 6-channel head on __dp4a) and the quantize
-# kernels' inputs of int8_conv (the stem's image, a skip's and a downsample's input); and the SR
-# models' 6-channel stem (x ++ img2 or x ++ low_res) on __dp4a, at super_res_sample's batch 16 and
-# the trainers' 48
+# stride-2 downsamples, the 3-channel stem and the 6-channel head on conv_s8_thin.cu) and the quantize
+# kernels' inputs of int8_conv (the stem's image, a skip's and a downsample's input); the SR
+# models' 6-channel stem (x ++ img2 or x ++ low_res) on conv_s8_thin.cu, at super_res_sample's batch 16
+# and the trainers' 48; and the 64 px quality proxies' stem and 3-channel head (tools/_proxies.py, at
+# the tools' batch 16), their 16 px generator's head and their classifiers' 1x1 heads at 1 px
 RECIPE_GN_SHAPES = [(8, 128 * 128, 64), (8, 16 * 16, 192), (8, 8 * 8, 256), (48, 128 * 128, 64)]
 RECIPE_CONVS = [
     ("recipe 3x3 128px", 8, 128, 64, 64, 3, 1, True), ("recipe 3x3 16px", 8, 16, 192, 192, 3, 1, True),
@@ -902,6 +911,9 @@ RECIPE_CONVS = [
     ("recipe 1x1 16px", 8, 16, 384, 192, 1, 1, False), ("recipe stride 2", 8, 128, 64, 64, 3, 2, False),
     ("recipe 3x3 128px", 48, 128, 64, 64, 3, 1, True), ("recipe stem", 48, 128, 3, 64, 3, 1, False),
     ("SR stem", 16, 128, 6, 64, 3, 1, False), ("SR stem", 48, 128, 6, 64, 3, 1, False),
+    ("proxy stem", 16, 64, 3, 128, 3, 1, False), ("proxy head", 16, 64, 128, 3, 3, 1, True),
+    ("proxy head", 16, 16, 64, 3, 3, 1, True), ("proxy clf 1x1 head", 16, 1, 192, 3, 1, 1, False),
+    ("proxy clf 1x1 head", 16, 1, 64, 3, 1, 1, False),
 ]
 RECIPE_QUANTIZE_SHAPES = [(8, 128, 128, 3), (8, 128, 128, 64), (48, 128, 128, 64), (8, 16, 16, 384),
                           (16, 128, 128, 6), (48, 128, 128, 6)]
@@ -972,23 +984,29 @@ def phase3c_group_norm_quant(dev):
 
 def phase3d_conv_s8(dev):
     """K5 against conv_s8_plain at the paths' shapes, and cuDNN's bf16 conv
-    timed at the same shapes; where the tensor-core kernel applies, it must
-    have been launched and must equal the ``__dp4a`` kernel bit for bit.
-    Returns the headline record (3x3 at 256 px, 256 -> 256, batch 8, bf16
-    out)."""
+    timed at the same shapes: each case must have launched the kernel its
+    shape picks (``conv_s8_mma.cu`` where ``uses_tensor_cores``, else the
+    stem or head kernel of ``conv_s8_thin.cu``) and equal the ``__dp4a``
+    kernel bit for bit, whose time is logged beside it; at the stems and
+    heads also the device time a call (the profiler's) of the kernel, the
+    ``__dp4a`` kernel and cuDNN's conv, free of the wrapper's host time.
+    Returns the headline
+    records: ``conv_s8`` (3x3 at 256 px, 256 -> 256, batch 8, bf16 out) and
+    ``conv_s8_thin`` (ADM-256's stem, 3 -> 256 at 256 px, batch 8, bf16 out)."""
     import torch
     import torch.nn.functional as F
 
     from guided_diffusion_clip_tpu_torch.ops import quant as Q
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
 
     tf32_off()
     g = torch.Generator(device=dev).manual_seed(8)
-    headline = None
+    records = {}
     cases = [  # (name, B, H, C, K, k, stride, per-image scales)
         ("3x3 256px", 8, 256, 256, 256, 3, 1, True), ("3x3 32px", 8, 32, 512, 512, 3, 1, True),
         ("3x3 8px", 8, 8, 2048, 1024, 3, 1, True), ("stem", 8, 256, 3, 256, 3, 1, False),
-        ("head", 8, 256, 256, 6, 3, 1, False), ("1x1 8px", 8, 8, 2048, 1024, 1, 1, False),
-        ("3x3 stride 2 64px", 8, 64, 256, 256, 3, 2, False),
+        ("head", 8, 256, 256, 6, 3, 1, True), ("classifier stem", 8, 256, 3, 128, 3, 1, False),
+        ("1x1 8px", 8, 8, 2048, 1024, 1, 1, False), ("3x3 stride 2 64px", 8, 64, 256, 256, 3, 2, False),
         ("3x3 16px", 8, 16, 1024, 1024, 3, 1, True), ("3x3 16px", 8, 16, 2048, 1024, 3, 1, True),
         ("1x1 128px", 8, 128, 768, 256, 1, 1, False), ("3x3 8px", 3, 8, 2048, 1024, 3, 1, True),
         ("3x3 256px", 1, 256, 256, 256, 3, 1, True), *RECIPE_CONVS,
@@ -1003,43 +1021,58 @@ def phase3d_conv_s8(dev):
             wb = w_q.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2))
             rows = Q._pack_weights(w_q)  # packed once, as the models' Conv2d caches them
-            mma = Q.uses_tensor_cores(C, K, k)
+            mma, thin = Q.uses_tensor_cores(C, K, k), Q.uses_thin_kernel(C, K, k, stride)
+            if not (mma or thin):
+                raise AssertionError(f"K5 {name}: no tensor-core kernel takes {k}x{k} stride {stride} {C} -> {K}")
             Ho = (H + 2 * ((k - 1) // 2) - k) // stride + 1
             M, KRp = B * Ho * Ho, -(-k * k * C // 32) * 32
-            how = "tile %d x 128, %d slice(s) of the reduction" % Q.pick_tile(M, K, KRp) if mma else "__dp4a"
+            how = ("conv_s8_mma.cu, tile %d x 128, %d slice(s) of the reduction" % Q.pick_tile(M, K, KRp) if mma
+                   else f"conv_s8_thin.cu's {thin} kernel")
             for out_dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
                 args = (q, w_q, s_img, s_w, bias, stride, out_dtype)
-                n_mma = Q.conv_s8_cuda.launches_mma
+                n_mma, n_thin = Q.conv_s8_cuda.launches_mma, Q.conv_s8_cuda.launches_thin
                 out = Q.conv_s8_cuda(*args, rows)
                 ref = Q.conv_s8_plain(*args)
                 torch.cuda.synchronize()
-                label = f"K5 conv_s8 {name} B={B} {C}->{K} out {str(out_dtype)[6:]}"
-                if Q.conv_s8_cuda.launches_mma - n_mma != int(mma):
-                    raise AssertionError(f"{label}: {'not ' if mma else ''}launched on the tensor cores")
+                label = f"K5 conv_s8 {name} B={B} {k}x{k} {C}->{K} out {str(out_dtype)[6:]}"
+                ran = (Q.conv_s8_cuda.launches_mma - n_mma, Q.conv_s8_cuda.launches_thin - n_thin)
+                if ran != (int(mma), int(not mma)):
+                    raise AssertionError(f"{label}: launched conv_s8_mma.cu {ran[0]} and conv_s8_thin.cu {ran[1]} "
+                                         f"times, not {how}")
                 diff = (out.float() - ref.float()).abs()
                 err = diff.max().item()
                 if out.shape != ref.shape or not bool((diff <= tol * ref.float().abs().clamp(min=1)).all()):
                     raise AssertionError(f"{label}: max|d| {err:.3g} fails {tol:g}*max(1,|ref|)")
+                same = Q.conv_s8_dp4a(*args, rows)
+                if not torch.equal(out, same) or not torch.equal(Q.conv_s8_cuda(*args), out):
+                    raise AssertionError(f"{label}: {int((out != same).sum())} of {out.numel()} values differ from "
+                                         f"the __dp4a kernel's, or a repeat run gave other bits")
                 ms = cuda_ms(lambda: Q.conv_s8_cuda(*args, rows))
                 pms = cuda_ms(lambda: Q.conv_s8_plain(*args))
+                dp4a_ms = cuda_ms(lambda: Q.conv_s8_dp4a(*args, rows))
                 ops = 2 * M * C * K * k * k
                 rec = record(err, ms, pms, nbytes=B * H * H * C + M * K * out.element_size() + k * k * C * K,
                              ops=ops, op_type="s8", library_ms=cudnn_ms)
-                old = ""
-                if mma:
-                    same = Q.conv_s8_dp4a(*args, rows)
-                    if not torch.equal(out, same) or not torch.equal(Q.conv_s8_cuda(*args), out):
-                        raise AssertionError(f"{label}: {int((out != same).sum())} of {out.numel()} values differ from "
-                                             f"the __dp4a kernel's, or a repeat run gave other bits")
-                    old = (f", bit-identical to the __dp4a kernel ({cuda_ms(lambda: Q.conv_s8_dp4a(*args, rows)):.4f} ms) "
-                           f"and to a repeat run")
-                log(f"  {label} ({how}): max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)){old}; kernel {ms:.4f} ms "
-                    f"({rate(ops, ms)} TOP/s), plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms, "
-                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                log(f"  {label} ({how}): max|d| {err:.3g} (bound {tol:g}*max(1,|ref|)), bit-identical to the __dp4a "
+                    f"kernel and to a repeat run; kernel {ms:.4f} ms ({rate(ops, ms)} TOP/s), __dp4a {dp4a_ms:.4f} ms, "
+                    f"plain {pms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']}), {ms / rec['bound_ms']:.2f} x bound")
+                if thin:  # device time a call, the wrapper's host time left out: one profile, split by kernel name
+                    device = dict.fromkeys(("kernel", "__dp4a", "cuDNN"), 0.0)
+                    for kname, (t, _) in kernel_times(lambda: (Q.conv_s8_cuda(*args, rows), Q.conv_s8_dp4a(*args, rows),
+                                                               F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2)),
+                                                      reps=10).items():
+                        device["kernel" if f"conv_s8_{thin}_kernel" in kname else
+                               "__dp4a" if "conv_s8_kernel" in kname else "cuDNN"] += t
+                    log(f"    device ms a call (profiler): kernel {device['kernel']:.4f} "
+                        f"({device['kernel'] / rec['bound_ms']:.2f} x bound), __dp4a {device['__dp4a']:.4f}, "
+                        f"cuDNN bf16 conv {device['cuDNN']:.4f}")
                 if (name, B, out_dtype) == ("3x3 256px", 8, torch.bfloat16):
-                    headline = rec
+                    records["conv_s8"] = rec
+                if (name, B, out_dtype) == ("stem", 8, torch.bfloat16):
+                    records["conv_s8_thin"] = rec
             del q, xb
-    return headline
+    return records
 
 
 def phase3g_quantize(dev):
@@ -1327,10 +1360,13 @@ def phase3f_mma_probe(dev):
 
 
 def counters() -> dict:
-    """Every kernel wrapper's launch count."""
+    """Every kernel wrapper's launch count, and as ``conv_s8_thin`` those of
+    K5's that ran the stem and head kernels (which ``conv_s8`` counts too)."""
     from guided_diffusion_clip_tpu_torch.ops import kernel_wrappers
+    from guided_diffusion_clip_tpu_torch.ops.quant import conv_s8_cuda
 
-    return {fn_name: fn.launches for fn_name, fn in kernel_wrappers().items()}
+    return {**{fn_name: fn.launches for fn_name, fn in kernel_wrappers().items()},
+            "conv_s8_thin": conv_s8_cuda.launches_thin}
 
 
 def reset_counters() -> None:
@@ -1338,7 +1374,7 @@ def reset_counters() -> None:
 
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for part in ("launches_mma", "launches_f32"):
+        for part in ("launches_mma", "launches_f32", "launches_thin"):
             if hasattr(fn, part):
                 setattr(fn, part, 0)
 
@@ -1384,14 +1420,15 @@ def check_tensor_core_launches(path: str, k1_f32: int = 0, k2_f32: int = 0) -> N
         f"tensor cores, float32 (split TF32) {k1_f32} and {k2_f32}: the modules' float32 calls")
 
 
-def dp4a_convs(model) -> int:
+def thin_convs(model) -> int:
     """The convs of ``model``'s structure (a module or a list of modules) that
-    K5 keeps on ``__dp4a`` under int8: the stems (3 channels in; 6, x and its
-    partner or its upsampled low_res, in the SR models) and the head (6
-    channels out; 3 in the quality tools' proxies and their classifier's
+    K5 runs on ``conv_s8_thin.cu`` under int8: the stems (3 channels in; 6, x
+    and its partner or its upsampled low_res, in the SR models) and the head
+    (6 channels out; 3 in the quality tools' proxies and their classifier's
     1x1 head), counted from the modules' channels alone and not by the
-    wrapper's own dispatch rule, so that a rule that sent any other conv to
-    ``__dp4a`` would fail the count."""
+    wrapper's own dispatch rule (``ops/quant.py::uses_thin_kernel``), so that
+    a rule that sent any other conv to the thin kernels, or one of these to
+    another kernel, would fail the count."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d
 
     roots = model if isinstance(model, (list, tuple)) else [model]
@@ -1399,17 +1436,19 @@ def dp4a_convs(model) -> int:
                for root in roots for m in root.modules())
 
 
-def check_conv_tensor_core_launches(path: str, dp4a: int) -> None:
+def check_conv_tensor_core_launches(path: str, thin: int) -> None:
     """After an int8 main path: every K5 launch since the counts were reset
-    ran on the tensor cores but the ``dp4a`` stem and head convs counted from
-    the modules."""
+    ran on the tensor cores, on ``conv_s8_mma.cu`` or on ``conv_s8_thin.cu``,
+    none on ``__dp4a``, and the thin kernels' launches were the ``thin`` stem
+    and head convs counted from the modules."""
     from guided_diffusion_clip_tpu_torch.ops.quant import conv_s8_cuda as k5
 
-    if k5.launches - k5.launches_mma != dp4a or (k5.launches and not k5.launches_mma):
-        raise AssertionError(f"{path}: {k5.launches_mma} of K5's {k5.launches} launches ran on the tensor cores, "
-                             f"with {dp4a} stem and head convs")
-    log(f"  {path}: {k5.launches_mma} of {k5.launches} K5 launches ran on the tensor cores: all but the {dp4a} "
-        f"stem (3 or 6 channels in) and head (3 or 6 channels out) convs")
+    if (k5.launches != k5.launches_mma + k5.launches_thin or k5.launches_thin != thin
+            or (k5.launches and not k5.launches_mma)):
+        raise AssertionError(f"{path}: of K5's {k5.launches} launches {k5.launches_mma} ran conv_s8_mma.cu and "
+                             f"{k5.launches_thin} conv_s8_thin.cu, with {thin} stem and head convs")
+    log(f"  {path}: K5's {k5.launches} launches: {k5.launches_mma} on conv_s8_mma.cu, {k5.launches_thin} on "
+        f"conv_s8_thin.cu (the stem and head convs: 3 or 6 channels in or out), none on __dp4a")
 
 
 def gn_conv_counts(model, int8: bool) -> dict:
@@ -1419,7 +1458,9 @@ def gn_conv_counts(model, int8: bool) -> dict:
     under int8 every ResBlock's out_norm and every in_norm but a down
     block's quantizes (K4) and feeds one conv, every other GroupNorm is K3,
     every conv runs K5 once, and every conv that no K4 feeds quantizes its
-    float input itself; otherwise every GroupNorm is K3 and no conv runs K5."""
+    float input itself, and the stems and heads (``thin_convs``) run the
+    thin kernels (``conv_s8_thin``); otherwise every GroupNorm is K3 and no
+    conv runs K5."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import ResBlock
 
@@ -1427,10 +1468,11 @@ def gn_conv_counts(model, int8: bool) -> dict:
     mods = [m for root in roots for m in root.modules()]
     gn = sum(isinstance(m, GroupNorm32) for m in mods)
     if not int8:
-        return {"group_norm": gn, "group_norm_quant": 0, "conv_s8": 0, "quantize": 0}
+        return {"group_norm": gn, "group_norm_quant": 0, "conv_s8": 0, "conv_s8_thin": 0, "quantize": 0}
     k4 = sum((1 if m.down else 2) for m in mods if isinstance(m, ResBlock))
     convs = sum(isinstance(m, Conv2d) for m in mods)
-    return {"group_norm": gn - k4, "group_norm_quant": k4, "conv_s8": convs, "quantize": convs - k4}
+    return {"group_norm": gn - k4, "group_norm_quant": k4, "conv_s8": convs, "conv_s8_thin": thin_convs(roots),
+            "quantize": convs - k4}
 
 
 def shallow_roots(model, cut: int) -> list:
@@ -1992,7 +2034,7 @@ def check_serve_launches(sampler, int8: bool) -> dict:
         raise AssertionError(f"launch counts {launches} != {want} ({forwards} forwards)")
     check_tensor_core_launches("serving")
     if int8:
-        check_conv_tensor_core_launches("serving", dp4a_convs(sampler.model) * forwards)
+        check_conv_tensor_core_launches("serving", thin_convs(sampler.model) * forwards)
     return tensor_core_split(launches)
 
 
@@ -2020,7 +2062,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
                    create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))))
     for name, model in models:
         per[name] = gn_conv_counts(model, int8)
-        per[name]["dp4a"] = dp4a_convs(model)
+        per[name]["thin"] = thin_convs(model)
         pools = f32_attention_calls(model)  # the last model of the loop is the classifier
         if paths is None:
             new_paths[name] = os.path.join(tmp, f"{name}_random.pt")
@@ -2048,7 +2090,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     steps = out["steps"] * out["batches"]
     if not int8 and (per["model"]["group_norm"], per["classifier"]["group_norm"]) != (GN_PER_FORWARD, CLF_GN_PER_FORWARD):
         raise AssertionError(f"GroupNorms {per}, not {GN_PER_FORWARD} and {CLF_GN_PER_FORWARD}")
-    dp4a = (per["model"].pop("dp4a") + per["classifier"].pop("dp4a")) * steps
+    thin = (per["model"].pop("thin") + per["classifier"].pop("thin")) * steps
     want = {**dict.fromkeys(launches, 0), "attention": (ATTN_PER_FORWARD + CLF_ATTN_PER_FORWARD) * steps,
             "attention_bwd": CLF_ATTN_PER_FORWARD * steps,
             **{k: (per["model"][k] + per["classifier"][k]) * steps for k in per["model"]}}
@@ -2058,7 +2100,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
         raise AssertionError(f"launch counts {launches} != {want}")
     check_tensor_core_launches("guided sampling", pools * steps, pools * steps)
     if int8:
-        check_conv_tensor_core_launches("guided sampling", dp4a)
+        check_conv_tensor_core_launches("guided sampling", thin)
     chain = sum(out["chain_seconds"])
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
@@ -2089,7 +2131,7 @@ def phase6c_preset(dev, tmp, paths):
     torch.backends.cudnn.allow_tf32 = True
     counts = adm_g_counts(True)
     per_full, per_shallow, per_clf, pools = counts["full"], counts["shallow"], counts["clf"], counts["pools"]
-    dp4a_full, dp4a_shallow, dp4a_clf = (counts["dp4a"][k] for k in ("full", "shallow", "clf"))
+    thin_full, thin_shallow, thin_clf = (counts["thin"][k] for k in ("full", "shallow", "clf"))
     # the schedule says which steps guide: step i runs local timestep T - 1 - i
     tmap = create_gaussian_diffusion(steps=1000, learn_sigma=True,
                                      timestep_respacing=str(GUIDED_STEPS)).sched.timestep_map.tolist()
@@ -2122,7 +2164,7 @@ def phase6c_preset(dev, tmp, paths):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_tensor_core_launches("the preset", pools * n_clf, pools * n_clf)
-    check_conv_tensor_core_launches("the preset", dp4a_full * n_full + dp4a_shallow * n_shallow + dp4a_clf * n_clf)
+    check_conv_tensor_core_launches("the preset", thin_full * n_full + thin_shallow * n_shallow + thin_clf * n_clf)
     images = np.load(out["path"])["arr_0"]
     if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(images[i].std() > 0 for i in range(8)):
         raise AssertionError(f"preset samples {images.shape} {images.dtype}: not 8 non-constant uint8 images")
@@ -2750,7 +2792,7 @@ def time_train_steps(dev, tmp, sd, x, cond, tag, n_steps=TIMED_STEPS, **over) ->
     if split["attention_f32"] or split["attention_bwd_f32"]:
         raise AssertionError(f"{tag}: K1/K2 at d = 192 and 256 ran on float32 input: {split}")
     if loop.model.int8:
-        check_conv_tensor_core_launches(tag, n_steps * dp4a_convs(loop.model))
+        check_conv_tensor_core_launches(tag, n_steps * thin_convs(loop.model))
     loop.flush_metrics()
 
     # forward, backward and optimizer + EMA of the same step, by events between them
@@ -3091,7 +3133,7 @@ def phase9_image_sample(dev, tmp, run_dir) -> list:
             raise AssertionError(f"image_sample {name}: launch counts {launches} != {want}")
         check_tensor_core_launches(f"image_sample {name}")
         if int8:
-            check_conv_tensor_core_launches(f"image_sample {name}", forwards * dp4a_convs(model))
+            check_conv_tensor_core_launches(f"image_sample {name}", forwards * thin_convs(model))
         secs = out["batch_seconds"]
         log(f"  image_sample {name}: seconds a batch {', '.join(f'{v:.3f}' for v in secs)} (CUDA events; the "
             f"second overlaps the first's host work), {1e3 * secs[-1] / steps:.2f} ms a step; main() "
@@ -3364,7 +3406,7 @@ def phase12b_sr_unsup(dev, tmp, data, clip_path) -> list:
         "--config-file", cfg, "--device", dev.type, "-d", "sr_unsup_int8", "--load", "sr_unsup", "--load_file",
         "model000010.pt", "--lr_anneal_steps", "15", "--train_conv_impl", "int8"], {"OPENAI_LOG_FORMAT": "log,csv"})
     check_tensor_core_launches("super_res_unsup --train_conv_impl int8")
-    check_conv_tensor_core_launches("super_res_unsup --train_conv_impl int8", 5 * dp4a_convs(int8_model))
+    check_conv_tensor_core_launches("super_res_unsup --train_conv_impl int8", 5 * thin_convs(int8_model))
     second = next(d for d in os.listdir(runs_dir) if d.endswith("_sr_unsup_int8"))
     with open(os.path.join(runs_dir, second, "log.txt")) as f:
         text = f.read()
@@ -3444,7 +3486,7 @@ def phase12c_sr_train_sample(dev, tmp, data, samples_npz) -> list:
             {"OPENAI_LOG_FORMAT": "log"})
         check_tensor_core_launches(f"super_res_sample {name}")
         if name == "int8":
-            check_conv_tensor_core_launches(f"super_res_sample {name}", SR_SAMPLE_STEPS * dp4a_convs(model))
+            check_conv_tensor_core_launches(f"super_res_sample {name}", SR_SAMPLE_STEPS * thin_convs(model))
         want = expected(launches, (SR_SAMPLE_STEPS, per))
         images[name] = np.load(out["path"])["arr_0"]
         secs = out["batch_seconds"][0]
@@ -3987,7 +4029,7 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
         with torch.device("meta"):
             model = clip_unet(use_fp16=True, conv_impl="int8" if int8 else "auto")
         per = unet_counts(model, int8)
-        dp4a = dp4a_convs(model)
+        thin = thin_convs(model)
         del model
         cache = 2 if "--guidance_cache" in flags else 1
         steps = int(CLIP_GUIDED_FLAGS[CLIP_GUIDED_FLAGS.index("--timestep_respacing") + 1])
@@ -4010,7 +4052,7 @@ def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
             raise AssertionError(f"clip_guided_sample {name}: calls {out['calls']}, launches {launches} != {want}")
         check_tensor_core_launches(f"CLIP-guided sampling ({name})")
         if int8:
-            check_conv_tensor_core_launches(f"CLIP-guided sampling ({name})", dp4a * (steps + n_cond))
+            check_conv_tensor_core_launches(f"CLIP-guided sampling ({name})", thin * (steps + n_cond))
         images = np.load(out["paths"][0])["arr_0"]
         if images.shape != (8, 256, 256, 3) or images.dtype != np.uint8 or not all(im.std() > 0 for im in images):
             raise AssertionError(f"{name}: samples {images.shape} {images.dtype}, not 8 non-constant uint8 images")
@@ -4180,7 +4222,7 @@ def check_dist_launches(tag, loop, launches) -> dict:
     if launches["attention_f32"] or launches["attention_bwd_f32"]:
         raise AssertionError(f"13a {tag}: K1/K2 at d = 192 and 256 ran on float32 input: {launches}")
     if loop.model.int8:
-        check_conv_tensor_core_launches(f"13a {tag}", dp4a_convs(loop.model))
+        check_conv_tensor_core_launches(f"13a {tag}", thin_convs(loop.model))
     return launches
 
 
@@ -4454,7 +4496,7 @@ def phase14a_train_step_bench(timed: dict) -> list:
     for impl in ("xla", "int8"):
         with torch.device("meta"):
             model = recipe_model(train_conv_impl=impl)[1]
-        per_step, dp4a = train_counts(model, False), dp4a_convs(model)
+        per_step, thin = train_counts(model, False), thin_convs(model)
         row, launches, secs = run_counted(train_step_bench.main, [], {**TSB_ENV, "TSB_CONV_IMPL": impl})
         check_row(f"train_step_bench {impl}", row, ("ms_per_step", "samples_per_sec_per_chip", "compile_sec",
                                                      "window_steps", "flops_per_step", "model_tflops_per_s",
@@ -4466,7 +4508,7 @@ def phase14a_train_step_bench(timed: dict) -> list:
         if launches != want or row["card"] != smi() or row["window_steps"] != window:
             raise AssertionError(f"train_step_bench {impl}: launches {launches} != {want}, or row {row}")
         if impl == "int8":
-            check_conv_tensor_core_launches("train_step_bench int8", steps * dp4a)
+            check_conv_tensor_core_launches("train_step_bench int8", steps * thin)
         rows[impl] = row
         runs.append(launches)
     agreement("train_step_bench bf16 device_ms_per_step", rows["xla"]["device_ms_per_step"],
@@ -4545,7 +4587,7 @@ def phase14c_serve_bench(tmp) -> dict:
     with torch.device("meta"):
         model = create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()),
                                            conv_impl="int8")[0]
-    per, dp4a = unet_counts(model, True), dp4a_convs(model)
+    per, thin = unet_counts(model, True), thin_convs(model)
     n_req = int(SB_ENV["SB_REQUESTS"])
     out, here, secs = run_counted(serve_bench.main, [], {**SB_ENV, "SB_CKPT_DIR": tmp})
     if any(here.values()):
@@ -4563,7 +4605,7 @@ def phase14c_serve_bench(tmp) -> dict:
     # two warm-up chains, the first request, and n_req timed and n_req back-to-back ones, 25 steps each
     if (server["dispatches"] != 3 + 2 * n_req or forwards != 25 * server["dispatches"] or launches != want
             or got["attention_mma"] != got["attention"] or got["attention_f32"]
-            or got["conv_s8"] - got["conv_s8_mma"] != forwards * dp4a
+            or got["conv_s8"] != got["conv_s8_mma"] + got["conv_s8_thin"] or got["conv_s8_thin"] != forwards * thin
             or out["card"] != smi()):
         raise AssertionError(f"serve_bench: the server ran {server}, want {want}")
     return {**launches, "attention_f32": 0, "attention_bwd_f32": 0}
@@ -4610,8 +4652,8 @@ def adm_g_counts(int8: bool) -> dict:
     """Launches of one call of each network of ADM-G 256 and its classifier
     (``GUIDED_FLAGS``), from the modules: ``full`` and ``shallow`` UNet
     forwards (the default DeepCache cut), ``clf`` a classifier forward and
-    backward; ``pools`` its float32 attention pools; ``dp4a`` each call's
-    convs on ``__dp4a`` under int8."""
+    backward; ``pools`` its float32 attention pools; ``thin`` each call's
+    convs on ``conv_s8_thin.cu`` under int8."""
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample
@@ -4627,7 +4669,7 @@ def adm_g_counts(int8: bool) -> dict:
         "full": unet_counts(model, int8), "shallow": unet_counts(model, int8, cut),
         "clf": {"attention": CLF_ATTN_PER_FORWARD, "attention_bwd": CLF_ATTN_PER_FORWARD, **gn_conv_counts(clf, int8)},
         "pools": f32_attention_calls(clf),
-        "dp4a": {"full": dp4a_convs(model), "shallow": dp4a_convs(shallow_roots(model, cut)), "clf": dp4a_convs(clf)}
+        "thin": {"full": thin_convs(model), "shallow": thin_convs(shallow_roots(model, cut)), "clf": thin_convs(clf)}
         if int8 else {"full": 0, "shallow": 0, "clf": 0},
     }
 
@@ -4638,19 +4680,19 @@ def check_bench(tool: str, launches: dict, calls: list, counts: dict) -> dict:
     ``counts`` ``adm_g_counts`` by int8. Checks the tensor-core split too
     (read from the live counters, so right after the run). Returns
     ``launches``."""
-    terms, pools, dp4a = [], 0, 0
+    terms, pools, thin = [], 0, 0
     for int8, n in calls:
         c = counts[int8]
         terms += [(n.get(k, 0), c[k]) for k in ("full", "shallow", "clf")]
         pools += c["pools"] * n.get("clf", 0)
-        dp4a += sum(c["dp4a"][k] * n.get(k, 0) for k in ("full", "shallow", "clf"))
+        thin += sum(c["thin"][k] * n.get(k, 0) for k in ("full", "shallow", "clf"))
     want = expected(launches, *terms)
     want.update(attention_f32=pools, attention_bwd_f32=pools)
     log(f"  {tool}: launches {launches} (expected {want}: network calls {calls})")
     if launches != want:
         raise AssertionError(f"{tool}: launch counts {launches} != {want}")
     check_tensor_core_launches(tool, pools, pools)
-    check_conv_tensor_core_launches(tool, dp4a)
+    check_conv_tensor_core_launches(tool, thin)
     return launches
 
 
@@ -4768,8 +4810,8 @@ def proxy_counts(size: int) -> dict:
     and ``shallow`` bf16 or int8 generator forwards (the default DeepCache
     cut), ``clf`` a guidance call of the float32 classifier (forward and
     backward; xla or int8), ``clf_fwd`` its forward alone; ``attn`` the
-    classifier's attention blocks (float32: the float32 tensor-core kernels), ``dp4a``
-    each int8 call's convs on ``__dp4a``."""
+    classifier's attention blocks (float32: the float32 tensor-core kernels), ``thin``
+    each int8 call's convs on ``conv_s8_thin.cu``."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, EncoderUNetModel, UNetModel
@@ -4788,8 +4830,8 @@ def proxy_counts(size: int) -> dict:
         out[f"full_{tag}"] = unet_counts(gen[impl], int8)
         out[f"shallow_{tag}"] = unet_counts(gen[impl], int8, cut)
         out[f"clf_{tag}"] = {"attention": attn, "attention_bwd": attn, **gn_conv_counts(clf[impl], int8)}
-    out["dp4a"] = {"full": dp4a_convs(gen["int8"]), "shallow": dp4a_convs(shallow_roots(gen["int8"], cut)),
-                   "clf": dp4a_convs(clf["int8"])}
+    out["thin"] = {"full": thin_convs(gen["int8"]), "shallow": thin_convs(shallow_roots(gen["int8"], cut)),
+                   "clf": thin_convs(clf["int8"])}
     return out
 
 
@@ -4831,7 +4873,7 @@ def phase16_quality_tools() -> list:
             [(n, small["train"]), (n, small["clf_train"]), (4 * T, small["full_xla"]), (4 * T, small["clf_xla"]),
              (refresh, small["full_int8"]), (T - refresh, small["shallow_int8"]), (cached, small["clf_int8"])],
             n * (small["train"]["attention"] + small["attn"]) + (4 * T + cached) * small["attn"],
-            refresh * small["dp4a"]["full"] + (T - refresh) * small["dp4a"]["shallow"] + cached * small["dp4a"]["clf"]),
+            refresh * small["thin"]["full"] + (T - refresh) * small["thin"]["shallow"] + cached * small["thin"]["clf"]),
         # training, two sweep points and the unguided set (T generator forwards each), their guidance, the
         # classifier's accuracy on each set (one forward of the batch)
         "guidance_quality_sweep": (
@@ -4849,14 +4891,14 @@ def phase16_quality_tools() -> list:
         if set(row) != PHASE16_KEYS[tool] | {"card"} or row["card"] != smi():
             raise AssertionError(f"{tool}: keys {sorted(row)} (want the JAX tool's and card), card {row['card']!r}")
         finite_numbers(tool, row)
-        terms, k1_f32, dp4a = plans[tool]
+        terms, k1_f32, thin = plans[tool]
         want = expected(launches, *terms)
         want.update(attention_f32=k1_f32, attention_bwd_f32=want["attention_bwd"])
         log(f"  {tool}: launches {launches} (expected {want})")
         if launches != want:
             raise AssertionError(f"{tool}: launch counts {launches} != {want}")
         check_tensor_core_launches(tool, k1_f32, want["attention_bwd"])
-        check_conv_tensor_core_launches(tool, dp4a)
+        check_conv_tensor_core_launches(tool, thin)
         runs.append(launches)
     return runs
 
@@ -4923,8 +4965,9 @@ def sp_counts(model, int8: bool, backward: bool = False) -> dict:
     attention pool run K1 (and K2) whole on the gathered map, so their
     norms stay one K3 launch each; every other GroupNorm runs the split
     entries (stats, then K3's apply or, quantizing, K4's); under int8 every
-    conv runs K5 and every conv that no K4 feeds quantizes its input by the
-    split quantize entries."""
+    conv runs K5 (the stems and heads on its thin kernels, on the halo'd
+    shard) and every conv that no K4 feeds quantizes its input by the split
+    quantize entries."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d, ResBlock
 
@@ -4939,7 +4982,7 @@ def sp_counts(model, int8: bool, backward: bool = False) -> dict:
         k4 = sum(1 if m.down else 2 for m in mods if isinstance(m, ResBlock))
         convs = sum(isinstance(m, Conv2d) for m in mods)
         out.update(group_norm_apply=split - k4, group_norm_quant_apply=k4, conv_s8=convs,
-                   quantize_amax=convs - k4, quantize_apply=convs - k4)
+                   conv_s8_thin=thin_convs(model), quantize_amax=convs - k4, quantize_apply=convs - k4)
     return out
 
 
@@ -5126,8 +5169,9 @@ def tp_counts(model, int8: bool, backward: bool = False) -> dict:
     whole groups, or whole on a gathered head); under int8 every ResBlock's
     quantizing GroupNorm runs K4 split at its statistics (the stats entry,
     then the quant-apply entry, no unsplit K4), every conv runs K5 once (on
-    the rank's output channels, or whole: the head), and every conv that no
-    K4 feeds quantizes its gathered input with the quantize kernels."""
+    the rank's output channels, or whole: the head; the stems and heads on
+    its thin kernels), and every conv that no K4 feeds quantizes its gathered
+    input with the quantize kernels."""
     from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
     from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d, ResBlock
 
@@ -5142,7 +5186,7 @@ def tp_counts(model, int8: bool, backward: bool = False) -> dict:
         k4 = sum(1 if m.down else 2 for m in mods if isinstance(m, ResBlock))
         convs = sum(isinstance(m, Conv2d) for m in mods)
         out.update(group_norm=gn - k4, group_norm_stats=k4, group_norm_quant_apply=k4, conv_s8=convs,
-                   quantize=convs - k4)
+                   conv_s8_thin=thin_convs(model), quantize=convs - k4)
     return out
 
 
@@ -5567,8 +5611,8 @@ def check_ptxas(build_log: str) -> None:
             entry = f"{found.group(1)}<{', '.join(args)}>" if found else mangled.group(1) if mangled else ""
             on_path = bool(args) and (args[0] in ("64", "192", "256") or "f32mma" in found.group(1)
                                       or (args[0] == "96" and found.group(1) == "attention_fwd_mma_kernel"))
-            found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_fused_mma_kernel|absmax_kernel|"
-                              r"quantize_kernel|gn_fused_kernel)(\w*)'", line)
+            found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_s8_stem_kernel|conv_s8_head_kernel|"
+                              r"conv_fused_mma_kernel|absmax_kernel|quantize_kernel|gn_fused_kernel)(\w*)'", line)
             if found:
                 entry, on_path = found.group(1) + found.group(2), True
         spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
@@ -5621,7 +5665,7 @@ def main(argv=None) -> int:
     log("phase 3c: K4 (quantizing GroupNorm) vs its plain version on the card")
     records["group_norm_quant"] = phase3c_group_norm_quant(dev)
     log("phase 3d: K5 (s8 conv) vs its plain version, the __dp4a kernel and cuDNN's bf16 conv on the card")
-    records["conv_s8"] = phase3d_conv_s8(dev)
+    records.update(phase3d_conv_s8(dev))
     log("phase 3e: K6 (fused quantizing conv) vs its plain version and cuDNN's bf16 conv on the card")
     records["conv_fused"] = phase3e_fused_conv(dev)
     log("phase 3f: K7 (tensor-core probe) vs its plain version on the card")
@@ -5802,10 +5846,12 @@ def main(argv=None) -> int:
     log(f"  phases 17 and 18 took {time.perf_counter() - t17:.1f} s")
 
     # K1 and K2 run on two tensor-core kernels each: bf16 (the sampling paths at d = 64, training at d = 192 and
-    # 256) and float32 (split TF32: the classifier's attention pool, the quality tools' f32 training)
+    # 256) and float32 (split TF32: the classifier's attention pool, the quality tools' f32 training); K5 on
+    # conv_s8_mma.cu and, for the stems and heads, conv_s8_thin.cu
     for run in runs:
         run["attention"] -= run["attention_f32"]
         run["attention_bwd"] -= run["attention_bwd_f32"]
+        run["conv_s8"] -= run["conv_s8_thin"]
     kernels = []
     for name, src, replaces in (
         ("attention", "guided_diffusion_clip_tpu_torch/ops/csrc/attention_fwd_mma.cu",
@@ -5821,6 +5867,8 @@ def main(argv=None) -> int:
         ("group_norm_quant", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:50"),
         ("conv_s8", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_s8_mma.cu",
+         "guided_diffusion_clip_tpu/ops/pallas_conv.py:258"),
+        ("conv_s8_thin", "guided_diffusion_clip_tpu_torch/ops/csrc/conv_s8_thin.cu",
          "guided_diffusion_clip_tpu/ops/pallas_conv.py:258"),
         # no TPU kernel: XLA fuses this pass of the JAX package's quantize_per_tensor
         ("quantize", "guided_diffusion_clip_tpu_torch/ops/csrc/quantize.cu",

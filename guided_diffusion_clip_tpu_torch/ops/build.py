@@ -67,6 +67,9 @@ _SIGNATURES = {
     # the tensor-core kernel: q, w, s_img, s_w, bias, out, scratch, B, H, W, C, K, ksize, stride, pad, Ho,
     # Wo, KRp, out_dtype, bm, split, stream
     "gdc_conv_s8_mma": [_P] * 7 + [_I] * 14 + [_P],
+    # the thin kernels (stems, heads): q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, KRp, out_dtype, kind,
+    # taps (host), stream
+    "gdc_conv_s8_thin": [_P] * 6 + [_I] * 9 + [_P, _P],
     # the quantize kernels' two passes: x, n, amax_bits, dtype, stream; then x, n, amax_bits, q, s_x, s_w,
     # factors, K, dtype, stream
     "gdc_absmax": [_P, ctypes.c_longlong, _P, _I, _P],

@@ -1,7 +1,8 @@
 // s8 x s8 -> s32 convolution with a dequantizing epilogue: kernel K5 on the
-// integer pipes. Layers with C % 16 == 0 and K > 16 run conv_s8_mma.cu on the
-// tensor cores; this kernel keeps the 3-channel stems and the 6-channel head,
-// and is what the tensor-core kernel is held to, bit for bit, on every shape.
+// integer pipes, on no model's path. Layers with C % 16 == 0 and K > 16 run
+// conv_s8_mma.cu on the tensor cores, the stems and heads conv_s8_thin.cu;
+// this kernel is the yardstick both are held to, bit for bit, on every shape
+// (ops/quant.py::conv_s8_dp4a), and runs what neither takes.
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_conv.py::fused_conv3x3_s8
 // (_kernel_s8) and, generalised, the s8 convolutions that the JAX package's

@@ -1,6 +1,6 @@
 // s8 x s8 -> s32 convolution on the tensor cores: kernel K5 for every layer
-// with C % 16 == 0 and K > 16 (conv_s8.cu keeps the 3-channel stems and the
-// 6-channel head on __dp4a).
+// with C % 16 == 0 and K > 16 (the stems and heads run conv_s8_thin.cu; the
+// __dp4a kernel, conv_s8.cu, is the yardstick of both).
 //
 // Replaces guided_diffusion_clip_tpu/ops/pallas_conv.py::fused_conv3x3_s8
 // (_kernel_s8) and the s8 convolutions that the JAX package's ops/quant.py

@@ -14,16 +14,20 @@ symmetric):
 epilogue. On a CPU tensor it is the plain version, the JAX package's CPU
 emulation: an f32 conv of the integer-valued tensors (products are exact,
 sums round once they pass 2^24). On a CUDA tensor it is the hand-written
-kernel K5, or it raises: PyTorch has no int8 convolution on CUDA. K5 exists
-twice, picked by shape with no setting: layers with C % 16 == 0 and K > 16
-run on the tensor cores (``csrc/conv_s8_mma.cu``, counted in
-``conv_s8_cuda.launches_mma`` as well as ``launches``; ``pick_tile`` chooses
-the block tile and the split of the reduction for layers with few pixels),
-the 3-channel stems and the 6-channel head on ``__dp4a``
-(``csrc/conv_s8.cu``). Both give the same bits. Kernel K5 replaces
-``guided_diffusion_clip_tpu/ops/pallas_conv.py::fused_conv3x3_s8`` (and, on
-the TPU, XLA's s8 conv, which the JAX package's ``conv_prequant`` and
-``int8_conv`` call).
+kernel K5, or it raises: PyTorch has no int8 convolution on CUDA. K5 runs
+on the tensor cores, in one of three kernels picked by shape with no
+setting: layers with C % 16 == 0 and K > 16 run ``csrc/conv_s8_mma.cu``
+(counted in ``conv_s8_cuda.launches_mma`` as well as ``launches``;
+``pick_tile`` chooses the block tile and the split of the reduction for
+layers with few pixels); the thin layers (``uses_thin_kernel``) run the two
+kernels of ``csrc/conv_s8_thin.cu`` (counted in ``launches_thin``): the
+stems, 3 or 6 channels in, and the heads, 3 or 6 channels out. The
+``__dp4a`` kernel (``csrc/conv_s8.cu``) is on no model's path: it is the
+yardstick the others are held to bit for bit (``conv_s8_dp4a``), and it
+runs what neither takes (a stride-2 stem, say). All give the same bits.
+Kernel K5 replaces ``guided_diffusion_clip_tpu/ops/pallas_conv.py::fused_conv3x3_s8``
+(and, on the TPU, XLA's s8 conv, which the JAX package's ``conv_prequant``
+and ``int8_conv`` call, and which takes the stems and heads there).
 
 ``int8_conv``'s per-tensor quantize is ``quantize_per_tensor`` on the CPU and
 two hand-written passes on CUDA (``csrc/quantize.cu``: an absmax reduction,
@@ -42,6 +46,9 @@ kernel, so both are convolutions in PyTorch (cuDNN on the card).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -207,6 +214,51 @@ def uses_tensor_cores(C: int, K: int, ks: int) -> bool:
     return C % 16 == 0 and K > 16 and ks * ks <= 25
 
 
+def uses_thin_kernel(C: int, K: int, ks: int, stride: int):
+    """Which kernel of ``csrc/conv_s8_thin.cu`` runs a (ks, ks, C, K) conv
+    at ``stride``, or None: ``"stem"`` where the tensor-core kernel does not
+    and a pixel's reduction is one or two 32-byte steps (the stems, 3 or 6
+    channels in at 3x3) with whole 8-channel mma tiles out; ``"head"`` where
+    a 16-byte copy lies inside one tap and one 8-channel tile holds every
+    output (the heads, 3 or 6 channels out, at 3x3 and 1x1). Stride 1 only."""
+    if stride != 1:
+        return None
+    if not uses_tensor_cores(C, K, ks) and ks * ks * C <= 64 and K % 8 == 0:
+        return "stem"
+    if C % 16 == 0 and K <= 8 and ks in (1, 3):
+        return "head"
+    return None
+
+
+def stem_taps(C: int, ks: int, W: int) -> list:
+    """The stem kernel's table of a pixel's reduction bytes, as ``_pack_weights``
+    orders them: for byte j < ks*ks*C, tap (ky, kx) = divmod(j // C, ks) and
+    channel c = j % C, the entry ``(offset << 8) | (ky << 4) | kx`` with
+    ``offset = (ky * W + kx - pad) * C + c`` bytes from the NHWC byte
+    ``((oy - pad) * W + ox) * C`` of output pixel (oy, ox) of a W-wide
+    image; the tap lies in the image where 0 <= oy - pad + ky < H and
+    0 <= ox - pad + kx < W. Bytes past ks*ks*C, up to the next multiple of
+    32, are zeros: ky = kx = 15, which no image row or column holds."""
+    pad = (ks - 1) // 2
+    KR = ks * ks * C
+    out = []
+    for j in range(-(-KR // 32) * 32):
+        if j >= KR:
+            out.append((15 << 4) | 15)
+            continue
+        tap, c = divmod(j, C)
+        ky, kx = divmod(tap, ks)
+        out.append((((ky * W + kx - pad) * C + c) << 8) | (ky << 4) | kx)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_taps_host(C: int, ks: int, W: int):
+    """``stem_taps`` as the C array the kernel's entry point copies (kept alive here)."""
+    taps = stem_taps(C, ks, W)
+    return (ctypes.c_int * len(taps))(*taps)
+
+
 def pick_tile(M: int, K: int, KRp: int):
     """(rows of a block's tile, slices of the reduction) for the tensor-core
     kernel on M output pixels, K output channels and KRp reduction bytes:
@@ -232,9 +284,10 @@ def split_ranges(KRp: int, split: int):
     return [(z * per * _STAGE, min(KRp, (z + 1) * per * _STAGE)) for z in range(split)]
 
 
-def _conv_s8_launch(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows, tensor_cores: bool):
-    """Check the operands of K5 and launch it, on the tensor cores or on
-    ``__dp4a``; raises on what the kernel does not take."""
+def _conv_s8_launch(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows, kernel: str):
+    """Check the operands of K5 and launch ``kernel``: "mma" (``conv_s8_mma.cu``),
+    "stem" or "head" (``conv_s8_thin.cu``) or "dp4a" (``conv_s8.cu``); raises
+    on what the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"conv_s8 kernel needs a CUDA tensor, got one on {q.device}")
     if q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -265,7 +318,7 @@ def _conv_s8_launch(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows, tens
             None if b is None else b.data_ptr(), out.data_ptr())
     dims = (B, H, W, C, K, kh, stride, p, Ho, Wo, KRp, _OUT_CODE[out_dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if tensor_cores:
+    if kernel == "mma":
         M = B * Ho * Wo
         bm, split = pick_tile(M, K, KRp)
         # a split launch adds its s32 partial sums into zeroed scratch
@@ -273,6 +326,13 @@ def _conv_s8_launch(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows, tens
         rc = build.load().gdc_conv_s8_mma(
             *ptrs, None if scratch is None else scratch.data_ptr(), *dims, bm, split, stream)
         build.check(rc, "gdc_conv_s8_mma")
+    elif kernel in ("stem", "head"):
+        if stride != 1:  # the kernels write (B, H, W, K)
+            raise ValueError(f"conv_s8: the thin kernels take stride 1, not {stride}")
+        taps = _stem_taps_host(C, kh, W) if kernel == "stem" else None
+        rc = build.load().gdc_conv_s8_thin(*ptrs, B, H, W, C, K, kh, KRp, _OUT_CODE[out_dtype],
+                                           int(kernel == "head"), taps, stream)
+        build.check(rc, "gdc_conv_s8_thin")
     else:
         rc = build.load().gdc_conv_s8(*ptrs, *dims, stream)
         build.check(rc, "gdc_conv_s8")
@@ -284,23 +344,31 @@ def conv_s8_cuda(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows=None):
     (kh, kw, C, K) s8, s_img (B,) f32 or None, s_w (K,) f32, bias (K,) or
     None; symmetric (kh - 1) // 2 padding. ``rows``: ``_pack_weights(w_q)``
     where the caller has it cached, else packed here. Output (B, Ho, Wo, K)
-    in ``out_dtype`` (f32 or bf16). Raises on what the kernel does not take."""
-    tensor_cores = q.dim() == 4 and w_q.dim() == 4 and uses_tensor_cores(q.shape[3], w_q.shape[3], w_q.shape[0])
-    out = _conv_s8_launch(q, w_q, s_img, s_w, bias, stride, out_dtype, rows, tensor_cores)
+    in ``out_dtype`` (f32 or bf16). The shape picks the kernel: the
+    tensor-core kernel where ``uses_tensor_cores``, else a thin kernel where
+    ``uses_thin_kernel``, else ``__dp4a``. Raises on what the kernel does
+    not take."""
+    kernel = "dp4a"
+    if q.dim() == 4 and w_q.dim() == 4:
+        C, K, ks = q.shape[3], w_q.shape[3], w_q.shape[0]
+        kernel = "mma" if uses_tensor_cores(C, K, ks) else uses_thin_kernel(C, K, ks, stride) or "dp4a"
+    out = _conv_s8_launch(q, w_q, s_img, s_w, bias, stride, out_dtype, rows, kernel)
     conv_s8_cuda.launches += 1
-    conv_s8_cuda.launches_mma += int(tensor_cores)
+    conv_s8_cuda.launches_mma += int(kernel == "mma")
+    conv_s8_cuda.launches_thin += int(kernel in ("stem", "head"))
     return out
 
 
 conv_s8_cuda.launches = 0
-conv_s8_cuda.launches_mma = 0  # those of ``launches`` that ran on the tensor cores
+conv_s8_cuda.launches_mma = 0   # those of ``launches`` that ran conv_s8_mma.cu
+conv_s8_cuda.launches_thin = 0  # those that ran conv_s8_thin.cu (the stems and heads)
 
 
 def conv_s8_dp4a(q, w_q, s_img, s_w, bias, stride: int, out_dtype, rows=None):
-    """K5's ``__dp4a`` kernel whatever the shape: what the tensor-core kernel
-    is held to, bit for bit (exact sums, the same epilogue). On no model's
-    path and not counted."""
-    return _conv_s8_launch(q, w_q, s_img, s_w, bias, stride, out_dtype, rows, False)
+    """K5's ``__dp4a`` kernel whatever the shape: what the tensor-core
+    kernels (``conv_s8_mma.cu``, ``conv_s8_thin.cu``) are held to, bit for
+    bit (exact sums, the same epilogue). On no model's path and not counted."""
+    return _conv_s8_launch(q, w_q, s_img, s_w, bias, stride, out_dtype, rows, "dp4a")
 
 
 def conv_s8(q, w_q, s_img, s_w, bias=None, stride: int = 1, out_dtype=torch.float32, rows=None):

@@ -389,14 +389,72 @@ def test_conv_s8_tensor_core_kernel(dev, B, H, C, K, k, stride, per_image, out_d
 
 @pytest.mark.parametrize("C,K", [(3, 256), (256, 6)])
 def test_conv_s8_stem_and_head_stay_on_dp4a(dev, C, K):
+    """The stem and head convs that ran on ``__dp4a`` now run the thin
+    kernels of ``conv_s8_thin.cu``: one launch counted in ``launches_thin``,
+    none in ``launches_mma``."""
     from guided_diffusion_clip_tpu_torch.ops import quant as Q
 
     g = torch.Generator(device=dev).manual_seed(C)
     q = torch.randint(-127, 128, (2, 16, 16, C), generator=g, device=dev, dtype=torch.int8)
     w_q, s_w = Q.quantize_per_out_channel(torch.randn(3, 3, C, K, generator=g, device=dev) * 0.05)
-    n0, m0 = Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma
+    n0, m0, t0 = Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma, Q.conv_s8_cuda.launches_thin
     Q.conv_s8(q, w_q, None, s_w)
-    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma) == (n0 + 1, m0)
+    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma, Q.conv_s8_cuda.launches_thin) == (n0 + 1, m0, t0 + 1)
+
+
+@pytest.mark.parametrize("scales", ["none", "per_image", "bias", "both"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,W,C,K,k",
+    [(1, 9, 10, 3, 256, 3), (2, 7, 5, 6, 64, 3), (2, 13, 11, 3, 128, 3), (1, 5, 9, 3, 32, 3), (2, 3, 17, 6, 192, 3),
+     (1, 33, 31, 3, 512, 3), (2, 6, 7, 40, 8, 1), (2, 16, 16, 256, 6, 3), (1, 9, 37, 64, 3, 3), (2, 7, 5, 192, 3, 1),
+     (2, 1, 1, 64, 3, 1), (1, 20, 70, 48, 6, 3), (2, 11, 9, 16, 8, 3)],
+)
+def test_conv_s8_thin_kernels(dev, B, H, W, C, K, k, out_dtype, scales):
+    """The stem and head kernels of ``conv_s8_thin.cu`` against
+    ``conv_s8_plain`` (f32 within 1e-6 * max(1, |ref|), bf16 within 2e-2)
+    and, bit for bit, against the ``__dp4a`` kernel: batch 1 and 2, H != W,
+    odd sizes, stems with C = 3 and 6 (and a 1x1 of 40 channels), K from 8
+    to 512 (the channels split between warps past 256 at one k-step and 64
+    at two), heads with K = 3, 6 and 8 at 3x3 and 1x1, one pixel, a row
+    wider than two tiles; with and without per-image scales and bias.
+    Counted in ``launches_thin``; repeat runs bit-identical."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    kind = Q.uses_thin_kernel(C, K, k, 1)
+    assert kind == ("stem" if C * k * k <= 64 and K % 8 == 0 else "head")
+    g = torch.Generator(device=dev).manual_seed(B + H + W + C + K + k)
+    q = torch.randint(-127, 128, (B, H, W, C), generator=g, device=dev, dtype=torch.int8)
+    w_q, s_w = Q.quantize_per_out_channel(torch.randn(k, k, C, K, generator=g, device=dev) * 0.05)
+    s_img = torch.rand(B, generator=g, device=dev) * 0.02 + 0.001 if scales in ("per_image", "both") else None
+    bias = torch.randn(K, generator=g, device=dev) * 0.1 if scales in ("bias", "both") else None
+    args = (q, w_q, s_img, s_w, bias, 1, out_dtype)
+    n0, m0, t0 = Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma, Q.conv_s8_cuda.launches_thin
+    out = Q.conv_s8(*args)
+    torch.cuda.synchronize()
+    assert (Q.conv_s8_cuda.launches, Q.conv_s8_cuda.launches_mma, Q.conv_s8_cuda.launches_thin) == (n0 + 1, m0, t0 + 1)
+    ref = Q.conv_s8_plain(*args)
+    assert out.dtype == out_dtype and out.shape == ref.shape == (B, H, W, K)
+    tol = 1e-6 if out_dtype == torch.float32 else 2e-2
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= tol * ref.float().abs().clamp(min=1)).all(), diff.max()
+    assert torch.equal(out, Q.conv_s8_dp4a(*args))
+    assert torch.equal(Q.conv_s8(*args), out)
+    assert torch.equal(Q.conv_s8(*args, rows=Q._pack_weights(w_q)), out)
+
+
+def test_conv_s8_thin_kernels_take_a_channel_slice_of_the_rows(dev):
+    """Under TP a stem runs on ``rows[out_slice]`` of the cached rows: a view
+    that starts inside the weight tensor; the result is the slice's conv."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randint(-127, 128, (2, 12, 12, 3), generator=g, device=dev, dtype=torch.int8)
+    w_q, s_w = Q.quantize_per_out_channel(torch.randn(3, 3, 3, 256, generator=g, device=dev) * 0.05)
+    rows, half = Q._pack_weights(w_q), slice(128, 256)
+    out = Q.conv_s8(q, w_q[..., half], None, s_w[half], None, 1, torch.bfloat16, rows=rows[half])
+    assert torch.equal(out, Q.conv_s8(q, w_q, None, s_w, None, 1, torch.bfloat16)[..., half])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

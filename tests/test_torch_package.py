@@ -60,6 +60,7 @@ def test_kernel_sources_are_in_the_package():
     assert srcs == [  # the .cuh headers are hashed with the .cu files that include them, and compiled with them
         "attention_bwd.cu", "attention_bwd_f32mma.cu", "attention_bwd_f32mma.cuh", "attention_bwd_f32mma_dkv.cu",
         "attention_bwd_mma.cu", "attention_fwd.cu", "attention_fwd_f32mma.cu", "attention_fwd_mma.cu", "conv_fused.cu",
-        "conv_mma.cuh", "conv_s8.cu", "conv_s8_mma.cu", "groupnorm.cu", "mma.cuh", "mma_probe.cu", "quantize.cu",
+        "conv_mma.cuh", "conv_s8.cu", "conv_s8_mma.cu", "conv_s8_thin.cu", "groupnorm.cu", "mma.cuh", "mma_probe.cu",
+        "quantize.cu",
     ]
     assert build.library_path().startswith(os.path.join(REPO, "build", "gdc_torch_kernels"))

@@ -733,7 +733,7 @@ def _full_size(which):
 @pytest.mark.parametrize("which", ["unet", "classifier"])
 def test_pick_tile_on_every_conv_of_the_full_models(which, batch):
     """Every distinct conv shape of an ADM-256 forward (106 convs) and of its
-    classifier (41): the stems and the head stay on ``__dp4a``; for the
+    classifier (41): the stems and the head go to the thin kernels; for the
     others the tile grid covers the M pixels once, the launch fills the card
     (99 blocks, or a block per SM once it splits) wherever 64-row tiles and
     slices of 32 stages allow it, splits are used only where unsplit tiles do
@@ -786,6 +786,107 @@ def test_uses_tensor_cores():
     assert not TQ.uses_tensor_cores(3, 256, 3)      # the stem: a 16-byte copy would span taps
     assert not TQ.uses_tensor_cores(256, 6, 3)      # the head: a 128-channel tile for 6 channels
     assert not TQ.uses_tensor_cores(40, 64, 3) and not TQ.uses_tensor_cores(32, 64, 7)
+
+
+def test_uses_thin_kernel():
+    assert TQ.uses_thin_kernel(3, 256, 3, 1) == "stem" and TQ.uses_thin_kernel(6, 64, 3, 1) == "stem"
+    assert TQ.uses_thin_kernel(40, 8, 1, 1) == "stem"   # a pixel's 40 bytes: two 32-byte steps
+    assert TQ.uses_thin_kernel(256, 6, 3, 1) == "head" and TQ.uses_thin_kernel(192, 3, 1, 1) == "head"
+    assert TQ.uses_thin_kernel(16, 8, 3, 1) == "head"   # 144 bytes a pixel: too many for the stem
+    assert TQ.uses_thin_kernel(3, 256, 3, 2) is None and TQ.uses_thin_kernel(256, 6, 3, 2) is None  # stride 2
+    assert TQ.uses_thin_kernel(256, 256, 3, 1) is None  # the tensor-core kernel's
+    assert TQ.uses_thin_kernel(3, 6, 3, 1) is None      # no whole 8-channel tile, and no 16-byte copy
+    assert TQ.uses_thin_kernel(40, 64, 3, 1) is None and TQ.uses_thin_kernel(256, 6, 5, 1) is None
+
+
+def _path_models(which):
+    """The full-width models whose convs the int8 paths run, on the meta
+    device: ADM-G 256's UNet and classifier, the CLIP UNet at ADM-256's
+    widths, the training recipe (configs/config.yaml), its SR-delta model and
+    the SR model that ``super_res_sample`` runs, and the quality tools'
+    proxies (the generators with and without ``clip_feat`` and the
+    classifiers, at every size the tools build)."""
+    import os
+
+    from guided_diffusion_clip_tpu_torch import image_train, super_res_sample
+    from guided_diffusion_clip_tpu_torch.tools import _proxies as P
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, create_model, create_model_and_diffusion, model_and_diffusion_defaults, parse_yaml,
+        sr_create_model_and_diffusion, sr_model_and_diffusion_defaults, upstream_super_res,
+    )
+
+    if which in ("unet", "classifier"):
+        return [_full_size(which)]
+    with torch.device("meta"):
+        if which == "clip":
+            return [create_model(256, 256, 2, learn_sigma=True, class_cond=True, attention_resolutions="32,16,8",
+                                 num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True,
+                                 conv_impl="int8")]
+        if which in ("recipe", "recipe_sr"):
+            cfg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "config.yaml")
+            args = parse_yaml(image_train.create_argparser().parse_args(["--config-file", cfg]))
+            if which == "recipe":
+                return [create_model_and_diffusion(**args_to_dict(args, model_and_diffusion_defaults().keys()),
+                                                   conv_impl="int8")[0]]
+            kw = {k: getattr(args, k, v) for k, v in sr_model_and_diffusion_defaults().items()}
+            return [sr_create_model_and_diffusion(**dict(kw, large_size=args.image_size), conv_impl="int8")[0]]
+        if which == "super_res":
+            args = super_res_sample.create_argparser().parse_args([
+                "--large_size", "128", "--small_size", "64", "--num_channels", "64", "--num_res_blocks", "2",
+                "--num_heads", "1", "--learn_sigma", "True", "--conv_impl", "int8"])
+            model = sr_create_model_and_diffusion(**args_to_dict(args, sr_model_and_diffusion_defaults().keys()),
+                                                  conv_impl=args.conv_impl)[0]
+            return [upstream_super_res(model, args.class_cond)]
+        return [m for size in (8, 16, 32, 64, 128) for m in (
+            P.build_generator(P.generator_config(size), conv_impl="int8", device="meta"),
+            P.build_generator(P.generator_config(size, True), conv_impl="int8", device="meta"),
+            P.build_classifier(size, conv_impl="int8", device="meta"))]
+
+
+@pytest.mark.parametrize("which", ["unet", "classifier", "clip", "recipe", "recipe_sr", "super_res", "proxies"])
+def test_every_conv_of_the_models_runs_a_tensor_core_kernel(which):
+    """Every conv of the models the int8 paths run goes to exactly one of
+    ``conv_s8_mma.cu`` (``uses_tensor_cores``) and ``conv_s8_thin.cu``
+    (``uses_thin_kernel``), none to ``__dp4a``; the thin ones are the stems
+    (3 or 6 channels in) and the heads (3 or 6 out), which is how the smoke
+    counts them from the modules (``chip_smoke.thin_convs``)."""
+    convs = [m for root in _path_models(which) for m in root.modules() if isinstance(m, Conv2d)]
+    thin = []
+    for m in convs:
+        C, K, ks, stride = m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0]
+        kind = TQ.uses_thin_kernel(C, K, ks, stride)
+        assert TQ.uses_tensor_cores(C, K, ks) != (kind is not None), (C, K, ks, stride)
+        if kind is not None:
+            thin.append((kind, C, K))
+    assert len(convs) > 10 and thin
+    assert all((kind == "stem") == (C in (3, 6)) and (kind == "head") == (K in (3, 6)) for kind, C, K in thin), thin
+    assert len(thin) == sum(m.in_channels in (3, 6) or m.out_channels in (3, 6) for m in convs)
+
+
+@pytest.mark.parametrize("C,H,W", [(3, 7, 9), (6, 9, 5), (3, 5, 1), (6, 1, 7)])
+def test_stem_taps_as_an_im2col_give_conv_s8_plain(C, H, W):
+    """The stem kernel's table (``stem_taps``) read as the kernel reads it,
+    an im2col of the NHWC bytes with _pack_weights' rows, gives the exact
+    sums of ``conv_s8_plain`` on integer inputs: every tap and channel in
+    the rows' order, zero padding at every edge, the padding bytes zero."""
+    rng = np.random.default_rng(100 * C + 10 * H + W)
+    B, K, ks = 2, 16, 3
+    pad = (ks - 1) // 2
+    q = torch.from_numpy(rng.integers(-127, 128, (B, H, W, C)).astype(np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (ks, ks, C, K)).astype(np.int8))
+    rows = TQ._pack_weights(w_q).long()
+    taps = TQ.stem_taps(C, ks, W)
+    assert len(taps) == rows.shape[1] == -(-ks * ks * C // 32) * 32
+    flat = q.reshape(B, -1).long()
+    cols = torch.zeros(B, H, W, len(taps), dtype=torch.long)
+    for j, e in enumerate(taps):
+        off, ky, kx = e >> 8, (e >> 4) & 15, e & 15
+        for oy in range(H):
+            for ox in range(W):
+                if 0 <= oy - pad + ky < H and 0 <= ox - pad + kx < W:
+                    cols[:, oy, ox, j] = flat[:, ((oy - pad) * W + ox) * C + off]
+    ref = TQ.conv_s8_plain(q, w_q, None, torch.ones(K), None, 1, torch.float32)
+    assert torch.equal((cols @ rows.T).float(), ref)
 
 
 @pytest.mark.parametrize("cin,cout,k", [(32, 8, 3), (3, 8, 3), (48, 24, 1)])
