@@ -349,9 +349,16 @@ Spatial partitioning (``--spatial_shard``, ``parallel/sp.py``):
   3h. the entries that K3, K4 and the quantize kernels split into on a row
       shard (``group_norm_stats``, ``group_norm_apply``,
       ``group_norm_quant_apply``, ``quantize_amax``, ``quantize_apply``)
-      against their plain versions at ADM-256's half-H map (2, 128, 256,
-      256) and two narrower ones, f32 and bf16, and the split K3 and K4
-      timed beside their one launch at that map;
+      against their plain versions, f32 and bf16: the GroupNorm entries
+      (``csrc/groupnorm_split.cu``) at ``SPLIT_MAPS`` (ADM-256's half-H
+      map at every level, its concatenated widths, TP's local channels, the
+      recipe's maps at batch 48, a 96-channel map, batch 8), the applies bit
+      for bit against their first versions (``csrc/groupnorm.cu``), the
+      stats' repeats bit-identical; at (2, 128, 256, 256) and (8, 128, 256,
+      256) bf16 each timed beside its first version and plain version,
+      host-inclusive and on the device (the profiler; a reading under its
+      byte bound is marked L2-resident), and the split K3 and K4 beside their
+      one launch; the amax pass's device time beside ``vector_norm(inf)``'s;
   17. two processes started by the smoke (``torch.multiprocessing``, gloo,
       both on cuda:0 after this process built the kernels; NCCL refuses two
       ranks on one GPU, so this is a test arrangement: the CLIs keep NCCL
@@ -1135,17 +1142,52 @@ def phase3g_quantize(dev):
 
 # one of two space ranks' rows of ADM-256's largest map at the serving batch (phase 17): (2, 128, 256, 256)
 SP_HALF_SHAPE = (2, 128, 256, 256)
+# the split entries' maps (phase 3h), (shape, groups): ADM-256's half-H maps at batch 2 at every level (256 and
+# 128 px at 256 channels, 64 and 32 px at 512, 16 and 8 px at 1024), its concatenations (C / G = 64, 48, 24), TP's
+# local channels (16 of the 32 groups: 256 px, 16 px), the recipe at batch 48 (C / G = 2 at 128 px, 6 at 16 px,
+# half-H), a 96-channel map (C / G = 3), and ADM-256's top level at batch 8 under SP 2, larger than the L2
+SPLIT_MAPS = [(SP_HALF_SHAPE, 32), ((2, 64, 128, 256), 32), ((2, 32, 64, 512), 32), ((2, 16, 32, 512), 32),
+              ((2, 8, 16, 1024), 32), ((2, 4, 8, 1024), 32), ((2, 4, 8, 2048), 32), ((2, 8, 16, 1536), 32),
+              ((2, 32, 64, 768), 32), ((2, 256, 256, 128), 16), ((2, 16, 16, 512), 16), ((48, 64, 128, 64), 32),
+              ((48, 8, 16, 192), 32), ((2, 16, 32, 96), 32), ((8, 128, 256, 256), 32)]
+# the maps timed in bf16: kernel, first version, plain version, each host-inclusive and on the device
+SPLIT_TIMED = (SP_HALF_SHAPE, (8, 128, 256, 256))
+
+
+def device_parts(fn, parts: dict, reps: int = 10) -> dict:
+    """``fn``'s device ms a call (the profiler's kernel sum, ``kernel_times``)
+    by part: each key of ``parts`` sums the kernels whose names hold one of
+    its strings, "other" the rest."""
+    from guided_diffusion_clip_tpu_torch.utils.profiling import kernel_times
+
+    out = dict.fromkeys([*parts, "other"], 0.0)
+    for name, (t, _) in kernel_times(fn, reps).items():
+        out[next((k for k, subs in parts.items() if any(s in name for s in subs)), "other")] += t
+    return out
+
+
+def on_device(ms: float, bound: float) -> str:
+    """A device time beside its byte bound: a reading under the bound had its
+    input in the L2 (it left a write-back or an earlier call's read there),
+    not a rate the memory gave."""
+    return f"{ms / bound:.2f} x bound" if ms >= bound else f"{ms / bound:.2f} x bound: L2-resident, not a met bound"
 
 
 def phase3h_split_entries(dev):
     """The entries that K3, K4 and the quantize kernels are split into on a
-    row shard (phase 17), each against its plain version on ADM-256's
-    half-H maps and the other widths phase 17 runs, bf16 and f32: the stats
-    entry's sums within 1e-5 of the sum of |x| (f32 sums in another order),
-    its extremes equal; K3's apply under K3's bounds; K4's apply within one
-    level on at most 1e-4 of q; the amax word equal to the plain amax and
-    ``quantize_given_cuda`` bit-identical to the two-pass kernels. Returns
-    the headline records ((2, 128, 256, 256) bf16)."""
+    row shard (phase 17) or a channel shard (phase 18, K4), at the maps of
+    ``SPLIT_MAPS``, bf16 and f32: the stats kernel's sums within 1e-5 of the
+    sum of |x| of the plain version's (f32 sums in another order), its
+    extremes equal and a repeat's bits the same; the two applies bit for bit
+    the first versions' (``*_simple``, csrc/groupnorm.cu) and within K3's
+    bounds and one level on at most 1e-4 of q of the plain versions'. Each
+    call launches its kernel once. At ``SPLIT_TIMED`` in bf16 each entry is
+    timed beside its first version and its plain version, host-inclusive and
+    on the device, and the split K3 and K4 beside their one launch. The
+    quantize entries: the amax word equal to the plain amax and
+    ``quantize_given_cuda`` bit-identical to the two-pass kernels, at three
+    maps; the amax pass's device time beside ``vector_norm(inf)``'s at the
+    timed maps. Returns the headline records ((2, 128, 256, 256) bf16)."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.ops import groupnorm as G
@@ -1153,67 +1195,67 @@ def phase3h_split_entries(dev):
 
     g = torch.Generator(device=dev).manual_seed(19)
     records = {}
+    entries = {"stats": G.group_norm_stats_cuda, "apply": G.group_norm_apply_cuda,
+               "quant_apply": G.group_norm_quant_apply_cuda}
     with torch.inference_mode():
-        for shape in (SP_HALF_SHAPE, (2, 64, 128, 512), (2, 4, 8, 1024)):
+        for shape, groups in SPLIT_MAPS:
             B, C = shape[0], shape[-1]
             for dtype in (torch.float32, torch.bfloat16):
-                head = shape == SP_HALF_SHAPE and dtype == torch.bfloat16
                 x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
-                tag = f"x={shape} {str(dtype)[6:]}"
-                n0 = G.group_norm_stats_cuda.launches
-                sums, ext = G.group_norm_stats_cuda(x, 32, True)
-                rs, rext = G.group_norm_stats_plain(x, 32, True)
-                torch.cuda.synchronize()
-                if G.group_norm_stats_cuda.launches != n0 + 1:
-                    raise AssertionError(f"group_norm_stats {tag}: {G.group_norm_stats_cuda.launches - n0} launches")
-                scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, B, -1, 32, C // 32).sum((2, 4))
+                tag = f"x={shape} G={groups} {str(dtype)[6:]}"
+                n0 = {k: fn.launches for k, fn in entries.items()}
+                sums, ext = G.group_norm_stats_cuda(x, groups, True)
+                again = G.group_norm_stats_cuda(x, groups, True)
+                rs, rext = G.group_norm_stats_plain(x, groups, True)
+                scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, B, -1, groups,
+                                                                                    C // groups).sum((2, 4))
                 ratio = ((sums - rs).abs() / (1e-5 * scale + 1e-6)).max().item()
-                if not ratio <= 1 or not torch.equal(ext, rext):
-                    raise AssertionError(f"group_norm_stats {tag}: sums at {ratio:.3g} of the bound, extremes equal: "
-                                         f"{torch.equal(ext, rext)}")
-                ms = cuda_ms(lambda: G.group_norm_stats_cuda(x, 32, True))
-                pms = cuda_ms(lambda: G.group_norm_stats_plain(x, 32, True))
-                # x read once, the (2, B, G) sums and the (2, B, C) extremes written; 5 operations a value
-                rec = record((sums - rs).abs().max().item(), ms, pms, nbytes=x.numel() * x.element_size()
-                             + 4 * (2 * B * 32 + 2 * B * C), ops=5 * x.numel(), op_type="f32")
-                log(f"  group_norm_stats {tag}: sums at {ratio:.3g} of 1e-5 x sum|x|, extremes equal; kernel "
-                    f"{ms:.4f} ms, plain {pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                if head:
-                    records["group_norm_stats"] = rec
-
+                if not ratio <= 1 or not torch.equal(ext, rext) or not (
+                        torch.equal(again[0], sums) and torch.equal(again[1], ext)):
+                    raise AssertionError(f"group_norm_stats {tag}: sums at {ratio:.3g} of the bound, extremes "
+                                         f"equal: {torch.equal(ext, rext)}, a repeat's bits the same: "
+                                         f"{torch.equal(again[0], sums) and torch.equal(again[1], ext)}")
                 a = torch.randn(B, C, generator=g, device=dev) * 0.5
                 b = torch.randn(B, C, generator=g, device=dev) * 0.5
+                inv = torch.rand(B, generator=g, device=dev) * 20 + 10
                 y = G.group_norm_apply_cuda(x, a, b, True)
                 ry = G.group_norm_apply_plain(x, a, b, True)
                 tol = 1e-5 if dtype == torch.float32 else 2e-2
                 d = (y.float() - ry.float()).abs()
-                if not (d <= tol * ry.float().abs().clamp(min=1.0)).all():
-                    raise AssertionError(f"group_norm_apply {tag}: max|d| {d.max().item():.3g} (bound {tol}*max(1,|ref|))")
-                ms = cuda_ms(lambda: G.group_norm_apply_cuda(x, a, b, True))
-                pms = cuda_ms(lambda: G.group_norm_apply_plain(x, a, b, True))
-                rec = record(d.max().item(), ms, pms, nbytes=2 * x.numel() * x.element_size() + 8 * B * C,
-                             ops=6 * x.numel(), op_type="f32")
-                log(f"  group_norm_apply (SiLU) {tag}: max|d| {d.max().item():.3g} (bound {tol}*max(1,|ref|)); kernel "
-                    f"{ms:.4f} ms, plain {pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                if head:
-                    records["group_norm_apply"] = rec
+                same = torch.equal(y, G.group_norm_apply_simple(x, a, b, True))
+                if not (d <= tol * ry.float().abs().clamp(min=1.0)).all() or not same:
+                    raise AssertionError(f"group_norm_apply {tag}: max|d| {d.max().item():.3g} (bound "
+                                         f"{tol}*max(1,|ref|)), bit-identical to the first version: {same}")
+                flips = 0
+                for out_dtype in (torch.int8, dtype):
+                    q = G.group_norm_quant_apply_cuda(x, a, b, inv, True, out_dtype)
+                    rq = G.group_norm_quant_apply_plain(x, a, b, inv, True, out_dtype)
+                    dq = (q.float() - rq.float()).abs()
+                    flips = int((dq > 0).sum())
+                    same = torch.equal(q, G.group_norm_quant_apply_simple(x, a, b, inv, True, out_dtype))
+                    if dq.max() > 1 or flips > max(1, 1e-4 * dq.numel()) or not same:
+                        raise AssertionError(f"group_norm_quant_apply {tag} to {out_dtype}: q max|d| "
+                                             f"{dq.max().item()}, {flips} off, bit-identical to the first "
+                                             f"version: {same}")
+                torch.cuda.synchronize()
+                ran = {k: fn.launches - n0[k] for k, fn in entries.items()}
+                if ran != {"stats": 2, "apply": 1, "quant_apply": 2}:
+                    raise AssertionError(f"split entries {tag}: launches {ran}")
+                plans = [G._split_plan(B, x.numel() // (B * C), C, G._vec(x, C), x.element_size(),
+                                       torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
+                         for per_sm in (G._STATS_PER_SM, G._APPLY_PER_SM)]
+                log(f"  {tag}: {B * plans[0][0]} and {B * plans[1][0]} blocks of {plans[0][2]} (stats, applies); "
+                    f"stats at {ratio:.3g} of 1e-5 x sum|x|, extremes "
+                    f"equal, repeat bit-identical; applies bit-identical to the first versions, K3's max|d| "
+                    f"{d.max().item():.3g} of the plain (bound {tol}*max(1,|ref|)), K4's q off by one on {flips}")
+                if dtype == torch.bfloat16 and shape in SPLIT_TIMED:
+                    records.update(split_timed(dev, G, x, groups, a, b, inv, shape == SP_HALF_SHAPE))
+                del x, y, ry, q, rq
 
-                inv = torch.rand(B, generator=g, device=dev) * 20 + 10
-                q = G.group_norm_quant_apply_cuda(x, a, b, inv, True)
-                rq = G.group_norm_quant_apply_plain(x, a, b, inv, True)
-                d = (q.float() - rq.float()).abs()
-                flips = int((d > 0).sum())
-                if d.max() > 1 or flips > max(1, 1e-4 * d.numel()):
-                    raise AssertionError(f"group_norm_quant_apply {tag}: q max|d| {d.max().item()}, {flips} off")
-                ms = cuda_ms(lambda: G.group_norm_quant_apply_cuda(x, a, b, inv, True))
-                pms = cuda_ms(lambda: G.group_norm_quant_apply_plain(x, a, b, inv, True))
-                rec = record(d.max().item(), ms, pms, nbytes=x.numel() * (x.element_size() + 1) + 8 * B * C + 4 * B,
-                             ops=8 * x.numel(), op_type="f32")
-                log(f"  group_norm_quant_apply (SiLU, s8) {tag}: q off by one on {flips} (bound 1e-4 of {d.numel()}); "
-                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                if head:
-                    records["group_norm_quant_apply"] = rec
-
+        for shape in (SP_HALF_SHAPE, (2, 64, 128, 512), (2, 4, 8, 1024)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+                tag = f"x={shape} {str(dtype)[6:]}"
                 s_w = torch.rand(256, generator=g, device=dev) * 0.01 + 1e-4
                 bits = Q.absmax_cuda(x)
                 amax = Q.absmax_plain(x)
@@ -1224,34 +1266,107 @@ def phase3h_split_entries(dev):
                         torch.equal(qq, rq2) and torch.equal(sq, rs2) and torch.equal(fq, rf2)):
                     raise AssertionError(f"quantize split {tag}: amax {bits.view(torch.float32).item()} vs "
                                          f"{amax.item()}, or q/s/factors differ from the two-pass kernels")
+                log(f"  quantize split {tag}: the amax equal to the plain amax, q, s, factors bit-identical to "
+                    f"the two-pass kernels")
+                if (shape, dtype) != (SP_HALF_SHAPE, torch.bfloat16):
+                    continue
                 ms = cuda_ms(lambda: Q.absmax_cuda(x))
                 pms = cuda_ms(lambda: Q.absmax_plain(x))
                 lms = cuda_ms(lambda: torch.linalg.vector_norm(x, ord=float("inf")))
-                rec = record(0.0, ms, pms, nbytes=x.numel() * x.element_size() + 4, ops=2 * x.numel(), op_type="f32",
-                             library_ms=lms)
-                log(f"  quantize_amax {tag}: equal to the plain amax; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                    f"vector_norm(inf) {lms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                if head:
-                    records["quantize_amax"] = rec
+                records["quantize_amax"] = rec = record(0.0, ms, pms, nbytes=x.numel() * x.element_size() + 4,
+                                                        ops=2 * x.numel(), op_type="f32", library_ms=lms)
+                log(f"  quantize_amax {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms, vector_norm(inf) {lms:.4f} "
+                    f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
                 ms = cuda_ms(lambda: Q.quantize_given_cuda(x, bits, s_w))
                 pms = cuda_ms(lambda: Q.quantize_given_plain(x, amax))
                 d = (qq.float() - Q.quantize_given_plain(x, amax)[0].float()).abs().max().item()
-                rec = record(d, ms, pms, nbytes=x.numel() * (x.element_size() + 1), ops=4 * x.numel(), op_type="f32")
-                log(f"  quantize_apply {tag}: bit-identical to the two-pass kernels, max|q - plain| {d:.3g}; kernel "
-                    f"{ms:.4f} ms, plain {pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                if head:
-                    records["quantize_apply"] = rec
-            if shape == SP_HALF_SHAPE:
-                # the one launch the split replaces, at the same map: K3 and K4 with scale-shift and SiLU
-                w = torch.randn(C, generator=g, device=dev) * 0.1 + 1
-                ss = (a * 0.2, b * 0.2)
-                one = cuda_ms(lambda: G.fused_group_norm(x, w, b[0], 32, 1e-5, True, ss))
-                one4 = cuda_ms(lambda: G.fused_group_norm_quant(x, w, b[0], 32, 1e-5, True, ss))
-                split3 = cuda_ms(lambda: G._group_norm_split(x, w, b[0], 32, 1e-5, True, ss, False, None))
-                split4 = cuda_ms(lambda: G._group_norm_split(x, w, b[0], 32, 1e-5, True, ss, True, torch.int8))
-                log(f"  at x={shape} bf16, scale-shift + SiLU: K3 one launch {one:.4f} ms, split (stats, fold, apply; "
-                    f"no collective) {split3:.4f} ms; K4 one launch {one4:.4f} ms, split {split4:.4f} ms")
-                records["split_vs_one"] = {"K3": (one, split3), "K4": (one4, split4)}
+                records["quantize_apply"] = rec = record(d, ms, pms, nbytes=x.numel() * (x.element_size() + 1),
+                                                         ops=4 * x.numel(), op_type="f32")
+                log(f"  quantize_apply {tag}: max|q - plain| {d:.3g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        # the amax pass on the device: the kernel against vector_norm(inf) (the rest of one profile of both),
+        # whose host times differ
+        for shape in SPLIT_TIMED:
+            x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+            bound = 1e3 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+            dev_ms = device_parts(lambda: (Q.absmax_cuda(x), torch.linalg.vector_norm(x, ord=float("inf"))),
+                                  {"kernel": ("absmax_kernel",), "library": ("reduce_kernel",)})
+            log(f"  quantize_amax x={shape} bf16 on the device (profiler): kernel {dev_ms['kernel']:.4f} ms, "
+                f"vector_norm(inf) {dev_ms['library']:.4f} ms (other kernels of the two calls {dev_ms['other']:.4f}), "
+                f"byte bound {bound:.4f} ms; kernel {on_device(dev_ms['kernel'], bound)}")
+            del x
+    return records
+
+
+def split_timed(dev, G, x, groups, a, b, inv, headline: bool) -> dict:
+    """Phase 3h's timings at one map in bf16: each split entry's kernel, its
+    first version and its plain version, host-inclusive (CUDA events around
+    each call) and on the device (profiler), beside the bound; the split K3
+    and K4 (stats, fold, apply; no collective) beside their one launch, with
+    the fold's share. Returns the entries' records where ``headline``."""
+    import torch
+
+    B, C = x.shape[0], x.shape[-1]
+    xb, n = x.numel() * x.element_size(), x.numel()
+    cases = {
+        # x read once, the (2, B, G) sums and the (2, B, C) extremes written; 5 operations a value
+        "group_norm_stats": ((lambda: G.group_norm_stats_cuda(x, groups, True)),
+                             (lambda: G.group_norm_stats_simple(x, groups, True)),
+                             (lambda: G.group_norm_stats_plain(x, groups, True)),
+                             dict(nbytes=xb + 4 * (2 * B * groups + 2 * B * C), ops=5 * n, op_type="f32"),
+                             ("gn_split_stats_kernel",), ("gn_stats_kernel",)),
+        "group_norm_apply": ((lambda: G.group_norm_apply_cuda(x, a, b, True)),
+                             (lambda: G.group_norm_apply_simple(x, a, b, True)),
+                             (lambda: G.group_norm_apply_plain(x, a, b, True)),
+                             dict(nbytes=2 * xb + 8 * B * C, ops=6 * n, op_type="f32"),
+                             ("gn_split_apply_kernel",), ("gn_apply_kernel",)),
+        "group_norm_quant_apply": ((lambda: G.group_norm_quant_apply_cuda(x, a, b, inv, True)),
+                                   (lambda: G.group_norm_quant_apply_simple(x, a, b, inv, True)),
+                                   (lambda: G.group_norm_quant_apply_plain(x, a, b, inv, True)),
+                                   dict(nbytes=xb + n + 8 * B * C + 4 * B, ops=8 * n, op_type="f32"),
+                                   ("gn_split_apply_kernel",), ("gn_quant_apply_kernel",)),
+    }
+    records = {}
+    for name, (kernel, simple, plain, size, kname, sname) in cases.items():
+        got, ref = kernel(), plain()
+        got, ref = (got[0], ref[0]) if isinstance(got, tuple) else (got, ref)
+        err = (got.float() - ref.float()).abs().max().item()
+        ms, sms_, pms = cuda_ms(kernel), cuda_ms(simple), cuda_ms(plain)
+        rec = record(err, ms, pms, **size)
+        # one profile of the three calls, split by kernel name (the plain version's kernels are the rest)
+        dev_ms = device_parts(lambda: (kernel(), simple(), plain()), {"kernel": kname, "first": sname})
+        bound = rec["bound_ms"]
+        log(f"  {name} x={tuple(x.shape)} bf16: kernel {ms:.4f} ms, first version {sms_:.4f} ms, plain {pms:.4f} ms "
+            f"(host-inclusive), bound {bound:.4f} ms ({rec['bound_by']}); on the device: kernel "
+            f"{dev_ms['kernel']:.4f} ms ({on_device(dev_ms['kernel'], bound)}), first version {dev_ms['first']:.4f}, "
+            f"plain {dev_ms['other']:.4f}")
+        if headline:
+            records[name] = rec
+    dq = device_parts(lambda: G.group_norm_quant_apply_cuda(x, a, b, inv, False), {"kernel": ("gn_split_apply_kernel",)})
+    log(f"  group_norm_quant_apply without SiLU on the device: kernel {dq['kernel']:.4f} ms "
+        f"({on_device(dq['kernel'], cases['group_norm_quant_apply'][3]['nbytes'] * 1e3 / HBM_BYTES_PER_S)}); "
+        f"SiLU's expf and IEEE division cost the rest")
+    # the one launch the split replaces, at the same map: K3 and K4 with scale-shift and SiLU
+    g = torch.Generator(device=dev).manual_seed(23)
+    w = torch.randn(C, generator=g, device=dev) * 0.1 + 1
+    bias = torch.randn(C, generator=g, device=dev) * 0.1
+    ss = (a * 0.2, b * 0.2)
+    one = cuda_ms(lambda: G.fused_group_norm(x, w, bias, groups, 1e-5, True, ss))
+    one4 = cuda_ms(lambda: G.fused_group_norm_quant(x, w, bias, groups, 1e-5, True, ss))
+    split3 = cuda_ms(lambda: G._group_norm_split(x, w, bias, groups, 1e-5, True, ss, False, None))
+    split4 = cuda_ms(lambda: G._group_norm_split(x, w, bias, groups, 1e-5, True, ss, True, torch.int8))
+    parts = {"stats": ("gn_split_stats_kernel",), "apply": ("gn_split_apply_kernel",)}
+    d3 = device_parts(lambda: G._group_norm_split(x, w, bias, groups, 1e-5, True, ss, False, None), parts)
+    d4 = device_parts(lambda: G._group_norm_split(x, w, bias, groups, 1e-5, True, ss, True, torch.int8), parts)
+    for kname, one_ms, split_ms, d in (("K3", one, split3, d3), ("K4", one4, split4, d4)):
+        total = sum(d.values())
+        log(f"  {kname} at x={tuple(x.shape)} bf16, scale-shift + SiLU: one launch {one_ms:.4f} ms, split (stats, "
+            f"fold, apply; no collective) {split_ms:.4f} ms host-inclusive; the split on the device {total:.4f} ms: "
+            f"stats {d['stats']:.4f}, apply {d['apply']:.4f}, the fold's ops and the scratch's zeros {d['other']:.4f} "
+            f"({d['other'] / total:.0%} of the device time; the host's share of the split "
+            f"{max(0.0, split_ms - total) / split_ms:.0%})")
+    if headline:
+        records["split_vs_one"] = {"K3": (one, split3), "K4": (one4, split4)}
     return records
 
 
@@ -5601,7 +5716,7 @@ def check_ptxas(build_log: str) -> None:
     # 192 and 256 (training), in K1's at d = 96 (the 64 px quality proxies' bf16 sampling; their K2 runs in
     # float32, and K2's bf16 dK/dV kernel spills at d = 96 as at 128), in the float32 ones at every d, and in
     # a kernel of the convs',
-    # the quantizer's and the GroupNorms' sources, which were built without any
+    # the quantizer's and the GroupNorms' sources (the split entries' too), which were built without any
     entry, on_path = "", False
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -5612,7 +5727,8 @@ def check_ptxas(build_log: str) -> None:
             on_path = bool(args) and (args[0] in ("64", "192", "256") or "f32mma" in found.group(1)
                                       or (args[0] == "96" and found.group(1) == "attention_fwd_mma_kernel"))
             found = re.search(r"\d+(conv_s8_mma_kernel|conv_s8_finish_kernel|conv_s8_stem_kernel|conv_s8_head_kernel|"
-                              r"conv_fused_mma_kernel|absmax_kernel|quantize_kernel|gn_fused_kernel)(\w*)'", line)
+                              r"conv_fused_mma_kernel|absmax_kernel|quantize_kernel|gn_fused_kernel|gn_split_stats_kernel|"
+                              r"gn_split_apply_kernel)(\w*)'", line)
             if found:
                 entry, on_path = found.group(1) + found.group(2), True
         spills = "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
@@ -5674,10 +5790,11 @@ def main(argv=None) -> int:
     records["quantize"] = phase3g_quantize(dev)
     log("phase 3h: the split entries of K3, K4 and the quantize kernels (spatial partitioning) vs their plain "
         "versions on the card")
+    t3h = time.perf_counter()
     split_records = phase3h_split_entries(dev)
     split_vs_one = split_records.pop("split_vs_one")
     records.update(split_records)
-    log(f"  phases 3-3g took {time.perf_counter() - t3:.1f} s")
+    log(f"  phase 3h took {time.perf_counter() - t3h:.1f} s; phases 3-3h {time.perf_counter() - t3:.1f} s")
 
     t4 = time.perf_counter()
     sd = random_state_dict(clip_unet())
@@ -5879,11 +5996,11 @@ def main(argv=None) -> int:
          "tools/pallas_mxu_ceiling.py:39"),
         # K3 and K4 split at their statistics on a row shard (phase 17), K4 on a channel shard (phase 18): the
         # stats entry (both), the applies
-        ("group_norm_stats", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
+        ("group_norm_stats", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm_split.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:29"),
-        ("group_norm_apply", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
+        ("group_norm_apply", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm_split.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:42"),
-        ("group_norm_quant_apply", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm.cu",
+        ("group_norm_quant_apply", "guided_diffusion_clip_tpu_torch/ops/csrc/groupnorm_split.cu",
          "guided_diffusion_clip_tpu/ops/pallas_groupnorm.py:73"),
         # the quantize kernels' two passes apart: no TPU kernel, as the quantize row
         ("quantize_amax", "guided_diffusion_clip_tpu_torch/ops/csrc/quantize.cu",

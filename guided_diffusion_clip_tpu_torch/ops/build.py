@@ -54,12 +54,19 @@ _SIGNATURES = {
     # x, slots, gamma, beta, ss, sb, stats, scales, q, B, HW, C, G, eps, silu, vec, dtype, s8, grid,
     # chunks, n_chunks, ng, stream
     "gdc_group_norm_quant": [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P, _I, _I, _P],
-    # the split entries (spatial partitioning): x, sums, ext, B, HW, C, G, dtype, stream
-    "gdc_group_norm_stats": [_P] * 3 + [_I] * 5 + [_P],
+    # the split entries (spatial partitioning, csrc/groupnorm_split.cu): x, sums, ext, flags, slots, B, HW, C,
+    # G, dtype, vec, tiles, lanes, stream
+    "gdc_group_norm_stats": [_P] * 5 + [_I] * 8 + [_P],
+    # x, a, b, y, B, HW, C, silu, dtype, vec, tiles, lanes, stream
+    "gdc_group_norm_apply": [_P] * 4 + [_I] * 8 + [_P],
+    # x, a, b, inv, q, B, HW, C, silu, dtype, s8, vec, tiles, lanes, stream
+    "gdc_group_norm_quant_apply": [_P] * 5 + [_I] * 9 + [_P],
+    # their first versions (csrc/groupnorm.cu), the yardstick: x, sums, ext, B, HW, C, G, dtype, stream
+    "gdc_group_norm_stats_simple": [_P] * 3 + [_I] * 5 + [_P],
     # x, a, b, y, B, HW, C, silu, dtype, stream
-    "gdc_group_norm_apply": [_P] * 4 + [_I] * 5 + [_P],
+    "gdc_group_norm_apply_simple": [_P] * 4 + [_I] * 5 + [_P],
     # x, a, b, inv, q, B, HW, C, silu, dtype, s8, stream
-    "gdc_group_norm_quant_apply": [_P] * 5 + [_I] * 6 + [_P],
+    "gdc_group_norm_quant_apply_simple": [_P] * 5 + [_I] * 6 + [_P],
     # quant, dtype, s8, vec, silu, C, G, ng, &blocks
     "gdc_group_norm_blocks": [_I] * 8 + [_P],
     # q, w, s_img, s_w, bias, out, B, H, W, C, K, ksize, stride, pad, Ho, Wo, KRp, out_dtype, stream

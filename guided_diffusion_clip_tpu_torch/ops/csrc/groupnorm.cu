@@ -644,7 +644,10 @@ extern "C" int gdc_group_norm_quant(const void* x, void* slots, const void* gamm
 // What bounds them: bytes, one read of x for the stats and one read of x and
 // write of y for the apply. They are simple passes: the stats kernel reads a
 // group's C/G channels of a row (16 to 64 bytes) at a time and has B * G
-// blocks; a grid-stride loop of scalar loads applies.
+// blocks; a grid-stride loop of scalar loads applies. They are the first
+// versions, kept as the yardstick (the C entries named *_simple, reached
+// only through ops/groupnorm.py's *_simple functions, on no path):
+// csrc/groupnorm_split.cu holds the kernels that the split entries run.
 
 namespace {
 
@@ -780,7 +783,7 @@ int launch_quant_apply(const void* x, const void* a, const void* b, const void* 
 // float32, 1 = bfloat16), contiguous: sums (2, B, G) f32, each group's sum and
 // sum of squares; ext (2, B, C) f32, each channel's min and max. C / G <= 256.
 // Returns a cudaError_t code (0 = launched).
-extern "C" int gdc_group_norm_stats(const void* x, void* sums, void* ext, int B, int HW, int C, int G, int dtype,
+extern "C" int gdc_group_norm_stats_simple(const void* x, void* sums, void* ext, int B, int HW, int C, int G, int dtype,
                                     void* stream) {
   if (B < 1 || HW < 1 || G < 1 || C % G || C / G > kSplitThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -790,7 +793,7 @@ extern "C" int gdc_group_norm_stats(const void* x, void* sums, void* ext, int B,
 }
 
 // K3's apply: y (B, HW, C) = [SiLU](x a + b) in x's dtype, a and b (B, C) f32.
-extern "C" int gdc_group_norm_apply(const void* x, const void* a, const void* b, void* y, int B, int HW, int C,
+extern "C" int gdc_group_norm_apply_simple(const void* x, const void* a, const void* b, void* y, int B, int HW, int C,
                                     int silu, int dtype, void* stream) {
   if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -801,7 +804,7 @@ extern "C" int gdc_group_norm_apply(const void* x, const void* a, const void* b,
 
 // K4's apply: q (B, HW, C) = clip(rint([SiLU](x a + b) * inv[b]), -127, 127),
 // int8 when s8 != 0, else in x's dtype; inv (B,) f32, each image's 1/s.
-extern "C" int gdc_group_norm_quant_apply(const void* x, const void* a, const void* b, const void* inv, void* q,
+extern "C" int gdc_group_norm_quant_apply_simple(const void* x, const void* a, const void* b, const void* inv, void* q,
                                           int B, int HW, int C, int silu, int dtype, int s8, void* stream) {
   if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

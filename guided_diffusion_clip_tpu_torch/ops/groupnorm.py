@@ -35,7 +35,11 @@ image's count ``H*W*C/G`` (``_fold``, and K4's ``_bound_scale``), then the
 apply entry (``group_norm_apply``, ``group_norm_quant_apply``): the one-pass
 E[x^2] - mean^2 in f32, eps 1e-5, as before. The backward all-reduces its
 per-group sums of the cotangent likewise. An unsharded call keeps its one
-launch.
+launch. On CUDA the split entries are the two kernels of
+``csrc/groupnorm_split.cu``, cut into row tiles by ``_split_plan`` (a pure
+function the CPU tests hold); their first versions in ``csrc/groupnorm.cu``
+are reached only through the ``*_simple`` functions, the yardstick they are
+held to, on no path.
 
 Under tensor parallelism (``parallel/tp.py``) a rank holds whole groups of
 some channels (``models/nn.py::GroupNorm32`` passes their scale, bias and
@@ -62,6 +66,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK_BYTES = 32 << 20  # x a chunk, at most (tools/gn_tune.py sweeps 8-32 MiB)
 _THREADS = 768  # a block (csrc/groupnorm.cu's kThreads): 16-byte vectors of a row side by side
 _MIN_BLOCK_BYTES = 32 << 10  # x a block takes of a chunk, at least: fewer slots at small maps
+# the split entries' kernels (csrc/groupnorm_split.cu): a block is `lanes` rows of C / vec threads, at least
+# _SPLIT_THREADS and at most _SPLIT_MAX_THREADS (kMaxThreads); a row tile holds _SPLIT_MIN_TILE_BYTES of x and
+# a row a lane, at least
+_SPLIT_THREADS = 256
+_SPLIT_MAX_THREADS = 512
+_SPLIT_MIN_TILE_BYTES = 8 << 10
+# blocks an SM the grid aims at: the stats kernel's last block of an image folds one slot a tile, so it takes
+# fewer, longer tiles than the apply, whose blocks end with no such tail
+_STATS_PER_SM = 2
+_APPLY_PER_SM = 4
 
 
 def group_norm_plain(x, scale, bias, groups: int, eps: float, silu: bool, scale_shift):
@@ -518,9 +532,68 @@ def group_norm_quant(x, scale, bias, *, groups: int = 32, eps: float = 1e-5, sil
 # ---------------------------------------------------------------------------
 # K3 and K4 split at their statistics (spatial partitioning): the stats
 # entry, the fold, and the apply entries, each plain on the CPU and its
-# kernel in csrc/groupnorm.cu on CUDA (``gdc_group_norm_stats``,
-# ``gdc_group_norm_apply``, ``gdc_group_norm_quant_apply``).
+# kernel in csrc/groupnorm_split.cu on CUDA (``gdc_group_norm_stats``,
+# ``gdc_group_norm_apply``, ``gdc_group_norm_quant_apply``); the first
+# versions in csrc/groupnorm.cu (``gdc_group_norm_*_simple``) only through
+# the ``*_simple`` functions.
 # ---------------------------------------------------------------------------
+
+
+def _split_plan(B: int, hw: int, C: int, vec: int, itemsize: int, sms: int, per_sm: int):
+    """How the split entries' kernels cut x (B, hw, C) into blocks:
+    ``(tiles, lanes, threads)``.
+
+    A block takes the row tile k of ``tiles`` of one image, the rows
+    ``_split_rows(hw, tiles)[k]``, and its ``threads`` = ``lanes`` x C / vec
+    threads walk them, thread t on the channels of vector t % (C / vec) and
+    the rows r0 + t // (C / vec), + lanes, ... . ``lanes`` gives a block
+    ``_SPLIT_THREADS`` threads at least (at most ``_SPLIT_MAX_THREADS``,
+    which bounds C / vec). The grid, B x ``tiles``, aims at ``per_sm`` blocks
+    on each of ``sms`` SMs (2 to 4, no more than 1024 threads an SM give; at
+    64 registers a thread the card holds them all at once), and stops where a
+    tile would fall below the minimum: a row a lane and
+    ``_SPLIT_MIN_TILE_BYTES`` of x. A map smaller than that is one tile an
+    image. The stats kernel folds an image's tiles in a fixed order, so the
+    plan fixes the order of every sum."""
+    lanes, threads, min_rows = _split_block(C, vec, itemsize)
+    per_sm = min(per_sm, max(2, 1024 // threads))
+    tiles = max(1, min(-(-per_sm * sms // B), hw // min_rows))
+    return tiles, lanes, threads
+
+
+def _split_block(C: int, vec: int, itemsize: int):
+    """(lanes, threads, min_rows) of ``_split_plan``: a block's row lanes and
+    threads, and the fewest rows a tile holds where the map allows."""
+    if vec < 1 or C % vec:
+        raise ValueError(f"group_norm split kernels: C={C} is not a multiple of vec={vec}")
+    cv = C // vec
+    if cv > _SPLIT_MAX_THREADS:
+        raise ValueError(f"group_norm split kernels take at most {_SPLIT_MAX_THREADS} vectors a row, got {cv}")
+    lanes = -(-_SPLIT_THREADS // cv)
+    return lanes, lanes * cv, max(lanes, -(-_SPLIT_MIN_TILE_BYTES // (C * itemsize)))
+
+
+def _split_rows(hw: int, tiles: int) -> list:
+    """The rows [r0, r1) of each of an image's ``tiles`` row tiles, as the
+    kernels cut them (csrc/groupnorm_split.cu::tile_rows)."""
+    return [(k * hw // tiles, (k + 1) * hw // tiles) for k in range(tiles)]
+
+
+_split_plans: dict = {}
+
+
+def _split_launch_plan(x, per_sm: int):
+    """(hw, vec, tiles, lanes) of a split entry's kernel for x on its card
+    (``_split_plan``, kept per shape)."""
+    B, C = x.shape[0], x.shape[-1]
+    hw = x.numel() // (B * C)
+    vec = _vec(x, C)
+    key = (B, hw, C, vec, x.element_size(), x.get_device(), per_sm)
+    plan = _split_plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = _split_plans[key] = (hw, vec, *_split_plan(B, hw, C, vec, x.element_size(), sms, per_sm)[:2])
+    return plan
 
 
 def group_norm_stats_plain(x, groups: int, minmax: bool):
@@ -539,32 +612,81 @@ def group_norm_stats_plain(x, groups: int, minmax: bool):
 
 
 def _check_split(x, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} kernel needs a CUDA tensor, got one on {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel needs x contiguous in (B, *spatial, C) order")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got one on {x.device}")
+
+
+def _stream(x) -> int:
+    """The current CUDA stream of x's device, as the raw handle the C entries take."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+_split_scratch: dict = {}
+
+
+def _stats_scratch(x, stream: int, flag_words: int, slot_words: int):
+    """The stats kernel's scratch for launches on ``stream`` (one pair a
+    device and stream, grown as needed, so that launches that may overlap
+    never share it): the flags, int32 words that are zero and that every
+    launch leaves zero (the images' arrival counters, the extremes' keys),
+    and the slots, f32 partial sums that every launch writes before it reads
+    them."""
+    key = (x.get_device(), stream)
+    flags, slots = _split_scratch.get(key, (None, None))
+    if flags is None or flags.numel() < flag_words:
+        flags = torch.zeros(max(flag_words, 4096), dtype=torch.int32, device=x.device)
+    if slots is None or slots.numel() < slot_words:
+        slots = torch.empty(max(slot_words, 1 << 16), dtype=torch.float32, device=x.device)
+    _split_scratch[key] = flags, slots
+    return flags, slots
 
 
 def group_norm_stats_cuda(x, groups: int, minmax: bool):
     """The stats entry on a CUDA tensor x (B, *spatial, C), contiguous:
-    ``group_norm_stats_plain``'s (sums, ext) from one launch."""
+    ``group_norm_stats_plain``'s (sums, ext) from one launch; the kernel's
+    scratch is kept per stream (``_stats_scratch``)."""
     _check_split(x, "group_norm_stats")
     B, C = x.shape[0], x.shape[-1]
-    if C % groups or C // groups > 256:
-        raise ValueError(f"group_norm_stats kernel takes at most 256 channels a group, got {C} in {groups}")
-    sums = torch.empty((2, B, groups), dtype=torch.float32, device=x.device)
-    ext = torch.empty((2, B, C), dtype=torch.float32, device=x.device) if minmax else None
+    if C % groups:
+        raise ValueError(f"group_norm_stats: {C} channels do not split into {groups} groups")
+    hw, vec, tiles, lanes = _split_launch_plan(x, _STATS_PER_SM)
+    if 2 * groups > lanes * (C // vec):
+        raise ValueError(f"group_norm_stats kernel folds at most {lanes * (C // vec) // 2} groups, got {groups}")
+    n_sums, n_ext = 2 * B * groups, 2 * B * C if minmax else 0
+    stream, dev = _stream(x), x.get_device()
+    flags, slots = _stats_scratch(x, stream, B + n_ext, n_sums * tiles)
+    sums = torch.empty((2, B, groups), dtype=torch.float32, device=dev)
+    ext = torch.empty((2, B, C), dtype=torch.float32, device=dev) if minmax else None
     rc = build.load().gdc_group_norm_stats(
-        x.data_ptr(), sums.data_ptr(), None if ext is None else ext.data_ptr(), B, x.numel() // (B * C), C, groups,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), sums.data_ptr(), None if ext is None else ext.data_ptr(), flags.data_ptr(), slots.data_ptr(),
+        B, hw, C, groups, _DTYPE_CODE[x.dtype], vec, tiles, lanes, stream)
     build.check(rc, "gdc_group_norm_stats")
     group_norm_stats_cuda.launches += 1
     return sums, ext
 
 
 group_norm_stats_cuda.launches = 0
+
+
+def group_norm_stats_simple(x, groups: int, minmax: bool):
+    """The stats entry's first version (csrc/groupnorm.cu, one block an
+    (image, group), scalar loads): the yardstick of ``group_norm_stats_cuda``,
+    on no path and not counted."""
+    _check_split(x, "group_norm_stats_simple")
+    B, C = x.shape[0], x.shape[-1]
+    if C % groups or C // groups > 256:
+        raise ValueError(f"group_norm_stats_simple takes at most 256 channels a group, got {C} in {groups}")
+    sums = torch.empty((2, B, groups), dtype=torch.float32, device=x.device)
+    ext = torch.empty((2, B, C), dtype=torch.float32, device=x.device) if minmax else None
+    rc = build.load().gdc_group_norm_stats_simple(
+        x.data_ptr(), sums.data_ptr(), None if ext is None else ext.data_ptr(), B, x.numel() // (B * C), C, groups,
+        _DTYPE_CODE[x.dtype], _stream(x))
+    build.check(rc, "gdc_group_norm_stats_simple")
+    return sums, ext
 
 
 def group_norm_stats(x, groups: int, minmax: bool = False):
@@ -581,11 +703,13 @@ def _fold(sums, n: int, scale, bias, groups: int, eps: float, scale_shift):
     values a group: each group's mean and rstd (B, G) and the folded affine
     a, b (B, C) of ``y = x * a + b``, all f32."""
     B, C = sums.shape[1], scale.shape[0]
-    mean = sums[0] / n
-    var = sums[1] / n - mean * mean
-    rstd = torch.rsqrt(var + eps)
-    a = rstd.repeat_interleave(C // groups, dim=1) * scale.float()  # (B, C)
-    b = bias.float() - mean.repeat_interleave(C // groups, dim=1) * a
+    moments = sums / n  # each group's mean and E[x^2]
+    mean = moments[0]
+    rstd = torch.rsqrt(moments[1] - mean * mean + eps)
+    # a group's values broadcast over its channels: the products of the
+    # repeated values, in fewer launches (each costs host time at small maps)
+    a = (rstd[:, :, None] * scale.float().reshape(groups, -1)).view(B, C)
+    b = (bias.float().reshape(groups, -1) - mean[:, :, None] * a.view(B, groups, -1)).view(B, C)
     if scale_shift is not None:
         k = 1.0 + scale_shift[0].float().reshape(B, C)
         a = a * k
@@ -595,6 +719,24 @@ def _fold(sums, n: int, scale, bias, groups: int, eps: float, scale_shift):
 
 def _bshape(x):
     return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+
+
+def _f32_on(x, t, n: int):
+    """``t`` as n contiguous f32 values on x's device, for a kernel's
+    pointer; ``t`` itself where it is one already (a call's host time counts
+    at small maps)."""
+    if not (t.dtype is torch.float32 and t.is_cuda and t.get_device() == x.get_device()):
+        t = t.to(device=x.device, dtype=torch.float32)
+    if t.numel() != n:
+        raise ValueError(f"group_norm apply kernel needs {n} values, got a tensor of shape {tuple(t.shape)}")
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _affine_args(x, a, b, what: str):
+    """x checked for an apply kernel; a and b as (B, C) f32 on x's device."""
+    _check_split(x, what)
+    n = x.shape[0] * x.shape[-1]
+    return _f32_on(x, a, n), _f32_on(x, b, n)
 
 
 def group_norm_apply_plain(x, a, b, silu: bool):
@@ -608,19 +750,32 @@ def group_norm_apply_plain(x, a, b, silu: bool):
 def group_norm_apply_cuda(x, a, b, silu: bool):
     """K3's apply entry on a CUDA tensor x (B, *spatial, C), contiguous;
     a, b (B, C) f32."""
-    _check_split(x, "group_norm_apply")
+    a, b = _affine_args(x, a, b, "group_norm_apply")
     B, C = x.shape[0], x.shape[-1]
-    a, b = (t.to(device=x.device, dtype=torch.float32).reshape(B, C).contiguous() for t in (a, b))
+    hw, vec, tiles, lanes = _split_launch_plan(x, _APPLY_PER_SM)
     y = torch.empty_like(x)
     rc = build.load().gdc_group_norm_apply(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, x.numel() // (B * C), C, int(silu),
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, hw, C, int(silu), _DTYPE_CODE[x.dtype], vec,
+        tiles, lanes, _stream(x))
     build.check(rc, "gdc_group_norm_apply")
     group_norm_apply_cuda.launches += 1
     return y
 
 
 group_norm_apply_cuda.launches = 0
+
+
+def group_norm_apply_simple(x, a, b, silu: bool):
+    """K3's apply entry's first version (csrc/groupnorm.cu, scalar loads):
+    the yardstick of ``group_norm_apply_cuda``, on no path, not counted."""
+    a, b = _affine_args(x, a, b, "group_norm_apply_simple")
+    B, C = x.shape[0], x.shape[-1]
+    y = torch.empty_like(x)
+    rc = build.load().gdc_group_norm_apply_simple(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, x.numel() // (B * C), C, int(silu),
+        _DTYPE_CODE[x.dtype], _stream(x))
+    build.check(rc, "gdc_group_norm_apply_simple")
+    return y
 
 
 def group_norm_apply(x, a, b, silu: bool):
@@ -642,25 +797,42 @@ def group_norm_quant_apply_plain(x, a, b, inv, silu: bool, out_dtype=torch.int8)
     return q.to(out_dtype)
 
 
+def _quant_args(x, a, b, inv, out_dtype, what: str):
+    """(a, b, inv, q): a kernel's f32 arguments on x's device and its
+    output, for K4's apply entry."""
+    a, b = _affine_args(x, a, b, what)
+    if out_dtype not in (torch.int8, x.dtype):
+        raise TypeError(f"{what} kernel emits int8 or x's dtype, not {out_dtype}")
+    return a, b, _f32_on(x, inv, x.shape[0]), torch.empty(x.shape, dtype=out_dtype, device=x.device)
+
+
 def group_norm_quant_apply_cuda(x, a, b, inv, silu: bool, out_dtype=torch.int8):
     """K4's apply entry on a CUDA tensor x (B, *spatial, C), contiguous."""
-    _check_split(x, "group_norm_quant_apply")
-    if out_dtype not in (torch.int8, x.dtype):
-        raise TypeError(f"group_norm_quant_apply kernel emits int8 or x's dtype, not {out_dtype}")
+    a, b, inv, q = _quant_args(x, a, b, inv, out_dtype, "group_norm_quant_apply")
     B, C = x.shape[0], x.shape[-1]
-    a, b = (t.to(device=x.device, dtype=torch.float32).reshape(B, C).contiguous() for t in (a, b))
-    inv = inv.to(device=x.device, dtype=torch.float32).reshape(B).contiguous()
-    q = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    hw, vec, tiles, lanes = _split_launch_plan(x, _APPLY_PER_SM)
     rc = build.load().gdc_group_norm_quant_apply(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), inv.data_ptr(), q.data_ptr(), B, x.numel() // (B * C), C,
-        int(silu), _DTYPE_CODE[x.dtype], int(out_dtype == torch.int8),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), inv.data_ptr(), q.data_ptr(), B, hw, C, int(silu),
+        _DTYPE_CODE[x.dtype], int(out_dtype == torch.int8), vec, tiles, lanes, _stream(x))
     build.check(rc, "gdc_group_norm_quant_apply")
     group_norm_quant_apply_cuda.launches += 1
     return q
 
 
 group_norm_quant_apply_cuda.launches = 0
+
+
+def group_norm_quant_apply_simple(x, a, b, inv, silu: bool, out_dtype=torch.int8):
+    """K4's apply entry's first version (csrc/groupnorm.cu, scalar loads):
+    the yardstick of ``group_norm_quant_apply_cuda``, on no path, not
+    counted."""
+    a, b, inv, q = _quant_args(x, a, b, inv, out_dtype, "group_norm_quant_apply_simple")
+    B, C = x.shape[0], x.shape[-1]
+    rc = build.load().gdc_group_norm_quant_apply_simple(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), inv.data_ptr(), q.data_ptr(), B, x.numel() // (B * C), C,
+        int(silu), _DTYPE_CODE[x.dtype], int(out_dtype == torch.int8), _stream(x))
+    build.check(rc, "gdc_group_norm_quant_apply_simple")
+    return q
 
 
 def group_norm_quant_apply(x, a, b, inv, silu: bool, out_dtype=torch.int8):

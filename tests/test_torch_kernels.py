@@ -499,41 +499,95 @@ def test_quantize_kernels(dev, shape, case, dtype):
     assert none is None and torch.equal(q2, q) and torch.equal(s2, s)
 
 
-# the split entries at ADM-256's half-H shapes (one of two ranks' rows of a 256 px map), small and ragged maps
-_SPLIT_SHAPES = [(2, 128, 256, 256), (2, 8, 16, 1024), (3, 5, 7, 96), (1, 3, 64)]
+# the split entries: ADM-256's half-H map at 256 px and its 16 and 8 px levels, its concatenated widths (C / G =
+# 24, 48, 64), the recipe's C / G = 6 and 2, a 96-channel map (C / G = 3) and TP's local channels of it and of
+# ADM-256 (16 or 8 of the 32 groups), a width that takes no 16-byte vector in bf16, and small, ragged maps
+_SPLIT_CASES = [((2, 128, 256, 256), 32), ((2, 8, 16, 1024), 32), ((2, 4, 8, 2048), 32), ((2, 8, 16, 1536), 32),
+                ((2, 16, 32, 768), 32), ((2, 16, 32, 192), 32), ((2, 128, 256, 128), 16), ((3, 5, 7, 96), 32),
+                ((2, 7, 48), 16), ((2, 5, 24), 8), ((2, 6, 12), 4), ((1, 3, 64), 32)]
+_SPLIT_IDS = ["x".join(map(str, s)) + f"-G{g}" for s, g in _SPLIT_CASES]
+
+
+def _split_input(shape, dtype, seed, misaligned=False):
+    """randn x * 2 + 0.5 of ``shape``, contiguous; ``misaligned``: 4 bytes off a
+    16-byte boundary, so that the kernels take one value a thread."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    if not misaligned:
+        return x
+    buf = torch.empty(x.numel() + 8, dtype=dtype, device="cuda")
+    out = buf[4 // x.element_size():][:x.numel()].view(shape)
+    out.copy_(x)
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("minmax", [False, True])
-@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_group_norm_stats_kernel(dev, shape, minmax, dtype):
+@pytest.mark.parametrize("shape,groups", _SPLIT_CASES, ids=_SPLIT_IDS)
+def test_group_norm_stats_kernel(dev, shape, groups, minmax, dtype):
     """The split GroupNorm's stats entry against ``group_norm_stats_plain``:
     the sums within 1e-5 of the sum of |x| (f32 sums in another order), the
-    extremes equal; one launch; a repeat gives the same bits."""
-    g = torch.Generator(device=dev).manual_seed(len(shape) + shape[-1])
-    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    extremes equal; one launch; a repeat gives the same bits, and so do the
+    sums of a call with the extremes and one without."""
+    x = _split_input(shape, dtype, len(shape) + shape[-1])
     n0 = G.group_norm_stats_cuda.launches
-    sums, ext = G.group_norm_stats_cuda(x, 32, minmax)
+    sums, ext = G.group_norm_stats_cuda(x, groups, minmax)
     torch.cuda.synchronize()
     assert G.group_norm_stats_cuda.launches == n0 + 1
-    rs, rext = G.group_norm_stats_plain(x, 32, minmax)
+    rs, rext = G.group_norm_stats_plain(x, groups, minmax)
     B, C = shape[0], shape[-1]
-    scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, B, -1, 32, C // 32).sum((2, 4))
-    assert sums.shape == (2, B, 32) and ((sums - rs).abs() <= 1e-5 * scale + 1e-6).all()
+    scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, B, -1, groups, C // groups).sum((2, 4))
+    assert sums.shape == (2, B, groups) and ((sums - rs).abs() <= 1e-5 * scale + 1e-6).all()
     if minmax:
         assert torch.equal(ext, rext)
     else:
         assert ext is None
-    sums2, ext2 = G.group_norm_stats_cuda(x, 32, minmax)
+    sums2, ext2 = G.group_norm_stats_cuda(x, groups, minmax)
     assert torch.equal(sums2, sums) and (ext2 is None or torch.equal(ext2, ext))
+    assert torch.equal(G.group_norm_stats_cuda(x, groups, not minmax)[0], sums)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_split_kernels_one_value_a_thread(dev, dtype):
+    """A misaligned x takes one value a thread (vec 1): the stats, K3's and
+    K4's applies as with 16-byte vectors, the applies bit-identical to the
+    first versions."""
+    shape = (2, 16, 32, 256)
+    x = _split_input(shape, dtype, 3, misaligned=True)
+    assert G._vec(x, 256) == 1
+    sums, ext = G.group_norm_stats_cuda(x, 32, True)
+    rs, rext = G.group_norm_stats_plain(x, 32, True)
+    scale = torch.stack([x.float().abs(), x.float().square()]).reshape(2, 2, -1, 32, 8).sum((2, 4))
+    assert ((sums - rs).abs() <= 1e-5 * scale + 1e-6).all() and torch.equal(ext, rext)
+    g = torch.Generator(device=dev).manual_seed(4)
+    a, b = torch.randn(2, 256, generator=g, device=dev), torch.randn(2, 256, generator=g, device=dev)
+    inv = torch.rand(2, generator=g, device=dev) * 20 + 10
+    assert torch.equal(G.group_norm_apply_cuda(x, a, b, True), G.group_norm_apply_simple(x, a, b, True))
+    assert torch.equal(G.group_norm_quant_apply_cuda(x, a, b, inv, True), G.group_norm_quant_apply_simple(x, a, b, inv, True))
+
+
+def test_group_norm_split_kernels_refuse(dev):
+    """What the split kernels do not take raises on a CUDA tensor: a row of
+    more than 512 vectors, another dtype, a non-contiguous x."""
+    a = b = torch.zeros(2, 4096, device=dev)
+    with pytest.raises(ValueError, match="at most 512 vectors"):
+        G.group_norm_apply_cuda(torch.zeros(2, 4, 4096, device=dev), a, b, False)
+    with pytest.raises(ValueError, match="at most 512 vectors"):
+        G.group_norm_stats_cuda(torch.zeros(2, 4, 4096, device=dev), 32, False)
+    with pytest.raises(TypeError):
+        G.group_norm_stats_cuda(torch.zeros(2, 4, 64, device=dev, dtype=torch.float16), 32, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.group_norm_quant_apply_cuda(torch.zeros(2, 64, 4, device=dev).transpose(1, 2), a[:, :64], b[:, :64],
+                                      torch.ones(2, device=dev), False)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("silu", [False, True])
-@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_group_norm_apply_kernel(dev, shape, silu, dtype, tol):
+@pytest.mark.parametrize("shape,groups", _SPLIT_CASES, ids=_SPLIT_IDS)
+def test_group_norm_apply_kernel(dev, shape, groups, silu, dtype, tol):
     """K3's apply entry against ``group_norm_apply_plain`` (K3's tolerances:
-    the kernel's fused multiply-add and fast exponential, bf16 roundings)."""
+    the kernel's fused multiply-add and fast exponential, bf16 roundings),
+    and bit-identical to its first version."""
     g = torch.Generator(device=dev).manual_seed(len(shape) + 7)
     B, C = shape[0], shape[-1]
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -544,16 +598,18 @@ def test_group_norm_apply_kernel(dev, shape, silu, dtype, tol):
     assert G.group_norm_apply_cuda.launches == n0 + 1
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(), G.group_norm_apply_plain(x, a, b, silu).float(), rtol=tol, atol=tol)
+    assert torch.equal(y, G.group_norm_apply_simple(x, a, b, silu))
 
 
 @pytest.mark.parametrize("emit", ["s8", "x"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("silu", [False, True])
-@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_group_norm_quant_apply_kernel(dev, shape, silu, dtype, emit):
+@pytest.mark.parametrize("shape,groups", _SPLIT_CASES, ids=_SPLIT_IDS)
+def test_group_norm_quant_apply_kernel(dev, shape, groups, silu, dtype, emit):
     """K4's apply entry against ``group_norm_quant_apply_plain``: q within one
     level on at most 1e-4 of the elements (the kernel's exponential against
-    torch's SiLU), in the dtype asked for."""
+    torch's SiLU), in the dtype asked for, and bit-identical to its first
+    version."""
     g = torch.Generator(device=dev).manual_seed(len(shape) + 11)
     B, C = shape[0], shape[-1]
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -566,6 +622,7 @@ def test_group_norm_quant_apply_kernel(dev, shape, silu, dtype, emit):
     assert G.group_norm_quant_apply_cuda.launches == n0 + 1
     assert q.dtype == out_dtype and q.shape == x.shape
     _q_flips_ok(q, G.group_norm_quant_apply_plain(x, a, b, inv, silu, out_dtype))
+    assert torch.equal(q, G.group_norm_quant_apply_simple(x, a, b, inv, silu, out_dtype))
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4"])

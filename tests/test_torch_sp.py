@@ -47,7 +47,9 @@ from guided_diffusion_clip_tpu_torch.utils.script_util import (
 )
 from test_torch_dist import CLI_CLASSIFIER, CLI_UNET, TINY, _flags, _random_pt
 from test_torch_train_dist import rel
-from torch_dist_worker import B, SP_CFG, SP_DEEP, batches, make_loop, run_ranks, sp_models, state, step
+from torch_dist_worker import (
+    B, SP_CFG, SP_DEEP, batches, int8_step_recorded, make_loop, run_ranks, sp_models, state, step,
+)
 from torch_port_utils import clip_feat_pair, encoder_pair, nchw, nhwc, upstream_pair
 
 torch.set_num_threads(2)
@@ -122,10 +124,11 @@ def world(tmp_path_factory):
     clis = _other_clis(d, rs)
     torch.save({name: (module, [*flags, "--spatial_shard", "2", "--main_path", str(d / "sp_clis" / name)], env)
                 for name, (module, flags, env) in clis.items()}, d / "sp_clis.pt")
+    int8_step = int8_step_recorded(str(d))
     run_ranks("sp", str(d), n=2, timeout=400)
     run_ranks("sp4", str(d), n=4, timeout=400)
     load = lambda name, n: [torch.load(d / f"{name}_rank{r}.pt", weights_only=False) for r in range(n)]
-    return {"dir": d, "inp": inp, "argv": argv, "clis": clis, "jax_int8_out": jax_int8_out,
+    return {"dir": d, "inp": inp, "argv": argv, "clis": clis, "jax_int8_out": jax_int8_out, "int8_step": int8_step,
             "jax": {"clip": (jclip, pclip), "plain": (jplain, pplain), "clf": (jclf, pclf)},
             "ranks": load("sp", 2), "cli": load("sp_cli", 2), "ranks4": load("sp4", 4), "cli4": load("sp4_cli", 4)}
 
@@ -438,6 +441,42 @@ def test_train_step_matches_dp_step(world, port, mode):
         assert rel(got["grad"], ref["grad"]) <= 1e-5
         assert rel(got["params"], ref["params"]) <= 1e-5
         assert got["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+
+
+def check_int8_step(got: dict, ref: dict, f32: dict) -> None:
+    """A sharded int8 train step teacher-forced to the one-rank int8 step
+    (``torch_dist_worker.int8_step_forced``, both with the straight-through
+    convs in f32, as ``tests/test_torch_train.py`` holds the int8 step to
+    JAX's) against that step: each forced rounding within the forward's
+    bounds (``test_int8_forward_teacher_forced``; the head forced too), each
+    per-tensor scale within rtol 1e-6; the gradient and the parameters
+    within 1e-5 relative L2, the logged loss within 1e-6, as the f32 steps
+    are held; and the int8 step is not the f32 one (``f32``, the same step
+    with float convs)."""
+    gns = [x for x in got["readings"] if x["kind"] == "gn"]
+    convs = [x for x in got["readings"] if x["kind"] == "conv"]
+    assert gns and convs
+    for x in gns:
+        assert x["s_err"] <= x["s_tol"] and x["q_max"] <= 1 and x["flips"] <= max(1, 1e-3 * x["n"]), x
+    for x in convs:
+        assert x["max"] <= 1e-2 * x["ref_max"] and x["l2"] <= 5e-3, x
+    assert len(got["scales"]) == len(convs)
+    for s, rs in got["scales"]:
+        assert abs(s - rs) <= 1e-6 * rs, (s, rs)
+    assert rel(got["grad"], ref["grad"]) <= 1e-5
+    assert rel(got["params"], ref["params"]) <= 1e-5
+    assert got["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+    assert rel(ref["grad"], f32["grad"]) > 1e-4
+
+
+@pytest.mark.timeout(600)
+def test_int8_train_step_teacher_forced_matches_one_rank_step(world, port):
+    """One int8 train step of the tiny CLIP UNet with SP 2 under DDP (the
+    quantizing GroupNorms split at their statistics, each conv's amax
+    all-reduced), teacher-forced to the one-rank int8 step's roundings
+    under autograd, against that step (``check_int8_step``)."""
+    for r in world["ranks"]:
+        check_int8_step(r["train_int8"], world["int8_step"]["state"], port["train"])
 
 
 def _flax_params(jm, sd: dict) -> dict:

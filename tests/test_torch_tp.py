@@ -41,10 +41,13 @@ from guided_diffusion_clip_tpu_torch.utils.script_util import (
 )
 from test_torch_dist import CLI_CLASSIFIER, CLI_UNET, TINY, _flags, _random_pt
 from test_torch_sp import (  # noqa: F401 (jax_step: a fixture)
-    _check_cli_against_one_process, _jax_int8_values, _other_clis, _randomize, _samples_close, jax_step,
+    _check_cli_against_one_process, _jax_int8_values, _other_clis, _randomize, _samples_close, check_int8_step,
+    jax_step,
 )
 from test_torch_train_dist import rel
-from torch_dist_worker import B, SP_CFG, TP3_CFG, TP_INPUTS, batches, make_loop, run_ranks, state, step
+from torch_dist_worker import (
+    B, SP_CFG, TP3_CFG, TP_INPUTS, batches, int8_step_recorded, make_loop, run_ranks, state, step,
+)
 from torch_port_utils import clip_feat_pair, encoder_pair, nhwc, upstream_pair
 
 torch.set_num_threads(2)
@@ -110,10 +113,11 @@ def world(tmp_path_factory):
     clis = _other_clis(d, rs)
     torch.save({name: (module, [*flags, "--tensor_shard", "2", "--main_path", str(d / "tp_clis" / name)], env)
                 for name, (module, flags, env) in clis.items()}, d / "tp_clis.pt")
+    int8_step = int8_step_recorded(str(d))
     for scenario, n in (("tp", 2), ("tp3", 3), ("tp4", 4)):
         run_ranks(scenario, str(d), n=n, timeout=400)
     load = lambda name, n: [torch.load(d / f"{name}_rank{r}.pt", weights_only=False) for r in range(n)]
-    return {"dir": d, "inp": inp, "argv": argv, "clis": clis, "jax_int8_out": jax_int8_out,
+    return {"dir": d, "inp": inp, "argv": argv, "clis": clis, "jax_int8_out": jax_int8_out, "int8_step": int8_step,
             "jax": {"clip": (jclip, pclip), "plain": (jplain, pplain), "clf": (jclf, pclf)},
             "ranks": load("tp", 2), "cli": load("tp_cli", 2), "ranks3": load("tp3", 3), "ranks4": load("tp4", 4)}
 
@@ -377,6 +381,17 @@ def test_train_step_gradient_matches_jax(world, jax_step, mode):
         got = r[f"train_{mode}"]
         assert rel(got["grad"], grads) <= 1e-4
         assert got["loss"] == pytest.approx(loss, rel=1e-4)
+
+
+@pytest.mark.timeout(600)
+def test_int8_train_step_teacher_forced_matches_one_rank_step(world, one_rank):
+    """One int8 train step of the tiny CLIP UNet with TP 2 under DDP (each
+    quantizing GroupNorm split at its statistics, its per-image bound
+    reduced MAX over the model group), teacher-forced to the one-rank int8
+    step's roundings under autograd, against that step
+    (``test_torch_sp.check_int8_step``)."""
+    for r in world["ranks"]:
+        check_int8_step(r["train_int8"], world["int8_step"]["state"], one_rank["train"])
 
 
 @pytest.mark.timeout(600)

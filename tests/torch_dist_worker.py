@@ -10,6 +10,7 @@ port and with the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import os
 import subprocess
@@ -318,12 +319,17 @@ class Int8Forcing:
     alone. ``by_name``: the values to hold and force by module name (the JAX
     package's int8 forward's captured intermediates, full size), in place of
     a recorded forward; no scales are compared then. Under SP the rank's
-    rows are compared, under TP its channels (``part_of``)."""
+    rows are compared, under TP its channels (``part_of``). Under autograd
+    (a train step, ``attach``/``release`` around it) a forced value keeps
+    the sharded forward's gradient (``out + (ref - out).detach()``), and
+    ``skip=()`` forces the output head too."""
 
-    def __init__(self, by_name: dict | None = None):
+    def __init__(self, by_name: dict | None = None, skip: tuple = ("out.",)):
         self.rec, self.scales, self.readings, self.handles = [], [], [], []
         self.pos = 0
         self.by_name = by_name
+        self.skip = skip
+        self._restore = self._store = None
 
     def _scale_hooks(self, store):
         from guided_diffusion_clip_tpu_torch.ops import quant as Q
@@ -359,42 +365,114 @@ class Int8Forcing:
                 xf = x if x.shape == ref[0].shape else whole_of(x, ref[0])
                 xg = xf.movedim(1, -1).double().reshape(xf.shape[0], -1, 32, xf.shape[1] // 32)
                 ratio = (xg.mean((1, 3)).abs() / xg.std((1, 3))).max().item()
-                d_q = (q.float() - rq.float()).abs()
-                self.readings.append({"kind": "gn", "s_err": ((sc - rsc).abs() / rsc).max().item(),
+                d_q = (q.detach().float() - rq.float()).abs()
+                self.readings.append({"kind": "gn", "s_err": ((sc.detach() - rsc).abs() / rsc).max().item(),
                                       "s_tol": 1e-6 + ratio ** 2 * 2.0 ** -20, "q_max": d_q.max().item(),
                                       "flips": int((d_q > 0).sum()), "n": d_q.numel()})
-                return rq.to(q.dtype), rsc
+                rq = rq.to(q.dtype)
+                return (q + (rq - q).detach() if q.requires_grad else rq), rsc
             (r,) = ref
             r = part_of(r, out)
-            dd = (out - r).abs()
+            dd = (out.detach() - r).abs()
             self.readings.append({"kind": "conv", "max": dd.max().item(), "ref_max": r.abs().max().item(),
                                   "l2": (dd.norm() / r.norm()).item()})
-            return r
+            return out + (r - out).detach() if out.requires_grad else r
 
         return hook
 
-    def run(self, model, x, t, forcing, **kw):
+    def attach(self, model, forcing: bool) -> None:
+        """Hooks on ``model``'s quantizing GroupNorms and per-tensor int8
+        convs (and the quantize functions' scales) that record (``forcing``
+        False) or force its next forwards, until ``release``."""
         from guided_diffusion_clip_tpu_torch.models.nn import Conv2d, GroupNorm32
 
-        store = [] if forcing else self.scales
-        restore = self._scale_hooks(store)
+        self._store = [] if forcing else self.scales
+        self._restore = self._scale_hooks(self._store)
         self.pos = 0
         for name, m in model.named_modules():
-            if isinstance(m, (GroupNorm32, Conv2d)) and not name.startswith("out."):
+            if isinstance(m, (GroupNorm32, Conv2d)) and not (self.skip and name.startswith(self.skip)):
                 self.handles.append(m.register_forward_hook(self._hook(forcing, name), with_kwargs=True))
+
+    def release(self, forcing: bool) -> None:
+        """Remove the hooks; after a forced run, check that every recorded
+        value was replayed and pair each scale with the recorded one
+        (``scale_pairs``)."""
+        self._restore()
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+        if forcing and self.by_name is None:
+            assert self.pos == len(self.rec), (self.pos, len(self.rec))
+            self.scale_pairs = [(a.item(), b.item()) for a, b in zip(self._store, self.scales)]
+            assert len(self._store) == len(self.scales), (len(self._store), len(self.scales))
+
+    def run(self, model, x, t, forcing, **kw):
+        self.attach(model, forcing)
         try:
             with torch.no_grad():
                 out = model(x, t, **kw)
-        finally:
-            restore()
-            for h in self.handles:
-                h.remove()
-            self.handles = []
-        if forcing and self.by_name is None:
-            assert self.pos == len(self.rec), (self.pos, len(self.rec))
-            self.scale_pairs = [(a.item(), b.item()) for a, b in zip(store, self.scales)]
-            assert len(store) == len(self.scales), (len(store), len(self.scales))
+        except BaseException:
+            self.release(False)
+            raise
+        self.release(forcing)
         return out
+
+
+INT8_STEP = "int8_step.pt"
+
+
+@contextlib.contextmanager
+def f32_straight_through():
+    """The int8 convs' straight-through backward convs in f32 (``quant.
+    _STE_DTYPE``; bf16 by default, as the JAX package's): in bf16 each rank's
+    share of a weight's gradient is rounded to bf16 before the ranks' sum,
+    which alone moves a sharded step's gradient by ~4e-4 relative L2."""
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    prev, Q._STE_DTYPE = Q._STE_DTYPE, torch.float32
+    try:
+        yield
+    finally:
+        Q._STE_DTYPE = prev
+
+
+def int8_step_recorded(d: str) -> dict:
+    """The one-rank int8 train step of the tiny CLIP UNet on ``batches(B,
+    1)`` (every conv ``int8``, the quantizing GroupNorms under autograd, the
+    straight-through convs in f32), its roundings recorded by
+    ``Int8Forcing`` (the head's too): {"rec", "scales", "state"}, also
+    written to ``d``/``INT8_STEP`` for the ranks."""
+    forcing = Int8Forcing(skip=())
+    loop = make_loop(os.path.join(d, "int8_one_rank"), int8=True)
+    forcing.attach(loop.model, False)
+    try:
+        with f32_straight_through():
+            step(loop, batches(B, 1), slice(None))
+    finally:
+        forcing.release(False)
+    out = {"rec": forcing.rec, "scales": forcing.scales, "state": state(loop)}
+    torch.save({k: out[k] for k in ("rec", "scales")}, os.path.join(d, INT8_STEP))
+    return out
+
+
+def int8_step_forced(d: str, name: str, **kw) -> dict:
+    """The int8 train step of ``int8_step_recorded`` on this rank, with the
+    loop's sharding ``kw``, teacher-forced to the one-rank step's roundings
+    under autograd: the step's ``state`` with the readings and the scale
+    pairs."""
+    ref = torch.load(os.path.join(d, INT8_STEP), weights_only=False)
+    forcing = Int8Forcing(skip=())
+    forcing.rec, forcing.scales = ref["rec"], ref["scales"]
+    loop = make_loop(os.path.join(d, name), int8=True, **kw)
+    forcing.attach(loop.model, True)
+    try:
+        with f32_straight_through():
+            step(loop, batches(B, 1), slice(None))
+    except BaseException:
+        forcing.release(False)
+        raise
+    forcing.release(True)
+    return {**state(loop), "readings": forcing.readings, "scales": forcing.scale_pairs}
 
 
 def _tried(fn):
@@ -481,6 +559,8 @@ def scenario_sp(d: str) -> None:
         loop = make_loop(os.path.join(d, f"sp_{mode}"), spatial_shard=2, **kw)
         step(loop, b1, slice(None))
         out[f"train_{mode}"] = state(loop)
+    # the int8 step under DDP, teacher-forced to the parent's one-rank int8 step
+    out["train_int8"] = int8_step_forced(d, "sp_int8", spatial_shard=2)
     torch.save(out, os.path.join(d, f"sp_rank{r}.pt"))
     # the CLIs, each a run of its own
     cli = {}
@@ -689,6 +769,7 @@ def scenario_tp(d: str) -> None:
         loop = make_loop(os.path.join(d, f"tp_{mode}"), tensor_shard=2, **kw)
         step(loop, b1, slice(None))
         out[f"train_{mode}"] = state(loop)
+    out["train_int8"] = int8_step_forced(d, "tp_int8", tensor_shard=2)
     tp.clear_tensor_sharding()
     torch.save(out, os.path.join(d, f"tp_rank{r}.pt"))
     cli = {}
