@@ -8,8 +8,20 @@ widths of the fork's CLIP-conditioned UNet, classifier-guided sampling with
 ADM-G 256 and its classifier, training of the fork's 128 px recipe (bf16 and
 int8), sampling and scoring what it trained through the fork's CLIs,
 training the classifier, the fork's CLIP at ViT-B/32's widths (embeddings
-and CLIP-guided sampling) and the fork's SR models through the four SR CLIs,
-and exits non-zero if any phase fails; each phase's seconds are logged:
+and CLIP-guided sampling), the fork's SR models through the four SR CLIs and
+the scoring of samples (the evaluator and the acceptance path), and exits
+non-zero if any phase fails; each phase's seconds are logged.
+
+The fixed costs run beside other work: the card-vs-CPU references and the
+full-width random weights are computed from the build on in two processes
+of their own at a lower CPU priority (``RefProcess``, which shares no state
+with the main path): those of phases 4b-4f, 5, 6, 10 and 11 in one
+(``EARLY_JOBS``; phases 4b-4f run after 6c), those of 8b, 8e, 9's chains
+and 12a in the other (``LATE_JOBS``); phase 3, whose kernel times include
+the host's, runs after phase 13, once both processes and 13b's children
+have ended; the CLIs build their models on the card; 13b's first torchrun
+child runs beside phases 9, 12 and 13a, and phase 17's two ranks beside 19a
+and 19b (none of which is timed against another run):
 
   1. device: the card's name, power limit and compute capability (9, 0);
   2. build: the CUDA kernels of ``guided_diffusion_clip_tpu_torch/ops/csrc``
@@ -47,6 +59,10 @@ and exits non-zero if any phase fails; each phase's seconds are logged:
      FMA kernel as in 3;
   4b. the full-width classifier's logits and guidance gradient (batch 1,
      f32, TF32 off), card (K1, K2, K3) against the CPU (plain versions);
+  4f. the int8 CLIP-guided step (ViT-B/32's guidance in pred-x0 mode, batch
+     1, f32, one step, teacher-forced) of ADM-256's CLIP UNet at
+     ``CLIP_INT8_CHANNELS`` channels, card against CPU within
+     ``CLIP_INT8_TOL`` (``--faults`` holds the full width's);
   5. the HTTP server (``guided_diffusion_clip_tpu_torch.serve``) built from
      flags with random weights loaded from a .pt, answering /healthz and
      /sample requests (padded, explicit clip_feat, chunked, coalesced), with
@@ -390,6 +406,27 @@ Tensor parallelism (``--tensor_shard``, ``parallel/tp.py``):
       one ResBlock's scale and shift swapped, K4's per-image bound left
       unreduced), which must cross its bound.
 
+Scoring samples (``evaluations/``, ``acceptance_real_weights.py``):
+  19a. the port's InceptionV3 (``random_params(0)``, 4 uint8 images at 64
+      and 256 px) on the card, f32 with TF32 off, against the CPU run of the
+      same module: pool_3, the spatial features and the predictions within
+      ``INCEPTION_TOL``, and TF32 switched on or one conv weight x 1.001
+      beyond it; the distance block of precision/recall against float64
+      numpy (``DISTANCE_TOL``);
+  19b. ``acceptance_real_weights.main --stages resolve,sample,evaluate`` on
+      stand-in assets at the published shapes (ADM-G 64 and its classifier
+      with N(0, 0.02) weights loaded strict=True, ``random_params(0)`` as
+      the converted Inception, 64 random reference images): 16 samples in
+      ``GUIDED_STEPS`` guided steps, K1, K2 and K3 against the counts derived
+      from the 64 px modules (the bf16 UNet's K1 and the f32 classifier's K1
+      and K2 apart), the five metric lines finite and untagged and equal to
+      their float64 recomputation from the evaluator's features
+      (``recompute_metrics``, in a process of its own: ``METRIC_RTOL``,
+      precision and recall exactly);
+  19c. ``tools.evaluator_bench`` at its defaults (images/s, seconds for a
+      50k + 50k pair) and one ManifoldEstimator radii block at 10 000 x
+      10 000 x 2048 (the product on the card, the partition on the host).
+
     python3 chip_smoke.py --faults
 
 builds the kernels and runs no path: it takes the two card-vs-CPU steps
@@ -409,7 +446,7 @@ Every count is set to 0 just before each main path (phases 5, 5b, 5c, 6, 6b,
 6c, 7, the timed steps of 8d and 8e, each mode of 9, 9b and 9c, 10's
 ``classifier_train`` and its guided run, each mode of 11b, each CLI run and
 the timed steps of 12b-12d, each mode's step of 13a, each tool of 14, 15 and 16, each of 17's and 18's sharded runs in
-its process) and read just after it; every
+its process, 19b) and read just after it; every
 K1 and K2 launch of a main path
 (the sampling torsos at d = 64 and 96, the recipe's at d = 192 and 256) must have been a tensor-core launch, none
 on the FMA-pipe kernels, and the float32 launches must be the modules' float32 calls: the classifier's attention
@@ -438,6 +475,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import glob
@@ -1611,7 +1649,10 @@ def unet_counts(model, int8: bool, shallow_cut=None) -> dict:
 def random_state_dict(model):
     """N(0, 0.02) for every weight, from a seed (as bench.py fills its
     params): the module's zero-init output layers would make the UNet's
-    output exactly 0."""
+    output exactly 0. ``model`` may lie on the meta device. The bounds of the
+    card-vs-CPU checks were read on these draws (the same weights drawn by the
+    card's generator read 8e's bf16-torso int8 gradient 2.25e-4 against its
+    1.2e-4), so the big ones are drawn in a reference process."""
     import torch
 
     g = torch.Generator().manual_seed(WEIGHT_SEED)
@@ -1621,24 +1662,174 @@ def random_state_dict(model):
     }
 
 
-def clip_unet(sd=None, **over):
+def ref_worker(jobs: list, out_dir: str, nice: int) -> None:
+    """``RefProcess``'s body: each (name, function's name, uses, args) of
+    ``jobs`` in order, called with the results of the earlier jobs that
+    ``uses`` names and then ``args``, at CPU priority ``nice``; its result
+    saved to ``out_dir/name.pt`` and kept in memory until the last job that
+    uses it. A failure is saved as ``name.err`` (and fails the jobs that use
+    it)."""
+    import traceback
+
+    import torch
+
+    os.nice(nice)  # the card's phases in the parent first
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    last_use = {u: i for i, (_, _, uses, _) in enumerate(jobs) for u in uses}
+    results = {}
+    for i, (name, fn, uses, args) in enumerate(jobs):
+        try:
+            out = globals()[fn](*(results[u] for u in uses), *args)
+            torch.save(out, os.path.join(out_dir, f"{name}.part"))
+            os.replace(os.path.join(out_dir, f"{name}.part"), os.path.join(out_dir, f"{name}.pt"))
+            if name in last_use:
+                results[name] = out
+            del out
+        except Exception:  # noqa: BLE001 - reported where the result is read
+            with open(os.path.join(out_dir, f"{name}.err"), "w") as f:
+                f.write(traceback.format_exc())
+        for u in [u for u, j in last_use.items() if j == i and u in results]:
+            del results[u]
+
+
+class RefProcess:
+    """CPU references computed beside the card's work, in a spawned process
+    at CPU priority ``nice``, so that nothing of the main path's process
+    state (the straight-through convs' dtype, the logger's run directory)
+    is shared with them: ``jobs`` as ``ref_worker`` takes them (an argument
+    that is a str names a directory, made under ``out_dir``), started at
+    once.
+    ``path(name)`` waits for a result's file, ``get(name)`` loads it
+    (memory-mapped, once). It touches no card: each job draws its weights
+    from the seed, as the phase would."""
+
+    def __init__(self, jobs: list, out_dir: str, nice: int):
+        import multiprocessing
+
+        self.out_dir, self.loaded = out_dir, {}
+        jobs = [(name, fn, uses, tuple(os.path.join(out_dir, a) if isinstance(a, str) else a for a in args))
+                for name, fn, uses, args in jobs]
+        for *_, args in jobs:
+            for a in args:
+                if isinstance(a, str):
+                    os.makedirs(a)
+        self.proc = multiprocessing.get_context("spawn").Process(target=ref_worker, args=(jobs, out_dir, nice),
+                                                                 daemon=True)
+        self.proc.start()
+
+    def path(self, name) -> str:
+        t0 = time.perf_counter()
+        path = os.path.join(self.out_dir, f"{name}.pt")
+        while not os.path.exists(path):
+            if os.path.exists(path[:-3] + ".err"):
+                with open(path[:-3] + ".err") as f:
+                    raise AssertionError(f"the CPU reference of {name} failed:\n{f.read()}")
+            if not self.proc.is_alive() and not os.path.exists(path):
+                raise AssertionError(f"the reference process exited {self.proc.exitcode} before {name}")
+            time.sleep(0.1)
+        waited = time.perf_counter() - t0
+        if waited >= 0.05:
+            log(f"  waited {waited:.1f} s for the CPU reference of {name}")
+        return path
+
+    def get(self, name):
+        import torch
+
+        if name not in self.loaded:
+            self.loaded[name] = torch.load(self.path(name), mmap=True, weights_only=False)
+        return self.loaded[name]
+
+    def close(self) -> float:
+        """Wait for the process to end (its last result read, it has no work left), then stop it; the seconds
+        waited."""
+        t0 = time.perf_counter()
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+        self.loaded.clear()
+        return time.perf_counter() - t0
+
+
+def clip_unet(sd=None, device="cpu", **over):
     """The fork's CLIP-conditioned UNet at the ADM-256 widths (phases 4, 5, 11,
     11b), f32 unless ``over`` says otherwise, in eval mode with no gradient
-    for its weights, loaded from ``sd`` when given."""
+    for its weights. Built on the meta device (its initializer, seconds on the
+    host at these widths, never runs); with ``sd`` allocated on ``device`` and
+    loaded from it."""
+    import torch
+
     from guided_diffusion_clip_tpu_torch.utils.script_util import create_model
 
-    kw = dict(learn_sigma=True, class_cond=True, attention_resolutions="32,16,8", num_head_channels=64,
-              use_scale_shift_norm=True, resblock_updown=True, use_fp16=False)
+    kw = dict(image_size=256, num_channels=256, num_res_blocks=2, learn_sigma=True, class_cond=True,
+              attention_resolutions="32,16,8", num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True,
+              use_fp16=False)
     kw.update(over)
-    model = create_model(256, 256, 2, **kw).eval()
+    with torch.device("meta"):
+        model = create_model(**kw).eval()
     if sd is not None:
+        model = model.to_empty(device=device)
         model.load_state_dict(sd, strict=True)
     return model.requires_grad_(False)
 
 
-def phase4e_deep_cache(dev, sd):
+def clip_unet_weights(channels: int = 256) -> dict:
+    """``random_state_dict`` of ``clip_unet`` at ``channels`` channels."""
+    return random_state_dict(clip_unet(num_channels=channels))
+
+
+def classifier_256(sd=None, device="cpu", int8: bool = False):
+    """ADM-G 256's classifier (phases 4b, 4d and 10's CPU half), f32, with
+    ``--conv_impl int8`` if ``int8``, in eval mode with no gradient for its
+    weights; built on the meta device, with ``sd`` allocated on ``device``
+    and loaded from it."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
+
+    with torch.device("meta"):
+        clf = create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention",
+                                conv_impl="int8" if int8 else "auto").eval()
+    if sd is not None:
+        clf = clf.to_empty(device=device)
+        clf.load_state_dict(sd, strict=True)
+    return clf.requires_grad_(False)
+
+
+def classifier_weights(int8: bool) -> dict:
+    """``random_state_dict`` of ``classifier_256``."""
+    return random_state_dict(classifier_256(int8=int8))
+
+
+def _cache_forwards(m, x, t, feat, to):
+    """4e's pair: a ``full`` forward of ``m`` on ``to`` and a ``shallow`` one fed
+    its deep feature; (full output, deep feature, shallow output)."""
+    kw = dict(clip_feat=feat.to(to))
+    full, deep = m(x.to(to), t.to(to), cache_mode="full", **kw)
+    shallow, deep_back = m(x.to(to), t.to(to), deep_cache=deep, cache_mode="shallow", **kw)
+    if deep_back is not deep:
+        raise AssertionError("a shallow forward must hand back the deep feature it was given")
+    return full, deep, shallow
+
+
+def phase4e_cpu(sd) -> dict:
+    """4e's CPU half: the CPU's full and shallow forwards of ``clip_unet(sd)``."""
+    import torch
+
+    model = clip_unet(sd)
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(1, 3, 256, 256, generator=g)
+    t = torch.tensor([500])
+    feat = torch.randn(1, 512, generator=g)
+    with torch.inference_mode():
+        ref = _cache_forwards(model, x, t, feat, "cpu")
+    return dict(x=x, t=t, feat=feat, ref=ref)
+
+
+def phase4e_deep_cache(dev, cpu, sd):
     """The UNet's cache modes at full width, batch 1, f32: a ``full`` forward
-    and a ``shallow`` one fed its deep feature, card against CPU; on the card
+    and a ``shallow`` one fed its deep feature, card against CPU (``cpu``:
+    ``phase4e_cpu``'s, ``sd`` its weights); on the card
     the shallow forward against the plain (``off``) one at the same (x, t),
     which it must equal but for the order of the kernels' launches, and the
     plain forward against the CPU's full one (the same function; a phase 4 once
@@ -1646,25 +1837,11 @@ def phase4e_deep_cache(dev, sd):
     import torch
 
     tf32_off()
-    model = clip_unet(sd)
-    g = torch.Generator().manual_seed(12)
-    x = torch.randn(1, 3, 256, 256, generator=g)
-    t = torch.tensor([500])
-    feat = torch.randn(1, 512, generator=g)
-
-    def run(m, to):
-        kw = dict(clip_feat=feat.to(to))
-        full, deep = m(x.to(to), t.to(to), cache_mode="full", **kw)
-        shallow, deep_back = m(x.to(to), t.to(to), deep_cache=deep, cache_mode="shallow", **kw)
-        if deep_back is not deep:
-            raise AssertionError("a shallow forward must hand back the deep feature it was given")
-        return full, deep, shallow
-
+    x, t, feat, ref = (cpu[k] for k in ("x", "t", "feat", "ref"))
+    model = clip_unet(sd, dev)
     with torch.inference_mode():
-        ref = run(model, "cpu")
-        model.to(dev)
         before = counters()
-        out = run(model, dev)
+        out = _cache_forwards(model, x, t, feat, dev)
         ran = {k: counters()[k] - before[k] for k in ("attention", "group_norm")}
         off = model(x.to(dev), t.to(dev), clip_feat=feat.to(dev))
     cut = model.config.num_res_blocks + 1
@@ -1691,19 +1868,14 @@ def phase4e_deep_cache(dev, sd):
     del model
 
 
-def phase4b_guidance(dev):
-    """The full-width classifier, batch 1, f32: logits and classifier_cond_fn's
-    dx on the card (K1, K2, K3) against the CPU (plain versions)."""
+def phase4b_cpu(sd) -> dict:
+    """4b's CPU half: the logits and guidance gradient of the classifier with
+    the weights ``sd``."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
-    from guided_diffusion_clip_tpu_torch.ops import attention as A
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
 
-    tf32_off()
-    clf = create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention").eval()
-    clf.load_state_dict(random_state_dict(clf), strict=True)
-    clf.requires_grad_(False)
+    clf = classifier_256(sd)
     cond = classifier_cond_fn(clf, 1.0)
     g = torch.Generator().manual_seed(4)
     x = torch.randn(1, 3, 256, 256, generator=g)
@@ -1712,7 +1884,23 @@ def phase4b_guidance(dev):
         t0 = time.perf_counter()
         ref_logits, ref_dx = clf(x, t), cond(x, t, y=y)
         cpu_s = time.perf_counter() - t0
-        clf.to(dev)
+    return dict(x=x, t=t, y=y, logits=ref_logits, dx=ref_dx, cpu_s=cpu_s)
+
+
+def phase4b_guidance(dev, cpu, sd):
+    """The full-width classifier, batch 1, f32: logits and classifier_cond_fn's
+    dx on the card (K1, K2, K3) against the CPU (plain versions; ``cpu``:
+    ``phase4b_cpu``'s, ``sd`` its weights)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.ops import attention as A
+
+    tf32_off()
+    x, t, y, ref_logits, ref_dx, cpu_s = (cpu[k] for k in ("x", "t", "y", "logits", "dx", "cpu_s"))
+    clf = classifier_256(sd, dev)
+    cond = classifier_cond_fn(clf, 1.0)
+    with torch.no_grad():
         k2 = A.attention_bwd_cuda.launches
         logits = clf(x.to(dev), t.to(dev)).cpu()
         dx = cond(x.to(dev), t.to(dev), y=y.to(dev)).cpu()
@@ -1855,14 +2043,11 @@ class Int8Forcing:
                 f"worst int8_conv rel L2 {self.conv_l2:.3g}")
 
 
-def phase4c_int8_forward(dev, sd):
-    """Full-width int8 forward, batch 1, f32: card (K4, K5) vs CPU (plain),
-    teacher-forced; the free-running difference is reported."""
+def phase4c_cpu(sd) -> dict:
+    """4c's CPU half: the int8 model's forward and its roundings recorded."""
     import torch
 
-    tf32_off()
     model = clip_unet(sd, conv_impl="int8")
-    want = gn_conv_counts(model, True)
     g = torch.Generator().manual_seed(2)
     x = torch.randn(1, 3, 256, 256, generator=g)
     t = torch.tensor([500])
@@ -1872,7 +2057,22 @@ def phase4c_int8_forward(dev, sd):
         with Int8Forcing().record(model) as forcing:
             ref = model(x, t, clip_feat=feat)
         cpu_s = time.perf_counter() - t0
-        model.to(dev)
+    return dict(x=x, t=t, feat=feat, rec=forcing.rec, ref=ref, cpu_s=cpu_s)
+
+
+def phase4c_int8_forward(dev, cpu, sd):
+    """Full-width int8 forward, batch 1, f32: card (K4, K5) vs CPU (plain;
+    ``cpu``: ``phase4c_cpu``'s, ``sd`` its weights), teacher-forced; the
+    free-running difference is reported."""
+    import torch
+
+    tf32_off()
+    x, t, feat, ref, cpu_s = (cpu[k] for k in ("x", "t", "feat", "ref", "cpu_s"))
+    forcing = Int8Forcing()
+    forcing.rec = cpu["rec"]
+    model = clip_unet(sd, dev, conv_impl="int8")
+    want = gn_conv_counts(model, True)
+    with torch.inference_mode():
         before = counters()
         with forcing.force(model):
             out = model(x.to(dev), t.to(dev), clip_feat=feat.to(dev)).cpu()
@@ -1893,54 +2093,76 @@ def phase4c_int8_forward(dev, sd):
     del model
 
 
-def phase4d_int8_guidance(dev):
-    """The full-width int8 classifier, batch 1, f32: logits and
-    classifier_cond_fn's dx, card (K1-K5) against the CPU (plain versions),
-    teacher-forced. dx twice: with conv_prequant's straight-through convs
-    in f32 (bound 1e-3: the algorithm), and in bf16 as shipped (bound 2e-2:
-    cuDNN and the CPU round the bf16 convs' outputs at other places)."""
+# 4d's two straight-through conv dtypes and the bound of each: f32, the algorithm; bf16 as shipped, where cuDNN
+# and the CPU round the bf16 convs' outputs at other places
+INT8_STES = (("float32", 1e-3), ("bfloat16", 2e-2))
+
+
+def phase4d_cpu(sd) -> dict:
+    """4d's CPU half (in ``RefProcess``: it sets the straight-through convs'
+    dtype): the int8 classifier with the weights ``sd``, its logits and its
+    two guidance gradients, each with its roundings recorded."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
     from guided_diffusion_clip_tpu_torch.ops import quant as Q
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
 
-    tf32_off()
-    clf = create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention", conv_impl="int8").eval()
-    clf.load_state_dict(random_state_dict(clf), strict=True)
-    clf.requires_grad_(False)
+    clf = classifier_256(sd, int8=True)
     cond = classifier_cond_fn(clf, 1.0)
     g = torch.Generator().manual_seed(4)
     x = torch.randn(1, 3, 256, 256, generator=g)
     t, y = torch.tensor([500]), torch.tensor([417])
-    stes = ((torch.float32, 1e-3), (torch.bfloat16, 2e-2))
     refs, forcings = {}, {}
     try:
         with torch.no_grad():
             t0 = time.perf_counter()
             with Int8Forcing().record(clf) as forcings["logits"]:
                 refs["logits"] = clf(x, t)
-            for ste, _ in stes:
-                Q._STE_DTYPE = ste
-                with Int8Forcing().record(clf) as forcings[ste]:
-                    refs[ste] = cond(x, t, y=y)
+            for name, _ in INT8_STES:
+                Q._STE_DTYPE = getattr(torch, name)
+                with Int8Forcing().record(clf) as forcings[name]:
+                    refs[name] = cond(x, t, y=y)
             cpu_s = time.perf_counter() - t0
-            clf.to(dev)
+    finally:
+        Q._STE_DTYPE = torch.bfloat16
+    return dict(x=x, t=t, y=y, refs=refs, recs={k: f.rec for k, f in forcings.items()}, cpu_s=cpu_s)
+
+
+def phase4d_int8_guidance(dev, cpu, sd):
+    """The full-width int8 classifier, batch 1, f32: logits and
+    classifier_cond_fn's dx, card (K1-K5) against the CPU (plain versions;
+    ``cpu``: ``phase4d_cpu``'s, ``sd`` its weights), teacher-forced. dx
+    twice: with conv_prequant's straight-through convs in f32 and in bf16 as
+    shipped (``INT8_STES``)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.diffusion.guidance import classifier_cond_fn
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    tf32_off()
+    x, t, y, refs, cpu_s = (cpu[k] for k in ("x", "t", "y", "refs", "cpu_s"))
+    forcings = {k: Int8Forcing() for k in cpu["recs"]}
+    for k, f in forcings.items():
+        f.rec = cpu["recs"][k]
+    clf = classifier_256(sd, dev, int8=True)
+    cond = classifier_cond_fn(clf, 1.0)
+    try:
+        with torch.no_grad():
             with forcings["logits"].force(clf):
                 logits = clf(x.to(dev), t.to(dev)).cpu()
             outs = {}
-            for ste, _ in stes:
-                Q._STE_DTYPE = ste
-                with forcings[ste].force(clf):
-                    outs[ste] = cond(x.to(dev), t.to(dev), y=y.to(dev)).cpu()
+            for name, _ in INT8_STES:
+                Q._STE_DTYPE = getattr(torch, name)
+                with forcings[name].force(clf):
+                    outs[name] = cond(x.to(dev), t.to(dev), y=y.to(dev)).cpu()
             free = cond(x.to(dev), t.to(dev), y=y.to(dev)).cpu()
     finally:
         Q._STE_DTYPE = torch.bfloat16
     log(f"  logits: {forcings['logits'].summary()}")
     checks = [("logits", logits, refs["logits"], (1, 1000), 1e-3)]
-    for ste, bound in stes:
-        log(f"  guidance gradient, {str(ste)[6:]} straight-through convs: {forcings[ste].summary()}")
-        checks.append((f"dx ({str(ste)[6:]} straight-through convs)", outs[ste], refs[ste], (1, 3, 256, 256), bound))
+    for name, bound in INT8_STES:
+        log(f"  guidance gradient, {name} straight-through convs: {forcings[name].summary()}")
+        checks.append((f"dx ({name} straight-through convs)", outs[name], refs[name], (1, 3, 256, 256), bound))
     for name, out, ref, shape, bound in checks:
         if out.shape != shape or not torch.isfinite(out).all():
             raise AssertionError(f"int8 guidance {name}: {tuple(out.shape)} not finite {shape}")
@@ -1949,9 +2171,10 @@ def phase4d_int8_guidance(dev):
             f"{rel:.3g} teacher-forced (bound {bound:g})")
         if not ref.norm() > 0 or not rel <= bound:
             raise AssertionError(f"card int8 guidance {name} differs from the CPU: rel L2 {rel:.3g}")
-    ref_dx = refs[torch.bfloat16]
+    ref_dx = refs["bfloat16"]
     log(f"  dx free-running: rel L2 {((free - ref_dx).norm() / ref_dx.norm()).item():.3g} (not bounded); "
         f"CPU int8 classifier forward + 2 guidance gradients {cpu_s:.2f} s")
+    del clf
 
 
 def start_server(sampler):
@@ -2153,37 +2376,54 @@ def check_serve_launches(sampler, int8: bool) -> dict:
     return tensor_core_split(launches)
 
 
-def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
-    """classifier_sample.main on ADM-G 256 + its classifier (random weights
-    from .pt files, written on the first call); returns the kernels' launch
-    counts over the run, the .pt paths and the samples."""
-    import numpy as np
+def guided_models(conv_impl="auto") -> tuple:
+    """(args, (("model", UNet), ("classifier", classifier))) of ``GUIDED_FLAGS``
+    on the meta device: the structure only."""
     import torch
 
     from guided_diffusion_clip_tpu_torch import classifier_sample
     from guided_diffusion_clip_tpu_torch.utils.script_util import args_to_dict, create_classifier, create_upstream_model
+
+    args = classifier_sample.create_argparser().parse_args([*GUIDED_FLAGS, "--conv_impl", conv_impl])
+    with torch.device("meta"):
+        return args, (("model", create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))),
+                      ("classifier",
+                       create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))))
+
+
+def phase6_weights(out: str) -> dict:
+    """Phase 6's random weights written to ``out``: {"model": its .pt,
+    "classifier": its .pt}."""
+    import torch
+
+    paths = {}
+    for name, model in guided_models()[1]:
+        paths[name] = os.path.join(out, f"{name}_random.pt")
+        torch.save(random_state_dict(model), paths[name])
+    return paths
+
+
+def phase6_guided(dev, tmp, conv_impl, paths):
+    """classifier_sample.main on ADM-G 256 + its classifier (random weights
+    in the .pt files of ``paths``, ``phase6_weights``'); returns the kernels'
+    launch counts over the run and the samples."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import classifier_sample
 
     int8 = conv_impl == "int8"
     flags = [*GUIDED_FLAGS, "--conv_impl", conv_impl]
     # PyTorch's defaults, as the CLI leaves them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    args = classifier_sample.create_argparser().parse_args(flags)
+    args, models = guided_models(conv_impl)  # the counts
     per = {}
-    new_paths = {}
-    with torch.device("meta"):  # the structure only: the counts, and the random weights' shapes
-        models = (("model", create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))),
-                  ("classifier",
-                   create_classifier(**args_to_dict(args, classifier_sample.classifier_defaults().keys()))))
     for name, model in models:
         per[name] = gn_conv_counts(model, int8)
         per[name]["thin"] = thin_convs(model)
         pools = f32_attention_calls(model)  # the last model of the loop is the classifier
-        if paths is None:
-            new_paths[name] = os.path.join(tmp, f"{name}_random.pt")
-            torch.save(random_state_dict(model), new_paths[name])
     del models, model
-    paths = paths or new_paths
     argv = [*flags, "--model_path", paths["model"], "--classifier_path", paths["classifier"],
             "--main_path", os.path.join(tmp, f"runs_{conv_impl}"), "--device", dev.type]
 
@@ -2220,7 +2460,7 @@ def phase6_guided(dev, tmp, conv_impl="auto", paths=None):
     log(f"  guided chain ({conv_impl}, batch 8, {out['steps']} steps): {chain:.3f} s, "
         f"{8 * 60 / chain:.3f} samples/min, {1000 * chain / steps:.2f} ms a step; main() {wall:.1f} s "
         f"with model building and loading")
-    return tensor_core_split(launches), paths, images, chain
+    return tensor_core_split(launches), images, chain
 
 
 PRESET_FLAGS = ["--conv_impl", "int8", "--deep_cache", "5", "--guidance_cache", "2",
@@ -2658,23 +2898,48 @@ def step_errors(a: dict, b: dict) -> dict:
             **{f"gradient, {g}": rel(a["grad"], b["grad"], names) for g, names in b["groups"].items()}}
 
 
-def phase8b_train_step(dev, tmp):
+def phase8b_batch() -> tuple:
+    """8b's batch of 4, its conditioning and noise."""
+    import torch
+
+    x, cond = recipe_batch(4, seed=1)
+    return x, cond, torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(3))
+
+
+def recipe_weights(**over):
+    """The recipe's random weights (``recipe_model(**over)``'s structure)."""
+    import torch
+
+    with torch.device("meta"):
+        model = recipe_model(**over)[1]
+    return random_state_dict(model)
+
+
+def phase8b_cpu(tmp) -> dict:
+    """8b's CPU half (in ``RefProcess``): the step in f32 and with the bf16
+    torso, as ``train_step_on`` returns it."""
+    import torch
+
+    sd = recipe_weights(use_fp16=False)
+    x, cond, noise = phase8b_batch()
+    return {fp16: train_step_on(torch.device("cpu"), sd, x, cond, noise, os.path.join(tmp, f"step_{fp16}_cpu"),
+                                use_fp16=fp16) for fp16 in (False, True)}
+
+
+def phase8b_train_step(dev, tmp, cpu):
     """One train step of the full-width recipe (dropout 0, batch 4) on the CPU
     and on the card from the same weights, batch, t and noise, twice: in f32
     with TF32 off, where loss, grad_norm, the updated parameters and the
     gradient agree within 1e-3 relative L2; and with the recipe's bf16 torso
     (f32 parameters, bf16 activations, K1/K2/K3 in bf16 under autograd),
     held to ``TRAIN_BF16_TOL``, beside the control: the CPU's bf16 step
-    against its f32 step."""
-    import torch
-
+    against its f32 step. ``cpu``: ``phase8b_cpu``'s."""
     tf32_off()
-    sd = random_state_dict(recipe_model(use_fp16=False)[1])
-    x, cond = recipe_batch(4, seed=1)
-    noise = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(3))
-    steps = {(fp16, d.type): train_step_on(d, sd, x, cond, noise, os.path.join(tmp, f"step_{fp16}_{d.type}"),
-                                           use_fp16=fp16)
-             for fp16 in (False, True) for d in (torch.device("cpu"), dev)}
+    sd = recipe_weights(use_fp16=False)
+    x, cond, noise = phase8b_batch()
+    steps = {(fp16, "cpu"): cpu[fp16] for fp16 in (False, True)}
+    steps.update({(fp16, dev.type): train_step_on(dev, sd, x, cond, noise, os.path.join(tmp, f"step_{fp16}_card"),
+                                                  use_fp16=fp16) for fp16 in (False, True)})
     ref = steps[False, "cpu"]
 
     def show(errs):
@@ -2984,43 +3249,79 @@ INT8_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 2e-5, "updated params": 1e-5, "grad
                   "gradient, GroupNorms": 1e-4}
 
 
-def int8_step_pair(dev, sd, x, cond, noise, tmp, share=1e-4, **over) -> tuple:
-    """One int8 ``run_step`` of the recipe on the CPU, then on the card
-    teacher-forced to the CPU's roundings (``Int8Forcing`` with ``share``):
-    (CPU step, card step, the forcing's summary), each as ``train_step_on``
-    returns it."""
+def int8_step_cpu(sd, x, cond, noise, tmp, **over) -> tuple:
+    """One int8 ``run_step`` of the recipe on the CPU with its roundings
+    recorded: (the step as ``train_step_on`` returns it, the roundings)."""
     import torch
 
-    forcing = Int8Forcing(share)
+    forcing = Int8Forcing()
     cpu = train_step_on(torch.device("cpu"), sd, x, cond, noise, os.path.join(tmp, "cpu"), forcing=forcing,
                         train_conv_impl="int8", **over)
+    return cpu, forcing.rec
+
+
+def int8_step_pair(dev, sd, x, cond, noise, tmp, share=1e-4, cpu_half=None, **over) -> tuple:
+    """One int8 ``run_step`` of the recipe on the CPU (or ``cpu_half``,
+    ``int8_step_cpu``'s), then on the card teacher-forced to the CPU's
+    roundings (``Int8Forcing`` with ``share``): (CPU step, card step, the
+    forcing's summary), each as ``train_step_on`` returns it."""
+    cpu, rec = cpu_half or int8_step_cpu(sd, x, cond, noise, tmp, **over)
+    forcing = Int8Forcing(share)
+    forcing.rec = rec
     card = train_step_on(dev, sd, x, cond, noise, os.path.join(tmp, "card"), forcing=forcing,
                          train_conv_impl="int8", **over)
     return cpu, card, forcing.summary()
 
 
-def phase8e_int8_train(dev, tmp) -> dict:
+def phase8e_batch() -> tuple:
+    """8e's batch of 4, its conditioning and noise."""
+    import torch
+
+    x, cond = recipe_batch(4, seed=5)
+    return x, cond, torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(6))
+
+
+def phase8e_cpu(tmp) -> dict:
+    """8e's CPU half (in ``RefProcess``): the int8 step with f32
+    straight-through convs in f32, and with the bf16 torso and
+    straight-through convs, each as ``int8_step_cpu`` returns it."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    sd = recipe_weights(use_fp16=False)
+    x, cond, noise = phase8e_batch()
+    try:
+        Q._STE_DTYPE = torch.float32
+        f32 = int8_step_cpu(sd, x, cond, noise, os.path.join(tmp, "f32"), use_fp16=False)
+    finally:
+        Q._STE_DTYPE = torch.bfloat16
+    return {"f32": f32, "bf16": int8_step_cpu(sd, x, cond, noise, os.path.join(tmp, "bf16"), use_fp16=True)}
+
+
+def phase8e_int8_train(dev, tmp, cpu_halves) -> dict:
     """``--train_conv_impl int8``: one step of the full-width recipe (dropout
     0, batch 4) on the CPU and on the card, teacher-forced, twice: in f32
     (TF32 off, the straight-through convs in f32) within 1e-3 relative L2, as
     8b's f32 step; with the recipe's bf16 torso and the bf16 straight-through
     convs as shipped within ``INT8_TRAIN_TOL``. Then ``TIMED_STEPS`` timed int8 steps at
-    batch 48 (``time_train_steps``). Returns the timed steps' record."""
+    batch 48 (``time_train_steps``). Returns the timed steps' record.
+    ``cpu_halves``: ``phase8e_cpu``'s."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.ops import quant as Q
 
     tf32_off()
-    sd = random_state_dict(recipe_model(use_fp16=False)[1])
-    x, cond = recipe_batch(4, seed=5)
-    noise = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(6))
+    sd = recipe_weights(use_fp16=False)
+    x, cond, noise = phase8e_batch()
 
     def show(errs):
         return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
 
     try:
         Q._STE_DTYPE = torch.float32
-        cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "f32"), use_fp16=False)
+        cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "f32"),
+                                           cpu_half=cpu_halves["f32"], use_fp16=False)
     finally:
         Q._STE_DTYPE = torch.bfloat16
     f32 = step_errors(card, cpu)
@@ -3035,7 +3336,8 @@ def phase8e_int8_train(dev, tmp) -> dict:
     # many places, which moves a GroupNorm's q by a level wherever it lies at a rounding boundary: 1.1e-3 of
     # q at 8 px on an H100, against 5.8e-6 over the whole f32 step. Forcing replaces those levels;
     # the step's gradient is then held to INT8_TRAIN_TOL
-    cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "bf16"), share=1e-2, use_fp16=True)
+    cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "bf16"), share=1e-2,
+                                       cpu_half=cpu_halves["bf16"], use_fp16=True)
     bf16 = step_errors(card, cpu)
     log(f"  int8 train step, bf16 torso and straight-through convs: card vs CPU teacher-forced: {show(bf16)}; "
         f"bound {INT8_TRAIN_TOL}; {forced}; CPU step {cpu['secs']:.2f} s")
@@ -3146,19 +3448,21 @@ SAMPLE_CHAINS = [  # the bf16 and int8 chains at batch 4 since PR 20 (8 before; 
 ]
 
 
-def chain_card_vs_cpu(dev, tmp, run_dir, data, clip, sd, name, flags, over, batch) -> tuple:
-    """A 5-step DDIM chain of ``image_sample.make_chain`` from ``sd`` on the
-    CPU, then on the card from the same x_T, img2 and conditioning
-    (teacher-forced under int8): (the larger of the samples' relative L2 and
-    the UNet outputs' worst, |ref|, a line to log)."""
+def chain_on(d, tmp, sd, name, flags, over, batch, forcing) -> tuple:
+    """A 5-step DDIM chain of ``image_sample.make_chain`` from ``sd`` on ``d``
+    (under int8 with ``forcing``'s roundings recorded on the CPU, forced on
+    the card): (the samples, the UNet's outputs along the chain, both on the
+    CPU, the chain's seconds). The config's paths name no file: the chain
+    reads only its model and schedule keys."""
     import torch
 
     from guided_diffusion_clip_tpu_torch import image_sample
 
     # 5 of 50 DDIM steps from img2 noised to t = 100 (--denoise_start_point 100): a chain from t = 999 clips
     # every value of x_0 to -1 or 1 at its first step, and its samples are signs that hardly follow eps
-    cfg = sample_config(tmp, f"ddim5_{name}", run_dir, data, clip, use_ddim=True, timestep_respacing=50,
-                        denoise_start_point=100, **over)
+    none = os.path.join(tmp, "none")
+    cfg = sample_config(tmp, f"ddim5_{name}_{d.type}", os.path.join(none, "run"), none, none, use_ddim=True,
+                        timestep_respacing=50, denoise_start_point=100, **over)
     args, model, diffusion = sampling_model(cfg, *flags)
     model.load_state_dict(sd, strict=True)
     model.eval().requires_grad_(False)
@@ -3166,36 +3470,62 @@ def chain_card_vs_cpu(dev, tmp, run_dir, data, clip, sd, name, flags, over, batc
     g = torch.Generator().manual_seed(12)
     x_T = torch.randn(shape, generator=g)
     kw = {"clip_feat": torch.randn(batch, 512, generator=g), "img2": torch.rand(shape, generator=g) * 2 - 1}
-    int8 = args.conv_impl == "int8"
+    model.to(d)
+    run_chain = image_sample.make_chain(model, diffusion, args)
+    hooks = (forcing.record if d.type == "cpu" else forcing.force)(model) if args.conv_impl == "int8" else (
+        contextlib.nullcontext())
+    unet_outs = []
+    keep = model.register_forward_hook(lambda m, a, o: unet_outs.append(o.float().cpu()))
+    t0 = time.perf_counter()
+    with torch.inference_mode(), hooks:
+        out = run_chain(batch, {k: v.to(d) for k, v in kw.items()}, None, kw["img2"].to(d),
+                        noise=x_T.to(d)).float().cpu()
+    secs = time.perf_counter() - t0
+    keep.remove()
+    return out, unet_outs, secs
+
+
+def chains_cpu(tmp) -> dict:
+    """Phase 9's ``SAMPLE_CHAINS`` on the CPU (in ``RefProcess``), from phase
+    9's weights: {name: (``chain_on``'s result, the int8 chain's
+    roundings)}."""
+    import torch
+
+    os.makedirs(tmp, exist_ok=True)
+    sd = recipe_weights(use_fp16=False)
+    out = {}
+    for name, flags, over, batch, _ in SAMPLE_CHAINS:
+        forcing = Int8Forcing(1e-2)
+        out[name] = (chain_on(torch.device("cpu"), tmp, sd, name, flags, over, batch, forcing), forcing.rec)
+    return out
+
+
+def chain_card_vs_cpu(dev, tmp, sd, name, flags, over, batch, cpu_half) -> tuple:
+    """A 5-step DDIM chain (``chain_on``) on the card, from the x_T, img2 and
+    conditioning of the CPU's (``cpu_half``: ``chains_cpu``'s entry,
+    teacher-forced to its roundings under int8): (the larger of the samples'
+    relative L2 and the UNet outputs' worst, |ref|, a line to log)."""
+    import torch
+
+    (ref, ref_unet, cpu_s), rec = cpu_half
     forcing = Int8Forcing(1e-2)
-    outs, unet_outs, secs = [], ([], []), []
-    for i, d in enumerate((torch.device("cpu"), dev)):
-        model.to(d)
-        run_chain = image_sample.make_chain(model, diffusion, args)
-        hooks = (forcing.force if i else forcing.record)(model) if int8 else contextlib.nullcontext()
-        keep = model.register_forward_hook(lambda m, a, o, i=i: unet_outs[i].append(o.float().cpu()))
-        t0 = time.perf_counter()
-        with torch.inference_mode(), hooks:
-            outs.append(run_chain(batch, {k: v.to(d) for k, v in kw.items()}, None, kw["img2"].to(d),
-                                  noise=x_T.to(d)).float().cpu())
-        secs.append(time.perf_counter() - t0)
-        keep.remove()
-    del model
-    ref, out = outs
-    if not torch.isfinite(out).all() or out.shape != ref.shape or len(unet_outs[0]) != len(unet_outs[1]):
+    forcing.rec = rec
+    int8 = "int8" in flags
+    out, unet_out, card_s = chain_on(dev, tmp, sd, name, flags, over, batch, forcing)
+    if not torch.isfinite(out).all() or out.shape != ref.shape or len(ref_unet) != len(unet_out):
         raise AssertionError(f"the card's 5-step DDIM chain ({name}): {tuple(out.shape)}, finite: "
-                             f"{bool(torch.isfinite(out).all())}, {len(unet_outs[1])} forwards")
+                             f"{bool(torch.isfinite(out).all())}, {len(unet_out)} forwards")
     rel = ((out - ref).norm() / ref.norm()).item()
     # the UNet's outputs along the chain: the samples follow eps by sqrt(1 - alpha_bar) <= 0.2 at t <= 100
-    rel_unet = max(((o - r).norm() / r.norm()).item() for r, o in zip(*unet_outs))
-    line = (f"{shape} {name}: card vs CPU from the same x_T{', teacher-forced' if int8 else ''}: samples' rel L2 "
-            f"{rel:.3g} (|ref| {ref.norm().item():.4g}), the UNet's outputs' worst rel L2 {rel_unet:.3g} over "
-            f"{len(unet_outs[0])} forwards; CPU {secs[0]:.2f} s, card {secs[1]:.2f} s"
+    rel_unet = max(((o - r).norm() / r.norm()).item() for r, o in zip(ref_unet, unet_out))
+    line = (f"{tuple(out.shape)} {name}: card vs CPU from the same x_T{', teacher-forced' if int8 else ''}: samples' "
+            f"rel L2 {rel:.3g} (|ref| {ref.norm().item():.4g}), the UNet's outputs' worst rel L2 {rel_unet:.3g} over "
+            f"{len(ref_unet)} forwards; CPU {cpu_s:.2f} s (another process), card {card_s:.2f} s"
             f"{'; ' + forcing.summary() if int8 else ''}")
     return max(rel, rel_unet), ref.norm().item(), line
 
 
-def phase9_image_sample(dev, tmp, run_dir) -> list:
+def phase9_image_sample(dev, tmp, run_dir, cpu_chains) -> list:
     """``image_sample.main`` on 16 generated test images (two batches of 8,
     ``SAMPLE_STEPS`` respaced ancestral steps) from ``RANDOM_CKPT``, written into 8c's run
     directory, in each of ``SAMPLE_MODES``: the UNet's forwards against the
@@ -3203,7 +3533,8 @@ def phase9_image_sample(dev, tmp, run_dir) -> list:
     forwards (every K1 on the tensor cores; under int8 every K5 but the stem's
     and the head's), seconds a batch (CUDA events), the PNGs and the uint8
     npz, each mode's samples other than bf16's. Then ``SAMPLE_CHAINS``: short
-    DDIM chains card against CPU. Returns each mode's launch counts."""
+    DDIM chains card against CPU (``cpu_chains``: ``chains_cpu``'s). Returns
+    each mode's launch counts."""
     import numpy as np
     import torch
 
@@ -3268,7 +3599,7 @@ def phase9_image_sample(dev, tmp, run_dir) -> list:
 
     tf32_off()
     for name, flags, over, batch, bound in SAMPLE_CHAINS:
-        rel, norm, line = chain_card_vs_cpu(dev, tmp, run_dir, data, clip, sd, name, flags, over, batch)
+        rel, norm, line = chain_card_vs_cpu(dev, tmp, sd, name, flags, over, batch, cpu_chains[name])
         log(f"  5-step DDIM chain {line} (bound {bound})")
         if not norm > 0 or not rel <= bound:
             raise AssertionError(f"the card's 5-step DDIM chain ({name}) differs from the CPU's: rel L2 {rel:.3g}")
@@ -3399,7 +3730,43 @@ def expected(launches: dict, *terms) -> dict:
     return want
 
 
-def phase12a_sr_card_vs_cpu(dev, tmp) -> None:
+def phase12a_inputs() -> tuple:
+    """12a's forward input (batch 2), then its step's batch of 4 and noise."""
+    import torch
+
+    x, cond = recipe_batch(2, seed=7)
+    fwd = (torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in cond.items()}, torch.tensor([100, 700]))
+    x, cond = recipe_batch(4, seed=8)
+    return fwd, (x, cond, torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(9)))
+
+
+def phase12a_cpu(tmp) -> dict:
+    """12a's CPU half (in ``RefProcess``): the SR-delta model's forward, its
+    bf16-torso step and its int8 step (f32, f32 straight-through convs) with
+    the roundings recorded."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.ops import quant as Q
+
+    sd = recipe_weights(sr=True, use_fp16=False)
+    model = recipe_model(sr=True, use_fp16=False)[1]
+    model.load_state_dict(sd, strict=True)
+    model.eval().requires_grad_(False)
+    (xt, ct, t), (x, cond, noise) = phase12a_inputs()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = model(xt, t, **ct)
+        cpu_s = time.perf_counter() - t0
+    step = train_step_on(torch.device("cpu"), sd, x, cond, noise, os.path.join(tmp, "sr_step_cpu"), sr=True)
+    try:
+        Q._STE_DTYPE = torch.float32
+        int8 = int8_step_cpu(sd, x, cond, noise, os.path.join(tmp, "sr_int8"), sr=True, use_fp16=False)
+    finally:
+        Q._STE_DTYPE = torch.bfloat16
+    return {"forward": ref, "forward_s": cpu_s, "step": step, "int8": int8}
+
+
+def phase12a_sr_card_vs_cpu(dev, tmp, cpu_half) -> None:
     """The SR-delta model at the recipe's widths from N(0, 0.02) weights, card
     against CPU: a forward (batch 2, f32, TF32 off) within 1e-3 relative L2;
     one train step (batch 4, dropout 0) with the bf16 torso within
@@ -3412,23 +3779,21 @@ def phase12a_sr_card_vs_cpu(dev, tmp) -> None:
     float path (K1's bf16 output, the residual adds), and the levels it
     flips moved that conv's output by 9.8e-3 relative L2 on an H100, past
     the forcing's own 5e-3 check (8e's recipe, other weights and batch,
-    stays under it)."""
+    stays under it). ``cpu_half``: ``phase12a_cpu``'s."""
     import torch
 
     from guided_diffusion_clip_tpu_torch.ops import quant as Q
 
     tf32_off()
-    model = recipe_model(sr=True, use_fp16=False)[1]
-    sd = random_state_dict(model)
+    sd = recipe_weights(sr=True, use_fp16=False)
+    with torch.device("meta"):
+        model = recipe_model(sr=True, use_fp16=False)[1]
+    model = model.to_empty(device=dev)
     model.load_state_dict(sd, strict=True)
     model.eval().requires_grad_(False)
-    x, cond = recipe_batch(2, seed=7)
-    xt, ct, t = torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in cond.items()}, torch.tensor([100, 700])
+    (xt, ct, t), (x, cond, noise) = phase12a_inputs()
+    ref, cpu_s = cpu_half["forward"], cpu_half["forward_s"]
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        ref = model(xt, t, **ct)
-        cpu_s = time.perf_counter() - t0
-        model.to(dev)
         out = model(xt.to(dev), t.to(dev), **{k: v.to(dev) for k, v in ct.items()}).cpu()
     del model
     rel = ((out - ref).norm() / ref.norm()).item()
@@ -3440,10 +3805,8 @@ def phase12a_sr_card_vs_cpu(dev, tmp) -> None:
     def show(errs):
         return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
 
-    x, cond = recipe_batch(4, seed=8)
-    noise = torch.randn(4, 3, 128, 128, generator=torch.Generator().manual_seed(9))
-    cpu, card = (train_step_on(d, sd, x, cond, noise, os.path.join(tmp, f"sr_step_{d.type}"), sr=True)
-                 for d in (torch.device("cpu"), dev))
+    cpu = cpu_half["step"]
+    card = train_step_on(dev, sd, x, cond, noise, os.path.join(tmp, "sr_step_card"), sr=True)
     bf16 = step_errors(card, cpu)
     log(f"  SR-delta train step (4, 3, 128, 128), bf16 torso: loss {float(cpu['met']['loss']):.6g} (CPU); card vs "
         f"CPU: {show(bf16)}; bound {TRAIN_BF16_TOL}; CPU step {cpu['secs']:.2f} s")
@@ -3452,8 +3815,8 @@ def phase12a_sr_card_vs_cpu(dev, tmp) -> None:
         raise AssertionError(f"card SR-delta train step (bf16 torso) differs from the CPU's: {bad}")
     try:
         Q._STE_DTYPE = torch.float32
-        cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "sr_int8"), sr=True,
-                                           use_fp16=False)
+        cpu, card, forced = int8_step_pair(dev, sd, x, cond, noise, os.path.join(tmp, "sr_int8"),
+                                           cpu_half=cpu_half["int8"], sr=True, use_fp16=False)
     finally:
         Q._STE_DTYPE = torch.bfloat16
     int8 = step_errors(card, cpu)
@@ -3747,12 +4110,21 @@ def clf_step_on(d, sd, x, y, t, noise, fp16: bool, microbatch: int) -> dict:
     return out
 
 
-def phase10_classifier_train(dev, tmp, paths) -> list:
+def phase10_cpu(sd) -> dict:
+    """Phase 10's CPU half: the classifier step from ``sd`` on the CPU, f32
+    and with the bf16 torso; {fp16: its record}."""
+    import torch
+
+    return {fp16: clf_step_on(torch.device("cpu"), sd, *clf_step_batch(), fp16, 1) for fp16 in (False, True)}
+
+
+def phase10_classifier_train(dev, tmp, paths, cpu, sd) -> list:
     """``classifier_train.main`` on ADM-G 256's classifier (``CLF_TRAIN_FLAGS``:
     batch 32 in microbatches of 16, noised, annealed, 10 iterations, a
     validation batch every 5) over generated class-named folders; then one
     step card against CPU in f32 (TF32 off) and with the bf16 torso
-    (``CLF_BF16_TOL``); timed steps with each step's launches and the
+    (``CLF_BF16_TOL``; ``cpu``: ``phase10_cpu``'s, ``sd`` its weights);
+    timed steps with each step's launches and the
     profiler's busy share; last, ``classifier_sample.main`` guiding 5 steps of
     ADM-G 256 with the saved ``model000009.pt`` (strict=True). Returns the
     launch counts of the two main paths."""
@@ -3850,13 +4222,9 @@ def phase10_classifier_train(dev, tmp, paths) -> list:
 
     # one step card against CPU: f32 (TF32 off), then the bf16 torso against the CPU's bf16 step
     tf32_off()
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier
-
-    sd = random_state_dict(create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention"))
-    g = torch.Generator().manual_seed(23)
     xs, ys, ts, noise = clf_step_batch()
-    st = {(fp16, d.type): clf_step_on(d, sd, xs, ys, ts, noise, fp16, 1)
-          for fp16 in (False, True) for d in (torch.device("cpu"), dev)}
+    st = {(fp16, "cpu"): cpu[fp16] for fp16 in (False, True)}
+    st.update({(fp16, dev.type): clf_step_on(dev, sd, xs, ys, ts, noise, fp16, 1) for fp16 in (False, True)})
 
     def show(errs):
         return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
@@ -3928,32 +4296,71 @@ def clip_unet_fn(model, target, through_unet: list):
     return model_fn
 
 
-def phase11_clip(dev, tmp, unet_path) -> str:
+def clip_guidance_grads(d, model, vision, target, x, t) -> tuple:
+    """Phase 11's CLIP guidance gradient in pred-x0 mode (scale 100, a
+    100-step schedule) of ``model`` and ``vision`` moved to ``d``, and its
+    part through the UNet's backward, on the CPU."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import clip_guidance_cond_fn
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
+    model.to(d), vision.to(d)
+    through_unet = []
+    cond = clip_guidance_cond_fn(
+        vision, target.to(d), 100.0, sched=diffusion.sched, mean_type=diffusion.mean_type,
+        var_type=diffusion.var_type, model_fn=clip_unet_fn(model, target.to(d), through_unet), use_pred_xstart=True)
+    with torch.no_grad():
+        return cond(x.to(d), t.to(d)).cpu(), through_unet[0].cpu()
+
+
+def phase11_cpu(sd, clip_sd) -> dict:
+    """Phase 11's CPU half of the guidance gradient: through ViT-B/32's vision
+    encoder (``clip_sd``: phase 11's weights) and the CLIP UNet with the
+    weights ``sd`` (phase 5's), as target the embedding of a generated image,
+    x at model timestep 500: the CPU's gradient and its part through the
+    UNet."""
+    import torch
+
+    vision = vit_b32_vision(clip_sd)
+    model = clip_unet(sd)
+    g = torch.Generator().manual_seed(31)
+    with torch.no_grad():
+        target = vision(torch.randn(1, 3, 224, 224, generator=g))[0]
+    x = torch.randn(CLIP_GRAD_BATCH, 3, 256, 256, generator=g)
+    t = torch.full((CLIP_GRAD_BATCH,), 500, dtype=torch.long)
+    t0 = time.perf_counter()
+    grads = clip_guidance_grads(torch.device("cpu"), model, vision, target, x, t)
+    return dict(target=target, x=x, t=t, grads=grads, secs=time.perf_counter() - t0)
+
+
+def phase11_clip(dev, tmp, cpu_half, sd) -> str:
     """ViT-B/32 at its full widths with N(0, 0.02) weights in OpenAI's names
     (a .pt written here): both encoders in f32 (TF32 off) card against CPU,
     and the vision encoder's forward + backward at batch 8 profiled
     (``clip_fwd_bwd_ms``); ``compute_clip_embeddings.main`` over 16 generated 256 px images, card
     against CPU, and its .pt fed to ``image_train`` for 2 steps; the CLIP
     guidance gradient in pred-x0 mode through the ADM-256 CLIP UNet (f32,
-    batch ``CLIP_GRAD_BATCH``, model timestep 500 of a 100-step schedule), card against CPU.
-    Returns the CLIP .pt's path."""
+    batch ``CLIP_GRAD_BATCH``, model timestep 500 of a 100-step schedule), card against CPU
+    (``cpu_half``: ``phase11_cpu``'s, ``sd`` the UNet's weights). Returns the
+    CLIP .pt's path."""
     import numpy as np
     import torch
     import yaml
     from PIL import Image
 
     from guided_diffusion_clip_tpu_torch import compute_clip_embeddings, image_train
-    from guided_diffusion_clip_tpu_torch.models.clip_vit import (
-        CLIP, CLIPConfig, clip_guidance_cond_fn, load_clip_params,
-    )
-    from guided_diffusion_clip_tpu_torch.utils.checkpoint import load_state_dict
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIP, CLIPConfig, load_clip_params
 
     tf32_off()
     cfg = CLIPConfig()
     clip_path = os.path.join(tmp, "clip_vitb32_random.pt")
     t0 = time.perf_counter()
-    torch.save(clip_random_state_dict(CLIP(cfg)), clip_path)
+    with torch.device("meta"):
+        clip = CLIP(cfg)
+    torch.save(clip_random_state_dict(clip), clip_path)
+    del clip
     vision, text = load_clip_params(clip_path, cfg)
     n_vision = sum(p.numel() for p in vision.parameters())
     log(f"  ViT-B/32: {n_vision / 1e6:.1f} M vision and {(sum(p.numel() for p in text.parameters()) - n_vision) / 1e6:.1f}"
@@ -4019,26 +4426,15 @@ def phase11_clip(dev, tmp, unet_path) -> str:
     log(f"  image_train on the computed dict, 2 steps at batch 8: losses {[r['loss'] for r in rows]}, saved "
         f"{sorted(p for p in os.listdir(run) if p.endswith('.pt'))}")
 
-    # the guidance gradient through the UNet at full width, f32
+    # the guidance gradient through the UNet at full width, f32 (the CPU's: ``phase11_cpu``)
     tf32_off()
     text.cpu()
-    model = clip_unet(load_state_dict(unet_path))
-    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
-    target = embs["cpu"][sorted(embs["cpu"])[0]][0]
-    x = torch.randn(CLIP_GRAD_BATCH, 3, 256, 256, generator=g)
-    t = torch.full((CLIP_GRAD_BATCH,), 500, dtype=torch.long)
-    grads = []
-    for d in ("cpu", dev):
-        model.to(d), vision.to(d)
-        through_unet = []
-        cond = clip_guidance_cond_fn(
-            vision, target.to(d), 100.0, sched=diffusion.sched, mean_type=diffusion.mean_type,
-            var_type=diffusion.var_type, model_fn=clip_unet_fn(model, target.to(d), through_unet), use_pred_xstart=True)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            grads.append((cond(x.to(d), t.to(d)).cpu(), through_unet[0].cpu()))
-        secs[d] = time.perf_counter() - t0
-    (ref, ref_u), (out, out_u) = grads
+    # ``vision`` holds the CPU half's weights: both drawn by clip_random_state_dict
+    target, x, t = (cpu_half[k] for k in ("target", "x", "t"))
+    model = clip_unet(sd, dev)
+    ref, ref_u = cpu_half["grads"]
+    secs["cpu"] = cpu_half["secs"]  # in the reference process
+    out, out_u = clip_guidance_grads(dev, model, vision, target, x, t)
     rel, rel_u = (((o - r).norm() / r.norm()).item() for o, r in ((out, ref), (out_u, ref_u)))
     log(f"  CLIP guidance gradient, pred-x0 mode, {tuple(x.shape)} f32 at model timestep 500 of 100 steps: "
         f"|ref| {ref.norm().item():.4g}, rel L2 err card vs CPU {rel:.3g}; its part through the UNet's backward "
@@ -4118,6 +4514,92 @@ def clip_int8_step(d, model, vision, target, diffusion, xs, z, ctx) -> tuple:
 def clip_int8_errors(out: dict, ref: dict) -> dict:
     """``CLIP_INT8_TOL``'s distances of step ``out`` from step ``ref``, each in relative L2."""
     return {k: ((out[k] - ref[k]).norm() / ref[k].norm()).item() for k in CLIP_INT8_TOL}
+
+
+# 4f's CLIP UNet: ADM-256's at this width (its depth, attention and heads of 64 channels), whose CPU step takes a
+# few seconds where the full width's takes ~40 s; ViT-B/32 at its full widths
+CLIP_INT8_CHANNELS = 64
+
+
+def clip_weights() -> dict:
+    """``clip_random_state_dict`` of ViT-B/32 (phase 11 writes the same)."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIP, CLIPConfig
+
+    with torch.device("meta"):
+        clip = CLIP(CLIPConfig())
+    return clip_random_state_dict(clip)
+
+
+def vit_b32_vision(sd, device="cpu"):
+    """ViT-B/32's vision encoder with the weights ``sd`` (``clip_weights``),
+    loaded strict=True, in eval mode with no gradient for its weights,
+    built on the meta device (no initializer runs) and allocated on
+    ``device``."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIP, CLIPConfig
+
+    with torch.device("meta"):
+        clip = CLIP(CLIPConfig())
+    clip = clip.to_empty(device=device)
+    clip.load_state_dict(sd, strict=True)
+    return clip.visual.eval().requires_grad_(False)
+
+
+def clip_int8_parts(sd, clip_sd, channels, device) -> tuple:
+    """The int8 CLIP-guided step's parts on ``device``: the int8 CLIP UNet at
+    ``channels`` channels with the weights ``sd``, ViT-B/32's vision encoder
+    (``clip_sd``), the target embedding and the 100-step diffusion."""
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.utils.script_util import create_gaussian_diffusion
+
+    target = torch.randn(512, generator=torch.Generator().manual_seed(32))
+    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
+    return (clip_unet(sd, device, num_channels=channels, conv_impl="int8"), vit_b32_vision(clip_sd, device), target,
+            diffusion)
+
+
+def phase4f_cpu(sd, clip_sd, channels=CLIP_INT8_CHANNELS) -> dict:
+    """4f's CPU half: the int8 CLIP-guided step of ``clip_int8_parts`` (the
+    CLIP UNet at ``channels`` channels; ``--faults``: the full width) on the
+    CPU, its input and its roundings recorded."""
+    import torch
+
+    xs, z = clip_int8_step_input()
+    forcing = Int8Forcing()
+    ref = clip_int8_step(torch.device("cpu"), *clip_int8_parts(sd, clip_sd, channels, "cpu"), xs, z, forcing.record)
+    return dict(xs=xs, z=z, rec=forcing.rec, ref=ref)
+
+
+def phase4f_clip_int8(dev, cpu, sd, clip_sd) -> None:
+    """The int8 CLIP-guided step (ViT-B/32's guidance, pred-x0 mode, batch 1,
+    f32, one step) of the CLIP UNet at ``CLIP_INT8_CHANNELS`` channels,
+    teacher-forced, card (K1-K5) against the CPU (``cpu``: ``phase4f_cpu``'s,
+    ``sd`` and ``clip_sd`` its weights) within ``CLIP_INT8_TOL``;
+    ``--faults`` holds the full width's step."""
+    import torch
+
+    tf32_off()
+    xs, z, ref = cpu["xs"], cpu["z"], cpu["ref"]
+    forcing = Int8Forcing()
+    forcing.rec = cpu["rec"]
+    model, vision, target, diffusion = clip_int8_parts(sd, clip_sd, CLIP_INT8_CHANNELS, dev)
+    before = counters()
+    out = clip_int8_step(dev, model, vision, target, diffusion, xs, z, forcing.force)
+    ran = {k: counters()[k] - before[k] for k in ("attention", "attention_bwd", "group_norm_quant", "conv_s8")}
+    errs = clip_int8_errors(out, ref)
+    log(f"  CLIP UNet at {CLIP_INT8_CHANNELS} channels, int8, guided by ViT-B/32: {forcing.summary()}; launches "
+        f"{ran}; step card {out['seconds']:.2f} s, CPU {ref['seconds']:.2f} s")
+    log("  card vs CPU, rel L2: " + ", ".join(f"{k} {v:.3g} (bound {CLIP_INT8_TOL[k]:g})" for k, v in errs.items()))
+    if not all(ran.values()):
+        raise AssertionError(f"the int8 CLIP-guided step launched {ran}")
+    bad = {k: v for k, v in errs.items() if not v <= CLIP_INT8_TOL[k]}
+    if bad or not all(bool(torch.isfinite(out[k]).all()) for k in CLIP_INT8_TOL):
+        raise AssertionError(f"the int8 CLIP-guided step differs from the CPU's: {bad}")
+    del model, vision
 
 
 def phase11b_clip_guided(dev, tmp, unet_path, clip_path) -> list:
@@ -4452,28 +4934,38 @@ def phase13a_dist_steps(dev, tmp) -> list:
     return runs
 
 
-def torchrun(module, argv, env=None) -> subprocess.Popen:
+def torchrun(module, argv, out_path, env=None) -> subprocess.Popen:
     """Start ``python -m torch.distributed.run --standalone --nproc_per_node 1
-    -m module argv`` from the checkout's root; ``finish`` waits for it."""
+    -m module argv`` from the checkout's root, its output to the file
+    ``out_path`` (a pipe left unread would stall it); ``finish`` waits for it."""
     env = {**{k: v for k, v in os.environ.items() if k not in ("DIFFUSION_TRAINING_TEST", "DIFFUSION_BLOB_LOGDIR")},
            "PYTHONUNBUFFERED": "1", **(env or {})}
-    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
-                             "-m", module, *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                 "1", "-m", module, *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=out, stderr=subprocess.STDOUT, text=True)
+    proc.out_path = out_path
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))  # a phase that failed left it running
+    return proc
 
 
 def finish(proc, what, timeout=600) -> float:
     """Wait for a ``torchrun`` child; its seconds from now, or an error with its output."""
     t0 = time.perf_counter()
     try:
-        out, err = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
-        out, err = proc.communicate()
-        raise AssertionError(f"torchrun {what} ran past {timeout} s:\n{out[-3000:]}\n{err[-5000:]}") from None
+        proc.wait()
+        raise AssertionError(f"torchrun {what} ran past {timeout} s:\n{tail(proc.out_path)}") from None
     if proc.returncode:
-        raise AssertionError(f"torchrun {what} exited {proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}")
+        raise AssertionError(f"torchrun {what} exited {proc.returncode}:\n{tail(proc.out_path)}")
     return time.perf_counter() - t0
+
+
+def tail(path, n=8000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
 
 
 def dcp_save_times(log_txt) -> list:
@@ -4483,15 +4975,11 @@ def dcp_save_times(log_txt) -> list:
             r"orbax \(DCP\) save of step (\d+): ([\d.]+) s blocking the loop, written ([\d.]+) s", f.read())]
 
 
-def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
-    """``image_train`` under FSDP2 with DCP saves, its resume under ZeRO-1,
-    and ``image_sample`` from the DCP directory with and without torchrun
-    (see the module's docstring). Returns the launches of the last run, in
-    this process."""
-    import numpy as np
+def phase13b_start(tmp, data, clip_path) -> tuple:
+    """13b's first child, ``image_train`` under FSDP2 with a DCP save, started
+    and left running (phases 9, 12 and 13a run beside it; none of them is
+    timed against another run); ``phase13b_torchrun`` waits for it."""
     import torch
-
-    from guided_diffusion_clip_tpu_torch import image_sample
 
     root = os.path.join(tmp, "dist")
     os.makedirs(root)
@@ -4500,9 +4988,24 @@ def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
     runs = os.path.join(root, "runs")
     cfg = train_config(root, "config13", data, clip_path, runs, save_interval=3, log_interval=1,
                        timestep_respacing="25", data_dir_test="", clip_file_path_test="")
-    secs = finish(torchrun("guided_diffusion_clip_tpu_torch.image_train",
-                           ["--config-file", cfg, "--param_sharding", "fsdp", "--ckpt_backend", "orbax",
-                            "--resume_checkpoint", init], {"DIFFUSION_TRAINING_TEST": "1"}), "image_train (FSDP2)")
+    proc = torchrun("guided_diffusion_clip_tpu_torch.image_train",
+                    ["--config-file", cfg, "--param_sharding", "fsdp", "--ckpt_backend", "orbax", "--resume_checkpoint",
+                     init], os.path.join(root, "fsdp.out"), {"DIFFUSION_TRAINING_TEST": "1"})
+    return proc, time.perf_counter(), root, runs, cfg
+
+
+def phase13b_torchrun(dev, tmp, started) -> dict:
+    """``image_train`` under FSDP2 with DCP saves (``started``:
+    ``phase13b_start``'s), its resume under ZeRO-1, and ``image_sample`` from
+    the DCP directory with and without torchrun (see the module's
+    docstring). Returns the launches of the last run, in this process."""
+    import numpy as np
+
+    from guided_diffusion_clip_tpu_torch import image_sample
+
+    proc, t_start, root, runs, cfg = started
+    waited = finish(proc, "image_train (FSDP2)")
+    secs = time.perf_counter() - t_start
     (first,) = os.listdir(runs)
     run_dir = os.path.join(runs, first)
     orbax = os.path.join(run_dir, "orbax")
@@ -4510,7 +5013,7 @@ def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
         raise AssertionError(f"{orbax}: {os.listdir(orbax)}, want one DCP step, 3")
     saves = dcp_save_times(os.path.join(run_dir, "log.txt"))
     log(f"  image_train --param_sharding fsdp --ckpt_backend orbax under torchrun, 4 steps and the DCP save at step 3 "
-        f"with a 25-step validation chain: {secs:.1f} s; {orbax}/3: {sorted(os.listdir(os.path.join(orbax, '3')))}; "
+        f"with a 25-step validation chain: {secs:.1f} s from its start (waited {waited:.1f} s here); {orbax}/3: {sorted(os.listdir(os.path.join(orbax, '3')))}; "
         f"DCP saves (step, s blocking the loop, s until written): {saves}")
 
     # the resume and the sampling under torchrun read the first run's DCP directory and write apart: they run at
@@ -4522,8 +5025,9 @@ def phase13b_torchrun(dev, tmp, data, clip_path) -> dict:
     t0 = time.perf_counter()
     resume = torchrun("guided_diffusion_clip_tpu_torch.image_train",
                       ["--config-file", cfg, "--opt_impl", "zero1", "--ckpt_backend", "orbax", "--resume_checkpoint",
-                       orbax, "--lr_anneal_steps", "6"])
-    sample = torchrun("guided_diffusion_clip_tpu_torch.image_sample", ["--config-file", cfgs[0]])
+                       orbax, "--lr_anneal_steps", "6"], os.path.join(root, "zero1.out"))
+    sample = torchrun("guided_diffusion_clip_tpu_torch.image_sample", ["--config-file", cfgs[0]],
+                      os.path.join(root, "sample.out"))
     try:
         finish(sample, "image_sample")
         secs_sample = time.perf_counter() - t0
@@ -5542,15 +6046,10 @@ def phase18_check(tmp: str, ref) -> dict:
     return run
 
 
-def phase17_spatial(dev, tmp) -> list:
-    """Phase 17: the sharded forwards (f32 with TF32 off, bf16, int8
-    teacher-forced) of ADM-256's CLIP UNet at batch 2, the guidance gradient
-    of ADM-G 256's classifier (bf16, and f32 with TF32 off), and one bf16 train step of the recipe under
-    DDP at world 2 with SP 2 against the world-1 step taken here first; each
-    comparison beside its bound and the reading under a fault on rank 1
-    (``SP_FAULTS``; K3's stats for the train step). Then phase 18, which ran
-    the same under TP 2 in the same two processes (``phase18_check``).
-    Returns both phases' launches (both ranks')."""
+def phase17_start(dev, tmp) -> tuple:
+    """Phase 17's world-1 train step on the card, then its two ranks started
+    and left running (phase 19's 19a and 19b run beside them; phase 17 times
+    nothing against another run); ``phase17_spatial`` waits for them."""
     import socket
 
     import torch
@@ -5565,9 +6064,25 @@ def phase17_spatial(dev, tmp) -> list:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    t0 = time.perf_counter()
-    mp.spawn(phase17_child, args=(port, tmp), nprocs=2, join=True)
-    log(f"  the two ranks took {time.perf_counter() - t0:.1f} s")
+    return mp.spawn(phase17_child, args=(port, tmp), nprocs=2, join=False), time.perf_counter(), ref
+
+
+def phase17_spatial(dev, tmp, started) -> list:
+    """Phase 17 (``started``: ``phase17_start``'s ranks and world-1 step):
+    the sharded forwards (f32 with TF32 off, bf16, int8
+    teacher-forced) of ADM-256's CLIP UNet at batch 2, the guidance gradient
+    of ADM-G 256's classifier (bf16, and f32 with TF32 off), and one bf16 train step of the recipe under
+    DDP at world 2 with SP 2 against the world-1 step taken here first; each
+    comparison beside its bound and the reading under a fault on rank 1
+    (``SP_FAULTS``; K3's stats for the train step). Then phase 18, which ran
+    the same under TP 2 in the same two processes (``phase18_check``).
+    Returns both phases' launches (both ranks')."""
+    import torch
+
+    ranks_ctx, t0, ref = started
+    while not ranks_ctx.join():
+        pass
+    log(f"  the two ranks took {time.perf_counter() - t0:.1f} s from their start")
     ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"), weights_only=False) for r in range(2)]
     problems = []
     for case, bound in (*SP_BOUNDS.items(), ("int8", 1.0)):
@@ -5606,6 +6121,355 @@ def phase17_spatial(dev, tmp) -> list:
     log("phase 18: --tensor_shard 2 in the same two processes: ADM-256's CLIP UNet in f32, bf16 and int8, ADM-G "
         "256's classifier gradient in bf16 and f32, a recipe train step under DDP")
     return [run, phase18_check(tmp, ref)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: scoring samples (evaluations/inception.py, evaluations/evaluator.py), the acceptance path at the
+# published 64 px ADM-G widths on stand-in assets (acceptance_real_weights.py) and tools/evaluator_bench.py
+# ---------------------------------------------------------------------------
+
+# 19a: the card's InceptionV3 (f32, TF32 off) against the CPU run of the same module, in relative L2 of pool_3,
+# the spatial features and the predictions, each at 64 and 256 px; the faults below must cross it
+INCEPTION_TOL = 1e-4
+INCEPTION_SIZES = (64, 256)
+INCEPTION_FAULTS = ("TF32 on for the convs and the product", "mixed_6/conv's weight x 1.001")
+# the distance block on the card against float64 numpy, relative to the largest |a|^2 + |b|^2: the f32 formula
+# a^2 - 2ab + b^2 (the reference's) errs by a share of its terms, and random Inception features share a mean so
+# large that their distances are ~1e-3 of those terms (3.2e-5 of the largest distance on the CPU)
+DISTANCE_TOL = 1e-5
+ACCEPT_REFS, ACCEPT_SAMPLES = 64, 16  # 19b's reference images and samples (64 px)
+METRIC_KEYS = ("inception_score", "fid", "sfid", "precision", "recall")
+METRIC_RTOL = 1e-6  # 19b's FID, sFID and IS against their float64 recomputation; precision and recall exactly
+RADII_N, RADII_D = 10_000, 2048  # 19c: one ManifoldEstimator block at the reference evaluator's row and column batch
+
+
+def inception_outputs(model, x) -> tuple:
+    """(pool_3, spatial, predictions) of ``model`` on the uint8 NHWC batch ``x``, on the CPU."""
+    import torch
+
+    with torch.no_grad():
+        pool3, spatial = model(x)
+        return tuple(v.cpu() for v in (pool3, spatial, model.softmax(pool3)))
+
+
+def inception_reading(got, ref) -> float:
+    """The largest relative L2 of ``got``'s three outputs against ``ref``'s."""
+    return max(rel_l2(g, r) for g, r in zip(got, ref))
+
+
+def phase19a_inception(dev) -> None:
+    """The port's InceptionV3 from ``random_params(0)``, 4 uint8 images at
+    each of ``INCEPTION_SIZES``: pool_3, the spatial features and the
+    predictions on the card (f32, TF32 off) against the CPU run of the same
+    module within ``INCEPTION_TOL``, each of ``INCEPTION_FAULTS`` on the card
+    beyond it; the distance block (``evaluator.pairwise_l2_sq``) of the card's
+    pool_3 features against float64 numpy within ``DISTANCE_TOL`` of the
+    terms' scale."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.evaluations import evaluator as ev
+    from guided_diffusion_clip_tpu_torch.evaluations import inception as inc
+
+    params = inc.random_params(0)
+    cpu_model, card = inc.build_inception(params), inc.build_inception(params, dev)
+    weight = card.convs["mixed_6/conv"].weight
+    feats = []
+    for size in INCEPTION_SIZES:
+        x = torch.from_numpy(np.random.RandomState(size).randint(0, 256, (4, size, size, 3)).astype(np.uint8))
+        ref = inception_outputs(cpu_model, x)
+        got = inception_outputs(card, x.to(dev))
+        if tuple(got[0].shape) != (4, 2048) or tuple(got[1].shape) != (4, 17, 17, 7) or not all(
+                torch.isfinite(v).all() for v in got):
+            raise AssertionError(f"Inception at {size} px: {[tuple(v.shape) for v in got]}, not finite (4, 2048), "
+                                 f"(4, 17, 17, 7) and (4, 1008)")
+        feats.append(got[0])
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                pool3, spatial = card.features(x.to(dev))
+                faulty = tuple(v.cpu() for v in (pool3, spatial, torch.softmax(pool3 @ card.softmax_w, -1)))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        with torch.no_grad():
+            weight.mul_(1.001)
+            try:
+                scaled = inception_outputs(card, x.to(dev))
+            finally:
+                weight.copy_(cpu_model.convs["mixed_6/conv"].weight)
+        clean = {name: rel_l2(g, r) for name, g, r in zip(("pool_3", "spatial", "preds"), got, ref)}
+        faults = dict(zip(INCEPTION_FAULTS, (inception_reading(faulty, ref), inception_reading(scaled, ref))))
+        log(f"  Inception at {size} px, 4 images, card vs CPU, rel L2: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in clean.items()) + f" (bound {INCEPTION_TOL:g}); under "
+            + ", ".join(f"{k} {v:.3g}" for k, v in faults.items()))
+        if not max(clean.values()) <= INCEPTION_TOL:
+            raise AssertionError(f"the card's Inception at {size} px differs from the CPU's: {clean}")
+        if not all(v > INCEPTION_TOL for v in faults.values()):
+            raise AssertionError(f"a fault stays within the Inception bound at {size} px: {faults}")
+    f = torch.cat(feats).to(dev)
+    d = ev.pairwise_l2_sq(f, f).cpu().numpy()
+    f64 = f.cpu().double().numpy()
+    exact = ((f64[:, None] - f64[None]) ** 2).sum(-1)
+    sq = (f64 * f64).sum(1)
+    err = float(np.abs(d - exact).max() / (sq[:, None] + sq[None]).max())
+    log(f"  distance block {d.shape} of the card's 2048-d pool_3 features against float64 numpy: max|d| "
+        f"{err:.3g} of the largest |a|^2 + |b|^2 (bound {DISTANCE_TOL:g}), "
+        f"{np.abs(d - exact).max() / exact.max():.3g} of the largest distance")
+    if d.dtype != np.float32 or not err <= DISTANCE_TOL:
+        raise AssertionError(f"the distance block differs from float64 numpy: {err:.3g} ({d.dtype})")
+    del card
+
+
+# 19a's features for the metrics' check: PR_N integer-valued 2048-d rows a set, N(0, (s / 2)^2) rounded with s drawn
+# per row from the scales (precision 0.238 and recall 0.313 on the seed's draws); PR_BLOCKS ManifoldEstimator's row and
+# column batches that cut the set into blocks (10 000 each by default: one)
+PR_N, PR_REF_SCALES, PR_SAMPLE_SCALES, PR_BLOCKS = 1000, (2, 3, 4), (2, 3, 4, 5), (384, 256)
+
+
+def phase19a_metrics(dev) -> None:
+    """Precision, recall and the Inception Score with non-trivial values (19b's
+    random Inception collapses its features: precision and recall 0, IS 1).
+    Integer-valued features (``PR_N``, ``PR_REF_SCALES``,
+    ``PR_SAMPLE_SCALES``), whose float32 distances are exact, so that
+    ``compute_prec_recall`` on the card and a ``ManifoldEstimator`` in
+    ``PR_BLOCKS`` blocks must equal ``inside_f64`` exactly; the IS of
+    predictions softmaxed on the card from N(0, 4) logits against
+    ``inception_score_f64`` within ``METRIC_RTOL``. Each value must lie
+    strictly inside its trivial range."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.evaluations import evaluator as ev
+
+    rs = np.random.RandomState(191)
+    ref, sample = (np.rint(rs.choice(scales, (PR_N, 1)) * rs.randn(PR_N, 2048) / 2).astype(np.float32)
+                   for scales in (PR_REF_SCALES, PR_SAMPLE_SCALES))
+    got = ev.compute_prec_recall(ref, sample, device=dev)
+    want = float(inside_f64(sample, ref).mean()), float(inside_f64(ref, sample).mean())
+    blocks = ev.ManifoldEstimator(ref, row_batch=PR_BLOCKS[0], col_batch=PR_BLOCKS[1], device=dev)
+    members = blocks.evaluate_membership(sample)
+    logits = torch.randn(PR_N, 1008, device=dev, generator=torch.Generator(device=dev).manual_seed(19)) * 2
+    preds = torch.softmax(logits, -1).cpu().numpy()
+    score, score64 = ev.inception_score_from_preds(preds), inception_score_f64(preds)
+    rel = abs(score - score64) / score64
+    log(f"  precision and recall of {PR_N} + {PR_N} integer-valued 2048-d features on the card {got}, float64 "
+        f"{want} (exactly); a ManifoldEstimator in {PR_BLOCKS} blocks: {int(members.sum())} members, float64 "
+        f"{int(inside_f64(sample, ref).sum())}; IS of {PR_N} predictions {score:.7g}, float64 {score64:.7g}: rel "
+        f"{rel:.3g} (bound {METRIC_RTOL:g})")
+    if not all(0.05 < v < 0.95 for v in want) or not score64 > 2:
+        raise AssertionError(f"19a's metrics are near their trivial values: precision and recall {want}, IS {score64}")
+    if got != want or not np.array_equal(members, inside_f64(sample, ref)) or not rel <= METRIC_RTOL:
+        raise AssertionError(f"the card's metrics differ from float64: precision and recall {got} against {want}, "
+                             f"blocked membership {int(members.sum())}, IS rel {rel:.3g}")
+
+
+def acceptance_counts(unet, clf) -> dict:
+    """K1, K2 and K3 launches of one guided step of ADM-G 64 (``unet``, its
+    torso bf16) and its float32 classifier (``clf``: a forward and a
+    backward), from the modules; ``f32`` the classifier's attention calls,
+    all of them float32 (the attention blocks and the pool)."""
+    from guided_diffusion_clip_tpu_torch.models.unet import AttentionBlock, AttentionPool2d
+
+    unet_attn = sum(isinstance(m, AttentionBlock) for m in unet.modules())
+    clf_attn = sum(isinstance(m, (AttentionBlock, AttentionPool2d)) for m in clf.modules())
+    return {"attention": unet_attn + clf_attn, "attention_bwd": clf_attn,
+            "group_norm": gn_conv_counts(unet, False)["group_norm"] + gn_conv_counts(clf, False)["group_norm"],
+            "f32": clf_attn}
+
+
+def phase19b_acceptance(dev, tmp) -> tuple:
+    """``acceptance_real_weights.main --stages resolve,sample,evaluate`` on
+    stand-in assets at the published shapes: ``64x64_diffusion.pt`` and
+    ``64x64_classifier.pt`` with N(0, 0.02) weights under the reference's
+    names (loaded strict=True), ``inception_v3_fid.npz`` holding
+    ``random_params(0)`` in the converter's layout, ``ACCEPT_REFS`` random
+    64 px reference images with labels; ``ACCEPT_SAMPLES`` samples in one
+    batch of ``GUIDED_STEPS`` guided steps, scored by the port's evaluator
+    with its Inception on the card. K1, K2 and K3 against the modules' counts
+    (the bf16 and f32 K1 and K2 apart), every metric finite and untagged.
+    Returns the launches, the metrics and the evaluator's features (saved for
+    ``recompute_metrics``); the ``.pt`` files are deleted."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch import acceptance_real_weights as acc
+    from guided_diffusion_clip_tpu_torch import classifier_sample
+    from guided_diffusion_clip_tpu_torch.evaluations import evaluator as ev
+    from guided_diffusion_clip_tpu_torch.evaluations import inception as inc
+    from guided_diffusion_clip_tpu_torch.utils.script_util import (
+        args_to_dict, classifier_defaults, create_classifier, create_upstream_model,
+    )
+
+    assets = os.path.join(tmp, "acceptance")
+    os.makedirs(assets)
+    args = classifier_sample.create_argparser().parse_args(acc.MODEL_FLAGS_64 + acc.CLASSIFIER_FLAGS_64)
+    with torch.device("meta"):
+        unet = create_upstream_model(**args_to_dict(args, classifier_sample._UNET_KEYS))
+        clf = create_classifier(**args_to_dict(args, classifier_defaults().keys()))
+    per = acceptance_counts(unet, clf)
+    t0 = time.perf_counter()
+    pts = [os.path.join(assets, "64x64_diffusion.pt"), os.path.join(assets, "64x64_classifier.pt")]
+    for path, model in zip(pts, (unet, clf)):
+        torch.save(random_state_dict(model), path)
+    np.savez(os.path.join(assets, "inception_v3_fid.npz"), **inc.flat_params(inc.random_params(0)))
+    rs = np.random.RandomState(19)
+    np.savez(os.path.join(assets, "VIRTUAL_imagenet64_labeled.npz"),
+             arr_0=rs.randint(0, 256, (ACCEPT_REFS, 64, 64, 3), dtype=np.uint8),
+             arr_1=rs.randint(0, 1000, ACCEPT_REFS, dtype=np.int64))
+    n_unet, n_clf = (sum(p.numel() for p in m.parameters()) for m in (unet, clf))
+    log(f"  stand-ins: ADM-G 64 ({n_unet / 1e6:.1f} M parameters, {os.path.getsize(pts[0]) / 2**30:.2f} GiB), its "
+        f"classifier ({n_clf / 1e6:.1f} M), random_params(0), {ACCEPT_REFS} reference images; written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del unet, clf
+
+    seen = []  # the evaluator's (pool, spatial, predictions) of the reference batch, then of the samples
+    read = ev.Extractor.read_activations
+
+    def read_activations(self, path):
+        acts = read(self, path)
+        seen.append((*acts, self._last_preds))
+        return acts
+
+    argv = ["--assets_dir", assets, "--stages", "resolve,sample,evaluate", "--num_samples", str(ACCEPT_SAMPLES),
+            "--batch_size", str(ACCEPT_SAMPLES), "--timestep_respacing", str(GUIDED_STEPS), "--device", dev.type]
+    ev.Extractor.read_activations = read_activations
+    try:
+        # the main path starts here: count every launch of its kernels
+        reset_counters()
+        t0 = time.perf_counter()
+        done = acc.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counters()
+    finally:
+        ev.Extractor.read_activations = read
+        for path in pts:
+            os.remove(path)
+    want = {**dict.fromkeys(launches, 0), **{k: v * GUIDED_STEPS for k, v in per.items() if k != "f32"}}
+    log(f"  acceptance_real_weights.main {' '.join(argv[2:])}: {wall:.1f} s; launches {launches} (expected {want}: "
+        f"a guided step's {per})")
+    if launches != want:
+        raise AssertionError(f"acceptance path: launch counts {launches} != {want}")
+    check_tensor_core_launches("acceptance path", per["f32"] * GUIDED_STEPS, per["f32"] * GUIDED_STEPS)
+    images = np.load(done["sample"])["arr_0"]
+    if images.shape != (ACCEPT_SAMPLES, 64, 64, 3) or images.dtype != np.uint8 or not all(im.std() > 0
+                                                                                          for im in images):
+        raise AssertionError(f"acceptance samples {images.shape} {images.dtype}: not {ACCEPT_SAMPLES} non-constant "
+                             f"64 px uint8 images")
+    metrics = done["evaluate"]["metrics"]
+    log(f"  metrics (random Inception weights: not comparable to the published table): {metrics}")
+    if sorted(metrics) != sorted(METRIC_KEYS) or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"acceptance path: metric lines {metrics}, not the five untagged and finite")
+    (ref_pool, ref_spatial, _), (pool, spatial, preds) = seen
+    feats = os.path.join(tmp, "acceptance_features.npz")
+    np.savez(feats, ref_pool=ref_pool, ref_spatial=ref_spatial, pool=pool, spatial=spatial, preds=preds)
+    return tensor_core_split(launches), metrics, feats
+
+
+def inside_f64(points, manifold, k: int = 3):
+    """Whether each of ``points`` lies within the k-th neighbour distance of
+    some point of ``manifold`` (the point itself its 0-th), in float64
+    numpy: improved precision and recall recomputed."""
+    import numpy as np
+
+    p, m = (np.asarray(v, np.float64) for v in (points, manifold))
+    m2 = (m * m).sum(1)
+    radii = np.partition(m2[:, None] - 2 * m @ m.T + m2[None], k, axis=1)[:, k]
+    return ((p * p).sum(1)[:, None] - 2 * p @ m.T + m2[None] <= radii[None]).any(1)
+
+
+def inception_score_f64(preds) -> float:
+    """The Inception Score of ``preds`` (one split) in float64 numpy."""
+    import numpy as np
+
+    p = np.asarray(preds, np.float64)
+    return float(np.exp((p * (np.log(p) - np.log(p.mean(0, keepdims=True)))).sum(1).mean()))
+
+
+def recompute_metrics(feats: str, out: str) -> None:
+    """19b's five metrics recomputed in float64 numpy from the evaluator's
+    features (``phase19b_acceptance``'s npz), written to ``out`` as JSON: the
+    Frechet distances (scipy's sqrtm, with the eps retry on a singular
+    product), the Inception Score of the predictions, and precision and
+    recall from exact distances and k = 3 radii. Runs in a process of its
+    own: scipy's sqrtm holds the interpreter lock for seconds."""
+    import numpy as np
+    import scipy.linalg
+
+    f = {k: v.astype(np.float64) for k, v in np.load(feats).items()}
+
+    def frechet(a, b, eps=1e-6):
+        mu1, mu2 = a.mean(0), b.mean(0)
+        s1, s2 = np.cov(a, rowvar=False), np.cov(b, rowvar=False)
+        covmean = scipy.linalg.sqrtm(s1.dot(s2))
+        if not np.isfinite(covmean).all():
+            off = np.eye(len(s1)) * eps
+            covmean = scipy.linalg.sqrtm((s1 + off).dot(s2 + off))
+        diff = mu1 - mu2
+        return float(diff.dot(diff) + np.trace(s1) + np.trace(s2) - 2 * np.trace(covmean.real))
+
+    values = {
+        "inception_score": inception_score_f64(f["preds"]),
+        "fid": frechet(f["pool"], f["ref_pool"]),
+        "sfid": frechet(f["spatial"], f["ref_spatial"]),
+        "precision": float(inside_f64(f["pool"], f["ref_pool"]).mean()),
+        "recall": float(inside_f64(f["ref_pool"], f["pool"]).mean()),
+    }
+    with open(out, "w") as fh:
+        json.dump(values, fh)
+
+
+def check_metrics(metrics: dict, out: str) -> None:
+    """19b's printed metrics against ``recompute_metrics``' (``out``)."""
+    with open(out) as fh:
+        again = json.load(fh)
+    rel = {k: abs(metrics[k] - again[k]) / max(abs(again[k]), 1e-300) for k in ("inception_score", "fid", "sfid")}
+    log(f"  19b's metrics recomputed in float64 numpy from the card's features: {again}; relative differences "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (bound {METRIC_RTOL:g}), precision and recall "
+        f"{(metrics['precision'], metrics['recall'])} against {(again['precision'], again['recall'])} (exactly)")
+    if not all(v <= METRIC_RTOL for v in rel.values()) or (metrics["precision"], metrics["recall"]) != (
+            again["precision"], again["recall"]):
+        raise AssertionError(f"the evaluator's metrics {metrics} differ from their recomputation {again}")
+
+
+def phase19c_evaluator_bench(dev) -> dict:
+    """``tools/evaluator_bench.py`` at its defaults (batch 64, 10 calls, 256
+    px): images/s and the seconds for a 50k + 50k pair; then one
+    ManifoldEstimator radii block at ``RADII_N`` x ``RADII_N`` x ``RADII_D``:
+    the distance product on the card (CUDA events), its copy to the host and
+    the host's ``np.partition`` (wall clock). Each number beside the card."""
+    import numpy as np
+    import torch
+
+    from guided_diffusion_clip_tpu_torch.evaluations import evaluator as ev
+    from guided_diffusion_clip_tpu_torch.tools import evaluator_bench
+
+    card = smi()
+    row = evaluator_bench.main([])
+    check_row("evaluator_bench", row, ("images_per_sec_per_gpu", "sec_for_50k_pair", "compile_s", "seconds"))
+    if row["card"] != card:
+        raise AssertionError(f"evaluator_bench ran on {row['card']}, nvidia-smi names {card}")
+    log(f"  evaluator_bench: {row['images_per_sec_per_gpu']:.1f} images/s at batch {row['batch']}, {row['image']} px; "
+        f"{row['sec_for_50k_pair']:.1f} s for a 50k + 50k pair ({card})")
+    feats = torch.randn(RADII_N, RADII_D, device=dev, generator=torch.Generator(device=dev).manual_seed(19))
+    product_ms = cuda_ms(lambda: ev.pairwise_l2_sq(feats, feats), runs=5, warmup=1)
+    d = ev.pairwise_l2_sq(feats, feats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = d.cpu().numpy()
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    radii = np.partition(host, 3, axis=1)[:, 3]
+    partition_ms = 1e3 * (time.perf_counter() - t0)
+    if radii.shape != (RADII_N,) or not np.isfinite(radii).all():
+        raise AssertionError(f"radii {radii.shape} not finite")
+    flops = 2 * RADII_N * RADII_N * RADII_D
+    log(f"  one radii block {RADII_N} x {RADII_N} x {RADII_D}: the product on the card {product_ms:.3f} ms "
+        f"({flops / product_ms / 1e9:.1f} TFLOP/s f32, TF32 off), the copy to the host {copy_ms:.1f} ms, "
+        f"np.partition on the host {partition_ms:.1f} ms ({card})")
+    del d, host, feats
+    torch.cuda.empty_cache()
+    return {**row, "radii_product_ms": product_ms, "radii_copy_ms": copy_ms, "radii_partition_ms": partition_ms}
 
 
 def _scaled_rstd(stats, k: float):
@@ -5656,9 +6520,6 @@ def fault_probe(dev) -> None:
     the CPU and the bounds they break."""
     import torch
 
-    from guided_diffusion_clip_tpu_torch.models.clip_vit import CLIP, CLIPConfig
-    from guided_diffusion_clip_tpu_torch.utils.script_util import create_classifier, create_gaussian_diffusion
-
     tf32_off()
     cpu = torch.device("cpu")
 
@@ -5672,7 +6533,7 @@ def fault_probe(dev) -> None:
             yield fault, lambda fault=fault: injected(fault)
 
     log("the bf16-torso classifier step (batch 2, microbatches of 1), card vs CPU, against CLF_BF16_TOL")
-    sd = random_state_dict(create_classifier(256, False, 128, 2, "32,16,8", True, True, "attention"))
+    sd = classifier_weights(False)
     batch = clf_step_batch()
     ref = clf_step_on(cpu, sd, *batch, True, 1)
     log(f"  control, CPU bf16 vs CPU f32: {show(step_errors(ref, clf_step_on(cpu, sd, *batch, False, 1)))}")
@@ -5685,21 +6546,17 @@ def fault_probe(dev) -> None:
     torch.cuda.empty_cache()
 
     log("the int8 CLIP-guided step (batch 1, f32, teacher-forced), card vs CPU, against CLIP_INT8_TOL")
-    clip = CLIP(CLIPConfig())
-    clip.load_state_dict(clip_random_state_dict(clip), strict=True)
-    vision = clip.eval().visual.requires_grad_(False)
-    del clip
-    target = torch.randn(512, generator=torch.Generator().manual_seed(32))
-    diffusion = create_gaussian_diffusion(steps=1000, learn_sigma=True, timestep_respacing="100")
-    model = clip_unet(random_state_dict(clip_unet()), conv_impl="int8")
-    xs, z = clip_int8_step_input()
+    sd, clip_sd = clip_unet_weights(), clip_weights()
+    cpu = phase4f_cpu(sd, clip_sd, 256)
+    ref = cpu["ref"]
     forcing = Int8Forcing()
-    ref = clip_int8_step(cpu, model, vision, target, diffusion, xs, z, forcing.record)
+    forcing.rec = cpu["rec"]
+    parts = clip_int8_parts(sd, clip_sd, 256, dev)
     log(f"  CPU step {ref['seconds']:.2f} s")
     for name, ctx in runs(FAULTS):
         try:
             with ctx():
-                out = clip_int8_step(dev, model, vision, target, diffusion, xs, z, forcing.force)
+                out = clip_int8_step(dev, *parts, cpu["xs"], cpu["z"], forcing.force)
         except AssertionError as e:  # Int8Forcing's own checks of q, s and the convs
             log(f"  {name}: the teacher forcing's check fails: {e}")
             continue
@@ -5739,9 +6596,35 @@ def check_ptxas(build_log: str) -> None:
                                  f"spills: {line.strip()}")
 
 
+# the reference processes' jobs (name, function, the earlier jobs whose results it takes, args), in the order the
+# phases read them. EARLY_JOBS: the weights of phases 5 and 6 and the CPU halves of 4b-4f, 10 and 11 (phase 6's
+# .pt files written into the directory its job is given); LATE_JOBS: those of 8b, 8e, 9 and 12a, each given a
+# directory of its own
+EARLY_JOBS = [
+    ("sd", "clip_unet_weights", (), ()),  # phase 5's checkpoint; the weights of 4c, 4e, 11 and 11b
+    ("6", "phase6_weights", (), ("6",)),
+    ("clf", "classifier_weights", (), (False,)),
+    ("4b", "phase4b_cpu", ("clf",), ()),
+    ("4c", "phase4c_cpu", ("sd",), ()),
+    ("sd64", "clip_unet_weights", (), (CLIP_INT8_CHANNELS,)),
+    ("clip", "clip_weights", (), ()),
+    ("4f", "phase4f_cpu", ("sd64", "clip"), ()),
+    ("clf8", "classifier_weights", (), (True,)),
+    ("4d", "phase4d_cpu", ("clf8",), ()),
+    ("4e", "phase4e_cpu", ("sd",), ()),
+    ("10", "phase10_cpu", ("clf",), ()),
+    ("11", "phase11_cpu", ("sd", "clip"), ()),
+]
+LATE_JOBS = [(name, fn, (), (name,)) for name, fn in (
+    ("8b", "phase8b_cpu"), ("8e", "phase8e_cpu"), ("9", "chains_cpu"), ("12a", "phase12a_cpu"))]
+
+
 def main(argv=None) -> int:
+    import multiprocessing
+
     import torch
 
+    t_main = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--faults"]):
         print(f"chip_smoke: takes no arguments but --faults, got {argv}", file=sys.stderr)
@@ -5762,6 +6645,14 @@ def main(argv=None) -> int:
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0) (sm_90a), found {cap}")
 
+    # the CPU references and the full-width weights in two processes from here on, beside the build and the
+    # card's phases: EARLY_JOBS (read in phases 4-11) at nice 10, LATE_JOBS (read in phases 8-12) at nice 19.
+    # Phase 3, whose kernel times include the host's, runs once both have ended and phase 13 is done
+    ref_dir = tempfile.TemporaryDirectory()
+    if not argv:
+        early = RefProcess(EARLY_JOBS, ref_dir.name, 10)
+        late = RefProcess(LATE_JOBS, ref_dir.name, 19)
+
     log("phase 2: build")
     t0 = time.perf_counter()
     build.load()
@@ -5773,57 +6664,22 @@ def main(argv=None) -> int:
         print(smi())
         return 0
 
-    t3 = time.perf_counter()
-    log("phase 3: kernels vs plain versions on the card")
-    records = phase3_kernels(dev)
-    log("phase 3b: K2 (attention backward) vs its plain version on the card")
-    records.update(phase3b_attention_bwd(dev))
-    log("phase 3c: K4 (quantizing GroupNorm) vs its plain version on the card")
-    records["group_norm_quant"] = phase3c_group_norm_quant(dev)
-    log("phase 3d: K5 (s8 conv) vs its plain version, the __dp4a kernel and cuDNN's bf16 conv on the card")
-    records.update(phase3d_conv_s8(dev))
-    log("phase 3e: K6 (fused quantizing conv) vs its plain version and cuDNN's bf16 conv on the card")
-    records["conv_fused"] = phase3e_fused_conv(dev)
-    log("phase 3f: K7 (tensor-core probe) vs its plain version on the card")
-    records["mma_probe"] = phase3f_mma_probe(dev)
-    log("phase 3g: int8_conv's quantize kernels vs quantize_per_tensor on the card")
-    records["quantize"] = phase3g_quantize(dev)
-    log("phase 3h: the split entries of K3, K4 and the quantize kernels (spatial partitioning) vs their plain "
-        "versions on the card")
-    t3h = time.perf_counter()
-    split_records = phase3h_split_entries(dev)
-    split_vs_one = split_records.pop("split_vs_one")
-    records.update(split_records)
-    log(f"  phase 3h took {time.perf_counter() - t3h:.1f} s; phases 3-3h {time.perf_counter() - t3:.1f} s")
-
-    t4 = time.perf_counter()
-    sd = random_state_dict(clip_unet())
-    log("phase 4b: full-width guidance gradient, card vs CPU")
-    phase4b_guidance(dev)
-    log("phase 4c: full-width int8 forward, card vs CPU")
-    phase4c_int8_forward(dev, sd)
-    log("phase 4d: full-width int8 guidance gradient, card vs CPU")
-    phase4d_int8_guidance(dev)
-    log("phase 4e: full-width forwards (full, shallow and plain), card vs CPU")
-    phase4e_deep_cache(dev, sd)
-    log(f"  phases 4b-4e took {time.perf_counter() - t4:.1f} s")
-
     import numpy as np
 
     runs = []  # each main path's launch counts
+    tf32_off()  # as phases 3 and 4 left it when they ran first
     with tempfile.TemporaryDirectory() as tmp:
         t5 = time.perf_counter()
         log("phase 5: the slice, served over HTTP")
-        ckpt = os.path.join(tmp, "clip_unet_random.pt")  # phase 6 writes the ADM-G UNet's model_random.pt
-        torch.save(sd, ckpt)
-        del sd
+        ckpt = early.path("sd")  # the CLIP UNet's N(0, 0.02) weights; phase 6's are the ADM-G UNet's
         runs.append(phase5_serve(dev, ckpt))
         log("phase 5b: the slice served over HTTP with --conv_impl int8")
         runs.append(phase5_serve(dev, ckpt, "int8"))
         log("phase 5c: the slice served with --cfg_scale 2.0 --cfg_cache 2 --sampler dpm++2m")
         runs.append(phase5c_serve_cfg(dev, ckpt))
         log("phase 6: classifier-guided sampling, ADM-G 256 + classifier")
-        launches, paths, bf16_images, bf16_chain = phase6_guided(dev, tmp)
+        paths = early.get("6")
+        launches, bf16_images, bf16_chain = phase6_guided(dev, tmp, "auto", paths)
         runs.append(launches)
         log("phase 6, profile: one guided step at batch 8")
         guided_parts, guided_device = profile_guided_step(dev, paths)
@@ -5833,7 +6689,7 @@ def main(argv=None) -> int:
         runs.append(phase14b_perf_breakdown(guided_parts, guided_device))
         log(f"  phase 14b took {time.perf_counter() - t14b:.1f} s")
         log("phase 6b: classifier-guided sampling with --conv_impl int8")
-        launches, _, int8_images, int8_chain = phase6_guided(dev, tmp, "int8", paths)
+        launches, int8_images, int8_chain = phase6_guided(dev, tmp, "int8", paths)
         runs.append(launches)
         sd_bf16, sd_int8 = bf16_images.astype(np.float64).std(), int8_images.astype(np.float64).std()
         diff = np.abs(int8_images.astype(np.int64) - bf16_images.astype(np.int64))
@@ -5864,15 +6720,29 @@ def main(argv=None) -> int:
             f"{bf16_chain:.3f} s ({480 / bf16_chain:.3f} samples/min, {per_step * bf16_chain:.2f} ms a step)")
         log(f"  phases 5-6c took {time.perf_counter() - t5:.1f} s")
 
+        t4 = time.perf_counter()
+        log("phase 4b: full-width guidance gradient, card vs CPU")
+        phase4b_guidance(dev, early.get("4b"), early.get("clf"))
+        log("phase 4c: full-width int8 forward, card vs CPU")
+        phase4c_int8_forward(dev, early.get("4c"), early.get("sd"))
+        log(f"phase 4f: the int8 CLIP-guided step (ViT-B/32, the CLIP UNet at {CLIP_INT8_CHANNELS} channels), card vs CPU")
+        phase4f_clip_int8(dev, early.get("4f"), early.get("sd64"), early.get("clip"))
+        log("phase 4d: full-width int8 guidance gradient, card vs CPU")
+        phase4d_int8_guidance(dev, early.get("4d"), early.get("clf8"))
+        log("phase 4e: full-width forwards (full, shallow and plain), card vs CPU")
+        phase4e_deep_cache(dev, early.get("4e"), early.get("sd"))
+        log(f"  phases 4b-4f took {time.perf_counter() - t4:.1f} s")
+
+
         t10 = time.perf_counter()
         log("phase 10: python -m guided_diffusion_clip_tpu_torch.classifier_train on ADM-G 256's classifier, then "
             "classifier_sample with what it saved")
-        runs.extend(phase10_classifier_train(dev, tmp, paths))
+        runs.extend(phase10_classifier_train(dev, tmp, paths, early.get("10"), early.get("clf")))
         log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
         log("phase 11: ViT-B/32 (random weights in OpenAI's names): the encoders, compute_clip_embeddings and "
             "image_train on its dict, the guidance gradient through the UNet, card vs CPU")
-        clip_path = phase11_clip(dev, tmp, ckpt)
+        clip_path = phase11_clip(dev, tmp, early.get("11"), early.get("sd"))
         log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
         t11 = time.perf_counter()
         log("phase 11b: python -m guided_diffusion_clip_tpu_torch.clip_guided_sample on the ADM-256 CLIP UNet")
@@ -5889,7 +6759,7 @@ def main(argv=None) -> int:
     phase8a_attention(dev)
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8b: one train step of the full-width recipe, card vs CPU")
-        phase8b_train_step(dev, tmp)
+        phase8b_train_step(dev, tmp, late.get("8b"))
         log("phase 8c: python -m guided_diffusion_clip_tpu_torch.image_train --config-file, then a resume with "
             "--profile_dir")
         run_dir = phase8c_cli(dev, tmp)
@@ -5897,7 +6767,7 @@ def main(argv=None) -> int:
         timed = phase8d_time(dev, tmp)
         runs.extend(t["launches"] for t in timed.values())
         log("phase 8e: --train_conv_impl int8: one step card vs CPU, then train steps at batch 48")
-        int8_timed = phase8e_int8_train(dev, tmp)
+        int8_timed = phase8e_int8_train(dev, tmp, late.get("8e"))
         runs.append(int8_timed["launches"])
         log(f"  train step at batch {TRAIN_BATCH}, this run: int8 {int8_timed['step_ms']:.2f} ms (busy "
             f"{int8_timed['busy_ms']:.2f}), bf16 {timed[False]['step_ms']:.2f} ms (busy {timed[False]['busy_ms']:.2f})")
@@ -5906,19 +6776,21 @@ def main(argv=None) -> int:
         log("phase 14a: tools.train_step_bench on the recipe at batch 48, bf16 and int8, against 8d and 8e just taken")
         runs.extend(phase14a_train_step_bench({"xla": timed[False], "int8": int8_timed}))
         log(f"  phase 14a took {time.perf_counter() - t14a:.1f} s")
+        data, clip_path = os.path.join(tmp, "images"), os.path.join(tmp, "clip_dict.pt")
+        log("phase 13b, its first child started: image_train under torchrun (FSDP2, DCP) beside phases 9, 12 and 13a")
+        dist_train = phase13b_start(tmp, data, clip_path)
         t9 = time.perf_counter()
         log("phase 9: python -m guided_diffusion_clip_tpu_torch.image_sample from random weights in 8c's run directory")
-        runs.extend(phase9_image_sample(dev, tmp, run_dir))
+        runs.extend(phase9_image_sample(dev, tmp, run_dir, late.get("9")))
         log("phase 9b: image_sample_repeat --repeats 2")
         runs.append(phase9b_repeat(dev, tmp, run_dir))
         log("phase 9c: image_nll on 8 images")
         runs.append(phase9c_nll(dev, tmp, run_dir))
         log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
         t12 = time.perf_counter()
-        data, clip_path = os.path.join(tmp, "images"), os.path.join(tmp, "clip_dict.pt")
         (samples_npz,) = glob.glob(os.path.join(tmp, "**", "*_bf16", "samples_16x128x128x3.npz"), recursive=True)
         log("phase 12a: the SR-delta model (SRImageModel_Feat) at the recipe's widths, card vs CPU")
-        phase12a_sr_card_vs_cpu(dev, tmp)
+        phase12a_sr_card_vs_cpu(dev, tmp, late.get("12a"))
         log("phase 12b: python -m guided_diffusion_clip_tpu_torch.super_res_unsup on 8c's folder, then --load with "
             "--train_conv_impl int8; train steps at batch 48")
         runs.extend(phase12b_sr_unsup(dev, tmp, data, clip_path))
@@ -5933,8 +6805,35 @@ def main(argv=None) -> int:
         runs.extend(phase13a_dist_steps(dev, tmp))
         log("phase 13b: image_train under torchrun (FSDP2, DCP), resumed under ZeRO-1, image_sample from its DCP "
             "directory with and without torchrun")
-        runs.append(phase13b_torchrun(dev, tmp, data, clip_path))
+        runs.append(phase13b_torchrun(dev, tmp, dist_train))
         log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    # phase 3's kernel times include the host's: nothing else runs beside it
+    waited = early.close() + late.close()
+    log(f"the reference processes have ended (waited {waited:.1f} s for them; exit codes {early.proc.exitcode} and "
+        f"{late.proc.exitcode}), and phase 13b's children with phase 13: nothing runs beside phase 3")
+    t3 = time.perf_counter()
+    log("phase 3: kernels vs plain versions on the card")
+    records = phase3_kernels(dev)
+    log("phase 3b: K2 (attention backward) vs its plain version on the card")
+    records.update(phase3b_attention_bwd(dev))
+    log("phase 3c: K4 (quantizing GroupNorm) vs its plain version on the card")
+    records["group_norm_quant"] = phase3c_group_norm_quant(dev)
+    log("phase 3d: K5 (s8 conv) vs its plain version, the __dp4a kernel and cuDNN's bf16 conv on the card")
+    records.update(phase3d_conv_s8(dev))
+    log("phase 3e: K6 (fused quantizing conv) vs its plain version and cuDNN's bf16 conv on the card")
+    records["conv_fused"] = phase3e_fused_conv(dev)
+    log("phase 3f: K7 (tensor-core probe) vs its plain version on the card")
+    records["mma_probe"] = phase3f_mma_probe(dev)
+    log("phase 3g: int8_conv's quantize kernels vs quantize_per_tensor on the card")
+    records["quantize"] = phase3g_quantize(dev)
+    log("phase 3h: the split entries of K3, K4 and the quantize kernels (spatial partitioning) vs their plain "
+        "versions on the card")
+    t3h = time.perf_counter()
+    split_records = phase3h_split_entries(dev)
+    split_vs_one = split_records.pop("split_vs_one")
+    records.update(split_records)
+    log(f"  phase 3h took {time.perf_counter() - t3h:.1f} s; phases 3-3h {time.perf_counter() - t3:.1f} s")
 
     t14 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5952,15 +6851,48 @@ def main(argv=None) -> int:
         f"{PHASE16_STEPS} steps")
     runs.extend(phase16_quality_tools())
     log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+    t19 = time.perf_counter()
+    log("phase 19c: tools.evaluator_bench at its defaults, then one ManifoldEstimator radii block")
+    phase19c_evaluator_bench(dev)
+    log(f"  phase 19c took {time.perf_counter() - t19:.1f} s")
     t17 = time.perf_counter()
     log("phase 17: --spatial_shard 2 on two processes (gloo) on the one card: ADM-256's CLIP UNet in f32, bf16 and "
         "int8, ADM-G 256's classifier gradient in bf16 and f32, a recipe train step under DDP; then phase 18, "
-        "--tensor_shard 2, in the same processes")
-    with tempfile.TemporaryDirectory() as tmp:
-        runs.extend(phase17_spatial(dev, tmp))
-    log(f"  K3 one launch against split at {SP_HALF_SHAPE} bf16 (phase 3h): {split_vs_one['K3'][0]:.4f} ms, "
-        f"{split_vs_one['K3'][1]:.4f} ms; K4 {split_vs_one['K4'][0]:.4f} ms, {split_vs_one['K4'][1]:.4f} ms")
-    log(f"  phases 17 and 18 took {time.perf_counter() - t17:.1f} s")
+        "--tensor_shard 2, in the same processes; phases 19a and 19b run here beside them")
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp19:
+        ranks = phase17_start(dev, tmp)
+        recompute = None
+        try:
+            t19 = time.perf_counter()
+            log("phase 19a: the port's InceptionV3 and the distance block, card vs CPU; precision, recall and IS "
+                "against float64")
+            phase19a_inception(dev)
+            phase19a_metrics(dev)
+            log("phase 19b: acceptance_real_weights.main on stand-in assets at the published 64 px ADM-G widths: "
+                "classifier-guided sampling, then the port's evaluator")
+            launches, metrics, feats = phase19b_acceptance(dev, tmp19)
+            runs.append(launches)
+            recompute = multiprocessing.get_context("spawn").Process(
+                target=recompute_metrics, args=(feats, os.path.join(tmp19, "recomputed.json")), daemon=True)
+            recompute.start()
+            log(f"  phases 19a and 19b took {time.perf_counter() - t19:.1f} s; the metrics' recomputation runs in "
+                f"another process beside phase 17")
+            runs.extend(phase17_spatial(dev, tmp, ranks))
+            log(f"  K3 one launch against split at {SP_HALF_SHAPE} bf16 (phase 3h): {split_vs_one['K3'][0]:.4f} ms, "
+                f"{split_vs_one['K3'][1]:.4f} ms; K4 {split_vs_one['K4'][0]:.4f} ms, {split_vs_one['K4'][1]:.4f} ms")
+            log(f"  phases 17, 18, 19a and 19b took {time.perf_counter() - t17:.1f} s")
+            t0 = time.perf_counter()
+            recompute.join(timeout=600)
+            if recompute.exitcode != 0:
+                raise AssertionError(f"the recomputation of 19b's metrics exited {recompute.exitcode}")
+            log(f"  waited {time.perf_counter() - t0:.1f} s for the recomputation")
+            check_metrics(metrics, os.path.join(tmp19, "recomputed.json"))
+        finally:
+            for proc in [*ranks[0].processes, *([recompute] if recompute else [])]:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+    ref_dir.cleanup()
 
     # K1 and K2 run on two tensor-core kernels each: bf16 (the sampling paths at d = 64, training at d = 192 and
     # 256) and float32 (split TF32: the classifier's attention pool, the quality tools' f32 training); K5 on
@@ -6015,6 +6947,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launched, **records[name],
         })
+    log(f"the smoke took {time.perf_counter() - t_main:.1f} s from main()'s start")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

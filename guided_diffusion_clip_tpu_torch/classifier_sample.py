@@ -131,12 +131,16 @@ def sample(args, device: torch.device) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
-    model = create_upstream_model(**args_to_dict(args, _UNET_KEYS), conv_impl=args.conv_impl)
+    # both models built on their device: the initializer, which the loaded weights replace, runs there
+    with torch.device(device):
+        model = create_upstream_model(**args_to_dict(args, _UNET_KEYS), conv_impl=args.conv_impl)
     load_model_weights(model, args.model_path)
     model = model.to(device).eval().requires_grad_(False)
 
     logger.log("loading classifier...")
-    classifier = create_classifier(**args_to_dict(args, classifier_defaults().keys()), conv_impl=args.conv_impl)
+    with torch.device(device):
+        classifier = create_classifier(**args_to_dict(args, classifier_defaults().keys()),
+                                       conv_impl=args.conv_impl)
     load_model_weights(classifier, args.classifier_path)
     # gradients with respect to x only, as jax.grad with respect to x; under
     # int8 the classifier's quantizing GroupNorms then emit integer-valued

@@ -135,8 +135,10 @@ def sample(args, device: torch.device) -> dict:
     logger.configure(args=args)
 
     logger.log("creating model and diffusion...")
-    model, diffusion = create_model_and_diffusion(
-        **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl)
+    # the model built on its device: the initializer, which the loaded weights replace, runs there
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(
+            **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl)
     try:
         load_model_weights(model, args.model_path)
     except ValueError as e:  # a .flax checkpoint
@@ -155,7 +157,7 @@ def sample(args, device: torch.device) -> dict:
         elif len(tokenizer.encoder) != cfg.vocab_size:
             raise SystemExit(f"vocab size mismatch: merges file yields {len(tokenizer.encoder)} tokens, "
                              f"CLIP model expects {cfg.vocab_size}")
-    vision, text_encoder = load_clip_params(args.clip_model_path, cfg)
+    vision, text_encoder = load_clip_params(args.clip_model_path, cfg, device)
     vision = vision.to(device).requires_grad_(False)
     text_encoder = text_encoder.to(device).requires_grad_(False)
     target = load_target(args, cfg, vision, text_encoder, tokenizer, device)

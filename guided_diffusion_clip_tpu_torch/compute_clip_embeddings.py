@@ -59,7 +59,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--device cuda: no CUDA device is available")
 
     cfg = clip_config()
-    vision = load_clip_params(args.clip_model_path, cfg)[0].to(device).requires_grad_(False)
+    vision = load_clip_params(args.clip_model_path, cfg, device)[0].requires_grad_(False)
     files = list_image_files_recursively(args.data_dir)
     result, seconds = {}, 0.0
     for start in range(0, len(files), args.batch_size):

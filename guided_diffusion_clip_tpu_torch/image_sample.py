@@ -211,8 +211,10 @@ def sample(args, device: torch.device) -> dict:
     if not args.model_path:
         raise SystemExit("--model_path (or --main_path, --f and --load_file): a reference-format .pt is required")
 
-    model, diffusion = create_model_and_diffusion(
-        **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl)
+    # the model built on its device: the initializer, which the loaded weights replace, runs there
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(
+            **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl)
     try:
         load_model_weights(model, args.model_path)
     except ValueError as e:  # a .flax checkpoint

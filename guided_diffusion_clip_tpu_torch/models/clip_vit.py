@@ -338,12 +338,14 @@ def load_clip_state_dict(path: str) -> dict:
     return {k: v.float() for k, v in sd.items() if k not in _OPENAI_EXTRAS}
 
 
-def load_clip_params(path: str, cfg: CLIPConfig = CLIPConfig()):
+def load_clip_params(path: str, cfg: CLIPConfig = CLIPConfig(), device="cpu"):
     """(vision encoder, text encoder) of ``cfg`` with the weights of ``path``
     (``load_clip_state_dict``), every key matched (``strict=True``), in eval
-    mode on the CPU. The text encoder is the whole ``CLIP`` (its ``visual`` is
-    the vision encoder returned)."""
-    model = CLIP(cfg)
+    mode on ``device``, where the model is built (its initializer, which the
+    weights replace, runs there). The text encoder is the whole ``CLIP`` (its
+    ``visual`` is the vision encoder returned)."""
+    with torch.device(device):
+        model = CLIP(cfg)
     model.load_state_dict(load_clip_state_dict(path), strict=True)
     model.eval()
     return model.visual, model

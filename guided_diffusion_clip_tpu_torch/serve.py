@@ -116,9 +116,10 @@ class Sampler:
             raise SystemExit("--model_path: a reference-format .pt state_dict is required")
         self.args = args
         self.batch = args.batch_size
-        model, diffusion = create_model_and_diffusion(
-            **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl
-        )
+        # the model built on its device: the initializer, which the loaded weights replace, runs there
+        with torch.device(self.device):
+            model, diffusion = create_model_and_diffusion(
+                **args_to_dict(args, model_and_diffusion_defaults().keys()), conv_impl=args.conv_impl)
         load_model_weights(model, args.model_path)
         self.model = model.to(self.device).eval()
         self.diffusion = dataclasses.replace(diffusion, sched=diffusion.sched.to(self.device))

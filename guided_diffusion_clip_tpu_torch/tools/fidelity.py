@@ -17,8 +17,7 @@ Counterpart of ``tools/fidelity.py``, which the quality tools share
     ``adamw(1e-3)``'s settings (weight decay 1e-4, not torch's 1e-2) on
     fresh draws from ``RandomState(seed)``;
   - ``frechet`` and ``score_sets``: the Frechet distance of the
-    evaluator's statistics (the port's own copy of
-    ``evaluations/evaluator.py``'s ``FIDStatistics.frechet_distance``:
+    evaluator's statistics (``evaluations.evaluator``'s ``FIDStatistics``:
     scipy's ``sqrtm``, the eps retry on a singular product, the check of the
     imaginary part), each candidate set scored against two independent base
     draws, beside a floor from three base pairs; every value unrounded.
@@ -29,12 +28,12 @@ make them, and ``feats_fn`` takes NHWC arrays.
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..evaluations.evaluator import statistics_from_activations
 
 FEAT_DIM = 32
 FLAX_CONVS = ("Conv_0", "Conv_1", "Conv_2")
@@ -177,32 +176,10 @@ def train_feature_extractor(size: int, steps: int = 300, batch: int = 64, seed: 
     return feats_fn, float(loss)
 
 
-def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
-    """The Frechet distance of two Gaussians (the evaluator's
-    ``FIDStatistics.frechet_distance``, reference evaluator.py:62-115)."""
-    import scipy.linalg
-
-    mu1, mu2 = np.atleast_1d(mu1), np.atleast_1d(mu2)
-    sigma1, sigma2 = np.atleast_2d(sigma1), np.atleast_2d(sigma2)
-    diff = mu1 - mu2
-    # the matrix alone: scipy 1.16 dropped ``disp`` (the evaluator's ``disp=False`` also returned an error
-    # estimate, which it never read)
-    covmean = scipy.linalg.sqrtm(sigma1.dot(sigma2))
-    if not np.isfinite(covmean).all():
-        warnings.warn(f"fid calculation produces singular product; adding {eps} to diagonal of cov estimates")
-        offset = np.eye(sigma1.shape[0]) * eps
-        covmean = scipy.linalg.sqrtm((sigma1 + offset).dot(sigma2 + offset))
-    if np.iscomplexobj(covmean):
-        if not np.allclose(np.diagonal(covmean).imag, 0, atol=1e-3):
-            raise ValueError(f"Imaginary component {np.max(np.abs(covmean.imag))}")
-        covmean = covmean.real
-    return float(diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))
-
-
 def frechet(fx: np.ndarray, fy: np.ndarray) -> float:
     """The unrounded Frechet distance of two feature sets' means and
-    covariances."""
-    return frechet_distance(fx.mean(0), np.cov(fx, rowvar=False), fy.mean(0), np.cov(fy, rowvar=False))
+    covariances (the evaluator's ``FIDStatistics``)."""
+    return statistics_from_activations(fx).frechet_distance(statistics_from_activations(fy))
 
 
 def score_sets(feats_fn, sets: dict) -> dict:

@@ -49,8 +49,8 @@ import urllib.request
 
 import torch
 
-from ..utils.script_util import create_model_and_diffusion, model_and_diffusion_defaults
-from ._timing import card_label, pick_device, random_weights_
+from ..utils.script_util import create_model
+from ._timing import built_on, card_label, pick_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -76,19 +76,17 @@ def model_flags(size: int, ch: int) -> list:
     ]
 
 
-def make_ckpt(path: str, size: int, ch: int) -> None:
+def make_ckpt(path: str, size: int, ch: int, device=torch.device("cpu")) -> None:
     """A reference-format .pt of the configuration, every weight N(0, 0.02)
-    (seed 0), written under a temporary name and renamed, so that an
+    (seed 0) drawn on ``device`` (``_timing.built_on``: no initializer runs
+    on the host), written under a temporary name and renamed, so that an
     interrupted write never leaves a file behind."""
-    kw = model_and_diffusion_defaults()
-    kw.update(
-        image_size=size, num_channels=ch, num_res_blocks=2, attention_resolutions="32,16,8", num_heads=4,
-        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, learn_sigma=True,
-        class_cond=False, use_fp16=False, diffusion_steps=1000, noise_schedule="linear",
-    )
-    model, _ = create_model_and_diffusion(**kw)
+    model = built_on(lambda: create_model(
+        size, ch, 2, learn_sigma=True, class_cond=False, attention_resolutions="32,16,8", num_heads=4,
+        num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True, use_fp16=False,
+    ), device, 0)
     part = f"{path}.{os.getpid()}.part"
-    torch.save(random_weights_(model, 0).state_dict(), part)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, part)
     os.replace(part, path)
 
 
@@ -139,7 +137,7 @@ def main(argv=None) -> dict:
     ckpt = os.path.join(os.environ.get("SB_CKPT_DIR", tempfile.gettempdir()), f"serve_bench_ckpt_{size}_{ch}.pt")
     if not os.path.exists(ckpt):
         log(f"[sb +{time.time() - t0:.0f}s] writing random-init ckpt {ckpt}")
-        make_ckpt(ckpt, size, ch)
+        make_ckpt(ckpt, size, ch, device)
 
     port = _free_port()
     url = f"http://127.0.0.1:{port}"

@@ -312,6 +312,10 @@ def create_model_and_diffusion(
     use_new_attention_order,
     conv_impl="auto",
 ):
+    """The model and its diffusion. Under ``with torch.device(device):`` the
+    model's parameters are created there (for a model whose weights are loaded
+    next, its initializer then runs on the card: seconds at ADM-256's widths
+    on the host); the diffusion's tables stay on the host."""
     model = create_model(
         image_size,
         num_channels,
@@ -331,16 +335,17 @@ def create_model_and_diffusion(
         use_new_attention_order=use_new_attention_order,
         conv_impl=conv_impl,
     )
-    diffusion = create_gaussian_diffusion(
-        steps=diffusion_steps,
-        learn_sigma=learn_sigma,
-        noise_schedule=noise_schedule,
-        use_kl=use_kl,
-        predict_xstart=predict_xstart,
-        rescale_timesteps=rescale_timesteps,
-        rescale_learned_sigmas=rescale_learned_sigmas,
-        timestep_respacing=timestep_respacing,
-    )
+    with torch.device("cpu"):
+        diffusion = create_gaussian_diffusion(
+            steps=diffusion_steps,
+            learn_sigma=learn_sigma,
+            noise_schedule=noise_schedule,
+            use_kl=use_kl,
+            predict_xstart=predict_xstart,
+            rescale_timesteps=rescale_timesteps,
+            rescale_learned_sigmas=rescale_learned_sigmas,
+            timestep_respacing=timestep_respacing,
+        )
     return model, diffusion
 
 
